@@ -1,0 +1,26 @@
+"""paddle_tpu_torch — the PyTorch + CUDA counterpart of ``paddle_tpu``.
+
+This package serves Llama through the paged continuous-batching engine on
+one NVIDIA Hopper card. The plain tensor code is PyTorch; every kernel that
+``paddle_tpu`` writes in Pallas for the TPU on this path is a CUDA C++
+kernel written for ``sm_90a`` under ``csrc/``, built at first use by
+``ops.kernels._build`` and launched through ``ctypes``.
+
+Layout (each module names its ``paddle_tpu`` counterpart):
+
+- ``device``: device resolution (CUDA unless the caller asks for the CPU).
+- ``ops.kernels``: the four kernel wrappers (ragged paged attention, paged
+  decode attention, RMSNorm, SwiGLU), each beside its plain PyTorch
+  version and a launch counter.
+- ``nn``: functional surface and the layers the Llama model uses.
+- ``models.llama``: the Llama paged-model contract.
+- ``weights``: the bridge from ``paddle_tpu`` parameters (as numpy arrays)
+  and seeded random weights.
+- ``inference.engine``: ``GenerationEngine`` and ``BlockManager``.
+
+Nothing here imports JAX or ``paddle_tpu``.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

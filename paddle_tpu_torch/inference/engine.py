@@ -1,0 +1,890 @@
+"""Continuous-batching generation engine over a block-paged KV cache: the
+counterpart of ``paddle_tpu/inference/engine.py`` for this slice of the
+port.
+
+What it keeps from the JAX engine:
+
+- **slot pool**: a fixed number of running sequences (``max_slots``);
+  waiting requests are admitted into free slots between dispatches, in
+  (effective priority, arrival) order.
+- **block-paged KV cache**: one ``[n_pages, page_size, n_kv_heads,
+  head_dim]`` pool per layer for K and for V, in the model's dtype. Each
+  slot owns a block table of page ids (``BlockManager``); page 0 is the
+  trash page that padding writes land in.
+- **copy-on-write prefix cache**: every full page of a finished prefill
+  is indexed by a hash chain over its tokens; a later prompt with the same
+  prefix maps those pages instead of recomputing them. A write into a
+  shared page (a forked sequence's tail) first copies the page.
+- **chunked prefill and mixed steps**: prompts advance ``prefill_chunk``
+  tokens per dispatch through the ragged program
+  (``model.paged_prefill_ragged``); with ``mixed_step`` the running
+  sequences' decode tokens ride the same launch as q_len = 1 rows.
+- **decode chunks**: between admissions, up to ``decode_chunk`` decode
+  steps (a power of two) run back to back through ``model.paged_decode``.
+- **recompute preemption** when the page pool runs out.
+
+What differs in this slice:
+
+- every admission goes through the ragged program in chunks of
+  ``prefill_chunk``; the JAX engine sends a cold prompt no longer than the
+  chunk through the dense prefill (``paged_prefill``), which comes with the
+  next slice. Both compute the same causal attention over the same context.
+- no JIT: steps run eagerly and pools are updated in place. The ragged
+  batch is still padded to power-of-two (rows, tokens) buckets and decode
+  chunks to power-of-two lengths, as in JAX, so the shapes the kernels see
+  stay few (CUDA graphs over them come later).
+- the JAX engine's options for int8 KV pages, speculative decoding, the
+  prefix store, deadlines, streaming, export/import and metrics are not
+  served yet: asking for one raises NotImplementedError naming the slice
+  that brings it.
+
+Model contract: ``paged_spec()``, ``paged_prefill_ragged(ids, q_lens,
+start_pos, k_pages, v_pages, block_tables, write_pids, write_offs)`` ->
+(last-real-token logits [C, V], k_pages, v_pages) and ``paged_decode(
+tokens, positions, k_pages, v_pages, block_tables, context_lens,
+write_pids, write_offs)`` -> (logits [B, V], k_pages, v_pages), both
+writing the batch's KV into the pools in place before attending.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import OrderedDict, deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+
+class PagedGenerationMixin:
+    """Engine front door shared by the causal-LM model classes."""
+
+    def get_engine(self, max_slots=4, page_size=16, **kw):
+        """Cached GenerationEngine for this model, one per pool shape; a
+        small LRU, since each engine owns a full KV pool on the device."""
+        cache = self.__dict__.setdefault("_engines", OrderedDict())
+        sig = (max_slots, page_size, tuple(sorted(kw.items())))
+        eng = cache.pop(sig, None)
+        if eng is None:
+            if len(cache) >= 4:
+                for key in list(cache):     # oldest-first: evict an IDLE
+                    if not cache[key].has_work():   # pool
+                        del cache[key]
+                        break
+            eng = GenerationEngine(self, max_slots=max_slots,
+                                   page_size=page_size, **kw)
+        cache[sig] = eng
+        return eng
+
+    def generate_batch(self, prompts, max_new_tokens=32, temperature=0.0,
+                       seed=None, eos_token_id=None, max_slots=4,
+                       page_size=16, **engine_kw):
+        """Continuous-batching generation for variable-length prompts (a
+        list of 1-D int arrays). Extra kwargs (max_seq_len, n_pages,
+        prefix_cache, prefill_chunk, mixed_step, ...) configure the engine.
+        Returns a list of np.ndarray(prompt + generated) in input order."""
+        with torch.inference_mode():
+            self.eval()
+            eng = self.get_engine(max_slots=max_slots, page_size=page_size,
+                                  **engine_kw)
+            if seed is not None:
+                eng.reseed(seed)
+            rids = [eng.add_request(p, max_new_tokens, temperature,
+                                    eos_token_id) for p in prompts]
+            results = eng.run()
+        return [results[r] for r in rids]
+
+
+def _next_pow2(n, floor=8):
+    p = floor
+    while p < n:
+        p *= 2
+    return p
+
+
+def _prefix_chain(tokens, page_size):
+    """Yield ``(chain_hash, parent_hash, page_tokens)`` per FULL page of
+    `tokens` — the one definition of the prefix-index hash chain."""
+    h = None
+    for blk in range(len(tokens) // page_size):
+        lo = blk * page_size
+        toks = tuple(int(t) for t in tokens[lo:lo + page_size])
+        parent, h = h, hash((h, toks))
+        yield h, parent, toks
+
+
+class BlockManager:
+    """Host-side page allocator: refcounted block tables + a
+    copy-on-write prefix index, no storage (the pages live in the
+    engine's device pools). Page 0 is reserved as the trash page — block
+    tables are padded with it and inactive slots write to it.
+
+    Every FULL page of a completed prefill registers under a chain hash —
+    ``hash((parent chain hash, page's tokens))`` — so a page is only ever
+    matched through the exact token path that produced its KV. Invariants:
+
+    - shared pages are FULL and never written through a block table,
+      except after ``fork``, where both forks point at the parent's
+      partial tail page: the first divergent write triggers copy-on-write
+      (``ensure_writable``), queueing a device page copy the engine drains
+      before dispatching the writer.
+    - ``refcount == 0`` + indexed => the page keeps its content and parks
+      in an LRU "cached" pool; it is still reclaimable (``free_pages``
+      counts it), and allocation evicts LRU cached pages (dropping their
+      index entries) before declaring exhaustion.
+    - a write into an owned-but-indexed page unregisters it first, so the
+      index never lies."""
+
+    def __init__(self, n_pages, page_size, pages_per_slot, max_slots,
+                 prefix_cache=False):
+        if n_pages < 2:
+            raise ValueError("need at least 2 pages (page 0 is reserved)")
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.prefix_cache = bool(prefix_cache)
+        self._free = list(range(n_pages - 1, 0, -1))   # page 0 reserved
+        self.block_tables = np.zeros((max_slots, pages_per_slot), np.int32)
+        self.n_blocks = np.zeros(max_slots, np.int32)
+        self.refcount = np.zeros(n_pages, np.int32)
+        # chain_hash -> (pid, parent_hash, page_tokens): every match
+        # verifies the tokens, so a hash collision can never serve another
+        # chain's KV
+        self._index = {}
+        self._hash_of = {}     # pid -> chain_hash (indexed pages only)
+        self._cached = OrderedDict()   # pid -> chain_hash; refcount==0 LRU
+        self._pending_copies = []      # (src, dst) CoW device copies due
+        self.cow_copies = 0
+        self.evictions = 0
+
+    @property
+    def free_pages(self):
+        return len(self._free) + len(self._cached)
+
+    def _take_page(self):
+        if self._free:
+            pid = self._free.pop()
+        elif self._cached:
+            pid, h = self._cached.popitem(last=False)   # evict LRU
+            self._index.pop(h, None)
+            self._hash_of.pop(pid, None)
+            self.evictions += 1
+        else:
+            raise RuntimeError(
+                "paged KV cache exhausted: all "
+                f"{self.n_pages - 1} pages in use — retire "
+                "sequences, shrink max_slots, or grow n_pages")
+        self.refcount[pid] = 1
+        return int(pid)
+
+    def _unindex(self, pid):
+        h = self._hash_of.pop(pid, None)
+        if h is not None:
+            entry = self._index.get(h)
+            if entry is not None and entry[0] == pid:
+                del self._index[h]
+
+    def _cow(self, slot, blk):
+        """The slot is about to write into a shared page: give it a
+        private copy. The device copy is queued (drain_copies); the
+        table/refcounts change now."""
+        src = int(self.block_tables[slot, blk])
+        dst = self._take_page()
+        self._pending_copies.append((src, dst))
+        self.cow_copies += 1
+        self.refcount[src] -= 1        # was > 1: still >= 1
+        self.block_tables[slot, blk] = dst
+
+    def ensure_writable(self, slot, start, n_tokens):
+        """Copy-on-write sweep for a write of [start, start + n_tokens)."""
+        if n_tokens <= 0:
+            return
+        first = start // self.page_size
+        last = (start + n_tokens - 1) // self.page_size
+        for blk in range(first, min(last + 1, int(self.n_blocks[slot]))):
+            pid = int(self.block_tables[slot, blk])
+            if self.refcount[pid] > 1:
+                self._cow(slot, blk)
+            else:
+                self._unindex(pid)
+
+    def drain_copies(self):
+        """Queued (src, dst) CoW page copies; the caller MUST execute
+        them on the device pools before the next program writes."""
+        out, self._pending_copies = self._pending_copies, []
+        return out
+
+    def assign(self, slot, start, n_tokens):
+        """Page/offset pairs for tokens at positions [start, start +
+        n_tokens) of `slot`, allocating pages as crossed and CoW-copying
+        any shared page written into. Returns (pids, offs) int32 arrays."""
+        self.ensure_writable(slot, start, n_tokens)
+        pids = np.empty(n_tokens, np.int32)
+        offs = np.empty(n_tokens, np.int32)
+        table = self.block_tables[slot]
+        for i in range(n_tokens):
+            blk, off = divmod(start + i, self.page_size)
+            if blk >= self.n_blocks[slot]:
+                table[blk] = self._take_page()
+                self.n_blocks[slot] = blk + 1
+            pids[i] = table[blk]
+            offs[i] = off
+        return pids, offs
+
+    def release(self, slot):
+        """Unmap every page of `slot`: a still-shared page is only
+        unmapped; an indexed refcount-0 page keeps its content and parks
+        MRU in the cached LRU pool; the rest return to the free list."""
+        for blk in range(int(self.n_blocks[slot]) - 1, -1, -1):
+            pid = int(self.block_tables[slot, blk])
+            self.refcount[pid] -= 1
+            if self.refcount[pid] <= 0:
+                self.refcount[pid] = 0
+                if pid in self._hash_of:
+                    self._cached[pid] = self._hash_of[pid]
+                    self._cached.move_to_end(pid)
+                else:
+                    self._free.append(pid)
+            self.block_tables[slot, blk] = 0
+        self.n_blocks[slot] = 0
+
+    def fork(self, src_slot, dst_slot):
+        """Map dst_slot onto src_slot's pages copy-on-write."""
+        n = int(self.n_blocks[src_slot])
+        self.block_tables[dst_slot, :n] = self.block_tables[src_slot, :n]
+        self.block_tables[dst_slot, n:] = 0
+        self.n_blocks[dst_slot] = n
+        for p in self.block_tables[src_slot, :n]:
+            self.refcount[int(p)] += 1
+
+    def match_prefix(self, tokens, max_tokens=None):
+        """Longest chain of cached FULL pages covering a prefix of
+        `tokens` (capped at max_tokens so the caller keeps >= 1 token to
+        prefill). CLAIMS every matched page (refcount++). Returns
+        (pids, n_cached_tokens)."""
+        if not self.prefix_cache:
+            return [], 0
+        limit = len(tokens) if max_tokens is None else \
+            min(len(tokens), int(max_tokens))
+        pids = []
+        for h, parent, toks in _prefix_chain(tokens[:limit],
+                                             self.page_size):
+            entry = self._index.get(h)
+            if entry is None or entry[1] != parent or entry[2] != toks:
+                break
+            pids.append(entry[0])
+        for pid in pids:
+            if self.refcount[pid] == 0:
+                self._cached.pop(pid, None)
+            self.refcount[pid] += 1
+        return pids, len(pids) * self.page_size
+
+    def map_shared(self, slot, pids):
+        """Point the head of `slot`'s table at claimed shared pages."""
+        if pids:
+            self.block_tables[slot, :len(pids)] = pids
+            self.n_blocks[slot] = len(pids)
+
+    def register_prefix(self, slot, tokens):
+        """Index every FULL page of `slot` whose KV for `tokens` is fully
+        written, so later sequences sharing the prefix can map it."""
+        if not self.prefix_cache:
+            return
+        n_full = min(len(tokens) // self.page_size,
+                     int(self.n_blocks[slot]))
+        for blk, (h, parent, toks) in enumerate(
+                _prefix_chain(tokens[:n_full * self.page_size],
+                              self.page_size)):
+            pid = int(self.block_tables[slot, blk])
+            if h not in self._index and pid not in self._hash_of:
+                self._index[h] = (pid, parent, toks)
+                self._hash_of[pid] = h
+
+
+@dataclass
+class GenRequest:
+    rid: int
+    prompt: np.ndarray            # [S] int32
+    max_new_tokens: int
+    temperature: float = 0.0
+    eos_token_id: int | None = None
+    out: list = field(default_factory=list)   # generated token ids
+    slot: int = -1                # -1: waiting; >=0: holds that slot
+    done: bool = False
+    # lower priority = more urgent; a request past half its slo_ms TTFT
+    # budget escalates one class. `order` is the arrival number; a
+    # preempted request keeps it and re-admits ahead of later arrivals.
+    priority: int = 0
+    slo_ms: float | None = None
+    order: int = 0
+    t_submit: float = 0.0
+    t_first_token: float | None = None
+    n_prefilled: int = 0          # prompt tokens whose KV is in pages
+    n_cached: int = 0             # of those, served by the prefix cache
+    prompt0: int = 0              # ORIGINAL prompt length (preemption
+    #                               folds generated tokens into `prompt`)
+
+    @property
+    def n_tokens(self):
+        return len(self.prompt) + len(self.out)
+
+    @property
+    def n_generated(self):
+        return len(self.prompt) - self.prompt0 + len(self.out)
+
+    def effective_priority(self, now):
+        if self.slo_ms is not None and \
+                (now - self.t_submit) * 1e3 > 0.5 * self.slo_ms:
+            return self.priority - 1
+        return self.priority
+
+
+def _unsupported(what, slice_name):
+    return NotImplementedError(
+        f"{what} is not served by this slice of paddle_tpu_torch; it comes "
+        f"with the {slice_name} slice")
+
+
+class GenerationEngine:
+    """Fixed-capacity continuous-batching engine for one model, on the
+    model's device."""
+
+    def __init__(self, model, max_slots=4, page_size=16, max_seq_len=None,
+                 n_pages=None, cache_dtype=None, kv_dtype=None, seed=None,
+                 prefix_cache=True, prefill_chunk=256, mixed_step=None,
+                 prefix_store=None, spec_decode=None, spec_k=None,
+                 spec_min_accept=None, spec_cooldown=None):
+        """prefix_cache: share KV pages across requests with a common
+        prompt prefix (copy-on-write, see BlockManager). prefill_chunk: max
+        prompt tokens prefilled per dispatch (None: whole prompts).
+        mixed_step (default on): decode rows ride the prefill chunk's
+        ragged launch. cache_dtype: float dtype of the KV pools (default:
+        the model's). seed: seeds the sampling generator."""
+        if kv_dtype is not None:
+            raise _unsupported(f"kv_dtype={kv_dtype!r}", "int8 KV")
+        if prefix_store is not None:
+            raise _unsupported("prefix_store", "fleet plane")
+        if spec_decode or any(v is not None for v in
+                              (spec_k, spec_min_accept, spec_cooldown)):
+            raise _unsupported("speculative decoding", "speculative decode")
+        if not (hasattr(model, "paged_prefill_ragged")
+                and hasattr(model, "paged_decode")):
+            raise TypeError("the model must implement the ragged paged "
+                            "contract (paged_prefill_ragged, paged_decode)")
+        spec = model.paged_spec()
+        self.model = model
+        self.device = model.device
+        self.max_slots = int(max_slots)
+        self.page_size = int(page_size)
+        self.max_seq_len = int(min(max_seq_len or spec["max_len"],
+                                   spec["max_len"]))
+        self._pages_per_slot = -(-self.max_seq_len // self.page_size)
+        if n_pages is None:
+            # full reservation + trash page: never rejects at capacity
+            n_pages = 1 + self.max_slots * self._pages_per_slot
+        dtype = model.dtype if cache_dtype is None else cache_dtype
+        if not dtype.is_floating_point:
+            raise _unsupported(f"cache_dtype={dtype}", "int8 KV")
+        shape = (n_pages, self.page_size, spec["n_kv_heads"],
+                 spec["head_dim"])
+        self.k_pages = [torch.zeros(shape, dtype=dtype, device=self.device)
+                        for _ in range(spec["n_layers"])]
+        self.v_pages = [torch.zeros(shape, dtype=dtype, device=self.device)
+                        for _ in range(spec["n_layers"])]
+        self.blocks = BlockManager(n_pages, self.page_size,
+                                   self._pages_per_slot, self.max_slots,
+                                   prefix_cache=prefix_cache)
+        self.prefix_cache = bool(prefix_cache)
+        self.prefill_chunk = max(1, int(prefill_chunk)) \
+            if prefill_chunk else None
+        self.mixed_step = True if mixed_step is None else bool(mixed_step)
+        self.decode_chunk = 16         # max decode steps per chunk
+
+        self._slots = [None] * self.max_slots      # slot -> GenRequest
+        self._last_tok = np.zeros(self.max_slots, np.int64)
+        self._n_ctx = np.zeros(self.max_slots, np.int64)  # tokens in cache
+        self._temps = np.zeros(self.max_slots, np.float32)
+        self._active = np.zeros(self.max_slots, bool)
+        self._prefilling = set()   # slots mid-prefill (not decoding yet)
+        self._waiting = []
+        self._finished = {}
+        self._reqs = {}            # rid -> GenRequest
+        self._next_rid = 0
+        self._step_lock = threading.Lock()
+        self._gen = torch.Generator(device=self.device)
+        if seed is None:
+            self._gen.seed()
+        else:
+            self._gen.manual_seed(int(seed))
+        # what a serving run reports (chip_smoke reads these)
+        self.stats = {"prefix_hits": 0, "prefix_misses": 0,
+                      "prefix_hit_tokens": 0, "ragged_steps": 0,
+                      "ragged_s": 0.0, "decode_chunks": 0, "decode_s": 0.0,
+                      "decode_tokens": 0, "mixed_decode_tokens": 0,
+                      "preemptions": 0, "cow_flushes": 0}
+        self.ttft_s = deque(maxlen=4096)   # first-token latency per request
+        model.eval()
+
+    def reseed(self, seed):
+        self._gen.manual_seed(int(seed))
+
+    # ------------------------------------------------------------------
+    # device work
+    # ------------------------------------------------------------------
+
+    def _sample(self, logits, temps):
+        """Greedy where temps == 0, categorical elsewhere. logits [B, V];
+        temps [B] float32 on the device (None: all greedy)."""
+        greedy = torch.argmax(logits.float(), dim=-1)
+        if temps is None:
+            return greedy
+        safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
+        probs = torch.softmax(logits.float() / safe_t[:, None], dim=-1)
+        sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        return torch.where(temps > 0, sampled, greedy)
+
+    def _put(self, x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _flush_cow(self):
+        """Execute queued copy-on-write page copies on the device pools.
+        MUST run before any dispatch writes through a CoW'd table and
+        before any release that could recycle a src/dst page."""
+        copies = self.blocks.drain_copies()
+        if not copies:
+            return
+        src = self._put([s for s, _ in copies], torch.long)
+        dst = self._put([d for _, d in copies], torch.long)
+        for pool in (*self.k_pages, *self.v_pages):
+            pool[dst] = pool[src]
+        self.stats["cow_flushes"] += 1
+
+    def _assign_or_preempt(self, work, slot, start, n):
+        """Assign pages for one row of the ragged dispatch, preempting the
+        least-urgent running sequence on pool exhaustion. A preempted
+        victim's rows are dropped from `work` (rows are (slot, ...)
+        tuples). Returns (pids, offs), or None when `slot` itself was the
+        victim; raises when this sequence alone exceeds the pool."""
+        while True:
+            try:
+                return self.blocks.assign(slot, start, n)
+            except RuntimeError:
+                others = any(r is not None
+                             for j, r in enumerate(self._slots) if j != slot)
+                victim = self._pick_victim()
+                if victim == slot and not others:
+                    raise   # this sequence alone exceeds the pool
+                self._preempt(victim)
+                work[:] = [w for w in work if w[0] != victim]
+                if victim == slot:
+                    return None
+
+    def _ragged_step(self, prefill_slots, decode_slots):
+        """ONE ragged dispatch: the next prefill chunk of every mid-prefill
+        slot plus (mixed mode) one decode token of every running slot,
+        each row a token window at the tail of its own paged context."""
+        work = []      # (slot, kind, toks, start, pids, offs)
+        for slot in prefill_slots:
+            req = self._slots[slot]
+            if req is None or slot not in self._prefilling:
+                continue
+            start = req.n_prefilled
+            n = len(req.prompt) - start
+            if self.prefill_chunk is not None:
+                n = min(n, self.prefill_chunk)
+            got = self._assign_or_preempt(work, slot, start, n)
+            if got is not None:
+                work.append((slot, "prefill",
+                             req.prompt[start:start + n], start) + got)
+        for slot in decode_slots:
+            req = self._slots[slot]
+            if req is None or slot in self._prefilling:
+                continue
+            pos = int(self._n_ctx[slot])
+            got = self._assign_or_preempt(work, slot, pos, 1)
+            if got is not None:
+                work.append((slot, "decode", [self._last_tok[slot]], pos)
+                            + got)
+        if not work:
+            return
+
+        c = _next_pow2(len(work), floor=1)
+        s_pad = _next_pow2(max(len(w[2]) for w in work), floor=1)
+        ids = np.zeros((c, s_pad), np.int64)
+        q_lens = np.ones(c, np.int32)       # dummy rows: 1 trash token
+        start_pos = np.zeros(c, np.int32)
+        bt = np.zeros((c, self._pages_per_slot), np.int32)  # trash page 0
+        wpid = np.zeros((c, s_pad), np.int64)
+        woff = np.zeros((c, s_pad), np.int64)
+        temps = np.zeros(c, np.float32)
+        for i, (slot, _kind, toks, start, pids, offs) in enumerate(work):
+            n = len(toks)
+            ids[i, :n] = toks
+            q_lens[i] = n
+            start_pos[i] = start
+            nb = int(self.blocks.n_blocks[slot])
+            bt[i, :nb] = self.blocks.block_tables[slot, :nb]
+            wpid[i, :n] = pids
+            woff[i, :n] = offs
+            temps[i] = self._slots[slot].temperature
+        self._flush_cow()   # CoW copies land before this dispatch writes
+
+        t0 = time.perf_counter()
+        logits, _, _ = self.model.paged_prefill_ragged(
+            self._put(ids), self._put(q_lens), self._put(start_pos),
+            self.k_pages, self.v_pages, self._put(bt), self._put(wpid),
+            self._put(woff))
+        toks_np = self._sample(
+            logits, self._put(temps) if np.any(temps > 0) else None
+        ).cpu().numpy()                     # host sync closes the window
+        now = time.perf_counter()
+        self.stats["ragged_steps"] += 1
+        self.stats["ragged_s"] += now - t0
+
+        for i, (slot, kind, toks, start, _p, _o) in enumerate(work):
+            req = self._slots[slot]
+            tok = int(toks_np[i])
+            if kind == "prefill":
+                req.n_prefilled = start + len(toks)
+                if req.n_prefilled >= len(req.prompt):
+                    # final chunk: tok is the first generated token
+                    self._prefilling.discard(slot)
+                    self._active[slot] = True
+                    self._last_tok[slot] = tok
+                    self._n_ctx[slot] = len(req.prompt)
+                    req.out.append(tok)
+                    if req.t_first_token is None:
+                        req.t_first_token = now
+                        self.ttft_s.append(now - req.t_submit)
+                    self.blocks.register_prefix(slot, req.prompt)
+                    self._retire_if_done(req)
+            else:
+                req.out.append(tok)
+                self.stats["mixed_decode_tokens"] += 1
+                self._last_tok[slot] = tok
+                self._n_ctx[slot] += 1
+                self._retire_if_done(req)
+
+    def _grow_for_chunk(self, active, k):
+        """Allocate every page the next k tokens of each active slot cross
+        into (CoW-copying shared pages written through), preempting on
+        exhaustion. Returns the slots still active."""
+        for i in active:
+            if self._slots[i] is None:
+                continue               # preempted on a prior slot
+            pos = int(self._n_ctx[i])
+            while True:
+                need = (pos + k - 1) // self.page_size >= \
+                    int(self.blocks.n_blocks[i])
+                try:
+                    if need:
+                        self.blocks.assign(i, pos, k)
+                    else:
+                        self.blocks.ensure_writable(i, pos, k)
+                except RuntimeError:
+                    # "alone in the pool" counts EVERY slot holding pages
+                    others = any(self._slots[j] is not None
+                                 for j in range(self.max_slots) if j != i)
+                    victim = self._pick_victim()
+                    if victim == i and not others:
+                        raise      # one sequence alone exceeds the pool
+                    self._preempt(victim)
+                    if victim == i:
+                        break
+                    continue
+                break
+        return [i for i in active if self._slots[i] is not None]
+
+    def _decode_chunk(self, active, k):
+        """k decode steps for the whole slot pool; idle slots write the
+        trash page and keep their token."""
+        page = self.page_size
+        dev_active = self._put(self._active)
+        tokens = self._put(self._last_tok)
+        positions = self._put(self._n_ctx)
+        bt = self._put(self.blocks.block_tables)
+        rows = torch.arange(self.max_slots, device=self.device)
+        temps = None
+        if np.any(self._temps[np.asarray(active)] > 0):
+            temps = self._put(self._temps)
+        zero = torch.zeros((), dtype=torch.long, device=self.device)
+        t0 = time.perf_counter()
+        out = []
+        for _ in range(k):
+            ctx = torch.where(dev_active, positions + 1, zero).to(torch.int32)
+            wp = torch.where(dev_active,
+                             bt[rows, positions // page].long(), zero)
+            wo = torch.where(dev_active, positions % page, zero)
+            logits, _, _ = self.model.paged_decode(
+                tokens, positions, self.k_pages, self.v_pages, bt, ctx, wp,
+                wo)
+            tokens = torch.where(dev_active, self._sample(logits, temps),
+                                 tokens)
+            positions = torch.where(dev_active, positions + 1, positions)
+            out.append(tokens)
+        toks_np = torch.stack(out).cpu().numpy()    # [k, B]; host sync
+        self.stats["decode_chunks"] += 1
+        self.stats["decode_s"] += time.perf_counter() - t0
+
+        for i in active:
+            req = self._slots[i]
+            self._n_ctx[i] += k
+            self._last_tok[i] = int(toks_np[k - 1, i])
+            for t in range(k):
+                req.out.append(int(toks_np[t, i]))
+                self.stats["decode_tokens"] += 1
+                if (req.eos_token_id is not None
+                        and req.out[-1] == req.eos_token_id):
+                    break              # tail of the chunk is discarded
+            self._retire_if_done(req)
+
+    # ------------------------------------------------------------------
+    # requests and scheduling
+    # ------------------------------------------------------------------
+
+    def add_request(self, prompt, max_new_tokens=32, temperature=0.0,
+                    eos_token_id=None, priority=0, slo_ms=None):
+        """Queue a prompt (1-D int array / list / tensor). Returns a
+        request id; admission happens inside step()/run(), ordered by
+        (effective priority, arrival)."""
+        arr = np.asarray(prompt.cpu() if torch.is_tensor(prompt) else prompt,
+                         dtype=np.int64).reshape(-1)
+        if arr.size == 0:
+            raise ValueError("empty prompt")
+        if arr.size + max_new_tokens > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({arr.size}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds engine max_seq_len={self.max_seq_len}")
+        with self._step_lock:
+            rid = self._next_rid
+            self._next_rid += 1
+            req = GenRequest(rid, arr.astype(np.int32), int(max_new_tokens),
+                             float(temperature), eos_token_id,
+                             priority=int(priority), slo_ms=slo_ms,
+                             order=rid, t_submit=time.perf_counter(),
+                             prompt0=int(arr.size))
+            self._reqs[rid] = req
+            if max_new_tokens <= 0:
+                req.done = True
+                self._finished[rid] = req
+            else:
+                self._waiting.append(req)
+        return rid
+
+    def _sorted_waiting(self):
+        """Admission order: (effective priority, arrival order)."""
+        now = time.perf_counter()
+        self._waiting.sort(key=lambda r: (r.effective_priority(now),
+                                          r.order))
+        return self._waiting
+
+    def _retire_if_done(self, req):
+        if (len(req.out) >= req.max_new_tokens
+                or (req.eos_token_id is not None
+                    and req.out and req.out[-1] == req.eos_token_id)):
+            req.done = True
+            self._finished[req.rid] = req
+            if req.slot >= 0:
+                self._register_live(req)   # the next request with this
+                #                            context hits the cache
+                self.blocks.release(req.slot)
+                self._prefilling.discard(req.slot)
+                self._slots[req.slot] = None
+                self._n_ctx[req.slot] = 0
+                self._active[req.slot] = False
+                req.slot = -1
+
+    def _register_live(self, req):
+        """Index the full pages covering this slot's prompt+generated
+        tokens before its pages are released, capped at the last token
+        guaranteed fed through the model."""
+        if not self.prefix_cache or req.slot < 0:
+            return
+        toks = np.concatenate([req.prompt, np.asarray(req.out, np.int32)])
+        n_ok = min(int(self._n_ctx[req.slot]), len(toks) - 1)
+        if n_ok >= self.page_size:
+            self.blocks.register_prefix(req.slot, toks[:n_ok])
+
+    def _preempt(self, slot):
+        """Recompute-style preemption: release the slot's pages and requeue
+        the request with its generated tokens folded into the prompt; with
+        the prefix cache on its KV is indexed first, so a re-admission
+        maps back whatever survived."""
+        req = self._slots[slot]
+        self.stats["preemptions"] += 1
+        self._register_live(req)
+        self.blocks.release(slot)
+        self._prefilling.discard(slot)
+        self._slots[slot] = None
+        self._active[slot] = False
+        self._n_ctx[slot] = 0
+        req.slot = -1
+        out = req.out
+        req.out = []
+        req.max_new_tokens -= len(out)
+        req.prompt = np.concatenate([req.prompt, np.asarray(out, np.int32)])
+        req.n_prefilled = req.n_cached = 0
+        self._waiting.insert(0, req)
+
+    def _pick_victim(self):
+        """Evict the LEAST urgent running sequence: highest effective
+        priority class, latest arrival within it."""
+        now = time.perf_counter()
+        live = [j for j, r in enumerate(self._slots) if r is not None]
+        if not live:
+            return None
+        return max(live, key=lambda j: (
+            self._slots[j].effective_priority(now), self._slots[j].order))
+
+    def has_work(self):
+        return bool(self._waiting) or any(r is not None for r in self._slots)
+
+    def fork_request(self, rid, max_new_tokens=None, temperature=None,
+                     priority=None, slo_ms=None):
+        """Fork a RUNNING request into a new request that shares its KV
+        pages copy-on-write; the first write into the shared partial tail
+        page copies it. Returns the new rid."""
+        with self._step_lock:
+            parent = self._reqs.get(rid)
+            if parent is None or parent.done or parent.slot < 0:
+                raise ValueError(f"request {rid} is not running (fork "
+                                 "needs a live, admitted sequence)")
+            if parent.slot in self._prefilling:
+                raise ValueError(f"request {rid} is still prefilling")
+            free = [i for i, r in enumerate(self._slots) if r is None]
+            if not free:
+                raise RuntimeError("no free slot to fork into — raise "
+                                   "max_slots or wait for a retirement")
+            slot = free[0]
+            child_prompt = np.concatenate([parent.prompt,
+                                           np.asarray(parent.out, np.int32)])
+            n_new = int(parent.max_new_tokens - len(parent.out)
+                        if max_new_tokens is None else max_new_tokens)
+            # validate BEFORE blocks.fork: a refcount++ with no owning
+            # request would never be released
+            if len(child_prompt) + n_new > self.max_seq_len:
+                raise ValueError(
+                    f"fork prompt ({len(child_prompt)}) + max_new_tokens "
+                    f"({n_new}) exceeds engine max_seq_len="
+                    f"{self.max_seq_len}")
+            self.blocks.fork(parent.slot, slot)
+            child_rid = self._next_rid
+            self._next_rid += 1
+            child = GenRequest(
+                child_rid, child_prompt, n_new,
+                float(parent.temperature if temperature is None
+                      else temperature), parent.eos_token_id,
+                priority=parent.priority if priority is None else priority,
+                slo_ms=slo_ms, order=child_rid,
+                t_submit=time.perf_counter(), prompt0=len(child_prompt))
+            child.slot = slot
+            child.n_prefilled = len(child.prompt)
+            child.n_cached = int(self._n_ctx[parent.slot])
+            self._reqs[child_rid] = child
+            self._slots[slot] = child
+            self._last_tok[slot] = self._last_tok[parent.slot]
+            self._n_ctx[slot] = self._n_ctx[parent.slot]
+            self._temps[slot] = child.temperature
+            self._active[slot] = True
+            return child_rid
+
+    def step(self):
+        """Admit waiting requests into free slots (mapping cached prefix
+        pages), advance prefills through the ragged program (with the
+        decode batch riding the same launch in mixed mode), then run one
+        decode chunk for the pool. Returns the requests that finished."""
+        free = [i for i, r in enumerate(self._slots) if r is None]
+        if free and self._waiting:
+            self._sorted_waiting()
+        for slot in free:
+            if not self._waiting:
+                break
+            req = self._waiting.pop(0)
+            pids, n_cached = self.blocks.match_prefix(
+                req.prompt, max_tokens=len(req.prompt) - 1)
+            if self.prefix_cache:
+                if n_cached:
+                    self.stats["prefix_hits"] += 1
+                    self.stats["prefix_hit_tokens"] += n_cached
+                else:
+                    self.stats["prefix_misses"] += 1
+            req.n_cached = req.n_prefilled = n_cached
+            req.slot = slot
+            self._slots[slot] = req
+            self._temps[slot] = req.temperature
+            self._active[slot] = False
+            self.blocks.map_shared(slot, [int(p) for p in pids])
+            self._prefilling.add(slot)   # every admission prefills ragged
+
+        prefilling = [s for s in sorted(self._prefilling)
+                      if self._slots[s] is not None]
+        self._prefilling = set(prefilling)
+        if prefilling:
+            decode_now = [i for i, r in enumerate(self._slots)
+                          if r is not None and i not in self._prefilling]
+            if self.mixed_step and decode_now:
+                self._ragged_step(prefilling, decode_now)
+                return self._drain_finished()
+            self._ragged_step(prefilling, [])
+
+        active = [i for i, r in enumerate(self._slots)
+                  if r is not None and i not in self._prefilling]
+        if not active:
+            return self._drain_finished()
+        # as many steps as every running sequence can still take, a power
+        # of two; a mid-chunk EOS just discards that slot's tail tokens
+        k_max = min(self._slots[i].max_new_tokens - len(self._slots[i].out)
+                    for i in active)
+        k = 1
+        while k * 2 <= min(k_max, self.decode_chunk):
+            k *= 2
+        active = self._grow_for_chunk(active, k)
+        self._flush_cow()   # CoW copies land before the chunk writes
+        if active:
+            self._decode_chunk(active, k)
+        return self._drain_finished()
+
+    def _drain_finished(self):
+        out, self._finished = self._finished, {}
+        for rid in out:
+            self._reqs.pop(rid, None)
+        return list(out.values())
+
+    def run(self):
+        """Drive step() until every queued request finishes. Returns
+        {rid: np.ndarray(prompt + generated)}."""
+        results = {}
+        while self.has_work():
+            with self._step_lock:
+                finished = self.step()
+            for req in finished:
+                results[req.rid] = np.concatenate(
+                    [req.prompt, np.asarray(req.out, np.int32)])
+        with self._step_lock:
+            for req in self._drain_finished():   # max_new_tokens <= 0
+                results[req.rid] = np.concatenate(
+                    [req.prompt, np.asarray(req.out, np.int32)])
+        return results
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 seed=None, eos_token_id=None):
+        """Generate for a rectangular batch [B, S]; returns a
+        [B, S + max_new_tokens] np.ndarray in input order, rows that
+        stopped early at eos_token_id right-padded with the eos id."""
+        ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
+                         else input_ids)
+        if ids.ndim == 1:
+            ids = ids[None]
+        if seed is not None:
+            self.reseed(seed)
+        with torch.inference_mode():
+            rids = [self.add_request(row, max_new_tokens, temperature,
+                                     eos_token_id) for row in ids]
+            results = self.run()
+        width = ids.shape[1] + max_new_tokens
+        pad = eos_token_id if eos_token_id is not None else 0
+        out = np.full((len(rids), width), pad, ids.dtype)
+        for i, r in enumerate(rids):
+            row = results[r]
+            out[i, :len(row)] = row
+        return out

@@ -1,0 +1,56 @@
+"""The layers the Llama serving path uses, in paddle's layout: the
+counterparts of ``paddle_tpu.nn.Linear`` (weight ``[in, out]``, product
+``x @ W``, ``paddle_tpu/nn/layer/common.py:16-34``), ``Embedding`` and
+``RMSNorm`` (``paddle_tpu/nn/layer/norm.py:149``). Parameters are made
+empty on the given device; ``paddle_tpu_torch.weights`` fills them.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import functional as F
+
+
+class Linear(nn.Module):
+    """y = x @ weight (+ bias); weight [in_features, out_features]."""
+
+    def __init__(self, in_features, out_features, bias=False, device=None,
+                 dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            in_features, out_features, device=device, dtype=dtype),
+            requires_grad=False)
+        self.bias = nn.Parameter(torch.empty(
+            out_features, device=device, dtype=dtype),
+            requires_grad=False) if bias else None
+
+    def forward(self, x):
+        y = torch.matmul(x, self.weight)
+        return y if self.bias is None else y + self.bias
+
+
+class Embedding(nn.Module):
+    """Row gather from weight [num_embeddings, embedding_dim]."""
+
+    def __init__(self, num_embeddings, embedding_dim, device=None,
+                 dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            num_embeddings, embedding_dim, device=device, dtype=dtype),
+            requires_grad=False)
+
+    def forward(self, ids):
+        return self.weight[ids]
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, hidden_size, epsilon=1e-6, device=None, dtype=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(
+            hidden_size, device=device, dtype=dtype), requires_grad=False)
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.epsilon)

@@ -1,0 +1,49 @@
+"""The port's hand-written kernels, one module each, every one beside its
+plain PyTorch version and a launch counter (``<wrapper>.launches``, bumped
+only where the wrapper launches its CUDA kernel).
+
+A wrapper given a CPU tensor computes the plain version; given a CUDA
+tensor it launches the kernel built from ``paddle_tpu_torch/csrc`` (see
+``_build``) or raises. Nothing falls back.
+"""
+
+from __future__ import annotations
+
+from .decode_attention import (paged_decode_attention,
+                               paged_decode_attention_plain)
+from .ragged_attention import (ragged_paged_attention,
+                               ragged_paged_attention_plain)
+from .rms_norm import rms_norm, rms_norm_plain
+from .swiglu import swiglu, swiglu_plain
+
+# wrapper -> (CUDA source it launches, TPU kernel it replaces)
+KERNELS = {
+    "ragged_paged_attention": (
+        ragged_paged_attention, "paddle_tpu_torch/csrc/ragged_attention.cu",
+        "paddle_tpu/ops/pallas/ragged_attention.py:204"),
+    "paged_decode_attention": (
+        paged_decode_attention, "paddle_tpu_torch/csrc/decode_attention.cu",
+        "paddle_tpu/ops/pallas/decode_attention.py:202"),
+    "rms_norm": (
+        rms_norm, "paddle_tpu_torch/csrc/rms_norm.cu",
+        "paddle_tpu/ops/pallas/norms.py:61"),
+    "swiglu": (
+        swiglu, "paddle_tpu_torch/csrc/swiglu.cu",
+        "paddle_tpu/ops/pallas/fused_ffn.py:58"),
+}
+
+
+def launch_counts():
+    """{kernel name: launches since the last reset}."""
+    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+
+
+def reset_launch_counts():
+    for fn, _, _ in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
+           "paged_decode_attention", "paged_decode_attention_plain",
+           "ragged_paged_attention", "ragged_paged_attention_plain",
+           "rms_norm", "rms_norm_plain", "swiglu", "swiglu_plain"]

@@ -1,0 +1,153 @@
+"""The port's Llama against the JAX package's, with bridged weights.
+
+``paddle_tpu_torch.weights.from_paddle_tpu_state`` copies the JAX model's
+parameters (numpy, under the JAX names) into the port's model; the two
+paged serving steps of the contract — ``paged_prefill_ragged`` (mixed
+prefill-at-tail, decode and dummy rows) and ``paged_decode`` (with an idle
+slot) — then get the same numpy inputs on both sides, and the logits and
+the written page pools must agree.
+
+Tolerance: float32, atol 1e-4 on logits and pools — the same float32
+products summed in other orders by two BLAS libraries and the attention
+formulations, through 2 layers; the bridge itself is bit-exact.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.core.dispatch import no_grad
+from paddle_tpu.models import LlamaConfig as JaxLlamaConfig
+from paddle_tpu.models import LlamaForCausalLM as JaxLlama
+
+from paddle_tpu_torch import weights
+from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+torch.set_num_threads(1)
+
+ATOL = 1e-4
+PAGE, N_PAGES = 4, 16
+
+
+@pytest.fixture(scope="module")
+def pair():
+    paddle.seed(0)
+    jm = JaxLlama(JaxLlamaConfig.tiny())      # GQA: 4 q heads, 2 kv heads
+    jm.eval()
+    arrays = {n: np.asarray(p._value, np.float32)
+              for n, p in jm.named_parameters()}
+    tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    weights.from_paddle_tpu_state(arrays, tm)
+    return jm, tm, arrays
+
+
+def _pools(rng, n_layers, kv_heads, hd):
+    shape = (N_PAGES, PAGE, kv_heads, hd)
+    return ([rng.standard_normal(shape).astype(np.float32)
+             for _ in range(n_layers)],
+            [rng.standard_normal(shape).astype(np.float32)
+             for _ in range(n_layers)])
+
+
+def _check_pools(jax_pools, port_pools):
+    for a, b in zip(jax_pools, port_pools):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=ATOL)
+
+
+def test_weight_bridge_round_trip(pair):
+    """Same names, same shapes, bit-equal values; a wrong name or shape
+    is refused."""
+    _, tm, arrays = pair
+    back = weights.to_numpy_state(tm)
+    assert sorted(back) == sorted(arrays)
+    for name, arr in arrays.items():
+        assert back[name].shape == arr.shape
+        assert np.array_equal(back[name], arr), name
+    with pytest.raises(KeyError):
+        weights.from_paddle_tpu_state(
+            {**arrays, "llama.extra.weight": arrays["llama.norm.weight"]},
+            tm)
+    bad = dict(arrays)
+    bad["llama.norm.weight"] = np.ones(3, np.float32)
+    with pytest.raises(ValueError, match="shape"):
+        weights.from_paddle_tpu_state(bad, tm)
+    weights.from_paddle_tpu_state(arrays, tm)
+
+
+def test_paged_prefill_ragged_logits_match_jax(pair):
+    jm, tm, _ = pair
+    cfg = tm.config
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    rng = np.random.default_rng(0)
+    c, q, p_max = 4, 8, 6
+    ids = rng.integers(0, cfg.vocab_size, (c, q)).astype(np.int32)
+    # a first chunk, a chunk at the tail of 7 cached tokens (ending
+    # mid-page), a decode row, a dummy row on the trash page
+    q_lens = np.array([8, 5, 1, 1], np.int32)
+    start = np.array([0, 7, 3, 0], np.int32)
+    bt = np.zeros((c, p_max), np.int32)
+    bt[0, :2], bt[1, :3], bt[2, :1] = [1, 2], [3, 4, 5], [6]
+    wp = np.zeros((c, q), np.int32)
+    wo = np.zeros((c, q), np.int32)
+    for r in range(3):
+        for i in range(q_lens[r]):
+            pos = start[r] + i
+            wp[r, i], wo[r, i] = bt[r, pos // PAGE], pos % PAGE
+    kp, vp = _pools(rng, cfg.num_hidden_layers, cfg.num_key_value_heads, hd)
+    with no_grad():
+        jl, jk, jv = jm.paged_prefill_ragged(
+            jnp.asarray(ids), jnp.asarray(q_lens), jnp.asarray(start),
+            [jnp.asarray(a) for a in kp], [jnp.asarray(a) for a in vp],
+            jnp.asarray(bt), jnp.asarray(wp), jnp.asarray(wo))
+    tk = [torch.from_numpy(a.copy()) for a in kp]
+    tv = [torch.from_numpy(a.copy()) for a in vp]
+    with torch.inference_mode():
+        tl, tk2, tv2 = tm.paged_prefill_ragged(
+            torch.from_numpy(ids).long(), torch.from_numpy(q_lens),
+            torch.from_numpy(start), tk, tv, torch.from_numpy(bt),
+            torch.from_numpy(wp).long(), torch.from_numpy(wo).long())
+    assert tk2 is tk and tv2 is tv               # written in place
+    np.testing.assert_allclose(tl.numpy()[:3], np.asarray(jl)[:3],
+                               atol=ATOL)
+    _check_pools(jk, tk)
+    _check_pools(jv, tv)
+
+
+def test_paged_decode_logits_match_jax(pair):
+    jm, tm, _ = pair
+    cfg = tm.config
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    rng = np.random.default_rng(1)
+    b, p_max = 3, 6
+    tokens = rng.integers(0, cfg.vocab_size, b).astype(np.int32)
+    positions = np.array([9, 4, 0], np.int32)     # slot 2 is idle
+    bt = np.zeros((b, p_max), np.int32)
+    bt[0, :3], bt[1, :2] = [1, 2, 3], [4, 5]
+    ctx = np.array([10, 5, 0], np.int32)
+    wp = np.array([3, 5, 0], np.int32)
+    wo = positions % PAGE * (ctx > 0)
+    kp, vp = _pools(rng, cfg.num_hidden_layers, cfg.num_key_value_heads, hd)
+    with no_grad():
+        jl, jk, jv = jm.paged_decode(
+            jnp.asarray(tokens), jnp.asarray(positions),
+            [jnp.asarray(a) for a in kp], [jnp.asarray(a) for a in vp],
+            jnp.asarray(bt), jnp.asarray(ctx), jnp.asarray(wp),
+            jnp.asarray(wo))
+    tk = [torch.from_numpy(a.copy()) for a in kp]
+    tv = [torch.from_numpy(a.copy()) for a in vp]
+    with torch.inference_mode():
+        tl, _, _ = tm.paged_decode(
+            torch.from_numpy(tokens).long(),
+            torch.from_numpy(positions).long(), tk, tv,
+            torch.from_numpy(bt), torch.from_numpy(ctx),
+            torch.from_numpy(wp).long(), torch.from_numpy(wo).long())
+    # the idle slot's attention output is 0 on the port and the kernels,
+    # a uniform average in the JAX gather reference: compare live slots
+    np.testing.assert_allclose(tl.numpy()[:2], np.asarray(jl)[:2],
+                               atol=ATOL)
+    for pools_j, pools_t in ((jk, tk), (jv, tv)):
+        for a, t in zip(pools_j, pools_t):
+            np.testing.assert_allclose(t.numpy()[1:], np.asarray(a)[1:],
+                                       atol=ATOL)
