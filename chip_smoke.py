@@ -1,6 +1,6 @@
 """Smoke run of paddle_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--layers N] [--phases kernels,agree,serve]
+    python3 chip_smoke.py
 
 Builds the port's CUDA kernels from paddle_tpu_torch/csrc (one nvcc per
 source, all started together), then:
@@ -14,8 +14,10 @@ source, all started together), then:
    with prefix cache, chunked prefill and mixed steps must give the same
    greedy tokens;
 3. serve: Llama-2-7B geometry in bfloat16 with random weights from a seed
-   serves 8 requests through generate_batch; every kernel's launch count
-   over that run must be above 0, and a prefix-cache hit must occur.
+   (all 32 layers) serves 8 requests through generate_batch; every
+   kernel's launch count over that run must be above 0, and a prefix-cache
+   hit must occur; then a window of the same workload on a fresh engine
+   runs under torch.profiler for the device time by kernel.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's numbers, and as the last line {"ok": true, "device": {...}}. Any
@@ -25,7 +27,6 @@ it exits 2 before doing anything.
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -38,19 +39,30 @@ PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}  # dense tensor-core bf16; fp32 non-tensor
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ITERS = 20                          # timed launches per kernel
+L2_FLUSH_BYTES = 256 << 20          # > the H100's 50 MB L2
+_flush = []
 
 
-def _time_ms(fn, iters):
+def _time_ms(fn, iters=ITERS):
+    """Mean device time of fn over `iters` launches, each timed alone
+    after a read of a buffer larger than L2, so that every launch reads
+    its inputs from HBM as the bound assumes."""
+    if not _flush:
+        _flush.append(torch.empty(L2_FLUSH_BYTES // 4, device="cuda"))
     fn()
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
+    pairs = []
     for _ in range(iters):
+        _flush[0].sum()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
         fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / iters
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def _bound_ms(nbytes, flops, dtype):
@@ -92,7 +104,7 @@ def _paged_case(rng, dev, dtype, rows, h, h_kv, d, page, p_max):
     return k, v, torch.from_numpy(bt).to(dev)
 
 
-def check_ragged(K, dev, dtype, h_kv, rng, iters):
+def check_ragged(K, dev, dtype, h_kv, rng):
     # mixed rows at the serving shapes: a suffix chunk after a 300-token
     # prefix, a first chunk ending mid-page, a decode row, a dummy row
     c, q_max, h, d, page, p_max = 4, 256, 32, 128, 16, 256
@@ -115,18 +127,20 @@ def check_ragged(K, dev, dtype, h_kv, rng, iters):
     pairs = sum(sum(min(ctx_r - n + i + 1, ctx_r) for i in range(n))
                 for ctx_r, n, _ in rows)
     flops = 4 * pairs * h * d
-    nbytes = (2 * q.numel() * elt
+    # q is read for the real queries only; the output is written whole
+    # (padded rows as zeros); each row's K and V are read up to its context
+    nbytes = (sum(r[1] for r in rows) * h * d * elt + q.numel() * elt
               + 2 * sum(r[0] for r in rows) * h_kv * d * elt)
     return {"got": got, "want": want, "err": err, "flops": flops,
             "bytes": nbytes,
             "ms": _time_ms(lambda: K.ragged_paged_attention(
-                q, kp, vp, bt, ctx, ql), iters),
+                q, kp, vp, bt, ctx, ql)),
             "plain_ms": _time_ms(lambda: K.ragged_paged_attention_plain(
-                q, kp, vp, bt, ctx, ql), max(2, iters // 10)),
+                q, kp, vp, bt, ctx, ql), ITERS // 10),
             "library_ms": None}
 
 
-def check_decode(K, dev, dtype, rng, iters, h_kv=32):
+def check_decode(K, dev, dtype, rng, h_kv=32):
     b, h, d, page, p_max = 4, 32, 128, 16, 256
     lens = [1000, 517, 64, 1]
     rows = [(n, 1, False) for n in lens]
@@ -142,13 +156,13 @@ def check_decode(K, dev, dtype, rng, iters, h_kv=32):
             "flops": 4 * sum(lens) * h * d,
             "bytes": 2 * q.numel() * elt + 2 * sum(lens) * h_kv * d * elt,
             "ms": _time_ms(lambda: K.paged_decode_attention(
-                q, kp, vp, bt, ctx), iters),
+                q, kp, vp, bt, ctx)),
             "plain_ms": _time_ms(lambda: K.paged_decode_attention_plain(
-                q, kp, vp, bt, ctx), max(2, iters // 10)),
+                q, kp, vp, bt, ctx), ITERS // 10),
             "library_ms": None}
 
 
-def check_rms(K, dev, dtype, rng, iters):
+def check_rms(K, dev, dtype, rng):
     t, hid, eps = 1024, 4096, 1e-6
     x = torch.from_numpy(rng.standard_normal(
         (t, hid), dtype=np.float32)).to(dev, dtype)
@@ -161,13 +175,13 @@ def check_rms(K, dev, dtype, rng, iters):
     return {"got": got, "want": want, "err": _max_err(got, want),
             "flops": 4 * x.numel(),
             "bytes": 2 * x.numel() * elt + hid * w.element_size(),
-            "ms": _time_ms(lambda: K.rms_norm(x, w, eps), iters),
-            "plain_ms": _time_ms(lambda: K.rms_norm_plain(x, w, eps), iters),
+            "ms": _time_ms(lambda: K.rms_norm(x, w, eps)),
+            "plain_ms": _time_ms(lambda: K.rms_norm_plain(x, w, eps)),
             "library_ms": _time_ms(lambda: torch.nn.functional.rms_norm(
-                x, (hid,), w, eps), iters)}
+                x, (hid,), w, eps))}
 
 
-def check_swiglu(K, dev, dtype, rng, iters):
+def check_swiglu(K, dev, dtype, rng):
     t, f = 1024, 11008
     g = torch.from_numpy(rng.standard_normal(
         (t, f), dtype=np.float32)).to(dev, dtype)
@@ -178,8 +192,8 @@ def check_swiglu(K, dev, dtype, rng, iters):
     torch.cuda.synchronize()
     return {"got": got, "want": want, "err": _max_err(got, want),
             "flops": 5 * g.numel(), "bytes": 3 * g.numel() * g.element_size(),
-            "ms": _time_ms(lambda: K.swiglu(g, u), iters),
-            "plain_ms": _time_ms(lambda: K.swiglu_plain(g, u), iters),
+            "ms": _time_ms(lambda: K.swiglu(g, u)),
+            "plain_ms": _time_ms(lambda: K.swiglu_plain(g, u)),
             "library_ms": None}
 
 
@@ -199,7 +213,7 @@ def _within(name, res, dtype):
     return res["err"] <= TOL[dtype], f"<= {TOL[dtype]}"
 
 
-def phase_kernels(K, dev, iters):
+def phase_kernels(K, dev):
     """Every kernel against its plain version at the serving shapes, in
     bf16 and f32. Returns {name: bf16 record} for the JSON line."""
     rng = np.random.default_rng(0)
@@ -207,15 +221,15 @@ def phase_kernels(K, dev, iters):
     for dtype in (torch.bfloat16, torch.float32):
         cases = [
             ("ragged_paged_attention", lambda: check_ragged(
-                K, dev, dtype, 32, rng, iters)),
+                K, dev, dtype, 32, rng)),
             ("ragged_paged_attention[gqa8]", lambda: check_ragged(
-                K, dev, dtype, 8, rng, iters)),
+                K, dev, dtype, 8, rng)),
             ("paged_decode_attention", lambda: check_decode(
-                K, dev, dtype, rng, iters)),
+                K, dev, dtype, rng)),
             ("paged_decode_attention[gqa8]", lambda: check_decode(
-                K, dev, dtype, rng, iters, h_kv=8)),
-            ("rms_norm", lambda: check_rms(K, dev, dtype, rng, iters)),
-            ("swiglu", lambda: check_swiglu(K, dev, dtype, rng, iters)),
+                K, dev, dtype, rng, h_kv=8)),
+            ("rms_norm", lambda: check_rms(K, dev, dtype, rng)),
+            ("swiglu", lambda: check_swiglu(K, dev, dtype, rng)),
         ]
         for name, run in cases:
             res = run()
@@ -251,15 +265,7 @@ def _nvidia_smi():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,agree,serve")
-    ap.add_argument("--layers", type=int, default=32,
-                    help="decoder layers of the full-width serving run")
-    ap.add_argument("--iters", type=int, default=20,
-                    help="launches per kernel timing")
-    args = ap.parse_args(argv)
-    phases = set(args.phases.split(","))
+def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -278,28 +284,17 @@ def main(argv=None):
             if "registers" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
 
-    records = {}
-    if "kernels" in phases:
-        records = phase_kernels(K, dev, args.iters)
-    launches = {}
-    if "agree" in phases:
-        phase_agree(dev)
-    if "serve" in phases:
-        launches = phase_serve(K, dev, args.layers)
+    records = phase_kernels(K, dev)
+    phase_agree(dev)
+    launches = phase_serve(K, dev)
 
     name_power = _nvidia_smi()
     print(name_power)
     kernels = []
     for name, (_fn, source, replaces) in K.KERNELS.items():
-        rec = records.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": launches.get(name, 0),
-                        "max_abs_err": rec.get("max_abs_err"),
-                        "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
-                        "bound_ms": rec.get("bound_ms"),
-                        "bound_by": rec.get("bound_by"),
-                        "library_ms": rec.get("library_ms")})
+                        "replaces": replaces, "launches": launches[name],
+                        **records[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -360,8 +355,8 @@ def phase_agree(dev):
         raise AssertionError("agreement run saw no prefix-cache hit")
 
 
-def phase_serve(K, dev, layers):
-    """Llama-2-7B geometry (depth `layers`), bfloat16, random weights
+def phase_serve(K, dev):
+    """Llama-2-7B geometry, all 32 layers, bfloat16, random weights
     from seed 0: 8 requests of 300-900 tokens (requests 0 and 5 share a
     512-token prefix) through generate_batch, 32 greedy tokens each.
     Returns the kernels' launch counts over that run."""
@@ -369,13 +364,12 @@ def phase_serve(K, dev, layers):
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig.llama2_7b()
-    cfg.num_hidden_layers = layers
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
     weights.init_random_(model, seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[serve] llama2_7b geometry, layers={layers}/32, "
+    print(f"[serve] llama2_7b geometry, layers={cfg.num_hidden_layers}, "
           f"params={n_params / 1e9:.3f}B bf16, init_s="
           f"{time.perf_counter() - t0:.2f}", flush=True)
     rng = np.random.default_rng(0)
@@ -425,25 +419,44 @@ def phase_serve(K, dev, layers):
     return launches
 
 
+PROFILE_STEPS = (2, 8)   # engine steps [from, to) of the profiled window
+
+
 def _profile_serve(model, prompts, kw, n_new):
-    """The same serving run again on a fresh engine under torch.profiler:
-    device time by kernel and the device's busy share of the wall time.
-    (Profiled separately so the timed run above carries no tracing cost.)"""
+    """The same workload again on a fresh engine, with engine steps
+    PROFILE_STEPS under torch.profiler: device time by kernel and the
+    device's busy share of the window's wall time. (Profiled separately so
+    the timed run above carries no tracing cost; a window rather than the
+    whole run keeps the profiler's post-processing short.)"""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.inference import GenerationEngine
 
     eng = GenerationEngine(model, **kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            for p in prompts:
-                eng.add_request(p, max_new_tokens=n_new)
-            eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with torch.inference_mode():
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=n_new)
+        n = 0
+        while eng.has_work():
+            if n == PROFILE_STEPS[0]:
+                torch.cuda.synchronize()
+                before = dict(eng.stats)
+                prof.start()
+                t0 = time.perf_counter()
+            eng.step()
+            n += 1
+            if n == PROFILE_STEPS[1]:
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                prof.stop()
+                after = dict(eng.stats)
+    if n < PROFILE_STEPS[1]:
+        raise AssertionError(f"the workload took {n} engine steps, fewer "
+                             f"than the profiled window {PROFILE_STEPS}")
+    window = {k: after[k] - before[k] for k in
+              ("ragged_steps", "decode_chunks", "decode_tokens",
+               "mixed_decode_tokens")}
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", 0)
@@ -459,10 +472,9 @@ def _profile_serve(model, prompts, kw, n_new):
         print("[profile] the profiler recorded no device time: device "
               "breakdown not measured")
         return
-    print(f"[profile] wall_s={wall:.3f} device_busy_s={busy:.3f} "
-          f"idle_share={1 - busy / wall:.3f} (profiled run; ragged steps="
-          f"{eng.stats['ragged_steps']} decode chunks="
-          f"{eng.stats['decode_chunks']})")
+    print(f"[profile] engine steps {PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1}"
+          f" of {n}: wall_s={wall:.3f} device_busy_s={busy:.3f} "
+          f"idle_share={1 - busy / wall:.3f} {json.dumps(window)}")
     for us, key, count in rows[:14]:
         print(f"[profile] {us / 1e3:10.2f} ms {100 * us / 1e6 / busy:5.1f}% "
               f"x{count:<6d} {key[:90]}")
