@@ -11,18 +11,26 @@ source, all started together), then:
    the same function) the library call's time;
 2. agree: a 2-layer tiny Llama in float32 with the same seeded weights on
    the CPU (plain versions) and on the card (kernels) — generate_batch
-   with prefix cache, chunked prefill and mixed steps must give the same
-   greedy tokens;
+   with prefix cache, chunked prefill and mixed steps, generate_batch with
+   cold prompts that fit the chunk (dense admission) beside a prefix hit,
+   and generate with its KV cache must give the same greedy tokens;
 3. serve: Llama-2-7B geometry in bfloat16 with random weights from a seed
-   (all 32 layers) serves 8 requests through generate_batch; every
-   kernel's launch count over that run must be above 0, and a prefix-cache
-   hit must occur; then a window of the same workload on a fresh engine
-   runs under torch.profiler for the device time by kernel.
+   (all 32 layers) serves 8 requests of 300-900 tokens through
+   generate_batch (chunked prefill, a prefix hit, mixed steps); every
+   kernel of that path must launch, and a prefix-cache hit must occur;
+   then a window of the same workload on a fresh engine runs under
+   torch.profiler for the device time by kernel;
+4. serve:dense: the same model serves 8 cold requests of 64-256 tokens,
+   which the engine admits through the dense prefill (flash attention and
+   fused RoPE); then one dense admission of the same workload on a fresh
+   engine runs under torch.profiler.
 
-Then it prints the card's name and power limit, one JSON line with every
-kernel's numbers, and as the last line {"ok": true, "device": {...}}. Any
-failure raises and exits non-zero without that line. Without a CUDA card
-it exits 2 before doing anything.
+Each serving run's launch counts are set to 0 just before it and read just
+after it; every kernel must have launched in one of them. Then it prints
+the card's name and power limit, one JSON line with every kernel's
+numbers, and as the last line {"ok": true, "device": {...}}. Any failure
+raises and exits non-zero without that line. Without a CUDA card it exits
+2 before doing anything.
 """
 
 from __future__ import annotations
@@ -197,15 +205,84 @@ def check_swiglu(K, dev, dtype, rng):
             "library_ms": None}
 
 
+def _causal_pairs(s_q, s_k):
+    """Visible (query, key) pairs of one head under the bottom-right
+    causal mask."""
+    off = s_k - s_q
+    return sum(max(0, min(i + off + 1, s_k)) for i in range(s_q))
+
+
+def check_flash(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
+                library=True):
+    """Causal flash attention. The library call is PyTorch's
+    scaled_dot_product_attention on [B, H, S, D] views (its causal mask is
+    top-left aligned, so it is timed only where S_q = S_k)."""
+    q = torch.from_numpy(rng.standard_normal(
+        (b, s_q, h, d), dtype=np.float32)).to(dev, dtype)
+    k = torch.from_numpy(rng.standard_normal(
+        (b, s_k, h_kv, d), dtype=np.float32)).to(dev, dtype)
+    v = torch.from_numpy(rng.standard_normal(
+        (b, s_k, h_kv, d), dtype=np.float32)).to(dev, dtype)
+    got, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    want, want_lse = K.flash_attention_fwd_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    blind = max(0, s_q - s_k)              # rows that see no key
+    if blind and float(got[:, :blind].float().abs().max()) != 0.0:
+        raise AssertionError("flash: rows with no visible key are not 0")
+    finite = want_lse > -1e29
+    lse_err = float((lse - want_lse)[finite].abs().max())
+    if lse_err > 1e-3 or not bool((lse[~finite] <= -1e29).all()):
+        raise AssertionError(f"flash: lse disagrees with the plain version "
+                             f"(max abs err {lse_err})")
+    elt = q.element_size()
+    lib = None
+    if library:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                    enable_gqa=h != h_kv))
+    return {"got": got, "want": want, "err": _max_err(got, want),
+            "lse_err": lse_err,
+            "flops": 4 * b * h * d * _causal_pairs(s_q, s_k),
+            "bytes": (2 * q.numel() + 2 * k.numel()) * elt + lse.numel() * 4,
+            "ms": _time_ms(lambda: K.flash_attention_fwd(q, k, v,
+                                                         causal=True)),
+            "plain_ms": _time_ms(lambda: K.flash_attention_fwd_plain(
+                q, k, v, causal=True), ITERS // 10),
+            "library_ms": lib}
+
+
+def check_rope(K, dev, dtype, rng):
+    """RoPE on the dense admission's q: [4, 256, 32, 128] with the
+    model's float32 [256, 128] tables."""
+    b, s, h, d = 4, 256, 32, 128
+    x = torch.from_numpy(rng.standard_normal(
+        (b, s, h, d), dtype=np.float32)).to(dev, dtype)
+    cos = torch.from_numpy(rng.standard_normal(
+        (s, d), dtype=np.float32)).to(dev)
+    sin = torch.from_numpy(rng.standard_normal(
+        (s, d), dtype=np.float32)).to(dev)
+    got = K.fused_rope(x, cos, sin)
+    want = K.fused_rope_plain(x, cos, sin)
+    torch.cuda.synchronize()
+    return {"got": got, "want": want, "err": _max_err(got, want),
+            "flops": 3 * x.numel(),
+            "bytes": 2 * x.numel() * x.element_size() + 2 * cos.numel() * 4,
+            "ms": _time_ms(lambda: K.fused_rope(x, cos, sin)),
+            "plain_ms": _time_ms(lambda: K.fused_rope_plain(x, cos, sin)),
+            "library_ms": None}
+
+
 def _within(name, res, dtype):
     """Tolerances: float32 1e-4 absolute for every kernel (the kernels and
     the plain versions sum in other orders); bfloat16 2e-2 absolute for
     attention (outputs of magnitude < 1, one bf16 rounding of each side)
     and one bf16 ulp of the plain result for the elementwise kernels
-    (both round one float32 value that differs in its last bits)."""
+    (both round one float32 value that differs in its last bits; RoPE
+    rounds in the same order on both sides and is expected exact)."""
     if dtype == torch.float32:
         return res["err"] <= TOL[dtype], f"<= {TOL[dtype]}"
-    if name in ("rms_norm", "swiglu"):
+    if name in ("rms_norm", "swiglu", "fused_rope"):
         want = res["want"].float()
         ok = bool(((res["got"].float() - want).abs()
                    <= _ulp_bf16(want)).all())
@@ -230,15 +307,32 @@ def phase_kernels(K, dev):
                 K, dev, dtype, rng, h_kv=8)),
             ("rms_norm", lambda: check_rms(K, dev, dtype, rng)),
             ("swiglu", lambda: check_swiglu(K, dev, dtype, rng)),
+            # the dense admission of the serve:dense run: c = 4 rows of 256
+            ("flash_attention", lambda: check_flash(
+                K, dev, dtype, rng, 4, 256, 256, 32, 32)),
+            ("flash_attention[gqa8]", lambda: check_flash(
+                K, dev, dtype, rng, 4, 256, 256, 32, 8)),
+            ("flash_attention[s2048]", lambda: check_flash(
+                K, dev, dtype, rng, 1, 2048, 2048, 32, 32)),
+            ("fused_rope", lambda: check_rope(K, dev, dtype, rng)),
         ]
+        if dtype == torch.float32:
+            # bottom-right causal alignment; rows that see no key
+            cases += [
+                ("flash_attention[bottom_right]", lambda: check_flash(
+                    K, dev, dtype, rng, 1, 100, 300, 32, 32, library=False)),
+                ("flash_attention[q_longer]", lambda: check_flash(
+                    K, dev, dtype, rng, 1, 300, 100, 32, 32, library=False)),
+            ]
         for name, run in cases:
             res = run()
             base = name.split("[")[0]
             ok, tol = _within(base, res, dtype)
             bound, by = _bound_ms(res["bytes"], res["flops"], dtype)
             lib = res["library_ms"]
+            lse = f" lse_err={res['lse_err']:.3e}" if "lse_err" in res else ""
             print(f"[kernels] {name:30s} {str(dtype)[6:]:9s} "
-                  f"max_abs_err={res['err']:.3e} ({tol}) "
+                  f"max_abs_err={res['err']:.3e} ({tol}){lse} "
                   f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
                   f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
                   f"bound_ms={bound:.4f} ({by})", flush=True)
@@ -286,7 +380,10 @@ def main():
 
     records = phase_kernels(K, dev)
     phase_agree(dev)
-    launches = phase_serve(K, dev)
+    model, serve = phase_serve(K, dev)
+    dense = phase_serve_dense(K, model)
+    launches = {k: serve[k] + dense[k] for k in K.KERNELS}
+    _require_launched("serve + serve:dense", launches, K.KERNELS)
 
     name_power = _nvidia_smi()
     print(name_power)
@@ -354,12 +451,42 @@ def phase_agree(dev):
     if eng.stats["prefix_hits"] < 1:
         raise AssertionError("agreement run saw no prefix-cache hit")
 
+    # dense admission: cold prompts of 3-8 tokens fit the chunk of 8; the
+    # two sharing a 4-token page take a prefix hit, then the ragged suffix
+    prompts = _serving_prompts(np.random.default_rng(3), 6, 3, 9,
+                               cfg.vocab_size, 4, (0, 4))
+    kw = dict(kw, max_slots=3)           # a fresh engine on each model
+    want = cpu.generate_batch(prompts, **kw)
+    got = gpu.generate_batch(prompts, **kw)
+    st = gpu.get_engine(**{k: v for k, v in kw.items()
+                           if k != "max_new_tokens"}).stats
+    n_same = sum(np.array_equal(a, b) for a, b in zip(want, got))
+    print(f"[agree] dense admission: {n_same}/{len(prompts)} requests "
+          f"token-identical; prefill_admits={st['prefill_admits']} "
+          f"ragged_steps={st['ragged_steps']} "
+          f"prefix_hits={st['prefix_hits']}", flush=True)
+    if n_same != len(prompts):
+        raise AssertionError("dense admission: CPU plain path and CUDA "
+                             "kernel path disagree")
+    if st["prefill_admits"] < 1 or st["ragged_steps"] < 1:
+        raise AssertionError("dense-admission run did not take both the "
+                             "dense prefill and the ragged path")
+
+    ids = np.random.default_rng(4).integers(1, cfg.vocab_size, (2, 7))
+    want = cpu.generate(ids, max_new_tokens=12, use_cache=True).numpy()
+    got = gpu.generate(ids, max_new_tokens=12, use_cache=True).cpu().numpy()
+    print(f"[agree] generate(use_cache=True): token-identical="
+          f"{np.array_equal(want, got)} {got[0, 7:].tolist()}", flush=True)
+    if not np.array_equal(want, got):
+        raise AssertionError("generate: CPU plain path and CUDA kernel path "
+                             "disagree")
+
 
 def phase_serve(K, dev):
     """Llama-2-7B geometry, all 32 layers, bfloat16, random weights
     from seed 0: 8 requests of 300-900 tokens (requests 0 and 5 share a
     512-token prefix) through generate_batch, 32 greedy tokens each.
-    Returns the kernels' launch counts over that run."""
+    Returns the model and the kernels' launch counts over that run."""
     from paddle_tpu_torch import weights
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
@@ -411,12 +538,147 @@ def phase_serve(K, dev):
         raise AssertionError("degenerate output: one token everywhere")
     if st["prefix_hits"] < 1:
         raise AssertionError("the serving run saw no prefix-cache hit")
-    idle = [k for k, v in launches.items() if v <= 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{idle}")
+    _require_launched("serve", launches, SERVE_KERNELS)
     _profile_serve(model, prompts, kw, n_new)
+    return model, launches
+
+
+# the kernels each serving run's path launches
+SERVE_KERNELS = ("ragged_paged_attention", "paged_decode_attention",
+                 "rms_norm", "swiglu")
+DENSE_KERNELS = ("flash_attention", "fused_rope", "paged_decode_attention",
+                 "rms_norm", "swiglu")
+
+
+def _require_launched(tag, launches, names):
+    idle = [k for k in names if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"[{tag}] kernels never launched on the path: "
+                             f"{idle}")
+
+
+def phase_serve_dense(K, model):
+    """The same model (Llama-2-7B geometry, 32 layers, bf16, seed 0)
+    serves 8 cold requests of 64-256 tokens (no shared prefix) through
+    generate_batch, 32 greedy tokens each: every prompt fits the chunk of
+    256, so the engine admits them through the dense prefill. Returns the
+    kernels' launch counts over that run."""
+    cfg = model.config
+    # drop the previous run's engine (and its KV pools): a fresh engine
+    model.__dict__.pop("_engines", None)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size,
+                            int(rng.integers(64, 257))).astype(np.int32)
+               for _ in range(8)]
+    kw = dict(max_slots=4, page_size=16, prefill_chunk=256, mixed_step=True)
+    n_new = 32
+    shapes = []                 # (c, s_pad) of every dense admission
+    prefill = model.paged_prefill
+
+    def recorded_prefill(ids, lengths):
+        shapes.append(tuple(ids.shape))
+        return prefill(ids, lengths)
+
+    model.paged_prefill = recorded_prefill
+    eng = model.get_engine(**kw)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate_batch(prompts, max_new_tokens=n_new, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    del model.paged_prefill
+    st = eng.stats
+    ttft = sorted(eng.ttft_s)
+    gen = [o[len(p):] for o, p in zip(out, prompts)]
+    admits = max(st["prefill_admits"], 1)
+    print(f"[serve:dense] requests={len(prompts)} prompt_tokens="
+          f"{sum(map(len, prompts))} new_tokens={sum(map(len, gen))} "
+          f"wall_s={wall:.3f} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    print(f"[serve:dense] ttft_s p50={ttft[len(ttft) // 2]:.4f} "
+          f"max={ttft[-1]:.4f} (host clock, from submission)")
+    print(f"[serve:dense] prefill_admits={st['prefill_admits']} "
+          f"buckets={shapes} prefill_tokens={st['prefill_tokens']} "
+          f"prefill_s_per_admit={st['prefill_s'] / admits:.4f}; "
+          f"decode chunks={st['decode_chunks']} tokens="
+          f"{st['decode_tokens']} tokens_per_s="
+          f"{st['decode_tokens'] / max(st['decode_s'], 1e-9):.2f}; "
+          f"ragged steps={st['ragged_steps']} "
+          f"preemptions={st['preemptions']}")
+    print(f"[serve:dense] launches {json.dumps(launches)}", flush=True)
+    for o, p, g in zip(out, prompts, gen):
+        if len(o) != len(p) + n_new or not np.array_equal(o[:len(p)], p):
+            raise AssertionError("a result is not prompt + 32 new tokens")
+        if g.min() < 0 or g.max() >= cfg.vocab_size:
+            raise AssertionError("generated token out of the vocabulary")
+    if st["prefill_admits"] < 2 or not shapes or shapes[0] != (4, 256):
+        raise AssertionError(f"expected >= 2 dense admissions, the first "
+                             f"with (c, s_pad) = (4, 256); got "
+                             f"{st['prefill_admits']}, {shapes}")
+    _require_launched("serve:dense", launches, DENSE_KERNELS)
+    _profile_admission(model, prompts, kw, n_new)
     return launches
+
+
+def _print_profile(tag, prof, wall, note):
+    """Device time by kernel from a finished torch.profiler window, and
+    the device's busy share of the window's wall time."""
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    # kernel entries only: an operator's own entry repeats the device time
+    # of the kernels it launched
+    rows = [(dev_us(e), e.key, e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    rows = sorted([r for r in rows if r[0] > 0], reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    if not rows:
+        print(f"[{tag}] the profiler recorded no device time: device "
+              "breakdown not measured")
+        return
+    print(f"[{tag}] {note}: wall_s={wall:.3f} device_busy_s={busy:.3f} "
+          f"idle_share={1 - busy / wall:.3f}")
+    for us, key, count in rows[:14]:
+        print(f"[{tag}] {us / 1e3:10.2f} ms {100 * us / 1e6 / busy:5.1f}% "
+              f"x{count:<6d} {key[:90]}")
+
+
+def _profile_admission(model, prompts, kw, n_new):
+    """The dense workload again on a fresh engine: its first dense
+    admission (the `_admit` call of engine step 0: c = 4, s_pad = 256)
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference import GenerationEngine
+
+    eng = GenerationEngine(model, **kw)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    admit = eng._admit
+    walls = []
+
+    def profiled_admit(admissions):
+        torch.cuda.synchronize()
+        prof.start()
+        t0 = time.perf_counter()
+        admit(admissions)                 # ends in a host sync
+        walls.append(time.perf_counter() - t0)
+        prof.stop()
+
+    eng._admit = profiled_admit
+    with torch.inference_mode():
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=n_new)
+        eng.step()
+    if len(walls) != 1:
+        raise AssertionError("engine step 0 made no single dense admission")
+    _print_profile("profile:dense", prof, walls[0],
+                   f"one dense admission (c=4, s_pad=256, "
+                   f"{eng.stats['prefill_tokens']} prompt tokens)")
 
 
 PROFILE_STEPS = (2, 8)   # engine steps [from, to) of the profiled window
@@ -457,27 +719,9 @@ def _profile_serve(model, prompts, kw, n_new):
     window = {k: after[k] - before[k] for k in
               ("ragged_steps", "decode_chunks", "decode_tokens",
                "mixed_decode_tokens")}
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", 0)
-                or getattr(e, "self_cuda_time_total", 0))
-
-    # kernel entries only: an operator's own entry repeats the device time
-    # of the kernels it launched
-    rows = [(dev_us(e), e.key, e.count) for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
-    rows = sorted([r for r in rows if r[0] > 0], reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    if not rows:
-        print("[profile] the profiler recorded no device time: device "
-              "breakdown not measured")
-        return
-    print(f"[profile] engine steps {PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1}"
-          f" of {n}: wall_s={wall:.3f} device_busy_s={busy:.3f} "
-          f"idle_share={1 - busy / wall:.3f} {json.dumps(window)}")
-    for us, key, count in rows[:14]:
-        print(f"[profile] {us / 1e3:10.2f} ms {100 * us / 1e6 / busy:5.1f}% "
-              f"x{count:<6d} {key[:90]}")
+    _print_profile("profile", prof, wall,
+                   f"engine steps {PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1} "
+                   f"of {n} {json.dumps(window)}")
 
 
 if __name__ == "__main__":

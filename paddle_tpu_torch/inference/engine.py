@@ -15,30 +15,35 @@ What it keeps from the JAX engine:
   is indexed by a hash chain over its tokens; a later prompt with the same
   prefix maps those pages instead of recomputing them. A write into a
   shared page (a forked sequence's tail) first copies the page.
-- **chunked prefill and mixed steps**: prompts advance ``prefill_chunk``
-  tokens per dispatch through the ragged program
-  (``model.paged_prefill_ragged``); with ``mixed_step`` the running
-  sequences' decode tokens ride the same launch as q_len = 1 rows.
+- **dense prefill admission**: a cold prompt (no prefix hit) no longer
+  than ``prefill_chunk`` (any cold prompt when it is None) is admitted
+  with the others of its step in one batched dense causal forward
+  (``model.paged_prefill``, ``_admit``), padded to a power-of-two
+  (rows, tokens) bucket; its KV is then written into freshly assigned
+  pages, page by page.
+- **chunked prefill and mixed steps**: longer prompts and prompts after a
+  prefix hit advance ``prefill_chunk`` tokens per dispatch through the
+  ragged program (``model.paged_prefill_ragged``); with ``mixed_step`` the
+  running sequences' decode tokens ride the same launch as q_len = 1 rows.
 - **decode chunks**: between admissions, up to ``decode_chunk`` decode
   steps (a power of two) run back to back through ``model.paged_decode``.
-- **recompute preemption** when the page pool runs out.
+- **recompute preemption** when the page pool runs out, and requeueing of
+  dense admissions that find the pool exhausted.
 
 What differs in this slice:
 
-- every admission goes through the ragged program in chunks of
-  ``prefill_chunk``; the JAX engine sends a cold prompt no longer than the
-  chunk through the dense prefill (``paged_prefill``), which comes with the
-  next slice. Both compute the same causal attention over the same context.
-- no JIT: steps run eagerly and pools are updated in place. The ragged
-  batch is still padded to power-of-two (rows, tokens) buckets and decode
-  chunks to power-of-two lengths, as in JAX, so the shapes the kernels see
-  stay few (CUDA graphs over them come later).
+- no JIT: steps run eagerly and pools are updated in place. The dense and
+  ragged batches are still padded to power-of-two (rows, tokens) buckets
+  and decode chunks to power-of-two lengths, as in JAX, so the shapes the
+  kernels see stay few (CUDA graphs over them come later).
 - the JAX engine's options for int8 KV pages, speculative decoding, the
   prefix store, deadlines, streaming, export/import and metrics are not
   served yet: asking for one raises NotImplementedError naming the slice
   that brings it.
 
-Model contract: ``paged_spec()``, ``paged_prefill_ragged(ids, q_lens,
+Model contract: ``paged_spec()``, ``paged_prefill(ids, lengths)`` ->
+(last-real-token logits [C, V], ks, vs [L, C, S_pad, H_kv, hd]),
+``paged_prefill_ragged(ids, q_lens,
 start_pos, k_pages, v_pages, block_tables, write_pids, write_offs)`` ->
 (last-real-token logits [C, V], k_pages, v_pages) and ``paged_decode(
 tokens, positions, k_pages, v_pages, block_tables, context_lens,
@@ -94,6 +99,18 @@ class PagedGenerationMixin:
                                     eos_token_id) for p in prompts]
             results = eng.run()
         return [results[r] for r in rids]
+
+
+def sample_tokens(logits, temps, generator):
+    """Greedy where temps == 0, categorical elsewhere. logits [B, V];
+    temps [B] float32 on the logits' device (None: all greedy)."""
+    greedy = torch.argmax(logits.float(), dim=-1)
+    if temps is None:
+        return greedy
+    safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
+    probs = torch.softmax(logits.float() / safe_t[:, None], dim=-1)
+    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.where(temps > 0, sampled, greedy)
 
 
 def _next_pow2(n, floor=8):
@@ -367,10 +384,11 @@ class GenerationEngine:
         if spec_decode or any(v is not None for v in
                               (spec_k, spec_min_accept, spec_cooldown)):
             raise _unsupported("speculative decoding", "speculative decode")
-        if not (hasattr(model, "paged_prefill_ragged")
-                and hasattr(model, "paged_decode")):
-            raise TypeError("the model must implement the ragged paged "
-                            "contract (paged_prefill_ragged, paged_decode)")
+        if not all(hasattr(model, m) for m in
+                   ("paged_prefill", "paged_prefill_ragged", "paged_decode")):
+            raise TypeError("the model must implement the paged contract "
+                            "(paged_prefill, paged_prefill_ragged, "
+                            "paged_decode)")
         spec = model.paged_spec()
         self.model = model
         self.device = model.device
@@ -418,7 +436,9 @@ class GenerationEngine:
             self._gen.manual_seed(int(seed))
         # what a serving run reports (chip_smoke reads these)
         self.stats = {"prefix_hits": 0, "prefix_misses": 0,
-                      "prefix_hit_tokens": 0, "ragged_steps": 0,
+                      "prefix_hit_tokens": 0, "prefill_admits": 0,
+                      "prefill_s": 0.0, "prefill_tokens": 0, "requeues": 0,
+                      "ragged_steps": 0,
                       "ragged_s": 0.0, "decode_chunks": 0, "decode_s": 0.0,
                       "decode_tokens": 0, "mixed_decode_tokens": 0,
                       "preemptions": 0, "cow_flushes": 0}
@@ -431,17 +451,6 @@ class GenerationEngine:
     # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
-
-    def _sample(self, logits, temps):
-        """Greedy where temps == 0, categorical elsewhere. logits [B, V];
-        temps [B] float32 on the device (None: all greedy)."""
-        greedy = torch.argmax(logits.float(), dim=-1)
-        if temps is None:
-            return greedy
-        safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
-        probs = torch.softmax(logits.float() / safe_t[:, None], dim=-1)
-        sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
-        return torch.where(temps > 0, sampled, greedy)
 
     def _put(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -458,6 +467,96 @@ class GenerationEngine:
         for pool in (*self.k_pages, *self.v_pages):
             pool[dst] = pool[src]
         self.stats["cow_flushes"] += 1
+
+    def _admit(self, admissions):
+        """Prefill a batch of (req, slot) pairs — cold prompts that fit one
+        chunk, their slots already claimed by step() — in ONE dense causal
+        forward (``model.paged_prefill``): assign each prompt's pages, write
+        its KV into them and sample its first token.
+
+        When the pool runs out mid-batch, the failed request's partial
+        pages are rolled back, and it and every request after it are
+        unclaimed and requeued at the FRONT of the queue, to retry once
+        running sequences retire; this raises only when nothing is running
+        that could ever free pages."""
+        admitted = []
+        for idx, (req, slot) in enumerate(admissions):
+            try:
+                self.blocks.assign(slot, 0, len(req.prompt))
+            except RuntimeError:
+                self._flush_cow()              # before any page recycles
+                self.blocks.release(slot)      # roll back partial pages
+                for r, s in admissions[idx:]:  # unclaim + requeue (front)
+                    self._slots[s] = None
+                    self._active[s] = False
+                    r.slot = -1
+                self._waiting[:0] = [r for r, _ in admissions[idx:]]
+                self.stats["requeues"] += len(admissions) - idx
+                if not admitted and not any(r is not None
+                                            for r in self._slots):
+                    raise   # nothing running will ever free pages
+                break
+            admitted.append((req, slot))
+        if not admitted:
+            return
+        self._flush_cow()   # queued CoW copies land before this write
+        c = _next_pow2(len(admitted), floor=1)
+        s_max = max(len(req.prompt) for req, _ in admitted)
+        s_pad = min(_next_pow2(s_max), self.max_seq_len)
+        n_pg = -(-s_pad // self.page_size)
+        ids = np.zeros((c, s_pad), np.int64)
+        lens = np.ones(c, np.int32)      # dummy rows: length 1, trash writes
+        page_ids = np.zeros((c, n_pg), np.int64)   # padding -> trash page 0
+        temps = np.zeros(c, np.float32)
+        for i, (req, slot) in enumerate(admitted):
+            ids[i, :len(req.prompt)] = req.prompt
+            lens[i] = len(req.prompt)
+            used = int(self.blocks.n_blocks[slot])
+            page_ids[i, :used] = self.blocks.block_tables[slot, :used]
+            temps[i] = req.temperature
+
+        t0 = time.perf_counter()
+        logits, ks, vs = self.model.paged_prefill(self._put(ids),
+                                                  self._put(lens))
+        self._write_prefill(ks, vs, self._put(page_ids))
+        toks_np = sample_tokens(
+            logits, self._put(temps) if np.any(temps > 0) else None,
+            self._gen).cpu().numpy()        # host sync closes the window
+        now = time.perf_counter()
+        self.stats["prefill_admits"] += 1
+        self.stats["prefill_s"] += now - t0
+        self.stats["prefill_tokens"] += int(lens[:len(admitted)].sum())
+
+        for i, (req, slot) in enumerate(admitted):
+            tok = int(toks_np[i])
+            req.out.append(tok)
+            req.n_prefilled = len(req.prompt)
+            self._last_tok[slot] = tok
+            self._n_ctx[slot] = len(req.prompt)
+            self._active[slot] = True
+            if req.t_first_token is None:
+                req.t_first_token = now
+                self.ttft_s.append(now - req.t_submit)
+            self.blocks.register_prefix(slot, req.prompt)
+            self._retire_if_done(req)
+
+    def _write_prefill(self, ks, vs, page_ids):
+        """Write a dense prefill's ks/vs [L, C, S_pad, H_kv, hd] into the
+        pools, one whole page per (row, page) in the page ids [C, n_pg]
+        (in the pools' dtype). Page ids past a row's pages are the trash
+        page 0, which takes the padding (several rows may write it; its
+        content is never read as context)."""
+        n_layers, c, s_pad = ks.shape[:3]
+        n_pg = page_ids.shape[1]
+        pad = n_pg * self.page_size - s_pad
+        flat = page_ids.reshape(-1)
+        for kv, pools in ((ks, self.k_pages), (vs, self.v_pages)):
+            if pad:
+                kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, pad))
+            pages = kv.reshape(n_layers, c * n_pg, self.page_size,
+                               *kv.shape[3:])
+            for li, pool in enumerate(pools):
+                pool[flat] = pages[li].to(pool.dtype)
 
     def _assign_or_preempt(self, work, slot, start, n):
         """Assign pages for one row of the ragged dispatch, preempting the
@@ -534,9 +633,9 @@ class GenerationEngine:
             self._put(ids), self._put(q_lens), self._put(start_pos),
             self.k_pages, self.v_pages, self._put(bt), self._put(wpid),
             self._put(woff))
-        toks_np = self._sample(
-            logits, self._put(temps) if np.any(temps > 0) else None
-        ).cpu().numpy()                     # host sync closes the window
+        toks_np = sample_tokens(
+            logits, self._put(temps) if np.any(temps > 0) else None,
+            self._gen).cpu().numpy()        # host sync closes the window
         now = time.perf_counter()
         self.stats["ragged_steps"] += 1
         self.stats["ragged_s"] += now - t0
@@ -618,8 +717,8 @@ class GenerationEngine:
             logits, _, _ = self.model.paged_decode(
                 tokens, positions, self.k_pages, self.v_pages, bt, ctx, wp,
                 wo)
-            tokens = torch.where(dev_active, self._sample(logits, temps),
-                                 tokens)
+            tokens = torch.where(
+                dev_active, sample_tokens(logits, temps, self._gen), tokens)
             positions = torch.where(dev_active, positions + 1, positions)
             out.append(tokens)
         toks_np = torch.stack(out).cpu().numpy()    # [k, B]; host sync
@@ -790,12 +889,15 @@ class GenerationEngine:
 
     def step(self):
         """Admit waiting requests into free slots (mapping cached prefix
-        pages), advance prefills through the ragged program (with the
-        decode batch riding the same launch in mixed mode), then run one
-        decode chunk for the pool. Returns the requests that finished."""
+        pages): cold prompts that fit one chunk through one dense batched
+        prefill, the rest into the ragged program. Then advance prefills
+        through the ragged program (with the decode batch riding the same
+        launch in mixed mode), then run one decode chunk for the pool.
+        Returns the requests that finished."""
         free = [i for i, r in enumerate(self._slots) if r is None]
         if free and self._waiting:
             self._sorted_waiting()
+        dense = []
         for slot in free:
             if not self._waiting:
                 break
@@ -814,7 +916,13 @@ class GenerationEngine:
             self._temps[slot] = req.temperature
             self._active[slot] = False
             self.blocks.map_shared(slot, [int(p) for p in pids])
-            self._prefilling.add(slot)   # every admission prefills ragged
+            if n_cached == 0 and (self.prefill_chunk is None or
+                                  len(req.prompt) <= self.prefill_chunk):
+                dense.append((req, slot))     # batched dense prefill
+            else:
+                self._prefilling.add(slot)    # ragged suffix/chunk path
+        if dense:
+            self._admit(dense)
 
         prefilling = [s for s in sorted(self._prefilling)
                       if self._slots[s] is not None]

@@ -1,18 +1,21 @@
-"""Llama for paged serving: the counterpart of
-``paddle_tpu/models/llama.py`` restricted to the engine's ragged and
-decode contract (``paged_spec`` / ``paged_prefill_ragged`` /
-``paged_decode``, llama.py:606-678).
+"""Llama for serving: the counterpart of ``paddle_tpu/models/llama.py``
+for inference — the dense causal ``forward`` (flash attention and fused
+RoPE kernels), the rectangular ``generate`` with its static-size KV cache
+(``decode_step``), and the engine's paged contract (``paged_spec`` /
+``paged_prefill`` / ``paged_prefill_ragged`` / ``paged_decode``,
+llama.py:606-678).
 
 Layout follows the JAX package so that its parameters load name for name
 (``weights.from_paddle_tpu_state``): Linear weights are ``[in, out]``,
 attention tensors ``[B, S, H, D]``, page pools ``[N, page, H_kv, D]`` per
-layer. Where JAX threads donated pools through its programs, the port
-writes the batch's KV into the pools IN PLACE (``index_put_``) before
-attention reads them, and returns the same pool lists.
+layer. Where JAX threads donated pools and caches through its programs,
+the port writes the batch's KV into them IN PLACE before attention reads
+them, and returns the same tensors.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -20,9 +23,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..inference.engine import PagedGenerationMixin
+from ..inference.engine import PagedGenerationMixin, sample_tokens
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
+from ..ops.kernels.decode_attention import NEG_INF
 
 
 @dataclass
@@ -94,12 +98,49 @@ class LlamaAttention(nn.Module):
         self.v_proj = Linear(h, kv_out, **kw)
         self.o_proj = Linear(h, h, **kw)
 
-    def _qkv(self, hidden, cos, sin):
+    def _proj(self, hidden):
         b, s = hidden.shape[0], hidden.shape[1]
         q = self.q_proj(hidden).view(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(hidden).view(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(hidden).view(b, s, self.num_kv_heads, self.head_dim)
+        return q, k, v
+
+    def _qkv(self, hidden, cos, sin):
+        q, k, v = self._proj(hidden)
         return _rope_rows(q, cos, sin), _rope_rows(k, cos, sin), v
+
+    def forward(self, hidden, rope_cos, rope_sin, attn_mask=None,
+                kv_cache=None):
+        """Dense causal attention. hidden [B, S, h]; rope_cos/rope_sin
+        [S, hd] (the table rows of the S positions); kv_cache (k, v)
+        [B, S_past, H_kv, hd] is prepended to this call's K/V, and then the
+        return is (out, (k, v)) with the grown cache."""
+        b, s = hidden.shape[0], hidden.shape[1]
+        q, k, v = self._proj(hidden)
+        q = F.fused_rope(q, rope_cos, rope_sin)
+        k = F.fused_rope(k, rope_cos, rope_sin)
+        if kv_cache is not None:
+            k = torch.cat([kv_cache[0], k], dim=1)
+            v = torch.cat([kv_cache[1], v], dim=1)
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None,
+            training=self.training)
+        out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return out if kv_cache is None else (out, (k, v))
+
+    def decode_step(self, hidden, rope_cos, rope_sin, cache_k, cache_v, pos):
+        """Single-token step over a static-size cache. hidden [B, 1, h];
+        rope_cos/rope_sin [1, hd]; cache_k/cache_v [B, L_max, H_kv, hd],
+        written at `pos` (a python int) in place. Returns (out, cache_k,
+        cache_v)."""
+        q, k, v = self._proj(hidden)
+        q = F.fused_rope(q, rope_cos, rope_sin)
+        k = F.fused_rope(k, rope_cos, rope_sin)
+        cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+        out = _decode_attention(q, cache_k, cache_v, pos, self.num_heads,
+                                self.num_kv_heads)
+        return self.o_proj(out.to(hidden.dtype)), cache_k, cache_v
 
     def paged_decode_step(self, hidden, cos, sin, k_pages, v_pages,
                           block_tables, context_lens, write_pids,
@@ -134,6 +175,25 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.to(hidden.dtype))
 
 
+def _decode_attention(q, ck, cv, pos, n_heads, n_kv_heads, scale=None):
+    """Single-token attention over a static-size cache, in plain PyTorch as
+    the JAX package computes it in plain XLA (llama.py:277): one pass over
+    the cache, memory-bound. q [B, 1, H, hd]; ck/cv [B, L_max, H_kv, hd];
+    keys past `pos` are masked. Returns [B, 1, H * hd] in q's type."""
+    b, _, h, hd = q.shape
+    rep = h // n_kv_heads
+    qg = q.reshape(b, n_kv_heads, rep, hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bgrd,blgd->bgrl", qg, ck.to(q.dtype))
+    scores = scores.float() * scale
+    valid = torch.arange(ck.shape[1], device=q.device) <= pos
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrl,blgd->bgrd", probs, cv.to(q.dtype))
+    return out.reshape(b, 1, h * hd)
+
+
 class LlamaMLP(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
@@ -160,6 +220,21 @@ class LlamaDecoderLayer(nn.Module):
 
     def _mlp_block(self, hidden):
         return hidden + self.mlp(self.post_attention_layernorm(hidden))
+
+    def forward(self, hidden, rope_cos, rope_sin, attn_mask=None,
+                kv_cache=None):
+        x = self.self_attn(self.input_layernorm(hidden), rope_cos, rope_sin,
+                           attn_mask, kv_cache)
+        if kv_cache is None:
+            return self._mlp_block(hidden + x)
+        x, new_cache = x
+        return self._mlp_block(hidden + x), new_cache
+
+    def decode_step(self, hidden, rope_cos, rope_sin, cache_k, cache_v, pos):
+        x, cache_k, cache_v = self.self_attn.decode_step(
+            self.input_layernorm(hidden), rope_cos, rope_sin, cache_k,
+            cache_v, pos)
+        return self._mlp_block(hidden + x), cache_k, cache_v
 
     def paged_decode_step(self, hidden, *args):
         x = self.self_attn.paged_decode_step(self.input_layernorm(hidden),
@@ -188,6 +263,48 @@ class LlamaModel(nn.Module):
                                 config.rope_theta)
         self.register_buffer("rope_cos", cos.to(device), persistent=False)
         self.register_buffer("rope_sin", sin.to(device), persistent=False)
+
+    def forward(self, input_ids, attn_mask=None, kv_caches=None,
+                position_offset=0):
+        """Dense causal forward over input_ids [B, S] at positions
+        [position_offset, position_offset + S). Returns the final hidden
+        [B, S, h]; with kv_caches (one (k, v) per layer, or None to prime
+        an empty cache) it returns (hidden, the grown caches)."""
+        s = input_ids.shape[1]
+        if position_offset + s > self.config.max_position_embeddings:
+            raise ValueError(
+                f"sequence positions [{position_offset}, {position_offset + s}"
+                f") exceed max_position_embeddings="
+                f"{self.config.max_position_embeddings}")
+        hidden = self.embed_tokens(input_ids)
+        cos = self.rope_cos[position_offset:position_offset + s]
+        sin = self.rope_sin[position_offset:position_offset + s]
+        if kv_caches is None:
+            for layer in self.layers:
+                hidden = layer(hidden, cos, sin, attn_mask)
+            return self.norm(hidden)
+        cfg = self.config
+        empty = hidden.new_zeros((hidden.shape[0], 0, cfg.num_key_value_heads,
+                                  cfg.hidden_size // cfg.num_attention_heads))
+        new_caches = []
+        for layer, cache in zip(self.layers, kv_caches):
+            hidden, cache = layer(hidden, cos, sin, attn_mask,
+                                  (empty, empty) if cache is None else cache)
+            new_caches.append(cache)
+        return self.norm(hidden), new_caches
+
+    def decode_step(self, token, caches, pos):
+        """token [B, 1] int; caches: one (k, v) [B, L_max, H_kv, hd] per
+        layer, written at position `pos` in place. Returns (hidden
+        [B, 1, h], caches)."""
+        hidden = self.embed_tokens(token)
+        cos = self.rope_cos[pos:pos + 1]
+        sin = self.rope_sin[pos:pos + 1]
+        new_caches = []
+        for layer, (ck, cv) in zip(self.layers, caches):
+            hidden, ck, cv = layer.decode_step(hidden, cos, sin, ck, cv, pos)
+            new_caches.append((ck, cv))
+        return self.norm(hidden), new_caches
 
     def paged_decode_step(self, tokens, positions, k_pages, v_pages,
                           block_tables, context_lens, write_pids, write_offs):
@@ -248,12 +365,34 @@ class LlamaForCausalLM(nn.Module, PagedGenerationMixin):
     def dtype(self):
         return self.llama.embed_tokens.weight.dtype
 
+    def forward(self, input_ids, labels=None, attn_mask=None):
+        """Logits [B, S, V] of the dense causal forward over input_ids
+        [B, S]."""
+        if labels is not None:
+            raise NotImplementedError(
+                "the loss (labels) comes with the training slice of the port; "
+                "this slice serves inference only")
+        return self._head(self.llama(input_ids, attn_mask))
+
     def paged_spec(self):
         cfg = self.config
         return {"n_layers": cfg.num_hidden_layers,
                 "n_kv_heads": cfg.num_key_value_heads,
                 "head_dim": cfg.hidden_size // cfg.num_attention_heads,
                 "max_len": cfg.max_position_embeddings}
+
+    def paged_prefill(self, ids, lengths):
+        """Engine dense prefill: ids [C, S_pad] right-padded prompts,
+        lengths [C]. Runs the dense causal forward (padding past a row's
+        length cannot leak backward under the causal mask) and returns
+        (each row's last-real-token logits [C, V], ks, vs
+        [L, C, S_pad, H_kv, hd])."""
+        hidden, kv = self.llama(ids, kv_caches=[None] * len(self.llama.layers))
+        rows = torch.arange(ids.shape[0], device=ids.device)
+        h_last = hidden[rows, lengths.long() - 1][:, None]
+        ks = torch.stack([k for k, _ in kv])
+        vs = torch.stack([v for _, v in kv])
+        return self._head(h_last)[:, 0], ks, vs
 
     def paged_decode(self, tokens, positions, k_pages, v_pages,
                      block_tables, context_lens, write_pids, write_offs):
@@ -281,3 +420,70 @@ class LlamaForCausalLM(nn.Module, PagedGenerationMixin):
         if self.lm_head is None:
             return torch.matmul(hidden, self.llama.embed_tokens.weight.t())
         return self.lm_head(hidden)
+
+    @torch.inference_mode()
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 use_cache=True, seed=None, engine=False):
+        """Greedy (temperature 0) or sampled decoding of a rectangular batch
+        input_ids [B, S] (tensor or array). Returns [B, S + max_new_tokens]
+        on the model's device, in input_ids' integer type.
+
+        use_cache=True: one dense prefill through ``forward`` with KV
+        caches, copied into static-size [B, S + max_new_tokens, H_kv, hd]
+        buffers, then a loop of ``decode_step``. use_cache=False recomputes
+        the whole sequence for every token (the parity path). engine=True
+        goes through the paged GenerationEngine instead (the serving path).
+        Sampling draws from a torch.Generator seeded with `seed` (or
+        randomly): greedy tokens match the JAX package's, sampled ones do
+        not (its random keys differ)."""
+        self.eval()
+        ids = torch.as_tensor(input_ids, device=self.device)
+        if ids.dim() == 1:
+            ids = ids[None]
+        if max_new_tokens <= 0:
+            return ids
+        if engine:
+            out = self.get_engine().generate(ids, max_new_tokens, temperature,
+                                             seed=seed)
+            return torch.as_tensor(out, device=self.device).to(ids.dtype)
+        gen = torch.Generator(device=self.device)
+        if seed is None:
+            gen.seed()
+        else:
+            gen.manual_seed(int(seed))
+        toks = ids.long()
+        b, s = toks.shape
+        temps = None if temperature == 0.0 else torch.full(
+            (b,), float(temperature), device=self.device)
+
+        def pick(hidden):          # next token from the last position
+            return sample_tokens(self._head(hidden[:, -1:])[:, 0], temps,
+                                 gen)
+
+        if not use_cache:
+            for _ in range(max_new_tokens):
+                toks = torch.cat([toks, pick(self.llama(toks))[:, None]],
+                                 dim=1)
+            return toks.to(ids.dtype)
+
+        total = s + max_new_tokens
+        if total > self.config.max_position_embeddings:
+            raise ValueError(
+                f"prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds "
+                f"max_position_embeddings="
+                f"{self.config.max_position_embeddings}")
+        hidden, kv = self.llama(toks,
+                                kv_caches=[None] * len(self.llama.layers))
+        caches = []
+        for k, v in kv:            # static-size buffers for the decode loop
+            ck = k.new_zeros((b, total) + tuple(k.shape[2:]))
+            cv = v.new_zeros((b, total) + tuple(v.shape[2:]))
+            ck[:, :s] = k
+            cv[:, :s] = v
+            caches.append((ck, cv))
+        out = [pick(hidden)]
+        for pos in range(s, total - 1):
+            hidden, caches = self.llama.decode_step(out[-1][:, None], caches,
+                                                    pos)
+            out.append(pick(hidden))
+        return torch.cat([toks, torch.stack(out, dim=1)], dim=1).to(ids.dtype)

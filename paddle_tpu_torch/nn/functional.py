@@ -1,7 +1,8 @@
 """Functional surface of the port's serving path: the counterparts of
 ``paddle_tpu.nn.functional.rms_norm``, ``swiglu`` (the ``swiglu`` op),
+``fused_rope`` (the ``fused_rope`` op), ``scaled_dot_product_attention``,
 ``paged_attention`` and ``ragged_paged_attention``
-(``paddle_tpu/nn/functional/attention.py:117-204``), with the same
+(``paddle_tpu/nn/functional/attention.py:105-204``), with the same
 argument checks. Each routes to its kernel wrapper in ``ops.kernels``:
 the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
 """
@@ -12,6 +13,9 @@ from ..ops import kernels as _k
 
 _INT8 = ("int8 KV pages (k_scales/v_scales) come with the int8 KV slice "
          "of the port; this slice serves float pools only")
+_MASKED = ("scaled_dot_product_attention with {} comes with the training "
+           "and flashmask slices of the port; this slice serves unmasked "
+           "attention without dropout (the flash kernel)")
 
 
 def rms_norm(x, weight, epsilon=1e-6):
@@ -23,6 +27,27 @@ def rms_norm(x, weight, epsilon=1e-6):
 def swiglu(x, y):
     """silu(x) * y in float32, cast to x's type."""
     return _k.swiglu(x, y)
+
+
+def fused_rope(x, cos, sin):
+    """Rotate-half RoPE. x: [B, S, H, D]; cos/sin: [S, D], cast to x's
+    type first."""
+    return _k.fused_rope(x, cos, sin)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=False):
+    """Layout [B, S, H, D]; key/value may have fewer heads (GQA). With no
+    mask and no active dropout this is the flash kernel, causal with
+    bottom-right alignment when ``is_causal``. A mask, or dropout while
+    training, raises NotImplementedError."""
+    if attn_mask is not None:
+        raise NotImplementedError(_MASKED.format("attn_mask"))
+    if dropout_p > 0.0 and training:
+        raise NotImplementedError(_MASKED.format("dropout while training"))
+    out, _ = _k.flash_attention_fwd(query, key, value, causal=is_causal)
+    return out
 
 
 def paged_attention(query, k_pages, v_pages, block_tables, context_lens,

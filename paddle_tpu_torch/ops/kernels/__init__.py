@@ -11,9 +11,11 @@ from __future__ import annotations
 
 from .decode_attention import (paged_decode_attention,
                                paged_decode_attention_plain)
+from .flash_attention import flash_attention_fwd, flash_attention_fwd_plain
 from .ragged_attention import (ragged_paged_attention,
                                ragged_paged_attention_plain)
 from .rms_norm import rms_norm, rms_norm_plain
+from .rope import fused_rope, fused_rope_plain
 from .swiglu import swiglu, swiglu_plain
 
 # wrapper -> (CUDA source it launches, TPU kernel it replaces)
@@ -30,6 +32,15 @@ KERNELS = {
     "swiglu": (
         swiglu, "paddle_tpu_torch/csrc/swiglu.cu",
         "paddle_tpu/ops/pallas/fused_ffn.py:58"),
+    # one CUDA kernel for the TPU kernel and the JAX package's
+    # Pallas-on-GPU lowering of the same function
+    "flash_attention": (
+        flash_attention_fwd, "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:183; "
+        "paddle_tpu/ops/primitive/lowering_gpu.py:98"),
+    "fused_rope": (
+        fused_rope, "paddle_tpu_torch/csrc/rope.cu",
+        "paddle_tpu/ops/pallas/norms.py:131"),
 }
 
 
@@ -44,6 +55,8 @@ def reset_launch_counts():
 
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
+           "flash_attention_fwd", "flash_attention_fwd_plain",
+           "fused_rope", "fused_rope_plain",
            "paged_decode_attention", "paged_decode_attention_plain",
            "ragged_paged_attention", "ragged_paged_attention_plain",
            "rms_norm", "rms_norm_plain", "swiglu", "swiglu_plain"]

@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
-SOURCES = ("rms_norm", "swiglu", "decode_attention", "ragged_attention")
+SOURCES = ("rms_norm", "swiglu", "decode_attention", "ragged_attention",
+           "flash_attention", "rope")
 
 _LIBS = {}
 _LOCK = threading.Lock()

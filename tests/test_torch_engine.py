@@ -2,10 +2,16 @@
 isolation rules.
 
 - greedy ``generate_batch`` on the JAX engine and the port's engine, both
-  with the prefix cache, chunked prefill (chunk 8, every prompt longer)
-  and mixed steps, more requests than slots and two prompts sharing a
-  page-aligned prefix: the tokens must be exactly equal, and the port must
-  have served a prefix hit;
+  with the prefix cache, chunked prefill (chunk 8) and mixed steps, more
+  requests than slots and two prompts sharing a page-aligned prefix: the
+  tokens must be exactly equal, and the port must have served a prefix
+  hit. One workload has every prompt longer than the chunk (all ragged);
+  another mixes cold prompts no longer than the chunk, which both engines
+  admit through the dense prefill, with long and prefix-sharing ones (the
+  ragged path), at chunk 8 and with ``prefill_chunk=None``;
+- the pages a dense admission writes equal the JAX engine's pools, and
+  dense admissions that find the pool exhausted are requeued (tokens
+  unchanged), or raise when nothing running could free pages;
 - ``fork_request`` mid-decode: the fork's first write into the shared
   partial tail page is a real copy-on-write, and both the parent and the
   fork end with the JAX engine's tokens;
@@ -85,6 +91,96 @@ def test_generate_batch_greedy_parity_with_jax_engine(pair):
     got = tm.generate_batch(prompts, max_new_tokens=10, **ENGINE_KW)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def _mixed_prompts():
+    """Cold prompts no longer than the chunk of 8 (dense admission) mixed
+    with a long cold prompt and two sharing an 8-token (2-page) prefix, the
+    second of which arrives after the first is indexed (ragged suffix)."""
+    rng = np.random.default_rng(2)
+    shared = rng.integers(1, 128, 8)
+    prompts = [np.concatenate([shared, rng.integers(1, 128, 2)]),
+               rng.integers(1, 128, 5), rng.integers(1, 128, 8),
+               np.concatenate([shared, rng.integers(1, 128, 3)]),
+               rng.integers(1, 128, 13), rng.integers(1, 128, 3)]
+    return [p.astype(np.int32) for p in prompts]
+
+
+@pytest.mark.parametrize("chunk", [8, None], ids=["chunk8", "no_chunk"])
+def test_dense_admission_greedy_parity_with_jax_engine(pair, chunk):
+    """Cold prompts that fit the chunk go through the dense prefill in both
+    engines (with prefill_chunk=None every cold prompt does); long and
+    prefix-hit prompts through the ragged program. Tokens are equal."""
+    jm, tm = pair
+    kw = dict(ENGINE_KW, prefill_chunk=chunk)
+    prompts = _mixed_prompts()
+    want = jm.generate_batch(prompts, max_new_tokens=10, **kw)
+    eng = GenerationEngine(tm, **kw)
+    rids = [eng.add_request(p, max_new_tokens=10) for p in prompts]
+    with torch.inference_mode():
+        out = eng.run()
+    for rid, w in zip(rids, want):
+        np.testing.assert_array_equal(out[rid], w)
+    st = eng.stats
+    assert st["prefill_admits"] > 0
+    assert st["prefill_tokens"] == sum(
+        len(p) for p in prompts
+        if chunk is None or len(p) <= chunk) - (11 if chunk is None else 0)
+    assert st["prefix_hits"] == 1 and st["prefix_hit_tokens"] == 8
+    assert st["ragged_steps"] > 0          # the suffix (and long) prompts
+    assert np.all(eng.blocks.refcount[1:] == 0)
+
+
+def test_dense_admission_writes_the_jax_engines_pages(pair):
+    """One dense admission of three cold prompts (and a dummy row, c = 4):
+    the pages it writes, and every other page, equal the JAX engine's
+    pools after the same admission."""
+    from paddle_tpu.inference.engine import GenerationEngine as JaxEngine
+    jm, tm = pair
+    kw = dict(ENGINE_KW, max_slots=3)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 128, n).astype(np.int32) for n in (7, 3, 8)]
+    jeng = JaxEngine(jm, **kw)
+    teng = GenerationEngine(tm, **kw)
+    for p in prompts:
+        jeng.add_request(p, max_new_tokens=1)
+        teng.add_request(p, max_new_tokens=1)
+    jeng.run()
+    with torch.inference_mode():
+        teng.run()
+    assert teng.stats["prefill_admits"] == 1
+    assert teng.stats["ragged_steps"] == teng.stats["decode_chunks"] == 0
+    for jp, tp in zip(jeng.k_pages + jeng.v_pages,
+                      teng.k_pages + teng.v_pages):
+        # page 0 is the trash page: padding lands there in both
+        np.testing.assert_allclose(tp.numpy()[1:], np.asarray(jp)[1:],
+                                   atol=1e-4)
+    assert float(teng.k_pages[0][1:6].abs().sum()) > 0   # 5 pages written
+
+
+def test_dense_admission_requeues_on_an_exhausted_pool(pair):
+    """Three usable pages: of two 7-token cold prompts admitted together,
+    the second finds no pages and is requeued at the front, then served
+    once the first retires. Tokens equal the JAX engine's on a full pool.
+    A prompt that alone exceeds the pool raises."""
+    jm, tm = pair
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 128, 7).astype(np.int32) for _ in range(2)]
+    want = jm.generate_batch(prompts, max_new_tokens=5, **ENGINE_KW)
+    eng = GenerationEngine(tm, n_pages=4, **ENGINE_KW)
+    rids = [eng.add_request(p, max_new_tokens=5) for p in prompts]
+    with torch.inference_mode():
+        out = eng.run()
+    assert eng.stats["requeues"] >= 1
+    assert eng.stats["prefill_admits"] == 2
+    for rid, w in zip(rids, want):
+        np.testing.assert_array_equal(out[rid], w)
+
+    alone = GenerationEngine(tm, n_pages=2, **ENGINE_KW)   # one page
+    alone.add_request(prompts[0], max_new_tokens=1)
+    with torch.inference_mode(), pytest.raises(RuntimeError,
+                                               match="exhausted"):
+        alone.run()
 
 
 def test_fork_request_copies_on_write_and_matches_jax(pair):

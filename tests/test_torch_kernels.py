@@ -4,11 +4,18 @@ Each plain PyTorch version in ``paddle_tpu_torch.ops.kernels`` (the path a
 CPU tensor takes through the kernel wrappers) gets the same numpy inputs as
 the Pallas kernel, run in interpret mode as the JAX package's own tests run
 it: ``rms_norm_pallas(x, w, eps, True)``, ``swiglu_pallas(g, u, True)``,
-``paged_decode_attention(..., interpret=True)`` and
-``ragged_paged_attention(..., interpret=True)``. The attention cases cover
-MHA and GQA, contexts ending mid-page and on a page boundary, block-table
-entries past the context that point at real (garbage) pages, decode,
-prefill-at-tail, padded and dummy ragged rows, and an idle decode slot.
+``fused_rope_pallas(x, cos, sin, True)``,
+``paged_decode_attention(..., interpret=True)``,
+``ragged_paged_attention(..., interpret=True)``, and the flash forward both
+as the TPU kernel ``_flash_fwd_bhsd(..., interpret=True)`` and as the
+Pallas-on-GPU lowering ``_flash_fwd_gpu(..., interpret=True)``, with
+blocks of 8. The paged cases cover MHA and GQA, contexts ending mid-page
+and on a page boundary, block-table entries past the context that point at
+real (garbage) pages, decode, prefill-at-tail, padded and dummy ragged
+rows, and an idle decode slot; the flash cases causal and not, MHA and
+GQA, S_q = S_k, S_q < S_k (bottom-right causal alignment), S_q > S_k
+(rows that see no key: 0 out, lse -1e30) and lengths that are no multiple
+of the block.
 
 Tolerance: float32, atol 2e-5 / rtol 1e-5 — the two sides sum the same
 float32 products in different orders (einsum vs. online softmax over
@@ -21,9 +28,11 @@ import jax.numpy as jnp
 import torch
 
 from paddle_tpu.ops.pallas.decode_attention import paged_decode_attention
+from paddle_tpu.ops.pallas.flash_attention import _flash_fwd_bhsd
 from paddle_tpu.ops.pallas.fused_ffn import swiglu_pallas
-from paddle_tpu.ops.pallas.norms import rms_norm_pallas
+from paddle_tpu.ops.pallas.norms import fused_rope_pallas, rms_norm_pallas
 from paddle_tpu.ops.pallas.ragged_attention import ragged_paged_attention
+from paddle_tpu.ops.primitive.lowering_gpu import _flash_fwd_gpu
 
 from paddle_tpu_torch.ops import kernels as K
 
@@ -135,6 +144,63 @@ def test_ragged_plain_matches_pallas(case, h_kv):
         assert float(port[i, n:].abs().sum()) == 0.0
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 4, 16), (1, 5, 3, 8)])
+def test_fused_rope_plain_matches_pallas(shape):
+    rng = np.random.default_rng(4)
+    x = _f32(rng, shape)
+    cos, sin = _f32(rng, shape[1::2]), _f32(rng, shape[1::2])   # [S, D]
+    ref = fused_rope_pallas(jnp.asarray(x), jnp.asarray(cos),
+                            jnp.asarray(sin), True)
+    _close(K.fused_rope(torch.from_numpy(x), torch.from_numpy(cos),
+                        torch.from_numpy(sin)), ref)
+
+
+def _bhsd(x):
+    """[B, S, H, D] numpy -> the Pallas kernels' [B*H, S, D]."""
+    b, s, h, d = x.shape
+    return jnp.asarray(np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                       .reshape(b * h, s, d))
+
+
+# (S_q, S_k): equal, bottom-right causal with S_q < S_k, S_q > S_k (the
+# first S_q - S_k rows see no key under the causal mask), and a length no
+# multiple of the block of 8
+FLASH_SHAPES = [(24, 24), (10, 30), (30, 10), (13, 13)]
+
+
+@pytest.mark.parametrize("s_q,s_k", FLASH_SHAPES,
+                         ids=[f"{a}x{b}" for a, b in FLASH_SHAPES])
+@pytest.mark.parametrize("h_kv", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_plain_matches_pallas(causal, h_kv, s_q, s_k):
+    rng = np.random.default_rng(5)
+    b, h, d = 2, 4, 16
+    scale = 1.0 / float(np.sqrt(d))   # a python float: weakly typed
+    q = _f32(rng, (b, s_q, h, d))
+    k, v = _f32(rng, (b, s_k, h_kv, d)), _f32(rng, (b, s_k, h_kv, d))
+    out, lse = K.flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), causal=causal)
+    assert out.shape == (b, s_q, h, d) and lse.shape == (b, h, s_q)
+    assert lse.dtype == torch.float32
+
+    ref, ref_lse = _flash_fwd_bhsd(_bhsd(q), _bhsd(k), _bhsd(v), causal,
+                                   scale, h, h_kv, block_q=8, block_k=8,
+                                   interpret=True)
+    ref = np.asarray(ref).reshape(b, h, s_q, d).transpose(0, 2, 1, 3)
+    ref_lse = np.asarray(ref_lse)[:, :s_q, 0].reshape(b, h, s_q)
+    _close(out, ref)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=ATOL, rtol=RTOL)
+
+    gpu = _flash_fwd_gpu(_bhsd(q), _bhsd(k), _bhsd(v), causal, scale, h,
+                         h_kv, 8, 8, True)
+    _close(out, np.asarray(gpu).reshape(b, h, s_q, d).transpose(0, 2, 1, 3))
+
+    blind = s_q - s_k if causal and s_q > s_k else 0   # rows with no key
+    assert float(out[:, :blind].abs().sum()) == 0.0
+    assert bool((lse[:, :, :blind] <= -1e29).all())
+    assert bool(torch.isfinite(out).all())
+
+
 def test_wrappers_take_the_plain_path_only_on_cpu():
     """A CPU tensor takes the plain version and bumps no launch counter;
     a tensor on any other device is refused, never computed plainly."""
@@ -147,3 +213,19 @@ def test_wrappers_take_the_plain_path_only_on_cpu():
         K.swiglu(x.to("meta"), x.to("meta"))
     with pytest.raises(ValueError, match="meta"):
         K.rms_norm(x.to("meta"), torch.ones(8, device="meta"))
+
+
+def test_flash_and_rope_wrappers_refuse_tensors_off_the_cpu():
+    """The two kernels of the dense prefill: plain on the CPU with no
+    launch counted; a meta tensor is refused, never computed plainly."""
+    K.reset_launch_counts()
+    q = torch.ones(1, 4, 2, 8)
+    cos = torch.ones(4, 8)
+    K.flash_attention_fwd(q, q, q, causal=True)
+    K.fused_rope(q, cos, cos)
+    assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
+    m = q.to("meta")
+    with pytest.raises(ValueError, match="meta"):
+        K.flash_attention_fwd(m, m, m, causal=True)
+    with pytest.raises(ValueError, match="meta"):
+        K.fused_rope(m, cos.to("meta"), cos.to("meta"))

@@ -1,15 +1,19 @@
 """The port's Llama against the JAX package's, with bridged weights.
 
 ``paddle_tpu_torch.weights.from_paddle_tpu_state`` copies the JAX model's
-parameters (numpy, under the JAX names) into the port's model; the two
-paged serving steps of the contract — ``paged_prefill_ragged`` (mixed
-prefill-at-tail, decode and dummy rows) and ``paged_decode`` (with an idle
-slot) — then get the same numpy inputs on both sides, and the logits and
-the written page pools must agree.
+parameters (numpy, under the JAX names) into the port's model; the dense
+causal ``forward``, the dense ``paged_prefill`` (right-padded rows and a
+dummy length-1 row), and the two paged serving steps of the contract —
+``paged_prefill_ragged`` (mixed prefill-at-tail, decode and dummy rows) and
+``paged_decode`` (with an idle slot) — then get the same numpy inputs on
+both sides, and the logits, the prefill's K/V and the written page pools
+must agree. ``generate`` with and without its KV cache gives the JAX
+``generate``'s greedy tokens.
 
-Tolerance: float32, atol 1e-4 on logits and pools — the same float32
+Tolerance: float32, atol 1e-4 on logits, K/V and pools — the same float32
 products summed in other orders by two BLAS libraries and the attention
-formulations, through 2 layers; the bridge itself is bit-exact.
+formulations, through 2 layers; the bridge itself is bit-exact. Tokens:
+exact equality (logit gaps on these prompts are far above 1e-4).
 """
 
 import numpy as np
@@ -74,6 +78,72 @@ def test_weight_bridge_round_trip(pair):
     with pytest.raises(ValueError, match="shape"):
         weights.from_paddle_tpu_state(bad, tm)
     weights.from_paddle_tpu_state(arrays, tm)
+
+
+def test_dense_forward_logits_match_jax(pair):
+    """The dense causal forward (flash attention, fused RoPE) under the
+    bridged weights: the same parameter names serve it."""
+    jm, tm, _ = pair
+    ids = np.random.default_rng(4).integers(
+        0, tm.config.vocab_size, (2, 11)).astype(np.int32)
+    with no_grad():
+        want = np.asarray(jm(paddle.to_tensor(ids))._value)
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(ids).long())
+    assert got.shape == (2, 11, tm.config.vocab_size)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+def test_paged_prefill_logits_and_kv_match_jax(pair):
+    jm, tm, _ = pair
+    cfg = tm.config
+    rng = np.random.default_rng(5)
+    c, s_pad = 4, 16
+    lengths = np.array([16, 9, 3, 1], np.int32)   # last row: a dummy
+    ids = np.zeros((c, s_pad), np.int32)
+    for i, n in enumerate(lengths[:3]):
+        ids[i, :n] = rng.integers(1, cfg.vocab_size, n)
+    with no_grad():
+        jl, jk, jv = jm.paged_prefill(jnp.asarray(ids), jnp.asarray(lengths))
+    with torch.inference_mode():
+        tl, tk, tv = tm.paged_prefill(torch.from_numpy(ids).long(),
+                                      torch.from_numpy(lengths))
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    assert tk.shape == (cfg.num_hidden_layers, c, s_pad,
+                        cfg.num_key_value_heads, hd)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=ATOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL)
+
+
+@pytest.mark.parametrize("use_cache", [True, False],
+                         ids=["cache", "recompute"])
+def test_generate_greedy_tokens_match_jax(pair, use_cache):
+    jm, tm, _ = pair
+    ids = np.random.default_rng(6).integers(
+        1, tm.config.vocab_size, (2, 7)).astype(np.int32)
+    want = np.asarray(jm.generate(paddle.to_tensor(ids), max_new_tokens=8,
+                                  use_cache=use_cache)._value)
+    got = tm.generate(ids, max_new_tokens=8, use_cache=use_cache)
+    assert got.dtype == torch.int32 and got.shape == (2, 15)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_paths_of_later_slices_raise(pair):
+    """A loss, an attention mask and training-time dropout come with the
+    training and flashmask slices: each raises, none is served wrongly."""
+    from paddle_tpu_torch.nn import functional as F
+    tm = pair[1]
+    ids = torch.ones(1, 4, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tm(ids, labels=ids)
+    with pytest.raises(NotImplementedError, match="flashmask"):
+        tm(ids, attn_mask=torch.ones(1, 1, 4, 4, dtype=torch.bool))
+    q = torch.ones(1, 4, 2, 8)
+    with pytest.raises(NotImplementedError, match="training"):
+        F.scaled_dot_product_attention(q, q, q, dropout_p=0.1, training=True)
+    out = F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    assert out.shape == q.shape            # dropout is off outside training
 
 
 def test_paged_prefill_ragged_logits_match_jax(pair):
