@@ -9,9 +9,12 @@ kernel written for ``sm_90a`` under ``csrc/``, built at first use by
 Layout (each module names its ``paddle_tpu`` counterpart):
 
 - ``device``: device resolution (CUDA unless the caller asks for the CPU).
-- ``ops.kernels``: the four kernel wrappers (ragged paged attention, paged
-  decode attention, RMSNorm, SwiGLU), each beside its plain PyTorch
-  version and a launch counter.
+- ``ops.kernels``: the kernel wrappers (ragged paged attention, paged
+  decode attention and their int8 twins, RMSNorm, SwiGLU, flash attention
+  forward, fused RoPE), each beside its plain PyTorch version and a launch
+  counter.
+- ``quantization.page_quant``: int8 KV page codes and the offset-0 scale
+  freeze rule.
 - ``nn``: functional surface and the layers the Llama model uses.
 - ``models.llama``: the Llama paged-model contract.
 - ``weights``: the bridge from ``paddle_tpu`` parameters (as numpy arrays)

@@ -3,6 +3,7 @@
 // Every kernel computes in float32 and reads or writes its tensors in one of
 // three storage types, named by the dtype code the Python wrapper passes
 // (ops/kernels/_build.py DTYPE_CODES): 0 float32, 1 bfloat16, 2 float16.
+// The attention kernels also read int8 KV pages (to_f(int8_t)).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,10 +21,15 @@ constexpr float NEG_INF = -1e30f;
 // that saw no visible key (query padding, an empty context) writes 0 rather
 // than 0/0 (ops/primitive/tiles.py _L_EPS)
 constexpr float L_EPS = 1e-30f;
+// int8 KV pages hold codes in [-127, 127]; a page's values are
+// code * (scale * INV_QMAX), the multiplier folded as the JAX kernels'
+// _INV_QMAX (ops/pallas/quantized_attention.py)
+constexpr float INV_QMAX = 1.0f / 127.0f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }

@@ -11,6 +11,15 @@ What it keeps from the JAX engine:
   head_dim]`` pool per layer for K and for V, in the model's dtype. Each
   slot owns a block table of page ids (``BlockManager``); page 0 is the
   trash page that padding writes land in.
+- **int8 KV pages** (``kv_dtype="int8"``): the pools hold int8 codes and
+  each layer owns a float32 scale row per page for K and for V
+  (``quantization.page_quant``). The dense admission quantizes whole
+  pages; the ragged step and every decode step quantize each row as it
+  lands (``write_rows``, the offset-0 freeze rule), and attention reads
+  the codes through the dequant-fused kernels. CoW copies carry the scale
+  rows with the codes. Decode runs the TPU program step by step, not the
+  JAX engine's off-TPU dense fallback (which keeps a chunk's new rows in
+  float until the chunk ends).
 - **copy-on-write prefix cache**: every full page of a finished prefill
   is indexed by a hash chain over its tokens; a later prompt with the same
   prefix maps those pages instead of recomputing them. A write into a
@@ -36,10 +45,10 @@ What differs in this slice:
   ragged batches are still padded to power-of-two (rows, tokens) buckets
   and decode chunks to power-of-two lengths, as in JAX, so the shapes the
   kernels see stay few (CUDA graphs over them come later).
-- the JAX engine's options for int8 KV pages, speculative decoding, the
-  prefix store, deadlines, streaming, export/import and metrics are not
-  served yet: asking for one raises NotImplementedError naming the slice
-  that brings it.
+- the JAX engine's options for speculative decoding, the prefix store,
+  deadlines, streaming, export/import and metrics are not served yet:
+  asking for one raises NotImplementedError naming the slice that brings
+  it.
 
 Model contract: ``paged_spec()``, ``paged_prefill(ids, lengths)`` ->
 (last-real-token logits [C, V], ks, vs [L, C, S_pad, H_kv, hd]),
@@ -48,11 +57,14 @@ start_pos, k_pages, v_pages, block_tables, write_pids, write_offs)`` ->
 (last-real-token logits [C, V], k_pages, v_pages) and ``paged_decode(
 tokens, positions, k_pages, v_pages, block_tables, context_lens,
 write_pids, write_offs)`` -> (logits [B, V], k_pages, v_pages), both
-writing the batch's KV into the pools in place before attending.
+writing the batch's KV into the pools in place before attending; with
+int8 pools both also take ``k_scales=``/``v_scales=`` (per-layer scale
+rows, updated in place) and return them after the pools.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import OrderedDict, deque
@@ -60,6 +72,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from ..quantization import page_quant
 
 
 class PagedGenerationMixin:
@@ -376,9 +390,18 @@ class GenerationEngine:
         prompt tokens prefilled per dispatch (None: whole prompts).
         mixed_step (default on): decode rows ride the prefill chunk's
         ragged launch. cache_dtype: float dtype of the KV pools (default:
-        the model's). seed: seeds the sampling generator."""
-        if kv_dtype is not None:
-            raise _unsupported(f"kv_dtype={kv_dtype!r}", "int8 KV")
+        the model's; the float type of non-int8 pools). kv_dtype: "int8"
+        stores the pools as int8 codes with one float32 scale per (layer,
+        page) beside them; None consults PADDLE_TPU_KV_INT8 and otherwise
+        keeps float pools. seed: seeds the sampling generator."""
+        if kv_dtype is None:
+            env = os.environ.get("PADDLE_TPU_KV_INT8", "")
+            if env not in ("", "0", "false", "False"):
+                kv_dtype = "int8"
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
+        self.kv_dtype = kv_dtype
         if prefix_store is not None:
             raise _unsupported("prefix_store", "fleet plane")
         if spec_decode or any(v is not None for v in
@@ -402,13 +425,31 @@ class GenerationEngine:
             n_pages = 1 + self.max_slots * self._pages_per_slot
         dtype = model.dtype if cache_dtype is None else cache_dtype
         if not dtype.is_floating_point:
-            raise _unsupported(f"cache_dtype={dtype}", "int8 KV")
+            raise ValueError(f"cache_dtype must be a float type, got {dtype} "
+                             "(int8 pools: kv_dtype='int8')")
+        if self.kv_dtype == "int8":
+            dtype = torch.int8
         shape = (n_pages, self.page_size, spec["n_kv_heads"],
                  spec["head_dim"])
         self.k_pages = [torch.zeros(shape, dtype=dtype, device=self.device)
                         for _ in range(spec["n_layers"])]
         self.v_pages = [torch.zeros(shape, dtype=dtype, device=self.device)
                         for _ in range(spec["n_layers"])]
+        # int8 pools: per-(layer, page) scale rows. Ones, not zeros: a page
+        # is attendable before its opening write lands (masked by position,
+        # but the dequant still runs)
+        self.k_scales = self.v_scales = None
+        if self.kv_dtype == "int8":
+            self.k_scales = [torch.ones(n_pages, dtype=torch.float32,
+                                        device=self.device)
+                             for _ in range(spec["n_layers"])]
+            self.v_scales = [torch.ones(n_pages, dtype=torch.float32,
+                                        device=self.device)
+                             for _ in range(spec["n_layers"])]
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for t in (*self.k_pages, *self.v_pages,
+                                   *(self.k_scales or ()),
+                                   *(self.v_scales or ())))
         self.blocks = BlockManager(n_pages, self.page_size,
                                    self._pages_per_slot, self.max_slots,
                                    prefix_cache=prefix_cache)
@@ -441,7 +482,8 @@ class GenerationEngine:
                       "ragged_steps": 0,
                       "ragged_s": 0.0, "decode_chunks": 0, "decode_s": 0.0,
                       "decode_tokens": 0, "mixed_decode_tokens": 0,
-                      "preemptions": 0, "cow_flushes": 0}
+                      "preemptions": 0, "cow_flushes": 0,
+                      "kv_pool_bytes": pool_bytes}
         self.ttft_s = deque(maxlen=4096)   # first-token latency per request
         model.eval()
 
@@ -455,6 +497,13 @@ class GenerationEngine:
     def _put(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    def _scales(self):
+        """The scale rows the paged model calls take (none for float
+        pools); they are updated in place."""
+        if self.k_scales is None:
+            return {}
+        return {"k_scales": self.k_scales, "v_scales": self.v_scales}
+
     def _flush_cow(self):
         """Execute queued copy-on-write page copies on the device pools.
         MUST run before any dispatch writes through a CoW'd table and
@@ -464,7 +513,9 @@ class GenerationEngine:
             return
         src = self._put([s for s, _ in copies], torch.long)
         dst = self._put([d for _, d in copies], torch.long)
-        for pool in (*self.k_pages, *self.v_pages):
+        # a copied int8 page keeps its frozen scale
+        for pool in (*self.k_pages, *self.v_pages, *(self.k_scales or ()),
+                     *(self.v_scales or ())):
             pool[dst] = pool[src]
         self.stats["cow_flushes"] += 1
 
@@ -545,18 +596,30 @@ class GenerationEngine:
         pools, one whole page per (row, page) in the page ids [C, n_pg]
         (in the pools' dtype). Page ids past a row's pages are the trash
         page 0, which takes the padding (several rows may write it; its
-        content is never read as context)."""
+        content is never read as context).
+
+        int8 pools: each (layer, row, page) is quantized whole
+        (``quantize_pages``) and its scale written beside it. A page's
+        absmax covers every position of it that the forward computed,
+        including the rows between a prompt's length and S_pad (K/V of pad
+        token 0, not zeros), as the JAX program's does; only the tail
+        padding up to whole pages is zeros."""
         n_layers, c, s_pad = ks.shape[:3]
         n_pg = page_ids.shape[1]
         pad = n_pg * self.page_size - s_pad
         flat = page_ids.reshape(-1)
-        for kv, pools in ((ks, self.k_pages), (vs, self.v_pages)):
+        for kv, pools, scales in ((ks, self.k_pages, self.k_scales),
+                                  (vs, self.v_pages, self.v_scales)):
             if pad:
                 kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, pad))
             pages = kv.reshape(n_layers, c * n_pg, self.page_size,
                                *kv.shape[3:])
+            if scales is not None:
+                pages, page_scales = page_quant.quantize_pages(pages)
             for li, pool in enumerate(pools):
                 pool[flat] = pages[li].to(pool.dtype)
+                if scales is not None:
+                    scales[li][flat] = page_scales[li]
 
     def _assign_or_preempt(self, work, slot, start, n):
         """Assign pages for one row of the ragged dispatch, preempting the
@@ -629,10 +692,10 @@ class GenerationEngine:
         self._flush_cow()   # CoW copies land before this dispatch writes
 
         t0 = time.perf_counter()
-        logits, _, _ = self.model.paged_prefill_ragged(
+        logits = self.model.paged_prefill_ragged(
             self._put(ids), self._put(q_lens), self._put(start_pos),
             self.k_pages, self.v_pages, self._put(bt), self._put(wpid),
-            self._put(woff))
+            self._put(woff), **self._scales())[0]
         toks_np = sample_tokens(
             logits, self._put(temps) if np.any(temps > 0) else None,
             self._gen).cpu().numpy()        # host sync closes the window
@@ -714,9 +777,9 @@ class GenerationEngine:
             wp = torch.where(dev_active,
                              bt[rows, positions // page].long(), zero)
             wo = torch.where(dev_active, positions % page, zero)
-            logits, _, _ = self.model.paged_decode(
+            logits = self.model.paged_decode(
                 tokens, positions, self.k_pages, self.v_pages, bt, ctx, wp,
-                wo)
+                wo, **self._scales())[0]
             tokens = torch.where(
                 dev_active, sample_tokens(logits, temps, self._gen), tokens)
             positions = torch.where(dev_active, positions + 1, positions)

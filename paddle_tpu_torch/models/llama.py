@@ -27,6 +27,7 @@ from ..inference.engine import PagedGenerationMixin, sample_tokens
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
 from ..ops.kernels.decode_attention import NEG_INF
+from ..quantization import page_quant
 
 
 @dataclass
@@ -144,33 +145,43 @@ class LlamaAttention(nn.Module):
 
     def paged_decode_step(self, hidden, cos, sin, k_pages, v_pages,
                           block_tables, context_lens, write_pids,
-                          write_offs):
+                          write_offs, k_scales=None, v_scales=None):
         """Single-token step over the paged cache. hidden [B, 1, h];
         cos/sin [B, hd]; k_pages/v_pages this layer's pools
         [N, page, H_kv, hd]; write_pids/write_offs [B]: where each slot's
-        new KV lands (written before attention reads it)."""
+        new KV lands (written before attention reads it).
+
+        k_scales/v_scales ([N] float32, this layer's per-page scale rows)
+        select int8 pools: the rows are quantized into them under the
+        offset-0 freeze rule (``page_quant.write_rows``, pools and scale
+        rows updated in place) and attention reads them through the
+        dequant-fused kernel. Without them the pools are float."""
         b = hidden.shape[0]
         q, k, v = self._qkv(hidden, cos, sin)
-        k_pages.index_put_((write_pids, write_offs), k[:, 0].to(k_pages.dtype))
-        v_pages.index_put_((write_pids, write_offs), v[:, 0].to(v_pages.dtype))
+        page_quant.write_rows(k_pages, k_scales, write_pids, write_offs,
+                              k[:, 0])
+        page_quant.write_rows(v_pages, v_scales, write_pids, write_offs,
+                              v[:, 0])
         out = F.paged_attention(q[:, 0], k_pages, v_pages, block_tables,
-                                context_lens)
+                                context_lens, k_scales=k_scales,
+                                v_scales=v_scales)
         out = out.reshape(b, 1, self.num_heads * self.head_dim)
         return self.o_proj(out.to(hidden.dtype))
 
     def paged_ragged_step(self, hidden, cos, sin, k_pages, v_pages,
                           block_tables, context_lens, q_lens, write_pids,
-                          write_offs):
+                          write_offs, k_scales=None, v_scales=None):
         """Ragged chunk step (mixed prefill+decode). hidden [C, Q, h]; row
         r's q_lens[r] real tokens sit at the tail of its paged context;
         cos/sin [C, Q, hd]; write_pids/write_offs [C, Q] (padding targets
-        the trash page 0)."""
+        the trash page 0); k_scales/v_scales as in paged_decode_step."""
         b, qm = hidden.shape[0], hidden.shape[1]
         q, k, v = self._qkv(hidden, cos, sin)
-        k_pages.index_put_((write_pids, write_offs), k.to(k_pages.dtype))
-        v_pages.index_put_((write_pids, write_offs), v.to(v_pages.dtype))
+        page_quant.write_rows(k_pages, k_scales, write_pids, write_offs, k)
+        page_quant.write_rows(v_pages, v_scales, write_pids, write_offs, v)
         out = F.ragged_paged_attention(q, k_pages, v_pages, block_tables,
-                                       context_lens, q_lens)
+                                       context_lens, q_lens,
+                                       k_scales=k_scales, v_scales=v_scales)
         out = out.reshape(b, qm, self.num_heads * self.head_dim)
         return self.o_proj(out.to(hidden.dtype))
 
@@ -236,14 +247,14 @@ class LlamaDecoderLayer(nn.Module):
             cache_v, pos)
         return self._mlp_block(hidden + x), cache_k, cache_v
 
-    def paged_decode_step(self, hidden, *args):
+    def paged_decode_step(self, hidden, *args, **kw):
         x = self.self_attn.paged_decode_step(self.input_layernorm(hidden),
-                                             *args)
+                                             *args, **kw)
         return self._mlp_block(hidden + x)
 
-    def paged_ragged_step(self, hidden, *args):
+    def paged_ragged_step(self, hidden, *args, **kw):
         x = self.self_attn.paged_ragged_step(self.input_layernorm(hidden),
-                                             *args)
+                                             *args, **kw)
         return self._mlp_block(hidden + x)
 
 
@@ -307,24 +318,31 @@ class LlamaModel(nn.Module):
         return self.norm(hidden), new_caches
 
     def paged_decode_step(self, tokens, positions, k_pages, v_pages,
-                          block_tables, context_lens, write_pids, write_offs):
+                          block_tables, context_lens, write_pids, write_offs,
+                          k_scales=None, v_scales=None):
         """tokens/positions [B] int64 (each slot's incoming token and its
-        position); k_pages/v_pages per-layer pool lists. Returns the final
-        hidden [B, 1, h]."""
+        position); k_pages/v_pages per-layer pool lists; k_scales/v_scales
+        per-layer scale rows of int8 pools (None: float pools). Returns the
+        final hidden [B, 1, h]."""
         hidden = self.embed_tokens(tokens[:, None])
         cos = self.rope_cos[positions]
         sin = self.rope_sin[positions]
-        for layer, kp, vp in zip(self.layers, k_pages, v_pages):
+        n = len(self.layers)
+        for layer, kp, vp, ks, vs in zip(self.layers, k_pages, v_pages,
+                                         k_scales or [None] * n,
+                                         v_scales or [None] * n):
             hidden = layer.paged_decode_step(
                 hidden, cos, sin, kp, vp, block_tables, context_lens,
-                write_pids, write_offs)
+                write_pids, write_offs, k_scales=ks, v_scales=vs)
         return self.norm(hidden)
 
     def paged_ragged_step(self, ids, q_lens, start_pos, k_pages, v_pages,
-                          block_tables, write_pids, write_offs):
+                          block_tables, write_pids, write_offs,
+                          k_scales=None, v_scales=None):
         """ids [C, Q] int64 right-padded token windows at the tail of each
         row's context; start_pos [C] int32 position of each row's first
-        token; q_lens [C] int32. Returns the final hidden [C, Q, h]."""
+        token; q_lens [C] int32; k_scales/v_scales as in
+        paged_decode_step. Returns the final hidden [C, Q, h]."""
         hidden = self.embed_tokens(ids)
         qm = ids.shape[1]
         positions = start_pos.long()[:, None] + \
@@ -334,10 +352,13 @@ class LlamaModel(nn.Module):
         cos = self.rope_cos[positions]
         sin = self.rope_sin[positions]
         context_lens = (start_pos + q_lens).to(torch.int32)
-        for layer, kp, vp in zip(self.layers, k_pages, v_pages):
+        n = len(self.layers)
+        for layer, kp, vp, ks, vs in zip(self.layers, k_pages, v_pages,
+                                         k_scales or [None] * n,
+                                         v_scales or [None] * n):
             hidden = layer.paged_ragged_step(
                 hidden, cos, sin, kp, vp, block_tables, context_lens,
-                q_lens, write_pids, write_offs)
+                q_lens, write_pids, write_offs, k_scales=ks, v_scales=vs)
         return self.norm(hidden)
 
 
@@ -395,26 +416,31 @@ class LlamaForCausalLM(nn.Module, PagedGenerationMixin):
         return self._head(h_last)[:, 0], ks, vs
 
     def paged_decode(self, tokens, positions, k_pages, v_pages,
-                     block_tables, context_lens, write_pids, write_offs):
-        """Engine decode step -> (logits [B, V], k_pages, v_pages); the
-        pools are updated in place and returned as given."""
+                     block_tables, context_lens, write_pids, write_offs,
+                     k_scales=None, v_scales=None):
+        """Engine decode step -> (logits [B, V], k_pages, v_pages[,
+        k_scales, v_scales]); the pools (and, for int8 pools, the per-layer
+        scale rows) are updated in place and returned as given."""
         hidden = self.llama.paged_decode_step(
             tokens, positions, k_pages, v_pages, block_tables, context_lens,
-            write_pids, write_offs)
-        return self._head(hidden)[:, 0], k_pages, v_pages
+            write_pids, write_offs, k_scales=k_scales, v_scales=v_scales)
+        out = (self._head(hidden)[:, 0], k_pages, v_pages)
+        return out if k_scales is None else out + (k_scales, v_scales)
 
     def paged_prefill_ragged(self, ids, q_lens, start_pos, k_pages, v_pages,
-                             block_tables, write_pids, write_offs):
+                             block_tables, write_pids, write_offs,
+                             k_scales=None, v_scales=None):
         """Engine ragged step (chunked/suffix prefill + mixed decode in one
         launch per layer) -> (each row's last-real-token logits [C, V],
-        k_pages, v_pages)."""
+        k_pages, v_pages[, k_scales, v_scales])."""
         hidden = self.llama.paged_ragged_step(
             ids, q_lens, start_pos, k_pages, v_pages, block_tables,
-            write_pids, write_offs)
+            write_pids, write_offs, k_scales=k_scales, v_scales=v_scales)
         c = ids.shape[0]
         rows = torch.arange(c, device=ids.device)
         h_last = hidden[rows, q_lens.long() - 1][:, None]
-        return self._head(h_last)[:, 0], k_pages, v_pages
+        out = (self._head(h_last)[:, 0], k_pages, v_pages)
+        return out if k_scales is None else out + (k_scales, v_scales)
 
     def _head(self, hidden):
         if self.lm_head is None:

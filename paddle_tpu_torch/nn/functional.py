@@ -11,8 +11,6 @@ from __future__ import annotations
 
 from ..ops import kernels as _k
 
-_INT8 = ("int8 KV pages (k_scales/v_scales) come with the int8 KV slice "
-         "of the port; this slice serves float pools only")
 _MASKED = ("scaled_dot_product_attention with {} comes with the training "
            "and flashmask slices of the port; this slice serves unmasked "
            "attention without dropout (the flash kernel)")
@@ -57,8 +55,10 @@ def paged_attention(query, k_pages, v_pages, block_tables, context_lens,
     query: [B, H, D] (one token per sequence) or [B, 1, H, D];
     k_pages/v_pages: [N_pages, page, H_kv, D]; block_tables: [B, P_max]
     int32 (entries past context_lens are ignored); context_lens: [B] int32
-    visible tokens per sequence INCLUDING the current one. Returns the
-    output with query's rank."""
+    visible tokens per sequence INCLUDING the current one. k_scales/
+    v_scales ([N_pages] float32, the layer's per-page scale rows) select
+    the dequant-fused kernel over int8 pools. Returns the output with
+    query's rank."""
     squeeze = query.dim() == 4
     if squeeze:
         if query.shape[1] != 1:
@@ -69,9 +69,13 @@ def paged_attention(query, k_pages, v_pages, block_tables, context_lens,
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales must be given together")
     if k_scales is not None:
-        raise NotImplementedError(_INT8)
-    out = _k.paged_decode_attention(query, k_pages, v_pages, block_tables,
-                                    context_lens, scale=scale)
+        out = _k.paged_decode_attention_int8(query, k_pages, v_pages,
+                                             k_scales, v_scales, block_tables,
+                                             context_lens, scale=scale)
+    else:
+        out = _k.paged_decode_attention(query, k_pages, v_pages,
+                                        block_tables, context_lens,
+                                        scale=scale)
     return out[:, None] if squeeze else out
 
 
@@ -82,6 +86,7 @@ def ragged_paged_attention(query, k_pages, v_pages, block_tables,
     launch. query: [C, Q_max, H, D] right-padded rows; row r's q_lens[r]
     real queries sit at the TAIL of its context; context_lens [C] counts
     the queries themselves (their KV is in the pages already); q_lens [C].
+    k_scales/v_scales select the int8 kernel (see paged_attention).
     Returns [C, Q_max, H, D] with padded query rows zeroed."""
     if query.dim() != 4:
         raise ValueError(
@@ -90,6 +95,9 @@ def ragged_paged_attention(query, k_pages, v_pages, block_tables,
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales must be given together")
     if k_scales is not None:
-        raise NotImplementedError(_INT8)
+        return _k.ragged_paged_attention_int8(query, k_pages, v_pages,
+                                              k_scales, v_scales,
+                                              block_tables, context_lens,
+                                              q_lens, scale=scale)
     return _k.ragged_paged_attention(query, k_pages, v_pages, block_tables,
                                      context_lens, q_lens, scale=scale)

@@ -12,6 +12,10 @@ from __future__ import annotations
 from .decode_attention import (paged_decode_attention,
                                paged_decode_attention_plain)
 from .flash_attention import flash_attention_fwd, flash_attention_fwd_plain
+from .quantized_attention import (paged_decode_attention_int8,
+                                  paged_decode_attention_int8_plain,
+                                  ragged_paged_attention_int8,
+                                  ragged_paged_attention_int8_plain)
 from .ragged_attention import (ragged_paged_attention,
                                ragged_paged_attention_plain)
 from .rms_norm import rms_norm, rms_norm_plain
@@ -41,6 +45,15 @@ KERNELS = {
     "fused_rope": (
         fused_rope, "paddle_tpu_torch/csrc/rope.cu",
         "paddle_tpu/ops/pallas/norms.py:131"),
+    # the float kernels' templates over int8 pages with per-page scales
+    "ragged_paged_attention_int8": (
+        ragged_paged_attention_int8,
+        "paddle_tpu_torch/csrc/quantized_attention.cu",
+        "paddle_tpu/ops/pallas/quantized_attention.py:331"),
+    "paged_decode_attention_int8": (
+        paged_decode_attention_int8,
+        "paddle_tpu_torch/csrc/quantized_attention.cu",
+        "paddle_tpu/ops/pallas/quantized_attention.py:213"),
 }
 
 
@@ -58,5 +71,7 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
            "flash_attention_fwd", "flash_attention_fwd_plain",
            "fused_rope", "fused_rope_plain",
            "paged_decode_attention", "paged_decode_attention_plain",
+           "paged_decode_attention_int8", "paged_decode_attention_int8_plain",
            "ragged_paged_attention", "ragged_paged_attention_plain",
+           "ragged_paged_attention_int8", "ragged_paged_attention_int8_plain",
            "rms_norm", "rms_norm_plain", "swiglu", "swiglu_plain"]

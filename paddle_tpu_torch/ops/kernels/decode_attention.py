@@ -24,21 +24,34 @@ from . import _build
 NEG_INF = -1e30
 
 
+def gather_pages(pages, block_tables):
+    """Each row's context from the pool: pages [N, page, H_kv, D] and
+    block_tables [B, P] -> [B, P * page, H_kv, D] float32."""
+    b, p_max = block_tables.shape
+    seq = pages[block_tables.long()].float()
+    return seq.reshape(b, p_max * pages.shape[1], *pages.shape[2:])
+
+
 def paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
                                  context_lens, scale=None):
     """q: [B, H, D]; k_pages/v_pages: [N, page, H_kv, D]; block_tables:
     [B, P] int; context_lens: [B] int -> [B, H, D]."""
+    return decode_over_context(q, gather_pages(k_pages, block_tables),
+                               gather_pages(v_pages, block_tables),
+                               context_lens, scale)
+
+
+def decode_over_context(q, k_seq, v_seq, context_lens, scale=None):
+    """The plain versions' attention over gathered contexts: q [B, H, D];
+    k_seq/v_seq [B, S, H_kv, D] float32; key s is visible when s <
+    context_lens[b] -> [B, H, D] in q's type."""
     b, h, d = q.shape
-    _, page, h_kv, _ = k_pages.shape
-    p_max = block_tables.shape[1]
+    s_len, h_kv = k_seq.shape[1], k_seq.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     rep = h // h_kv
-    bt = block_tables.long()
-    k_seq = k_pages[bt].reshape(b, p_max * page, h_kv, d).float()
-    v_seq = v_pages[bt].reshape(b, p_max * page, h_kv, d).float()
     qg = q.reshape(b, h_kv, rep, d).float()
     s = torch.einsum("bgrd,bsgd->bgrs", qg, k_seq) * scale
-    pos = torch.arange(p_max * page, device=q.device)
+    pos = torch.arange(s_len, device=q.device)
     valid = pos[None, :] < context_lens.to(q.device)[:, None].long()
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     # masked keys already get exp(NEG_INF - max) == 0; the product zeroes

@@ -19,7 +19,7 @@ import math
 import torch
 
 from . import _build
-from .decode_attention import NEG_INF
+from .decode_attention import NEG_INF, gather_pages
 
 # query rows (query positions x heads of one KV group) that one block of
 # the CUDA kernel owns; each page read is shared by all of them
@@ -32,21 +32,26 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
     block_tables [C, P]; context_lens/q_lens [C] -> [C, Q_max, H, D].
     Query i of row r sits at position context_lens[r] - q_lens[r] + i;
     padded query rows (i >= q_lens[r]) return zeros."""
+    return ragged_over_context(q, gather_pages(k_pages, block_tables),
+                               gather_pages(v_pages, block_tables),
+                               context_lens, q_lens, scale)
+
+
+def ragged_over_context(q, k_seq, v_seq, context_lens, q_lens, scale=None):
+    """The plain versions' ragged attention over gathered contexts:
+    q [C, Q_max, H, D]; k_seq/v_seq [C, S, H_kv, D] float32 ->
+    [C, Q_max, H, D] in q's type, padded query rows zeroed."""
     c, q_max, h, d = q.shape
-    _, page, h_kv, _ = k_pages.shape
-    p_max = block_tables.shape[1]
+    s_len, h_kv = k_seq.shape[1], k_seq.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     rep = h // h_kv
-    bt = block_tables.long()
-    k_seq = k_pages[bt].reshape(c, p_max * page, h_kv, d).float()
-    v_seq = v_pages[bt].reshape(c, p_max * page, h_kv, d).float()
     qg = q.reshape(c, q_max, h_kv, rep, d).float()
     s = torch.einsum("bqgrd,bsgd->bgrqs", qg, k_seq) * scale
     ctx = context_lens.to(q.device).long()
     ql = q_lens.to(q.device).long()
     q_idx = torch.arange(q_max, device=q.device)
     q_pos = ctx[:, None] - ql[:, None] + q_idx[None, :]          # [C, Q]
-    k_pos = torch.arange(p_max * page, device=q.device)
+    k_pos = torch.arange(s_len, device=q.device)
     valid = (k_pos[None, None, :] <= q_pos[:, :, None]) & \
         (k_pos[None, None, :] < ctx[:, None, None])              # [C, Q, S]
     s = s.masked_fill(~valid[:, None, None], NEG_INF)

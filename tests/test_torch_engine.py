@@ -15,6 +15,13 @@ isolation rules.
 - ``fork_request`` mid-decode: the fork's first write into the shared
   partial tail page is a real copy-on-write, and both the parent and the
   fork end with the JAX engine's tokens;
+- int8 KV pages (``kv_dtype="int8"``): greedy tokens equal the JAX int8
+  engine's, run as the TPU program runs it (``_dense_fallback = False`` on
+  the JAX instance: off the TPU the JAX engine otherwise decodes a chunk
+  densely and quantizes its new rows only at the chunk's end), and differ
+  from the float engine's somewhere; one dense admission writes the JAX
+  engine's codes and scale rows; a fork's CoW copy carries the scale rows;
+  the ``kv_dtype`` argument and the ``PADDLE_TPU_KV_INT8`` flag;
 - ``BlockManager`` unit cases, the ones ``tests/test_serving_fastpath.py``
   runs against the JAX package's copy, pointed at the port's copy;
 - entry points raise without ``device="cpu"`` when no CUDA card is
@@ -216,11 +223,165 @@ def test_preemption_under_a_small_pool_keeps_tokens(pair):
         np.testing.assert_array_equal(out[rid], w)
 
 
-@pytest.mark.parametrize("kw", [dict(kv_dtype="int8"), dict(spec_decode="ngram"),
+@pytest.mark.parametrize("kw", [dict(kv_dtype="int4"), dict(spec_decode="ngram"),
                                 dict(prefix_store=object()), dict(spec_k=2)])
 def test_options_of_later_slices_raise(pair, kw):
+    """Options of later slices raise NotImplementedError naming the slice;
+    a kv_dtype other than None or "int8" is refused as the JAX engine
+    refuses it."""
+    if "kv_dtype" in kw:
+        with pytest.raises(ValueError, match="kv_dtype"):
+            GenerationEngine(pair[1], **kw)
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         GenerationEngine(pair[1], **kw)
+
+
+# ----------------------------------------------------------------------
+# int8 KV pages
+# ----------------------------------------------------------------------
+
+def _jax_int8_engine(jm, **kw):
+    """The JAX int8 engine as the TPU runs it: every decode step quantizes
+    its row through write_rows (the instance's dense CPU fallback off)."""
+    from paddle_tpu.inference.engine import GenerationEngine as JaxEngine
+    eng = JaxEngine(jm, kv_dtype="int8", **kw)
+    eng._dense_fallback = False
+    return eng
+
+
+def _serve(eng, prompts, n_new, jax=False):
+    rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
+    if jax:
+        out = eng.run()
+    else:
+        with torch.inference_mode():
+            out = eng.run()
+    return [out[r] for r in rids]
+
+
+@pytest.mark.parametrize("chunk", [8, None], ids=["chunk8", "no_chunk"])
+def test_int8_greedy_parity_with_jax_int8_engine(pair, chunk):
+    """The mixed workload (dense admissions, chunked and suffix ragged
+    prefill after a prefix hit, mixed steps, decode chunks) over int8
+    pools: tokens equal the JAX int8 engine's exactly, and differ from the
+    port's float engine somewhere (the quantization is not a no-op)."""
+    jm, tm = pair
+    kw = dict(ENGINE_KW, prefill_chunk=chunk)
+    prompts = _mixed_prompts()
+    want = _serve(_jax_int8_engine(jm, **kw), prompts, 10, jax=True)
+    eng = GenerationEngine(tm, kv_dtype="int8", **kw)
+    got = _serve(eng, prompts, 10)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    flt = _serve(GenerationEngine(tm, **kw), prompts, 10)
+    assert any(not np.array_equal(g, f) for g, f in zip(got, flt))
+    st = eng.stats
+    assert st["prefill_admits"] > 0 and st["ragged_steps"] > 0
+    assert st["prefix_hits"] == 1 and st["decode_chunks"] > 0
+    assert eng.k_pages[0].dtype == torch.int8
+    assert np.all(eng.blocks.refcount[1:] == 0)
+
+
+def test_int8_dense_admission_writes_the_jax_engines_pages(pair):
+    """One dense admission of three cold prompts (and a dummy row): the
+    codes and scale rows it writes equal the JAX int8 engine's. A page's
+    absmax covers the pad-token rows up to S_pad, as the JAX program's.
+    Codes may differ by 1 where a value lies within float32 rounding of a
+    half-code boundary (at most 1 in 500); scales rtol 1e-6."""
+    jm, tm = pair
+    kw = dict(ENGINE_KW, max_slots=3)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 128, n).astype(np.int32) for n in (7, 3, 8)]
+    jeng = _jax_int8_engine(jm, **kw)
+    teng = GenerationEngine(tm, kv_dtype="int8", **kw)
+    _serve(jeng, prompts, 1, jax=True)
+    _serve(teng, prompts, 1)
+    assert teng.stats["prefill_admits"] == 1
+    assert teng.stats["ragged_steps"] == teng.stats["decode_chunks"] == 0
+    for jp, tp in zip(jeng.k_pages + jeng.v_pages,
+                      teng.k_pages + teng.v_pages):
+        assert tp.dtype == torch.int8
+        diff = tp.numpy()[1:].astype(np.int32) - np.asarray(jp)[1:]
+        assert np.abs(diff).max() <= 1       # a half-code boundary at most
+        assert np.count_nonzero(diff) * 500 <= diff.size
+    for js, ts in zip(jeng.k_scales + jeng.v_scales,
+                      teng.k_scales + teng.v_scales):
+        np.testing.assert_allclose(ts.numpy()[1:], np.asarray(js)[1:],
+                                   rtol=1e-6)
+        assert np.all(ts.numpy()[6:] == 1.0)     # unwritten pages: ones
+    # the 7-token prompt's second page (page 2) holds positions 4..7 of
+    # the (4, 8) bucket; position 7 is pad token 0's K/V, and in layer 1
+    # it is the page's absmax: the frozen scale counts it
+    ids = np.zeros((4, 8), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    with torch.inference_mode():
+        _, ks, vs = tm.paged_prefill(torch.from_numpy(ids),
+                                     torch.tensor([7, 3, 8, 1]))
+    for kv, scales in ((ks, teng.k_scales), (vs, teng.v_scales)):
+        with_pad = float(kv[1, 0, 4:8].abs().max())
+        assert float(scales[1][2]) == np.float32(with_pad)
+        assert with_pad != float(kv[1, 0, 4:7].abs().max())
+
+
+def test_int8_fork_copies_scale_rows_on_write(pair):
+    """fork_request mid-decode over int8 pools: the fork's first write into
+    the shared partial tail page copies the page WITH its frozen scale, and
+    the parent and the fork both end with the JAX int8 engine's tokens."""
+    jm, tm = pair
+    prompt = np.array([3, 1, 4, 1, 5], np.int32)
+    ref = _serve(_jax_int8_engine(jm, **ENGINE_KW), [prompt], 12,
+                 jax=True)[0]
+    eng = GenerationEngine(tm, kv_dtype="int8", **ENGINE_KW)
+    flush = eng._flush_cow
+    copied = []
+
+    def checked_flush():
+        pending = list(eng.blocks._pending_copies)
+        flush()
+        for src, dst in pending:
+            copied.append(all(
+                float(sc[dst]) == float(sc[src])
+                for sc in eng.k_scales + eng.v_scales) and all(
+                torch.equal(pool[dst], pool[src])
+                for pool in eng.k_pages + eng.v_pages))
+
+    eng._flush_cow = checked_flush
+    rid = eng.add_request(prompt, max_new_tokens=12)
+    with torch.inference_mode():
+        while len(eng._reqs[rid].out) < 4:     # mid-decode, tail partial
+            eng.step()
+        child = eng.fork_request(rid)
+        results = eng.run()
+    assert copied and all(copied)
+    np.testing.assert_array_equal(results[rid], ref)
+    np.testing.assert_array_equal(results[child], ref)
+
+
+def test_int8_kv_dtype_flag_and_pools(pair, monkeypatch):
+    """The cases of tests/test_kv_int8.py's flag tests on the port's
+    engine: explicit kv_dtype, the PADDLE_TPU_KV_INT8 flag (an explicit
+    kv_dtype beats it), int8 pools with float32 scale rows of ones, and
+    pool bytes (scale rows included) under half the float32 pools'."""
+    tm = pair[1]
+    monkeypatch.delenv("PADDLE_TPU_KV_INT8", raising=False)
+    off = GenerationEngine(tm, **ENGINE_KW)
+    assert off.kv_dtype is None and off.k_scales is None
+    assert off.k_pages[0].dtype == torch.float32
+    on = GenerationEngine(tm, kv_dtype="int8", **ENGINE_KW)
+    assert on.kv_dtype == "int8" and on.k_pages[0].dtype == torch.int8
+    assert len(on.k_scales) == len(on.v_scales) == len(on.k_pages)
+    assert on.k_scales[0].shape == (on.blocks.n_pages,)
+    assert on.k_scales[0].dtype == torch.float32
+    assert bool((on.v_scales[1] == 1.0).all())
+    assert 0 < on.stats["kv_pool_bytes"] < 0.5 * off.stats["kv_pool_bytes"]
+    monkeypatch.setenv("PADDLE_TPU_KV_INT8", "1")
+    assert GenerationEngine(tm, **ENGINE_KW).kv_dtype == "int8"
+    monkeypatch.setenv("PADDLE_TPU_KV_INT8", "0")
+    assert GenerationEngine(tm, **ENGINE_KW).kv_dtype is None
+    assert GenerationEngine(tm, kv_dtype="int8",
+                            **ENGINE_KW).kv_dtype == "int8"
 
 
 # ----------------------------------------------------------------------

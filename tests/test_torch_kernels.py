@@ -6,10 +6,15 @@ the Pallas kernel, run in interpret mode as the JAX package's own tests run
 it: ``rms_norm_pallas(x, w, eps, True)``, ``swiglu_pallas(g, u, True)``,
 ``fused_rope_pallas(x, cos, sin, True)``,
 ``paged_decode_attention(..., interpret=True)``,
-``ragged_paged_attention(..., interpret=True)``, and the flash forward both
+``ragged_paged_attention(..., interpret=True)``, their int8 twins
+``paged_decode_attention_int8(..., interpret=True)`` and
+``ragged_paged_attention_int8(..., interpret=True)`` (also against the
+``*_xla`` references, live slots only: the reference averages an idle
+slot, the kernels give it 0), and the flash forward both
 as the TPU kernel ``_flash_fwd_bhsd(..., interpret=True)`` and as the
 Pallas-on-GPU lowering ``_flash_fwd_gpu(..., interpret=True)``, with
-blocks of 8. The paged cases cover MHA and GQA, contexts ending mid-page
+blocks of 8. The int8 cases take random codes in [-127, 127] with random
+per-page scales. The paged cases cover MHA and GQA, contexts ending mid-page
 and on a page boundary, block-table entries past the context that point at
 real (garbage) pages, decode, prefill-at-tail, padded and dummy ragged
 rows, and an idle decode slot; the flash cases causal and not, MHA and
@@ -31,6 +36,7 @@ from paddle_tpu.ops.pallas.decode_attention import paged_decode_attention
 from paddle_tpu.ops.pallas.flash_attention import _flash_fwd_bhsd
 from paddle_tpu.ops.pallas.fused_ffn import swiglu_pallas
 from paddle_tpu.ops.pallas.norms import fused_rope_pallas, rms_norm_pallas
+from paddle_tpu.ops.pallas import quantized_attention as jqa
 from paddle_tpu.ops.pallas.ragged_attention import ragged_paged_attention
 from paddle_tpu.ops.primitive.lowering_gpu import _flash_fwd_gpu
 
@@ -142,6 +148,99 @@ def test_ragged_plain_matches_pallas(case, h_kv):
     _close(port, ref)
     for i, (_, n, _, _) in enumerate(rows):      # padded query rows are 0
         assert float(port[i, n:].abs().sum()) == 0.0
+
+
+def _int8_pools(rng, n_pages, page, h_kv, d):
+    codes = [rng.integers(-127, 128, (n_pages, page, h_kv, d)).astype(np.int8)
+             for _ in range(2)]
+    scales = [(0.1 + 3 * rng.random(n_pages)).astype(np.float32)
+              for _ in range(2)]
+    return codes, scales
+
+
+def _table(rng, listed, n_pages, p_max):
+    bt = np.zeros((len(listed), p_max), np.int32)   # dummy rows: trash page
+    for i, n in enumerate(listed):
+        bt[i, :n] = rng.choice(np.arange(1, n_pages), n, replace=False)
+    return bt
+
+
+@pytest.mark.parametrize("h_kv", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_paged_decode_int8_plain_matches_pallas(case, h_kv):
+    rng = np.random.default_rng(6)
+    h, d, page, p_max, n_pages = 4, 16, 4, 5, 16
+    rows = DECODE_CASES[case]
+    (kc, vc), (ks, vs) = _int8_pools(rng, n_pages, page, h_kv, d)
+    bt = _table(rng, [n for _, n in rows], n_pages, p_max)
+    ctx = np.array([c for c, _ in rows], np.int32)
+    q = _f32(rng, (len(rows), h, d))
+    args = [q, kc, vc, ks, vs, bt, ctx]
+    scale = 1.0 / float(np.sqrt(d))        # a python float: weakly typed
+    ref = jqa.paged_decode_attention_int8(*map(jnp.asarray, args),
+                                          scale=scale, interpret=True)
+    xla = jqa.paged_decode_attention_int8_xla(*map(jnp.asarray, args))
+    port = K.paged_decode_attention_int8(*map(torch.from_numpy, args))
+    assert port.dtype == torch.float32
+    _close(port, ref)
+    live = ctx > 0
+    _close(port[torch.from_numpy(live)], np.asarray(xla)[live])
+    assert float(port[torch.from_numpy(~live)].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("h_kv", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
+def test_ragged_int8_plain_matches_pallas(case, h_kv):
+    rng = np.random.default_rng(7)
+    h, d, page, p_max, n_pages, q_max = 4, 16, 4, 5, 24, 8
+    rows = RAGGED_CASES[case]
+    (kc, vc), (ks, vs) = _int8_pools(rng, n_pages, page, h_kv, d)
+    bt = _table(rng, [r[2] for r in rows], n_pages, p_max)
+    ctx = np.array([r[0] for r in rows], np.int32)
+    ql = np.array([r[1] for r in rows], np.int32)
+    q = _f32(rng, (len(rows), q_max, h, d))
+    args = [q, kc, vc, ks, vs, bt, ctx, ql]
+    scale = 1.0 / float(np.sqrt(d))
+    ref = jqa.ragged_paged_attention_int8(*map(jnp.asarray, args),
+                                          scale=scale, interpret=True)
+    xla = jqa.ragged_paged_attention_int8_xla(*map(jnp.asarray, args))
+    port = K.ragged_paged_attention_int8(*map(torch.from_numpy, args))
+    _close(port, ref)
+    _close(port, xla)
+    for i, (_, n, _, _) in enumerate(rows):      # padded query rows are 0
+        assert float(port[i, n:].abs().sum()) == 0.0
+
+
+def test_int8_wrappers_refuse_float_pools_and_bad_scales():
+    """The int8 wrappers take int8 codes and one float32 scale per page;
+    anything else raises on the CPU as on the card (never a cast, never a
+    fallback). A CPU call counts no launch; a meta tensor is refused."""
+    rng = np.random.default_rng(8)
+    (kc, vc), (ks, vs) = _int8_pools(rng, 6, 4, 2, 8)
+    kc, vc, ks, vs = map(torch.from_numpy, (kc, vc, ks, vs))
+    q = torch.ones(2, 4, 8)
+    bt = torch.zeros(2, 3, dtype=torch.int32)
+    ctx = torch.tensor([5, 0], dtype=torch.int32)
+    K.reset_launch_counts()
+    assert K.paged_decode_attention_int8(q, kc, vc, ks, vs, bt,
+                                         ctx).shape == q.shape
+    q4 = torch.ones(2, 3, 4, 8)
+    ql = torch.tensor([3, 1], dtype=torch.int32)
+    assert K.ragged_paged_attention_int8(q4, kc, vc, ks, vs, bt, ctx,
+                                         ql).shape == q4.shape
+    assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
+    with pytest.raises(TypeError, match="int8"):
+        K.paged_decode_attention_int8(q, kc.float(), vc.float(), ks, vs, bt,
+                                      ctx)
+    with pytest.raises(TypeError, match="float32"):
+        K.paged_decode_attention_int8(q, kc, vc, ks.double(), vs, bt, ctx)
+    with pytest.raises(TypeError, match="one row"):
+        K.ragged_paged_attention_int8(q4, kc, vc, ks[:3], vs, bt, ctx, ql)
+    with pytest.raises(ValueError, match="rank"):
+        K.ragged_paged_attention_int8(q, kc, vc, ks, vs, bt, ctx, ql)
+    m = [t.to("meta") for t in (q, kc, vc, ks, vs, bt, ctx)]
+    with pytest.raises(ValueError, match="meta"):
+        K.paged_decode_attention_int8(*m)
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 4, 16), (1, 5, 3, 8)])

@@ -8,12 +8,18 @@ dummy length-1 row), and the two paged serving steps of the contract —
 ``paged_decode`` (with an idle slot) — then get the same numpy inputs on
 both sides, and the logits, the prefill's K/V and the written page pools
 must agree. ``generate`` with and without its KV cache gives the JAX
-``generate``'s greedy tokens.
+``generate``'s greedy tokens. The two paged steps also run over int8 pools
+with per-page scale rows (``k_scales``/``v_scales``): the logits, the
+written codes and the scale rows must agree with the JAX Llama's.
 
 Tolerance: float32, atol 1e-4 on logits, K/V and pools — the same float32
 products summed in other orders by two BLAS libraries and the attention
 formulations, through 2 layers; the bridge itself is bit-exact. Tokens:
-exact equality (logit gaps on these prompts are far above 1e-4).
+exact equality (logit gaps on these prompts are far above 1e-4). int8
+pools: scale rows rtol 1e-6 (an absmax of K/V rows that agree to float32
+rounding); codes equal except where a value lies within that rounding of
+a half-code boundary, where they may differ by 1 — such codes are
+counted, and at most 1 in 500 written codes may differ.
 """
 
 import numpy as np
@@ -221,3 +227,116 @@ def test_paged_decode_logits_match_jax(pair):
         for a, t in zip(pools_j, pools_t):
             np.testing.assert_allclose(t.numpy()[1:], np.asarray(a)[1:],
                                        atol=ATOL)
+
+
+def _int8_pools(rng, n_layers, kv_heads, hd):
+    shape = (N_PAGES, PAGE, kv_heads, hd)
+    return [[rng.integers(-127, 128, shape).astype(np.int8)
+             for _ in range(n_layers)] for _ in range(2)], \
+        [[(0.5 + rng.random(N_PAGES)).astype(np.float32)
+          for _ in range(n_layers)] for _ in range(2)]
+
+
+def _check_int8(jax_out, pools, scales, n_written):
+    """Scale rows and codes against the JAX step's outputs (page 0 is the
+    trash page: rows of several slots land on its offset 0)."""
+    _, jk, jv, jks, jvs = jax_out
+    off_by_one = 0
+    for jp, tp in zip(jk + jv, pools[0] + pools[1]):
+        diff = tp.numpy()[1:].astype(np.int32) - np.asarray(jp)[1:]
+        assert np.abs(diff).max() <= 1
+        off_by_one += int(np.count_nonzero(diff))
+    assert off_by_one * 500 <= n_written
+    for js, ts in zip(jks + jvs, scales[0] + scales[1]):
+        np.testing.assert_allclose(ts.numpy()[1:], np.asarray(js)[1:],
+                                   rtol=1e-6)
+
+
+def test_paged_prefill_ragged_int8_matches_jax(pair):
+    """The ragged step over int8 pools: page 1-2 and 5 opened by chunks,
+    appends at offset > 0 into pages 4 and 6 clip against their frozen
+    scales, a dummy row and padding on the trash page."""
+    jm, tm, _ = pair
+    cfg = tm.config
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    rng = np.random.default_rng(2)
+    c, q, p_max = 4, 8, 6
+    ids = rng.integers(0, cfg.vocab_size, (c, q)).astype(np.int32)
+    q_lens = np.array([8, 5, 1, 1], np.int32)
+    start = np.array([0, 7, 3, 0], np.int32)
+    bt = np.zeros((c, p_max), np.int32)
+    bt[0, :2], bt[1, :3], bt[2, :1] = [1, 2], [3, 4, 5], [6]
+    wp = np.zeros((c, q), np.int32)
+    wo = np.zeros((c, q), np.int32)
+    for r in range(3):
+        for i in range(q_lens[r]):
+            pos = start[r] + i
+            wp[r, i], wo[r, i] = bt[r, pos // PAGE], pos % PAGE
+    (kp, vp), (ks, vs) = _int8_pools(rng, cfg.num_hidden_layers,
+                                     cfg.num_key_value_heads, hd)
+    with no_grad():
+        jout = jm.paged_prefill_ragged(
+            jnp.asarray(ids), jnp.asarray(q_lens), jnp.asarray(start),
+            [jnp.asarray(a) for a in kp], [jnp.asarray(a) for a in vp],
+            jnp.asarray(bt), jnp.asarray(wp), jnp.asarray(wo),
+            k_scales=[jnp.asarray(a) for a in ks],
+            v_scales=[jnp.asarray(a) for a in vs])
+    pools = [[torch.from_numpy(a.copy()) for a in x] for x in (kp, vp)]
+    scales = [[torch.from_numpy(a.copy()) for a in x] for x in (ks, vs)]
+    with torch.inference_mode():
+        tout = tm.paged_prefill_ragged(
+            torch.from_numpy(ids).long(), torch.from_numpy(q_lens),
+            torch.from_numpy(start), *pools, torch.from_numpy(bt),
+            torch.from_numpy(wp).long(), torch.from_numpy(wo).long(),
+            k_scales=scales[0], v_scales=scales[1])
+    assert len(tout) == 5 and tout[3] is scales[0] and tout[1] is pools[0]
+    np.testing.assert_allclose(tout[0].numpy()[:3], np.asarray(jout[0])[:3],
+                               atol=ATOL)
+    n_written = 2 * cfg.num_hidden_layers * int(q_lens[:3].sum()) * \
+        cfg.num_key_value_heads * hd
+    _check_int8(jout, pools, scales, n_written)
+    assert float(scales[0][0][1]) != float(ks[0][1])     # page 1 opened
+    assert float(scales[0][0][4]) == float(ks[0][4])     # page 4 frozen
+
+
+def test_paged_decode_int8_matches_jax(pair):
+    """The decode step over int8 pools: slot 0 appends at offset 1 of page
+    3 (frozen scale), slot 1 opens page 5, slot 2 is idle (trash page)."""
+    jm, tm, _ = pair
+    cfg = tm.config
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    rng = np.random.default_rng(3)
+    b, p_max = 3, 6
+    tokens = rng.integers(0, cfg.vocab_size, b).astype(np.int32)
+    positions = np.array([9, 4, 0], np.int32)
+    bt = np.zeros((b, p_max), np.int32)
+    bt[0, :3], bt[1, :2] = [1, 2, 3], [4, 5]
+    ctx = np.array([10, 5, 0], np.int32)
+    wp = np.array([3, 5, 0], np.int32)
+    wo = positions % PAGE * (ctx > 0)
+    (kp, vp), (ks, vs) = _int8_pools(rng, cfg.num_hidden_layers,
+                                     cfg.num_key_value_heads, hd)
+    with no_grad():
+        jout = jm.paged_decode(
+            jnp.asarray(tokens), jnp.asarray(positions),
+            [jnp.asarray(a) for a in kp], [jnp.asarray(a) for a in vp],
+            jnp.asarray(bt), jnp.asarray(ctx), jnp.asarray(wp),
+            jnp.asarray(wo), k_scales=[jnp.asarray(a) for a in ks],
+            v_scales=[jnp.asarray(a) for a in vs])
+    pools = [[torch.from_numpy(a.copy()) for a in x] for x in (kp, vp)]
+    scales = [[torch.from_numpy(a.copy()) for a in x] for x in (ks, vs)]
+    with torch.inference_mode():
+        tout = tm.paged_decode(
+            torch.from_numpy(tokens).long(),
+            torch.from_numpy(positions).long(), *pools,
+            torch.from_numpy(bt), torch.from_numpy(ctx),
+            torch.from_numpy(wp).long(), torch.from_numpy(wo).long(),
+            k_scales=scales[0], v_scales=scales[1])
+    assert len(tout) == 5
+    # live slots only: the JAX reference averages the idle slot
+    np.testing.assert_allclose(tout[0].numpy()[:2], np.asarray(jout[0])[:2],
+                               atol=ATOL)
+    _check_int8(jout, pools, scales,
+                2 * cfg.num_hidden_layers * 2 * cfg.num_key_value_heads * hd)
+    assert float(scales[0][0][3]) == float(ks[0][3])     # frozen
+    assert float(scales[0][0][5]) != float(ks[0][5])     # opened
