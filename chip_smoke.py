@@ -6,17 +6,22 @@ Builds the port's CUDA kernels from paddle_tpu_torch/csrc (one nvcc per
 source, all started together), then:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, in bfloat16 and float32, with
-   the kernel's, the plain version's and (where one PyTorch call computes
-   the same function) the library call's time; the int8 attention kernels
-   read pages quantized by page_quant from random rows; then the cost of
-   the plain int8 page write (page_quant.write_rows) at the decode shape;
+   the shapes the serving and training paths give it, in bfloat16 and
+   float32, with the kernel's, the plain version's and (where one PyTorch
+   call computes the same function) the library call's time; the int8
+   attention kernels read pages quantized by page_quant from random rows;
+   the flash backward at the training shape [4, 2048, 16, 128] and with
+   GQA at [1, 2048, 32 -> 8, 128] in bfloat16 and at a small shape in
+   float32, its dq, dk and dv each held; then the cost of the plain int8
+   page write (page_quant.write_rows) at the decode shape;
 2. agree: a 2-layer tiny Llama in float32 with the same seeded weights on
    the CPU (plain versions) and on the card (kernels) — generate_batch
    with prefix cache, chunked prefill and mixed steps, generate_batch with
    cold prompts that fit the chunk (dense admission) beside a prefix hit,
    and generate with its KV cache must give the same greedy tokens; then
-   the same two workloads and a fork mid-decode over int8 KV pages;
+   the same two workloads and a fork mid-decode over int8 KV pages; then
+   (agree:train) the first backward's gradients and 3 AdamW steps of
+   compile_train_step must agree;
 3. serve: Llama-2-7B geometry in bfloat16 with random weights from a seed
    (all 32 layers) serves 8 requests of 300-900 tokens through
    generate_batch (chunked prefill, a prefix hit, mixed steps); every
@@ -31,15 +36,22 @@ source, all started together), then:
    kv_dtype="int8" (int8 pools, the int8 attention kernels), each beside
    the share of its generated tokens that differ from its bf16 twin's
    (printed, not checked: the weights are random), then profiled as
-   their twins are.
+   their twins are;
+6. train: with the serving model released, the configuration bench.py
+   trains on the TPU (0.74B Llama, batch 4 x 2048, bf16 parameters,
+   AdamW(1e-4, multi_precision=True)) takes a warm-up step and 5 timed
+   steps of compile_train_step on random weights and a fixed batch: the
+   losses must be finite and fall, and every step must launch each kernel
+   of the path as often as the model has call sites; then (profile:train)
+   one more step under torch.profiler.
 
-Each serving run's launch counts are set to 0 just before it and read just
-after it; every kernel of its path must have launched, and the int8 runs
-must launch the float paged attention kernels 0 times. Then it prints
-the card's name and power limit, one JSON line with every kernel's
-numbers, and as the last line {"ok": true, "device": {...}}. Any failure
-raises and exits non-zero without that line. Without a CUDA card it exits
-2 before doing anything.
+Each serving and training run's launch counts are set to 0 just before it
+and read just after it; every kernel of its path must have launched, and
+the int8 runs must launch the float paged attention kernels 0 times. Then
+it prints the card's name and power limit, one JSON line with every
+kernel's numbers, and as the last line {"ok": true, "device": {...}}. Any
+failure raises and exits non-zero without that line. Without a CUDA card
+it exits 2 before doing anything.
 """
 
 from __future__ import annotations
@@ -57,6 +69,9 @@ PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}  # dense tensor-core bf16; fp32 non-tensor
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the bf16 flash backward, element by element: |got - want| <=
+# 2^-7 |want| (one bf16 rounding of either side) + 2^-8 rms(want)
+BWD_REL_BF16, BWD_FLOOR_BF16 = 2.0 ** -7, 2.0 ** -8
 ITERS = 20                          # timed launches per kernel
 L2_FLUSH_BYTES = 256 << 20          # > the H100's 50 MB L2
 # device clock cycles (~1 ms) the stream spins before each timed launch
@@ -212,8 +227,8 @@ def check_decode(K, dev, dtype, rng, h_kv=32, int8=False):
             "library_ms": None}
 
 
-def check_rms(K, dev, dtype, rng):
-    t, hid, eps = 1024, 4096, 1e-6
+def check_rms(K, dev, dtype, rng, t=1024, hid=4096):
+    eps = 1e-6
     x = torch.from_numpy(rng.standard_normal(
         (t, hid), dtype=np.float32)).to(dev, dtype)
     w = torch.from_numpy(1.0 + 0.1 * rng.standard_normal(
@@ -231,8 +246,7 @@ def check_rms(K, dev, dtype, rng):
                 x, (hid,), w, eps))}
 
 
-def check_swiglu(K, dev, dtype, rng):
-    t, f = 1024, 11008
+def check_swiglu(K, dev, dtype, rng, t=1024, f=11008):
     g = torch.from_numpy(rng.standard_normal(
         (t, f), dtype=np.float32)).to(dev, dtype)
     u = torch.from_numpy(rng.standard_normal(
@@ -294,10 +308,84 @@ def check_flash(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
             "library_ms": lib}
 
 
-def check_rope(K, dev, dtype, rng):
-    """RoPE on the dense admission's q: [4, 256, 32, 128] with the
-    model's float32 [256, 128] tables."""
-    b, s, h, d = 4, 256, 32, 128
+def check_flash_bwd(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
+                    library=True):
+    """The causal flash backward against its plain version on the same
+    q, k, v, dout and the forward kernel's out and lse. The library call
+    is PyTorch's flash attention backward
+    (aten._scaled_dot_product_flash_attention_backward, on [B, H, S, D]
+    views, after its own forward; timed only with S_q = S_k and no GQA),
+    a yardstick the port never calls."""
+    q, do = (torch.from_numpy(rng.standard_normal(
+        (b, s_q, h, d), dtype=np.float32)).to(dev, dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (b, s_k, h_kv, d), dtype=np.float32)).to(dev, dtype)
+        for _ in range(2))
+    out, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    got = K.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = K.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    errs = [_max_err(a, r) for a, r in zip(got, want)]
+    scales, means, rms, worst = [], [], [], []
+    for a, r in zip(got, want):
+        r = r.float()
+        scales.append(float(r.abs().max()))
+        means.append(float(r.abs().mean()))
+        rms.append(float(r.square().mean().sqrt()))
+        allow = BWD_REL_BF16 * r.abs() + BWD_FLOOR_BF16 * rms[-1]
+        worst.append(float(((a.float() - r).abs() / allow).max()))
+    if dtype == torch.bfloat16:
+        # the rule must reject a kernel wrong by one typical value on a
+        # tail of keys: add one rms to dk's last 10% of keys
+        r = want[1].float()
+        bad = got[1].float()
+        bad[:, -max(1, s_k // 10):] += rms[1]
+        allow = BWD_REL_BF16 * r.abs() + BWD_FLOOR_BF16 * rms[1]
+        tail = float(((bad - r).abs() / allow).max())
+        print(f"[kernels] flash_attention_bwd rule on dk with one rms added "
+              f"to its last 10% of keys: err/allowed={tail:.1f} (must be "
+              f"> 1)", flush=True)
+        if tail <= 1.0:
+            raise AssertionError("flash_attention_bwd: the bf16 rule does "
+                                 "not reject a wrong tail of keys")
+        del bad
+    elt = q.element_size()
+    lib = None
+    if library:
+        lib = _library_flash_bwd(q, k, v, do)
+    return {"got": got, "want": want, "err": max(errs), "errs": errs,
+            "scales": scales, "means": means, "rms": rms, "worst": worst,
+            # five products over the visible pairs: S, dP, dV, dQ, dK
+            "flops": 10 * b * h * d * _causal_pairs(s_q, s_k),
+            # q, out, dout and k, v read, lse read, dq, dk, dv written
+            "bytes": (4 * q.numel() + 4 * k.numel()) * elt + lse.numel() * 4,
+            "ms": _time_ms(lambda: K.flash_attention_bwd(
+                q, k, v, out, lse, do, causal=True)),
+            "plain_ms": _time_ms(lambda: K.flash_attention_bwd_plain(
+                q, k, v, out, lse, do, causal=True), ITERS // 10),
+            "library_ms": lib}
+
+
+def _library_flash_bwd(q, k, v, do):
+    """ms of one aten flash attention backward at this shape, or None
+    (printed) when this PyTorch build has no such call for it."""
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    try:
+        fw = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True, False)
+        bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+        args = (dot, qt, kt, vt, fw[0], fw[1], fw[2], fw[3], fw[4], fw[5],
+                0.0, True, fw[6], fw[7])
+        return _time_ms(lambda: bwd(*args))
+    except (RuntimeError, TypeError) as e:
+        print(f"[kernels] library flash backward not timed: "
+              f"{type(e).__name__}: {str(e)[:200]}")
+        return None
+
+
+def check_rope(K, dev, dtype, rng, b=4, s=256, h=32, d=128):
+    """RoPE with float32 [S, D] tables; by default on the dense
+    admission's q, [4, 256, 32, 128]."""
     x = torch.from_numpy(rng.standard_normal(
         (b, s, h, d), dtype=np.float32)).to(dev, dtype)
     cos = torch.from_numpy(rng.standard_normal(
@@ -321,7 +409,23 @@ def _within(name, res, dtype):
     attention (outputs of magnitude < 1, one bf16 rounding of each side)
     and one bf16 ulp of the plain result for the elementwise kernels
     (both round one float32 value that differs in its last bits; RoPE
-    rounds in the same order on both sides and is expected exact)."""
+    rounds in the same order on both sides and is expected exact). The
+    flash backward's dq, dk and dv sum thousands of terms in float32 on
+    both sides and round once. Their values fall off along the causal rows,
+    so a typical |dq|, |dk|, |dv| (mean and rms, printed) lies far below
+    the largest: in float32 each is held to 1e-4 of its own largest value
+    (errors ~1e-6 of it); in bfloat16 each ELEMENT is held to 2^-7 of its
+    own size (one bf16 rounding, up to 2^-7 relative, of two float32 values
+    that differ in their last bits) plus a floor of 2^-8 of the tensor's
+    rms (elements near zero, where the float32 sums cancel), so an error
+    the size of a typical value anywhere fails."""
+    if name == "flash_attention_bwd":
+        if dtype == torch.float32:
+            ok = all(e <= 1e-4 * max(1.0, m)
+                     for e, m in zip(res["errs"], res["scales"]))
+            return ok, "<= 1e-4 of max|grad| per dq/dk/dv"
+        ok = all(w <= 1.0 for w in res["worst"])
+        return ok, "<= 2^-7|want| + 2^-8 rms(want) per element"
     if dtype == torch.float32:
         return res["err"] <= TOL[dtype], f"<= {TOL[dtype]}"
     if name in ("rms_norm", "swiglu", "fused_rope"):
@@ -369,7 +473,30 @@ def phase_kernels(K, dev):
             ("paged_decode_attention_int8[gqa8]", lambda: check_decode(
                 K, dev, dtype, rng8, h_kv=8, int8=True)),
         ]
+        if dtype == torch.bfloat16:
+            # the training step's shapes: [train] runs B=4, S=2048, 16
+            # heads of 128; GQA at the 7B width
+            cases += [
+                ("rms_norm[train]", lambda: check_rms(
+                    K, dev, dtype, rng, 8192, 2048)),
+                ("swiglu[train]", lambda: check_swiglu(
+                    K, dev, dtype, rng, 8192, 5504)),
+                ("fused_rope[train]", lambda: check_rope(
+                    K, dev, dtype, rng, 4, 2048, 16, 128)),
+                ("flash_attention[train]", lambda: check_flash(
+                    K, dev, dtype, rng, 4, 2048, 2048, 16, 16)),
+                ("flash_attention_bwd", lambda: check_flash_bwd(
+                    K, dev, dtype, rng, 4, 2048, 2048, 16, 16)),
+                ("flash_attention_bwd[gqa8]", lambda: check_flash_bwd(
+                    K, dev, dtype, rng, 1, 2048, 2048, 32, 8,
+                    library=False)),
+            ]
         if dtype == torch.float32:
+            cases += [
+                ("flash_attention_bwd[small]", lambda: check_flash_bwd(
+                    K, dev, dtype, rng, 2, 300, 300, 8, 4, d=64,
+                    library=False)),
+            ]
             # bottom-right causal alignment; rows that see no key
             cases += [
                 ("flash_attention[bottom_right]", lambda: check_flash(
@@ -384,6 +511,15 @@ def phase_kernels(K, dev):
             bound, by = _bound_ms(res["bytes"], res["flops"], dtype)
             lib = res["library_ms"]
             lse = f" lse_err={res['lse_err']:.3e}" if "lse_err" in res else ""
+            if "errs" in res:
+                lse += " dq/dk/dv_err=" + "/".join(
+                    f"{e:.3e}" for e in res["errs"]) + " max|grad|=" + \
+                    "/".join(f"{m:.3f}" for m in res["scales"]) + \
+                    " mean|grad|=" + "/".join(
+                        f"{m:.4f}" for m in res["means"]) + " rms=" + \
+                    "/".join(f"{m:.4f}" for m in res["rms"]) + \
+                    " err/allowed(bf16 rule)=" + "/".join(
+                        f"{w:.3f}" for w in res["worst"])
             print(f"[kernels] {name:35s} {str(dtype)[6:]:9s} "
                   f"max_abs_err={res['err']:.3e} ({tol}){lse} "
                   f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
@@ -476,14 +612,18 @@ def main():
     records = phase_kernels(K, dev)
     phase_agree(dev)
     phase_agree_int8(dev)
+    phase_agree_train(dev)
     model = _serving_model(dev)
     serve, serve_out = phase_serve(K, model)
     dense, dense_out = phase_serve_dense(K, model)
     serve8, _ = phase_serve(K, model, kv_dtype="int8", twin=serve_out)
     dense8, _ = phase_serve_dense(K, model, kv_dtype="int8", twin=dense_out)
-    launches = {k: serve[k] + dense[k] + serve8[k] + dense8[k]
+    del model                            # [train] reads its own peak
+    train, model, opt, batch = phase_train(K, dev)
+    phase_profile_train(model, opt, batch)
+    launches = {k: serve[k] + dense[k] + serve8[k] + dense8[k] + train[k]
                 for k in K.KERNELS}
-    _require_launched("all serving runs", launches, K.KERNELS)
+    _require_launched("all serving and training runs", launches, K.KERNELS)
 
     name_power = _nvidia_smi()
     print(name_power)
@@ -648,6 +788,263 @@ def phase_agree_int8(dev):
     _require_launched("agree:int8", launches, ("ragged_paged_attention_int8",
                                                "paged_decode_attention_int8"))
     _require_idle("agree:int8", launches, FLOAT_PAGED_KERNELS)
+
+
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rms_norm",
+                 "swiglu", "fused_rope")
+
+
+def _train_step(model, lr, multi_precision=False):
+    """(compile_train_step over the model's loss with AdamW(lr), the
+    optimizer)."""
+    from paddle_tpu_torch.jit import compile_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(lr, parameters=model.parameters(),
+                multi_precision=multi_precision)
+    return compile_train_step(model, lambda m, i, l: m(i, labels=l),
+                              opt), opt
+
+
+def _release():
+    """Free what earlier phases left on the card, so that the next peak
+    reading is the next phase's own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_agree_train(dev):
+    """The tiny pair trains: the first backward's gradients and 3 steps of
+    compile_train_step with AdamW(1e-3) on a fixed batch, CPU plain
+    versions against CUDA kernels, in float32. Tolerances: gradients 1e-4
+    absolute plus 1e-4 relative, losses 1e-4 (the same float32 products
+    summed in other orders by the kernels, cuBLAS and the CPU's BLAS; AdamW
+    steps each near-zero gradient by ~lr * sign, so parameters are not
+    held, the losses they give are). Every kernel of the training path
+    must launch on the card."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    _, cpu, gpu = _tiny_pair(dev)
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, cpu.config.vocab_size, (2, 16))
+    lab = rng.integers(0, cpu.config.vocab_size, (2, 16))
+    lab[0, :3] = -100
+    batch = {"cpu": (torch.from_numpy(ids), torch.from_numpy(lab))}
+    batch["gpu"] = tuple(t.to(dev) for t in batch["cpu"])
+    K.reset_launch_counts()
+    grads = {}
+    for tag, model in (("cpu", cpu), ("gpu", gpu)):
+        model(batch[tag][0], labels=batch[tag][1]).backward()
+        grads[tag] = {n: p.grad.detach().cpu().clone()
+                      for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+    worst = max(float(((grads["gpu"][n] - g).abs() - 1e-4 * g.abs()).max())
+                for n, g in grads["cpu"].items())
+    losses = {tag: [float(step(*batch[tag])) for _ in range(3)]
+              for tag, (step, _) in (("cpu", _train_step(cpu, 1e-3)),
+                                     ("gpu", _train_step(gpu, 1e-3)))}
+    launches = K.launch_counts()
+    loss_err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["gpu"]))
+    print(f"[agree:train] tiny f32, 3 AdamW steps: losses cpu "
+          f"{losses['cpu']} cuda {losses['gpu']} max_err={loss_err:.3e} "
+          f"(<= 1e-4); first-step grads max(|err| - 1e-4 |grad|)="
+          f"{worst:.3e} (<= 1e-4); launches "
+          f"{json.dumps({k: launches[k] for k in TRAIN_KERNELS})}",
+          flush=True)
+    if worst > 1e-4 or loss_err > 1e-4:
+        raise AssertionError("training: CPU plain path and CUDA kernel path "
+                             "disagree")
+    if not losses["gpu"][-1] < losses["gpu"][0]:
+        raise AssertionError("training: the tiny model's loss did not fall")
+    _require_launched("agree:train", launches, TRAIN_KERNELS)
+
+
+# [train]: the config bench.py trains on the TPU (bench.py:150-154), at
+# full width and depth: a 0.74B Llama, batch 4 x 2048, bf16 parameters,
+# AdamW(1e-4, multi_precision=True)
+TRAIN_CFG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+                 num_hidden_layers=12, num_attention_heads=16,
+                 num_key_value_heads=16, max_position_embeddings=2048)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
+# launches of each kernel in one training step of TRAIN_CFG: two RMSNorms
+# per layer and the final one; two RoPEs (q, k) per layer
+TRAIN_PER_STEP = {"flash_attention": 12, "flash_attention_bwd": 12,
+                  "rms_norm": 25, "swiglu": 12, "fused_rope": 24}
+
+
+def _train_flops(cfg, n_matmul):
+    """(flops of one training step counted from the shapes, formula):
+    6 N T for the matmul parameters N (every Linear, the lm_head
+    included), attention's 2 forward and 5 backward causal products per
+    layer (14 B H D pairs), and the fused loss's recompute of the logits
+    in backward (2 T H V)."""
+    t = TRAIN_BATCH * TRAIN_SEQ
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    pairs = _causal_pairs(TRAIN_SEQ, TRAIN_SEQ)
+    attn = 14 * TRAIN_BATCH * cfg.num_attention_heads * hd * pairs * \
+        cfg.num_hidden_layers
+    loss = 2 * t * cfg.hidden_size * cfg.vocab_size
+    total = 6 * n_matmul * t + attn + loss
+    formula = (f"6*N*T + 14*B*H*D*pairs*L + 2*T*h*V = 6*{n_matmul}*{t} + "
+               f"14*{TRAIN_BATCH}*{cfg.num_attention_heads}*{hd}*{pairs}*"
+               f"{cfg.num_hidden_layers} + 2*{t}*{cfg.hidden_size}*"
+               f"{cfg.vocab_size} = {total:.4e}")
+    return total, formula
+
+
+def phase_train(K, dev):
+    """TRAIN_CFG with random weights from seed 0 and a fixed batch from
+    seed 1 (random ids and labels, not shifted, as bench.py draws them):
+    one warm-up step and TRAIN_STEPS timed steps of compile_train_step.
+    Every loss must be finite and the last below the first; each step must
+    launch the kernels TRAIN_PER_STEP times. Returns (launch counts over
+    the timed steps, model, optimizer, batch)."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    _release()
+    cfg = LlamaConfig(**TRAIN_CFG)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    weights.init_random_(model, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = model.llama.embed_tokens.weight.numel()
+    step, opt = _train_step(model, 1e-4, multi_precision=True)
+    rng = np.random.default_rng(1)
+    ids, lab = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to(dev)
+        for _ in range(2))
+    losses, ms = [], []
+    totals = dict.fromkeys(K.KERNELS, 0)
+    for i in range(TRAIN_STEPS + 1):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(ids, lab))     # float() waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        counts = K.launch_counts()
+        bad = {k: counts[k] for k, n in TRAIN_PER_STEP.items()
+               if counts[k] != n}
+        if bad:
+            raise AssertionError(f"[train] step {i} launched {bad}, "
+                                 f"expected {TRAIN_PER_STEP}")
+        if i:                            # step 0 is the warm-up
+            for k in totals:
+                totals[k] += counts[k]
+    timed = ms[1:]
+    step_ms = sum(timed) / len(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops, formula = _train_flops(cfg, n_params - n_embed)
+    print(f"[train] bench.py:150 config: hidden {cfg.hidden_size}, ffn "
+          f"{cfg.intermediate_size}, {cfg.num_hidden_layers} layers, "
+          f"{cfg.num_attention_heads} heads, vocab {cfg.vocab_size}; "
+          f"params={n_params} bf16 (matmul N={n_params - n_embed}); batch "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ}; AdamW(1e-4, multi_precision=True)")
+    print(f"[train] losses (warm-up first) {losses}")
+    print(f"[train] step_ms {[round(x, 2) for x in ms]} mean_timed="
+          f"{step_ms:.2f} tokens_per_s={tokens / step_ms * 1e3:.1f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    print(f"[train] flops/step {formula}; MFU={flops / (step_ms / 1e3) / 989e12:.4f}"
+          f" (of 989 TFLOP/s bf16 dense)")
+    print(f"[train] launches per step {json.dumps(TRAIN_PER_STEP)} (held "
+          f"every step)", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[train] a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] the loss did not fall: {losses}")
+    _time_loss(model, dev)
+    return totals, model, opt, (ids, lab)
+
+
+def _time_loss(model, dev):
+    """The fused linear cross-entropy alone at the step's shape (hidden
+    [8192, 2048] bf16 against the [2048, 32000] lm_head, chunks of 4096,
+    float32 products): forward and backward, CUDA events."""
+    from paddle_tpu_torch.nn import functional as F
+
+    t = TRAIN_BATCH * TRAIN_SEQ
+    w = model.lm_head.weight
+    hid = torch.randn(t, w.shape[0], device=dev, dtype=w.dtype,
+                      requires_grad=True)
+    lab = torch.randint(0, w.shape[1], (t,), device=dev)
+
+    def run():
+        F.fused_linear_cross_entropy(hid, w, lab).backward()
+
+    run()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(3):
+        run()
+    e1.record()
+    torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    ms = e0.elapsed_time(e1) / 3
+    f = 8 * t * w.shape[0] * w.shape[1]
+    print(f"[train] fused loss fwd+bwd alone: {ms:.2f} ms for {f:.3e} "
+          f"float32 flops (4 products of 2*T*h*V) = "
+          f"{f / ms / 1e9:.1f} TFLOP/s", flush=True)
+
+
+def phase_profile_train(model, opt, batch):
+    """One more training step under torch.profiler, written out as
+    compile_train_step runs it: device time by kernel and by kind, the
+    device's idle share of the step's wall time, and the split of the step
+    into forward+loss, backward and optimizer (CUDA events around each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ids, lab = batch
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss = model(ids, labels=lab)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        opt.clear_grad()
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    phases = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
+              enumerate(("forward+loss", "backward", "optimizer"))}
+    print(f"[profile:train] phases (CUDA events, ms) "
+          f"{json.dumps({k: round(v, 2) for k, v in phases.items()})}")
+    _print_profile("profile:train", prof, wall, "one training step")
+    kinds = {}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        kinds[_kernel_kind(e.key)] = kinds.get(_kernel_kind(e.key), 0) + us
+    busy = sum(kinds.values()) or 1
+    print("[profile:train] by kind: " + ", ".join(
+        f"{k} {v / 1e3:.2f} ms ({100 * v / busy:.1f}%)"
+        for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
+        flush=True)
+
+
+def _kernel_kind(name):
+    """Kind of a device kernel by its name: the port's kernels by their
+    CUDA names, cuBLAS products split by operand type (the fused loss's
+    products are the float32 ones), the rest as PyTorch's own."""
+    n = name.lower()
+    for key, kind in (("flash_bwd", "flash backward"),
+                      ("flash_fwd", "flash forward"),
+                      ("rms_norm", "rmsnorm"), ("swiglu", "swiglu"),
+                      ("rope", "rope")):
+        if key in n:
+            return kind
+    if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return ("GEMM float32 (loss)" if any(k in n for k in (
+            "f32f32", "sgemm", "tf32", "_s1688", "fp32")) else "GEMM bf16")
+    return "other (elementwise, reductions, optimizer, copies)"
 
 
 def _serving_model(dev):

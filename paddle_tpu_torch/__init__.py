@@ -1,9 +1,10 @@
 """paddle_tpu_torch — the PyTorch + CUDA counterpart of ``paddle_tpu``.
 
-This package serves Llama through the paged continuous-batching engine on
-one NVIDIA Hopper card. The plain tensor code is PyTorch; every kernel that
-``paddle_tpu`` writes in Pallas for the TPU on this path is a CUDA C++
-kernel written for ``sm_90a`` under ``csrc/``, built at first use by
+This package serves Llama through the paged continuous-batching engine and
+trains it (``model(ids, labels=labels)``, AdamW, ``compile_train_step``)
+on one NVIDIA Hopper card. The plain tensor code is PyTorch; every kernel
+that ``paddle_tpu`` writes in Pallas for the TPU on these paths is a CUDA
+C++ kernel written for ``sm_90a`` under ``csrc/``, built at first use by
 ``ops.kernels._build`` and launched through ``ctypes``.
 
 Layout (each module names its ``paddle_tpu`` counterpart):
@@ -11,12 +12,17 @@ Layout (each module names its ``paddle_tpu`` counterpart):
 - ``device``: device resolution (CUDA unless the caller asks for the CPU).
 - ``ops.kernels``: the kernel wrappers (ragged paged attention, paged
   decode attention and their int8 twins, RMSNorm, SwiGLU, flash attention
-  forward, fused RoPE), each beside its plain PyTorch version and a launch
-  counter.
+  forward and backward, fused RoPE), each beside its plain PyTorch version
+  and a launch counter, and the autograd functions over them.
 - ``quantization.page_quant``: int8 KV page codes and the offset-0 scale
   freeze rule.
-- ``nn``: functional surface and the layers the Llama model uses.
-- ``models.llama``: the Llama paged-model contract.
+- ``nn``: functional surface (with the losses) and the layers the Llama
+  model uses.
+- ``models.llama``: the Llama model, its loss and the paged-model
+  contract.
+- ``optimizer``: Adam and AdamW (fp32 masters), regularizers, gradient
+  clipping.
+- ``jit``: ``compile_train_step`` (eager).
 - ``weights``: the bridge from ``paddle_tpu`` parameters (as numpy arrays)
   and seeded random weights.
 - ``inference.engine``: ``GenerationEngine`` and ``BlockManager``.

@@ -41,7 +41,12 @@ What it keeps from the JAX engine:
 
 What differs in this slice:
 
-- no JIT: steps run eagerly and pools are updated in place. The dense and
+- no JIT: steps run eagerly and pools are updated in place, under
+  ``torch.inference_mode()`` (``step`` and ``fork_request``, the two
+  methods that write pools; ``run``, ``generate`` and the model's
+  ``generate_batch`` reach the device only through ``step``): the model's
+  parameters are trainable, and a pool written inside an autograd graph
+  would hold that graph across steps. The dense and
   ragged batches are still padded to power-of-two (rows, tokens) buckets
   and decode chunks to power-of-two lengths, as in JAX, so the shapes the
   kernels see stay few (CUDA graphs over them come later).
@@ -103,15 +108,14 @@ class PagedGenerationMixin:
         list of 1-D int arrays). Extra kwargs (max_seq_len, n_pages,
         prefix_cache, prefill_chunk, mixed_step, ...) configure the engine.
         Returns a list of np.ndarray(prompt + generated) in input order."""
-        with torch.inference_mode():
-            self.eval()
-            eng = self.get_engine(max_slots=max_slots, page_size=page_size,
-                                  **engine_kw)
-            if seed is not None:
-                eng.reseed(seed)
-            rids = [eng.add_request(p, max_new_tokens, temperature,
-                                    eos_token_id) for p in prompts]
-            results = eng.run()
+        self.eval()
+        eng = self.get_engine(max_slots=max_slots, page_size=page_size,
+                              **engine_kw)
+        if seed is not None:
+            eng.reseed(seed)
+        rids = [eng.add_request(p, max_new_tokens, temperature,
+                                eos_token_id) for p in prompts]
+        results = eng.run()
         return [results[r] for r in rids]
 
 
@@ -901,6 +905,7 @@ class GenerationEngine:
     def has_work(self):
         return bool(self._waiting) or any(r is not None for r in self._slots)
 
+    @torch.inference_mode()
     def fork_request(self, rid, max_new_tokens=None, temperature=None,
                      priority=None, slo_ms=None):
         """Fork a RUNNING request into a new request that shares its KV
@@ -950,6 +955,7 @@ class GenerationEngine:
             self._active[slot] = True
             return child_rid
 
+    @torch.inference_mode()
     def step(self):
         """Admit waiting requests into free slots (mapping cached prefix
         pages): cold prompts that fit one chunk through one dense batched
@@ -1048,10 +1054,9 @@ class GenerationEngine:
             ids = ids[None]
         if seed is not None:
             self.reseed(seed)
-        with torch.inference_mode():
-            rids = [self.add_request(row, max_new_tokens, temperature,
-                                     eos_token_id) for row in ids]
-            results = self.run()
+        rids = [self.add_request(row, max_new_tokens, temperature,
+                                 eos_token_id) for row in ids]
+        results = self.run()
         width = ids.shape[1] + max_new_tokens
         pad = eos_token_id if eos_token_id is not None else 0
         out = np.full((len(rids), width), pad, ids.dtype)

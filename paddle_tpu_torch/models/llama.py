@@ -1,9 +1,9 @@
-"""Llama for serving: the counterpart of ``paddle_tpu/models/llama.py``
-for inference — the dense causal ``forward`` (flash attention and fused
-RoPE kernels), the rectangular ``generate`` with its static-size KV cache
-(``decode_step``), and the engine's paged contract (``paged_spec`` /
-``paged_prefill`` / ``paged_prefill_ragged`` / ``paged_decode``,
-llama.py:606-678).
+"""Llama: the counterpart of ``paddle_tpu/models/llama.py`` — the dense
+causal ``forward`` (flash attention and fused RoPE kernels) with its loss
+(``labels``: the fused linear cross-entropy, llama.py:583-602), the
+rectangular ``generate`` with its static-size KV cache (``decode_step``),
+and the engine's paged contract (``paged_spec`` / ``paged_prefill`` /
+``paged_prefill_ragged`` / ``paged_decode``, llama.py:606-678).
 
 Layout follows the JAX package so that its parameters load name for name
 (``weights.from_paddle_tpu_state``): Linear weights are ``[in, out]``,
@@ -42,6 +42,7 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    recompute: bool = False
     dtype: str = "float32"
 
     @staticmethod
@@ -369,6 +370,11 @@ class LlamaForCausalLM(nn.Module, PagedGenerationMixin):
 
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
+        if config.recompute:
+            raise NotImplementedError(
+                "recompute (activation rematerialization, "
+                "apply_llama_remat) comes with the remat slice of the port; "
+                "this slice trains without it")
         self.config = config
         device = resolve_device(device)
         dtype = getattr(torch, config.dtype) if dtype is None else dtype
@@ -388,12 +394,18 @@ class LlamaForCausalLM(nn.Module, PagedGenerationMixin):
 
     def forward(self, input_ids, labels=None, attn_mask=None):
         """Logits [B, S, V] of the dense causal forward over input_ids
-        [B, S]."""
-        if labels is not None:
-            raise NotImplementedError(
-                "the loss (labels) comes with the training slice of the port; "
-                "this slice serves inference only")
-        return self._head(self.llama(input_ids, attn_mask))
+        [B, S]; with labels [B, S] the mean cross-entropy (a 0-dim tensor
+        in the model's type) through the fused linear cross-entropy, which
+        never holds the [B * S, V] logits (the JAX model's route under its
+        default FLAGS_fused_lm_head_ce). Labels are NOT shifted: position i
+        is scored against labels[i]; labels below 0 are ignored."""
+        hidden = self.llama(input_ids, attn_mask)
+        if labels is None:
+            return self._head(hidden)
+        w = (self.llama.embed_tokens.weight if self.lm_head is None
+             else self.lm_head.weight)
+        return F.fused_linear_cross_entropy(
+            hidden, w, labels, transpose_weight=self.lm_head is None)
 
     def paged_spec(self):
         cfg = self.config

@@ -1,8 +1,10 @@
-"""The layers the Llama serving path uses, in paddle's layout: the
-counterparts of ``paddle_tpu.nn.Linear`` (weight ``[in, out]``, product
-``x @ W``, ``paddle_tpu/nn/layer/common.py:16-34``), ``Embedding`` and
-``RMSNorm`` (``paddle_tpu/nn/layer/norm.py:149``). Parameters are made
-empty on the given device; ``paddle_tpu_torch.weights`` fills them.
+"""The layers the Llama model uses, in paddle's layout: the counterparts
+of ``paddle_tpu.nn.Linear`` (weight ``[in, out]``, product ``x @ W``,
+``paddle_tpu/nn/layer/common.py:16-34``), ``Embedding`` and ``RMSNorm``
+(``paddle_tpu/nn/layer/norm.py:149``). Parameters are trainable and made
+empty on the given device; ``paddle_tpu_torch.weights`` fills them. The
+serving entry points run under ``torch.inference_mode()``, so serving
+builds no autograd graph.
 """
 
 from __future__ import annotations
@@ -20,11 +22,9 @@ class Linear(nn.Module):
                  dtype=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
-            in_features, out_features, device=device, dtype=dtype),
-            requires_grad=False)
+            in_features, out_features, device=device, dtype=dtype))
         self.bias = nn.Parameter(torch.empty(
-            out_features, device=device, dtype=dtype),
-            requires_grad=False) if bias else None
+            out_features, device=device, dtype=dtype)) if bias else None
 
     def forward(self, x):
         y = torch.matmul(x, self.weight)
@@ -38,8 +38,7 @@ class Embedding(nn.Module):
                  dtype=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
-            num_embeddings, embedding_dim, device=device, dtype=dtype),
-            requires_grad=False)
+            num_embeddings, embedding_dim, device=device, dtype=dtype))
 
     def forward(self, ids):
         return self.weight[ids]
@@ -50,7 +49,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.epsilon = epsilon
         self.weight = nn.Parameter(torch.ones(
-            hidden_size, device=device, dtype=dtype), requires_grad=False)
+            hidden_size, device=device, dtype=dtype))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.epsilon)

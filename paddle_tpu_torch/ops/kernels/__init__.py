@@ -5,22 +5,30 @@ only where the wrapper launches its CUDA kernel).
 A wrapper given a CPU tensor computes the plain version; given a CUDA
 tensor it launches the kernel built from ``paddle_tpu_torch/csrc`` (see
 ``_build``) or raises. Nothing falls back.
+
+The autograd functions (``FlashAttention``, ``RMSNorm``, ``SwiGLU``,
+``FusedRoPE``) run a wrapper forward. Flash attention's backward is a
+kernel too (``flash_attention_bwd``), as the TPU's is; the others'
+backwards are plain PyTorch (``*_bwd_plain``), as the JAX package computes
+them in XLA outside Pallas.
 """
 
 from __future__ import annotations
 
 from .decode_attention import (paged_decode_attention,
                                paged_decode_attention_plain)
-from .flash_attention import flash_attention_fwd, flash_attention_fwd_plain
+from .flash_attention import (FlashAttention, flash_attention_bwd,
+                              flash_attention_bwd_plain, flash_attention_fwd,
+                              flash_attention_fwd_plain)
 from .quantized_attention import (paged_decode_attention_int8,
                                   paged_decode_attention_int8_plain,
                                   ragged_paged_attention_int8,
                                   ragged_paged_attention_int8_plain)
 from .ragged_attention import (ragged_paged_attention,
                                ragged_paged_attention_plain)
-from .rms_norm import rms_norm, rms_norm_plain
-from .rope import fused_rope, fused_rope_plain
-from .swiglu import swiglu, swiglu_plain
+from .rms_norm import RMSNorm, rms_norm, rms_norm_bwd_plain, rms_norm_plain
+from .rope import FusedRoPE, fused_rope, fused_rope_bwd_plain, fused_rope_plain
+from .swiglu import SwiGLU, swiglu, swiglu_bwd_plain, swiglu_plain
 
 # wrapper -> (CUDA source it launches, TPU kernel it replaces)
 KERNELS = {
@@ -45,6 +53,11 @@ KERNELS = {
     "fused_rope": (
         fused_rope, "paddle_tpu_torch/csrc/rope.cu",
         "paddle_tpu/ops/pallas/norms.py:131"),
+    # one C entry launching a dQ kernel and a dK/dV kernel, for the TPU
+    # backward's two pallas_calls
+    "flash_attention_bwd": (
+        flash_attention_bwd, "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:360; :393"),
     # the float kernels' templates over int8 pages with per-page scales
     "ragged_paged_attention_int8": (
         ragged_paged_attention_int8,
@@ -68,10 +81,13 @@ def reset_launch_counts():
 
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
+           "FlashAttention", "FusedRoPE", "RMSNorm", "SwiGLU",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_fwd_plain",
-           "fused_rope", "fused_rope_plain",
+           "fused_rope", "fused_rope_bwd_plain", "fused_rope_plain",
            "paged_decode_attention", "paged_decode_attention_plain",
            "paged_decode_attention_int8", "paged_decode_attention_int8_plain",
            "ragged_paged_attention", "ragged_paged_attention_plain",
            "ragged_paged_attention_int8", "ragged_paged_attention_int8_plain",
-           "rms_norm", "rms_norm_plain", "swiglu", "swiglu_plain"]
+           "rms_norm", "rms_norm_bwd_plain", "rms_norm_plain", "swiglu",
+           "swiglu_bwd_plain", "swiglu_plain"]

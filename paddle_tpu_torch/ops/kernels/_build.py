@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
 SOURCES = ("rms_norm", "swiglu", "decode_attention", "ragged_attention",
-           "flash_attention", "rope", "quantized_attention")
+           "flash_attention", "rope", "quantized_attention",
+           "flash_attention_bwd")
 
 _LIBS = {}
 _LOCK = threading.Lock()

@@ -1,12 +1,16 @@
 """Row RMSNorm: the counterpart of ``paddle_tpu/ops/pallas/norms.py``
-(``_rms_kernel`` / ``_rms_xla``, ``rms_norm_pallas``). Forward only in
-this slice; the backward comes with training.
+(``_rms_kernel`` / ``_rms_xla``, ``rms_norm_pallas``, and its backward
+``_rms_bwd``).
 
 ``rms_norm`` launches the CUDA kernel ``csrc/rms_norm.cu`` for a CUDA
 tensor and takes the plain version ``rms_norm_plain`` for a CPU tensor.
 Both compute in float32, multiply by the weight in float32 and cast once
 to the input's type. Bound and design: see the note in the CUDA source
 (memory-bound, one block per row).
+
+``RMSNorm`` is the autograd function: its forward is ``rms_norm`` (the
+kernel on the card), its backward the vjp of ``_rms_xla`` in plain
+PyTorch, as the JAX package computes it in XLA outside Pallas.
 """
 
 from __future__ import annotations
@@ -50,3 +54,29 @@ def rms_norm(x, w, eps=1e-6):
 
 
 rms_norm.launches = 0
+
+
+def rms_norm_bwd_plain(x, w, g, eps=1e-6):
+    """The vjp of ``rms_norm_plain`` at (x, w) for the output gradient g
+    -> (dx in x's type, dw in w's type); float32 throughout."""
+    h = x.shape[-1]
+    xf, gf, wf = x.float(), g.float(), w.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    dn = gf * wf                         # gradient of the normalized x
+    dw = (gf * (xf * r)).reshape(-1, h).sum(0)
+    dx = r * dn - xf * (r * r * r) * (dn * xf).mean(dim=-1, keepdim=True)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rms_norm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = rms_norm_bwd_plain(x, w, g, ctx.eps)
+        return dx, dw, None

@@ -1,13 +1,17 @@
 """Rotate-half rotary position embedding: the counterpart of
 ``paddle_tpu/ops/pallas/norms.py`` (``fused_rope_pallas``, reference
-``_rope_xla``). Forward only in this slice; the backward comes with
-training.
+``_rope_xla``, and its backward ``_rope_bwd``).
 
 ``fused_rope`` launches the CUDA kernel ``csrc/rope.cu`` for a CUDA tensor
 and takes the plain version ``fused_rope_plain`` for a CPU tensor. Both
 cast the tables to x's type first and compute in x's type, rounding after
 each product and after the sum, so in bfloat16 the two agree bit for bit.
 Bound and design: see the note in the CUDA source (memory-bound, one pass).
+
+``FusedRoPE`` is the autograd function: its forward is ``fused_rope`` (the
+kernel on the card), its backward the vjp of the rotation in x's type in
+plain PyTorch, as ``_rope_bwd`` computes it in XLA. The tables get no
+gradient.
 """
 
 from __future__ import annotations
@@ -60,3 +64,26 @@ def fused_rope(x, cos, sin):
 
 
 fused_rope.launches = 0
+
+
+def fused_rope_bwd_plain(g, cos, sin):
+    """The vjp of ``fused_rope_plain`` with respect to x, in g's type:
+    g * cos + rot^T(g * sin), where rot^T maps the halves (a, b) to
+    (b, -a)."""
+    d = g.shape[-1]
+    c = cos.to(g.dtype)[None, :, None, :]
+    s = sin.to(g.dtype)[None, :, None, :]
+    gs = g * s
+    return g * c + torch.cat([gs[..., d // 2:], -gs[..., : d // 2]], dim=-1)
+
+
+class FusedRoPE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return fused_rope(x, cos, sin)
+
+    @staticmethod
+    def backward(ctx, g):
+        cos, sin = ctx.saved_tensors
+        return fused_rope_bwd_plain(g, cos, sin), None, None

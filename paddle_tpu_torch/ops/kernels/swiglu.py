@@ -1,12 +1,16 @@
 """SwiGLU: the counterpart of ``paddle_tpu/ops/pallas/fused_ffn.py``
-(``_swiglu_kernel`` / ``_swiglu_xla``, ``swiglu_pallas``). Forward only
-in this slice; its backward (``_swiglu_bwd``) comes with training.
+(``_swiglu_kernel`` / ``_swiglu_xla``, ``swiglu_pallas``, and its
+backward ``_swiglu_bwd``).
 
 ``swiglu`` launches the CUDA kernel ``csrc/swiglu.cu`` for CUDA tensors
 and takes the plain version ``swiglu_plain`` for CPU tensors. Both compute
 ``gate * sigmoid(gate) * up`` in float32 and cast once to gate's type.
 Bound and design: see the note in the CUDA source (memory-bound,
 16-byte loads).
+
+``SwiGLU`` is the autograd function: its forward is ``swiglu`` (the kernel
+on the card), its backward ``_swiglu_bwd``'s formula in float32, cast to
+the input types, in plain PyTorch as the JAX package computes it in XLA.
 """
 
 from __future__ import annotations
@@ -48,3 +52,26 @@ def swiglu(gate, up):
 
 
 swiglu.launches = 0
+
+
+def swiglu_bwd_plain(gate, up, g):
+    """``_swiglu_bwd``: (dgate, dup) for the output gradient g, computed in
+    float32 and cast to gate's and up's types."""
+    gf, gd = gate.float(), g.float()
+    sig = torch.sigmoid(gf)
+    silu = gf * sig
+    dgate = gd * up.float() * (sig + silu * (1.0 - sig))
+    dup = gd * silu
+    return dgate.to(gate.dtype), dup.to(up.dtype)
+
+
+class SwiGLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gate, up):
+        ctx.save_for_backward(gate, up)
+        return swiglu(gate, up)
+
+    @staticmethod
+    def backward(ctx, g):
+        gate, up = ctx.saved_tensors
+        return swiglu_bwd_plain(gate, up, g)

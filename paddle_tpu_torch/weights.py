@@ -18,7 +18,7 @@ def _to_tensor(arr):
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":      # ml_dtypes bfloat16: same bits
         return torch.from_numpy(
-            np.ascontiguousarray(arr).view(np.uint16)).view(torch.bfloat16)
+            np.array(arr, copy=True).view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr, copy=True))
 
 

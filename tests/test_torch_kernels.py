@@ -22,6 +22,18 @@ GQA, S_q = S_k, S_q < S_k (bottom-right causal alignment), S_q > S_k
 (rows that see no key: 0 out, lse -1e30) and lengths that are no multiple
 of the block.
 
+The backward: ``flash_attention_bwd_plain`` against ``jax.grad`` through
+``flash_attention_fwd(..., interpret=True)``, which runs the Pallas dq and
+dk/dv kernels in interpret mode (as ``test_pallas_kernels.py`` does), and
+with S_q < S_k against ``jax.vjp`` of ``_sdpa_reference_gqa``; the
+autograd functions of RMSNorm, SwiGLU and RoPE against ``jax.vjp`` of
+``_rms_xla``, ``_swiglu_bwd`` and ``_rope_bwd``. Gradient tolerance
+float32: ATOL/RTOL as above (the attention gradients reach magnitudes of
+~5 and the Pallas backward sums them over blocks of 8: ~1e-6 apart);
+bfloat16 elementwise gradients within
+one bf16 ulp of JAX's (the same float32 values rounded once, the last bits
+summed in another order) and RoPE's exactly (the same bf16 operations).
+
 Tolerance: float32, atol 2e-5 / rtol 1e-5 — the two sides sum the same
 float32 products in different orders (einsum vs. online softmax over
 pages), which moves the last few bits of values of order 1.
@@ -32,10 +44,15 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import jax
+
 from paddle_tpu.ops.pallas.decode_attention import paged_decode_attention
-from paddle_tpu.ops.pallas.flash_attention import _flash_fwd_bhsd
-from paddle_tpu.ops.pallas.fused_ffn import swiglu_pallas
-from paddle_tpu.ops.pallas.norms import fused_rope_pallas, rms_norm_pallas
+from paddle_tpu.ops.pallas.flash_attention import (_flash_fwd_bhsd,
+                                                   _sdpa_reference_gqa,
+                                                   flash_attention_fwd)
+from paddle_tpu.ops.pallas.fused_ffn import _swiglu_bwd, swiglu_pallas
+from paddle_tpu.ops.pallas.norms import (_rms_xla, _rope_bwd,
+                                         fused_rope_pallas, rms_norm_pallas)
 from paddle_tpu.ops.pallas import quantized_attention as jqa
 from paddle_tpu.ops.pallas.ragged_attention import ragged_paged_attention
 from paddle_tpu.ops.primitive.lowering_gpu import _flash_fwd_gpu
@@ -328,3 +345,140 @@ def test_flash_and_rope_wrappers_refuse_tensors_off_the_cpu():
         K.flash_attention_fwd(m, m, m, causal=True)
     with pytest.raises(ValueError, match="meta"):
         K.fused_rope(m, cos.to("meta"), cos.to("meta"))
+
+
+def _flash_grads_port(q, k, v, w, causal, scale):
+    """(dq, dk, dv) of sum(attention(q, k, v) * w) through the port's
+    plain forward and backward."""
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    out, lse = K.flash_attention_fwd(*t, causal=causal, scale=scale)
+    return K.flash_attention_bwd(*t, out, lse, torch.from_numpy(w),
+                                 causal=causal, scale=scale)
+
+
+@pytest.mark.parametrize("h_kv", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_bwd_plain_matches_pallas(causal, h_kv):
+    rng = np.random.default_rng(6)
+    b, s, h, d = 1, 96, 4, 16
+    scale = 1.0 / float(np.sqrt(d))        # a python float: x64 is on
+    q, w = _f32(rng, (b, s, h, d)), _f32(rng, (b, s, h, d))
+    k, v = _f32(rng, (b, s, h_kv, d)), _f32(rng, (b, s, h_kv, d))
+
+    def loss(q_, k_, v_):
+        return (flash_attention_fwd(q_, k_, v_, causal=causal, scale=scale,
+                                    interpret=True, block_q=8, block_k=8)
+                * jnp.asarray(w)).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _flash_grads_port(q, k, v, w, causal, scale)
+    for g, r in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=RTOL)
+
+
+def test_flash_attention_bwd_plain_bottom_right_matches_reference():
+    """S_q < S_k under the causal mask (bottom-right aligned) with GQA,
+    against jax.vjp of the XLA reference in the kernels' [B*H, S, D]
+    layout."""
+    rng = np.random.default_rng(7)
+    b, s_q, s_k, h, h_kv, d = 2, 10, 30, 4, 2, 16
+    scale = 1.0 / float(np.sqrt(d))
+    q, w = _f32(rng, (b, s_q, h, d)), _f32(rng, (b, s_q, h, d))
+    k, v = _f32(rng, (b, s_k, h_kv, d)), _f32(rng, (b, s_k, h_kv, d))
+    _, vjp = jax.vjp(lambda q_, k_, v_: _sdpa_reference_gqa(
+        q_, k_, v_, True, scale, h, h_kv), _bhsd(q), _bhsd(k), _bhsd(v))
+    want = vjp(_bhsd(w))
+    got = _flash_grads_port(q, k, v, w, True, scale)
+    for g, r in zip(got, want):
+        g = g.numpy().transpose(0, 2, 1, 3).reshape(np.asarray(r).shape)
+        np.testing.assert_allclose(g, np.asarray(r), atol=ATOL,
+                                   rtol=RTOL)
+
+
+def _ulp_close(port, ref):
+    """Within one bf16 ulp of the reference, elementwise."""
+    ref = np.asarray(ref).astype(np.float32)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+    assert np.all(np.abs(port.float().numpy() - ref) <= ulp)
+
+
+def _grads(fn, *inputs, out_grad):
+    """Gradients of sum(fn(*inputs) * out_grad) with respect to inputs."""
+    ts = [torch.from_numpy(x).requires_grad_() for x in inputs]
+    (fn(*ts) * torch.from_numpy(out_grad)).sum().backward()
+    return [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_op_gradients_match_jax(dtype):
+    """The autograd functions of RMSNorm, SwiGLU and RoPE: forward through
+    the wrapper, backward in plain PyTorch, against the JAX package's
+    backward formulas on the same inputs."""
+    rng = np.random.default_rng(8)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    close = _close if dtype == "float32" else _ulp_close
+
+    def pair(shape):
+        x = _f32(rng, shape)
+        return jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+
+    # RMSNorm: grads of x and w (vjp of _rms_xla)
+    (jx, tx), (jw, tw), (jg, tg) = pair((3, 5, 40)), pair((40,)), \
+        pair((3, 5, 40))
+    _, vjp = jax.vjp(lambda a, b: _rms_xla(a, b, 1e-6), jx, jw)
+    want = vjp(jg)
+    tx.requires_grad_()
+    tw.requires_grad_()
+    K.RMSNorm.apply(tx, tw, 1e-6).backward(tg)
+    for got, ref in zip((tx.grad, tw.grad), want):
+        assert got.dtype == tdt
+        close(got, ref)
+
+    # SwiGLU: _swiglu_bwd's formula in float32, cast to the input types
+    (jgt, tgt), (ju, tu), (jg, tg) = pair((6, 48)), pair((6, 48)), \
+        pair((6, 48))
+    want = _swiglu_bwd(None, (jgt, ju), jg)
+    tgt.requires_grad_()
+    tu.requires_grad_()
+    K.SwiGLU.apply(tgt, tu).backward(tg)
+    for got, ref in zip((tgt.grad, tu.grad), want):
+        assert got.dtype == tdt
+        close(got, ref)
+
+    # RoPE: grad of x only, in x's type
+    (jx, tx), (jg, tg) = pair((2, 8, 3, 16)), pair((2, 8, 3, 16))
+    cos, sin = _f32(rng, (8, 16)), _f32(rng, (8, 16))
+    want, dcos, dsin = _rope_bwd(None, (jx, jnp.asarray(cos),
+                                        jnp.asarray(sin)), jg)
+    assert dcos is None and dsin is None
+    tx.requires_grad_()
+    K.FusedRoPE.apply(tx, torch.from_numpy(cos),
+                      torch.from_numpy(sin)).backward(tg)
+    assert tx.grad.dtype == tdt
+    if dtype == "float32":
+        _close(tx.grad, want)
+    else:
+        np.testing.assert_array_equal(tx.grad.float().numpy(),
+                                      np.asarray(want).astype(np.float32))
+
+
+def test_flash_bwd_wrapper_and_autograd_on_cpu():
+    """The backward wrapper takes the plain version on the CPU with no
+    launch counted and refuses a meta tensor; FlashAttention's backward
+    gives what the wrapper gives."""
+    K.reset_launch_counts()
+    rng = np.random.default_rng(9)
+    q, k, v, w = (torch.from_numpy(_f32(rng, (1, 12, 2, 8)))
+                  for _ in range(4))
+    out, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    want = K.flash_attention_bwd(q, k, v, out, lse, w, causal=True)
+    assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    (K.FlashAttention.apply(qq, kk, vv, True, None) * w).sum().backward()
+    for g, r in zip((qq.grad, kk.grad, vv.grad), want):
+        assert torch.equal(g, r)
+    m = [x.to("meta") for x in (q, k, v, out, lse, w)]
+    with pytest.raises(ValueError, match="meta"):
+        K.flash_attention_bwd(*m, causal=True)

@@ -8,7 +8,8 @@ dummy length-1 row), and the two paged serving steps of the contract —
 ``paged_decode`` (with an idle slot) — then get the same numpy inputs on
 both sides, and the logits, the prefill's K/V and the written page pools
 must agree. ``generate`` with and without its KV cache gives the JAX
-``generate``'s greedy tokens. The two paged steps also run over int8 pools
+``generate``'s greedy tokens, and the loss with labels is the JAX model's
+fused loss. The two paged steps also run over int8 pools
 with per-page scale rows (``k_scales``/``v_scales``): the logits, the
 written codes and the scale rows must agree with the JAX Llama's.
 
@@ -136,17 +137,26 @@ def test_generate_greedy_tokens_match_jax(pair, use_cache):
 
 
 def test_paths_of_later_slices_raise(pair):
-    """A loss, an attention mask and training-time dropout come with the
-    training and flashmask slices: each raises, none is served wrongly."""
+    """The loss (labels) is served: it equals the JAX model's fused loss.
+    An attention mask comes with the flashmask slice and training-time
+    dropout with a later one: each raises, none is served wrongly."""
     from paddle_tpu_torch.nn import functional as F
-    tm = pair[1]
+    jm, tm, _ = pair
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, tm.config.vocab_size, (2, 9)).astype(np.int32)
+    labels = rng.integers(0, tm.config.vocab_size, (2, 9)).astype(np.int32)
+    with no_grad():
+        want = float(jm(paddle.to_tensor(ids),
+                        labels=paddle.to_tensor(labels)).numpy())
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+    assert got.dim() == 0
+    np.testing.assert_allclose(float(got), want, atol=1e-5)
     ids = torch.ones(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm(ids, labels=ids)
     with pytest.raises(NotImplementedError, match="flashmask"):
         tm(ids, attn_mask=torch.ones(1, 1, 4, 4, dtype=torch.bool))
     q = torch.ones(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         F.scaled_dot_product_attention(q, q, q, dropout_p=0.1, training=True)
     out = F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
     assert out.shape == q.shape            # dropout is off outside training
