@@ -12,8 +12,13 @@ source, all started together), then:
    attention kernels read pages quantized by page_quant from random rows;
    the flash backward at the training shape [4, 2048, 16, 128] and with
    GQA at [1, 2048, 32 -> 8, 128] in bfloat16 and at a small shape in
-   float32, its dq, dk and dv each held; then the cost of the plain int8
-   page write (page_quant.write_rows) at the decode shape;
+   float32, its dq, dk and dv each held; flashmask forward and backward
+   (a packed-document mask at [4, 2048, 16, 128], per-KV-head bounds under
+   GQA, bidirectional 4 bounds, a window of 256; SDPA with the dense mask
+   as the library time) and bias + dropout + residual + LayerNorm at
+   BERT-base's [16384, 768] (its keep mask bit-equal to the plain
+   Philox's); then the cost of the plain int8 page write
+   (page_quant.write_rows) at the decode shape;
 2. agree: a 2-layer tiny Llama in float32 with the same seeded weights on
    the CPU (plain versions) and on the card (kernels) — generate_batch
    with prefix cache, chunked prefill and mixed steps, generate_batch with
@@ -21,23 +26,34 @@ source, all started together), then:
    and generate with its KV cache must give the same greedy tokens; then
    the same two workloads and a fork mid-decode over int8 KV pages; then
    (agree:train) the first backward's gradients and 3 AdamW steps of
-   compile_train_step must agree;
-3. serve: Llama-2-7B geometry in bfloat16 with random weights from a seed
+   compile_train_step must agree; (agree:masked) the tiny Llama with a
+   padded-batch attn_mask (logits, loss, gradients), a tiny
+   fused_feedforward and F.flashmask_attention in each bound form must
+   agree;
+3. flashmask: F.flashmask_attention through autograd at [4, 2048, 16,
+   128] bf16 with packed documents (each call must launch the masked
+   forward and backward kernels once; out and grads held against the
+   plain versions), then the forward at [1, 8192, 32, 128] beside SDPA
+   with the dense mask; fused_ffn: BERT-base fused_feedforward (post-norm,
+   gelu, dropout 0.1, training) forward and backward on [32, 512, 768]
+   bf16 and the FusedBiasDropoutResidualLayerNorm layer, one bdrln launch
+   a call;
+4. serve: Llama-2-7B geometry in bfloat16 with random weights from a seed
    (all 32 layers) serves 8 requests of 300-900 tokens through
    generate_batch (chunked prefill, a prefix hit, mixed steps); every
    kernel of that path must launch, and a prefix-cache hit must occur;
    then a window of the same workload on a fresh engine runs under
    torch.profiler for the device time by kernel;
-4. serve:dense: the same model serves 8 cold requests of 64-256 tokens,
+5. serve:dense: the same model serves 8 cold requests of 64-256 tokens,
    which the engine admits through the dense prefill (flash attention and
    fused RoPE); then one dense admission of the same workload on a fresh
    engine runs under torch.profiler;
-5. serve:int8 and serve:dense:int8: the two workloads again with
+6. serve:int8 and serve:dense:int8: the two workloads again with
    kv_dtype="int8" (int8 pools, the int8 attention kernels), each beside
    the share of its generated tokens that differ from its bf16 twin's
    (printed, not checked: the weights are random), then profiled as
    their twins are;
-6. train: with the serving model released, the configuration bench.py
+7. train: with the serving model released, the configuration bench.py
    trains on the TPU (0.74B Llama, batch 4 x 2048, bf16 parameters,
    AdamW(1e-4, multi_precision=True)) takes a warm-up step and 5 timed
    steps of compile_train_step on random weights and a fixed batch: the
@@ -45,9 +61,10 @@ source, all started together), then:
    of the path as often as the model has call sites; then (profile:train)
    one more step under torch.profiler.
 
-Each serving and training run's launch counts are set to 0 just before it
-and read just after it; every kernel of its path must have launched, and
-the int8 runs must launch the float paged attention kernels 0 times. Then
+Each flashmask, fused_ffn, serving and training run's launch counts are
+set to 0 just before it and read just after it; every kernel of its path
+must have launched, and the int8 runs must launch the float paged
+attention kernels 0 times. Then
 it prints the card's name and power limit, one JSON line with every
 kernel's numbers, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero without that line. Without a CUDA card
@@ -383,6 +400,231 @@ def _library_flash_bwd(q, k, v, do):
         return None
 
 
+def _flashmask_case(rng, dev, b, s, h, h_kv, form):
+    """Bounds of one flashmask form at [B, S] (query length = key length):
+    "doc" packs documents of seeded lengths 64-1024 into each row, causal
+    with start[t] = the end of t's document (1 bound, one row for all
+    heads); "gqa" per-KV-head causal 2-bound intervals [start, end) below
+    the diagonal; "bidir" per-head bidirectional 4 bounds; "window" causal
+    window_size=256 through F._window_to_indices. Returns (causal, bounds
+    (start, end, start2, end2) as the kernel takes them, the dense bool
+    mask [B, kh or H, S, S] (True = attend, for SDPA), visible pairs)."""
+    from paddle_tpu_torch.nn import functional as F
+
+    col = np.arange(s)
+    if form == "doc":
+        causal, kh = True, 1
+        start = np.empty((b, 1, s), np.int64)
+        for i in range(b):
+            pos = 0
+            while pos < s:
+                end = min(s, pos + int(rng.integers(64, 1025)))
+                start[i, 0, pos:end] = end
+                pos = end
+        idx = start[..., None]
+    elif form == "gqa":
+        causal, kh = True, h_kv
+        st = np.minimum(s, col + rng.integers(1, 513, (b, kh, s)))
+        en = np.minimum(s, st + rng.integers(0, 1025, (b, kh, s)))
+        idx = np.stack([st, en], -1)
+    elif form == "bidir":
+        causal, kh = False, h
+        shp = (b, kh, s)
+        lts = np.maximum(rng.integers(1, s + 1, shp), col + 1)
+        lte = np.minimum(lts + rng.integers(0, s // 2, shp), s)
+        ute = np.minimum(rng.integers(0, s, shp), col)
+        uts = np.maximum(ute - rng.integers(0, s // 2, shp), 0)
+        idx = np.stack([lts, lte, uts, ute], -1)
+    else:
+        causal = True
+        idx = F._window_to_indices(256, b, s, s, True, "cpu").numpy()
+        kh = 1
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    bounds = tuple(None if t is None else t.contiguous()
+                   for t in F._flashmask_intervals(idx, causal, s))
+    rows = torch.arange(s, device=dev)[None, None, :, None]
+    ms, me, ms2, me2 = bounds
+    masked = (ms[:, :, None, :] <= rows) & (rows < me[:, :, None, :])
+    if ms2 is not None:
+        masked |= (ms2[:, :, None, :] <= rows) & (rows < me2[:, :, None, :])
+    dense = ~masked
+    del masked
+    if causal:
+        dense &= torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    if kh == h_kv and h_kv != h:
+        dense = dense.repeat_interleave(h // h_kv, dim=1)
+    pairs = int(dense.sum()) * (h // dense.shape[1])
+    return causal, bounds, dense, pairs
+
+
+def _bounds_bytes(bounds):
+    return sum(t.numel() * 4 for t in bounds if t is not None)
+
+
+def check_flashmask(K, dev, dtype, rng, b, s, h, h_kv, form, d=128,
+                    library=True):
+    """The masked flash forward against its plain version; the library
+    call is SDPA with the dense boolean mask (built outside the timed
+    region; a yardstick the port never calls)."""
+    causal, bounds, dense, pairs = _flashmask_case(rng, dev, b, s, h, h_kv,
+                                                   form)
+    q = torch.from_numpy(rng.standard_normal(
+        (b, s, h, d), dtype=np.float32)).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (b, s, h_kv, d), dtype=np.float32)).to(dev, dtype) for _ in range(2))
+    got, lse = K.flashmask_attention_fwd(q, k, v, *bounds, causal=causal)
+    want, want_lse = K.flashmask_attention_fwd_plain(q, k, v, *bounds,
+                                                     causal=causal)
+    torch.cuda.synchronize()
+    seen = want_lse > -1e29
+    lse_err = float((lse - want_lse)[seen].abs().max())
+    if lse_err > 1e-3 or not bool((lse[~seen] <= -1e29).all()):
+        raise AssertionError(f"flashmask {form}: lse disagrees with the "
+                             f"plain version (max abs err {lse_err})")
+    elt = q.element_size()
+    lib = None
+    if library:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = _time_ms(lambda: sdpa(qt, kt, vt, attn_mask=dense,
+                                    enable_gqa=h != h_kv))
+    del dense
+    return {"got": got, "want": want, "err": _max_err(got, want),
+            "lse_err": lse_err, "pairs": pairs,
+            "flops": 4 * d * pairs,
+            "bytes": (2 * q.numel() + 2 * k.numel()) * elt +
+            lse.numel() * 4 + _bounds_bytes(bounds),
+            "ms": _time_ms(lambda: K.flashmask_attention_fwd(
+                q, k, v, *bounds, causal=causal)),
+            "plain_ms": _time_ms(lambda: K.flashmask_attention_fwd_plain(
+                q, k, v, *bounds, causal=causal), ITERS // 10),
+            "library_ms": lib}
+
+
+def _grad_rule(got, want):
+    """The flash backward's checks over (dq, dk, dv): max errors, largest
+    values, mean, rms and the worst err / (2^-7 |want| + 2^-8 rms(want))."""
+    out = {"errs": [], "scales": [], "means": [], "rms": [], "worst": []}
+    for a, r in zip(got, want):
+        r = r.float()
+        rms = float(r.square().mean().sqrt())
+        allow = BWD_REL_BF16 * r.abs() + BWD_FLOOR_BF16 * rms
+        out["errs"].append(_max_err(a, r))
+        out["scales"].append(float(r.abs().max()))
+        out["means"].append(float(r.abs().mean()))
+        out["rms"].append(rms)
+        out["worst"].append(float(((a.float() - r).abs() / allow).max()))
+    out["err"] = max(out["errs"])
+    return out
+
+
+def check_flashmask_bwd(K, dev, dtype, rng, b, s, h, h_kv, form, d=128,
+                        library=True):
+    """The masked flash backward against its plain version on the same q,
+    k, v, dout, bounds and the forward kernel's out and lse. The library
+    call is the backward alone of SDPA with the dense boolean mask
+    (autograd.grad after one forward, retain_graph)."""
+    causal, bounds, dense, pairs = _flashmask_case(rng, dev, b, s, h, h_kv,
+                                                   form)
+    q, do = (torch.from_numpy(rng.standard_normal(
+        (b, s, h, d), dtype=np.float32)).to(dev, dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (b, s, h_kv, d), dtype=np.float32)).to(dev, dtype) for _ in range(2))
+    out, lse = K.flashmask_attention_fwd(q, k, v, *bounds, causal=causal)
+    got = K.flashmask_attention_bwd(q, k, v, out, lse, do, *bounds,
+                                    causal=causal)
+    want = K.flashmask_attention_bwd_plain(q, k, v, out, lse, do, *bounds,
+                                           causal=causal)
+    torch.cuda.synchronize()
+    res = _grad_rule(got, want)
+    elt = q.element_size()
+    lib = None
+    if library:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=dense, enable_gqa=h != h_kv)
+        dot = do.transpose(1, 2)
+        lib = _time_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True))
+        del o
+    del dense
+    res.update({
+        "got": got, "want": want, "pairs": pairs,
+        "flops": 10 * d * pairs,     # S, dP, dV, dQ, dK over visible pairs
+        "bytes": (4 * q.numel() + 4 * k.numel()) * elt + lse.numel() * 4 +
+        _bounds_bytes(bounds),
+        "ms": _time_ms(lambda: K.flashmask_attention_bwd(
+            q, k, v, out, lse, do, *bounds, causal=causal)),
+        "plain_ms": _time_ms(lambda: K.flashmask_attention_bwd_plain(
+            q, k, v, out, lse, do, *bounds, causal=causal), ITERS // 10),
+        "library_ms": lib})
+    return res
+
+
+def check_bdrln(K, dev, dtype, rng, rows, h, p, eps=1e-12):
+    """bias + dropout + residual + LayerNorm against its plain version: y
+    within one bf16 rounding (float32: 1e-4; it is expected bit-equal),
+    the keep mask equal bit for bit, the keep rate within 5 sigma of
+    1 - p, and out (bf16) within one bf16 ulp plus 2^-16 of its terms,
+    |n w| + |b| (n the normalized value): out = n w + b cancels where
+    n w ~ -b, and there the float32 means and variances of the two sides,
+    summed in other orders, differ by ~1e-7 of the terms, more than a bf16
+    ulp of a small result. No single PyTorch call computes this; the
+    composition F.layer_norm(residual + F.dropout(x + bias)) is timed
+    beside it (printed, not a library time)."""
+    f = torch.nn.functional
+    x, r = (torch.from_numpy(rng.standard_normal(
+        (rows, h), dtype=np.float32)).to(dev, dtype) for _ in range(2))
+    w, bb, bias = (torch.from_numpy(rng.standard_normal(
+        (h,), dtype=np.float32)).to(dev, dtype) for _ in range(3))
+    seed = int(rng.integers(0, 2 ** 31 - 1))
+    out, y, keep = K.bias_dropout_residual_ln(x, r, w, bb, bias, eps, p,
+                                              seed)
+    w_out, w_y, w_keep = K.bias_dropout_residual_ln_plain(x, r, w, bb, bias,
+                                                          eps, p, seed)
+    torch.cuda.synchronize()
+    if p > 0.0:
+        if not torch.equal(keep, w_keep):
+            raise AssertionError("bdrln: the kernel's keep mask differs from "
+                                 "the plain Philox mask")
+        rate = float(keep.float().mean())
+        sigma = (p * (1 - p) / keep.numel()) ** 0.5
+        if abs(rate - (1 - p)) > 5 * sigma:
+            raise AssertionError(f"bdrln: keep rate {rate} not within 5 "
+                                 f"sigma of {1 - p}")
+    elif keep is not None or w_keep is not None:
+        raise AssertionError("bdrln: p = 0 wrote a keep mask")
+    y_ok = bool(((y.float() - w_y.float()).abs() <=
+                 (_ulp_bf16(w_y.float()) if dtype != torch.float32 else
+                  1e-4)).all())
+    if not y_ok:
+        raise AssertionError("bdrln: y differs from the plain version by "
+                             "more than one rounding")
+    want = w_out.float()
+    allow = _ulp_bf16(want) + 2.0 ** -16 * ((want - bb.float()).abs() +
+                                           bb.float().abs())
+    worst = float(((out.float() - want).abs() / allow).max())
+    comp = _time_ms(lambda: f.layer_norm(
+        r + f.dropout(x + bias, p), (h,), w, bb, eps))
+    elt = x.element_size()
+    n = x.numel()
+    return {"got": out, "want": w_out, "err": _max_err(out, w_out),
+            "y_err": _max_err(y, w_y), "worst": worst,
+            "keep_rate": float(keep.float().mean()) if keep is not None
+            else 1.0,
+            "composition_ms": comp,
+            "flops": 10 * n,
+            # x, residual read; out, y written; the mask byte when p > 0;
+            # bias, w, b read once
+            "bytes": 4 * n * elt + (n if p > 0.0 else 0) + 3 * h * elt,
+            "ms": _time_ms(lambda: K.bias_dropout_residual_ln(
+                x, r, w, bb, bias, eps, p, seed)),
+            "plain_ms": _time_ms(lambda: K.bias_dropout_residual_ln_plain(
+                x, r, w, bb, bias, eps, p, seed)),
+            "library_ms": None}
+
+
 def check_rope(K, dev, dtype, rng, b=4, s=256, h=32, d=128):
     """RoPE with float32 [S, D] tables; by default on the dense
     admission's q, [4, 256, 32, 128]."""
@@ -419,7 +661,7 @@ def _within(name, res, dtype):
     that differ in their last bits) plus a floor of 2^-8 of the tensor's
     rms (elements near zero, where the float32 sums cancel), so an error
     the size of a typical value anywhere fails."""
-    if name == "flash_attention_bwd":
+    if name in ("flash_attention_bwd", "flashmask_attention_bwd"):
         if dtype == torch.float32:
             ok = all(e <= 1e-4 * max(1.0, m)
                      for e, m in zip(res["errs"], res["scales"]))
@@ -428,6 +670,9 @@ def _within(name, res, dtype):
         return ok, "<= 2^-7|want| + 2^-8 rms(want) per element"
     if dtype == torch.float32:
         return res["err"] <= TOL[dtype], f"<= {TOL[dtype]}"
+    if name == "bias_dropout_residual_ln":
+        return res["worst"] <= 1.0, ("<= 1 bf16 ulp + 2^-16 (|n w| + |b|); "
+                                     f"worst ratio {res['worst']:.3f}")
     if name in ("rms_norm", "swiglu", "fused_rope"):
         want = res["want"].float()
         ok = bool(((res["got"].float() - want).abs()
@@ -490,12 +735,51 @@ def phase_kernels(K, dev):
                 ("flash_attention_bwd[gqa8]", lambda: check_flash_bwd(
                     K, dev, dtype, rng, 1, 2048, 2048, 32, 8,
                     library=False)),
+                # flashmask: a packed-document causal mask at the training
+                # shape, per-KV-head 2-bound causal under GQA at the 7B
+                # width, bidirectional 4 bounds, a causal window of 256
+                ("flashmask_attention", lambda: check_flashmask(
+                    K, dev, dtype, rng, 4, 2048, 16, 16, "doc")),
+                ("flashmask_attention_bwd", lambda: check_flashmask_bwd(
+                    K, dev, dtype, rng, 4, 2048, 16, 16, "doc")),
+                ("flashmask_attention[gqa8]", lambda: check_flashmask(
+                    K, dev, dtype, rng, 1, 2048, 32, 8, "gqa")),
+                ("flashmask_attention_bwd[gqa8]", lambda: check_flashmask_bwd(
+                    K, dev, dtype, rng, 1, 2048, 32, 8, "gqa")),
+                ("flashmask_attention[bidir4]", lambda: check_flashmask(
+                    K, dev, dtype, rng, 2, 1024, 16, 16, "bidir")),
+                ("flashmask_attention_bwd[bidir4]",
+                 lambda: check_flashmask_bwd(
+                     K, dev, dtype, rng, 2, 1024, 16, 16, "bidir")),
+                ("flashmask_attention[window256]", lambda: check_flashmask(
+                    K, dev, dtype, rng, 4, 2048, 16, 16, "window")),
+                ("flashmask_attention_bwd[window256]",
+                 lambda: check_flashmask_bwd(
+                     K, dev, dtype, rng, 4, 2048, 16, 16, "window")),
+                # BERT-base's FFN epilogue: 32 x 512 tokens of 768
+                ("bias_dropout_residual_ln", lambda: check_bdrln(
+                    K, dev, dtype, rng, 16384, 768, 0.1)),
+                ("bias_dropout_residual_ln[p0]", lambda: check_bdrln(
+                    K, dev, dtype, rng, 16384, 768, 0.0)),
             ]
         if dtype == torch.float32:
             cases += [
                 ("flash_attention_bwd[small]", lambda: check_flash_bwd(
                     K, dev, dtype, rng, 2, 300, 300, 8, 4, d=64,
                     library=False)),
+                ("flashmask_attention[small]", lambda: check_flashmask(
+                    K, dev, dtype, rng, 2, 300, 8, 4, "bidir", d=64,
+                    library=False)),
+                ("flashmask_attention_bwd[small]",
+                 lambda: check_flashmask_bwd(
+                     K, dev, dtype, rng, 2, 300, 8, 4, "gqa", d=64,
+                     library=False)),
+                # an odd h: the scalar path; h > 1536: y recomputed, not
+                # cached in shared memory
+                ("bias_dropout_residual_ln[odd]", lambda: check_bdrln(
+                    K, dev, dtype, rng, 37, 333, 0.2)),
+                ("bias_dropout_residual_ln[wide]", lambda: check_bdrln(
+                    K, dev, dtype, rng, 64, 4096, 0.1)),
             ]
             # bottom-right causal alignment; rows that see no key
             cases += [
@@ -511,6 +795,13 @@ def phase_kernels(K, dev):
             bound, by = _bound_ms(res["bytes"], res["flops"], dtype)
             lib = res["library_ms"]
             lse = f" lse_err={res['lse_err']:.3e}" if "lse_err" in res else ""
+            if "pairs" in res:
+                lse += f" visible_pairs={res['pairs']}"
+            if "y_err" in res:
+                lse += (f" y_err={res['y_err']:.3e} keep_rate="
+                        f"{res['keep_rate']:.6f} keep_mask=bit-equal "
+                        f"composition_ms(F.layer_norm(r+F.dropout(x+b)))="
+                        f"{res['composition_ms']:.4f}")
             if "errs" in res:
                 lse += " dq/dk/dv_err=" + "/".join(
                     f"{e:.3e}" for e in res["errs"]) + " max|grad|=" + \
@@ -613,6 +904,9 @@ def main():
     phase_agree(dev)
     phase_agree_int8(dev)
     phase_agree_train(dev)
+    phase_agree_masked(dev)
+    masked = phase_flashmask(K, dev)
+    ffn = phase_fused_ffn(K, dev)
     model = _serving_model(dev)
     serve, serve_out = phase_serve(K, model)
     dense, dense_out = phase_serve_dense(K, model)
@@ -621,9 +915,10 @@ def main():
     del model                            # [train] reads its own peak
     train, model, opt, batch = phase_train(K, dev)
     phase_profile_train(model, opt, batch)
-    launches = {k: serve[k] + dense[k] + serve8[k] + dense8[k] + train[k]
-                for k in K.KERNELS}
-    _require_launched("all serving and training runs", launches, K.KERNELS)
+    launches = {k: serve[k] + dense[k] + serve8[k] + dense8[k] + train[k] +
+                masked[k] + ffn[k] for k in K.KERNELS}
+    _require_launched("all serving, training, flashmask and fused_ffn runs",
+                      launches, K.KERNELS)
 
     name_power = _nvidia_smi()
     print(name_power)
@@ -858,6 +1153,376 @@ def phase_agree_train(dev):
     if not losses["gpu"][-1] < losses["gpu"][0]:
         raise AssertionError("training: the tiny model's loss did not fall")
     _require_launched("agree:train", launches, TRAIN_KERNELS)
+
+
+def _agree_grads(cpu_t, gpu_t):
+    """max(|err| - 1e-4 |want|) over the named tensors' grads (CPU plain
+    against CUDA kernels)."""
+    return max(float(((g.grad.detach().cpu() - c.grad).abs() -
+                      1e-4 * c.grad.abs()).max())
+               for c, g in zip(cpu_t, gpu_t))
+
+
+def phase_agree_masked(dev):
+    """The masked and fused paths, CPU plain versions against CUDA kernels,
+    in float32: the tiny Llama with a padded-batch attn_mask (logits, loss,
+    first gradients), the tiny fused_feedforward (post-norm, gelu, p = 0)
+    and F.flashmask_attention in each bound form (out and grads). All
+    within 1e-4 (gradients: |err| <= 1e-4 + 1e-4 |grad|). The flashmask
+    kernels and the bdrln kernel must launch."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    _, cpu, gpu = _tiny_pair(dev)
+    rng = np.random.default_rng(7)
+    s = 16
+    ids = torch.from_numpy(rng.integers(0, cpu.config.vocab_size, (2, s)))
+    lab = torch.from_numpy(rng.integers(0, cpu.config.vocab_size, (2, s)))
+    lab[1, 11:] = -100
+    pos = torch.arange(s)
+    mask = (pos[None, :] <= pos[:, None])[None, None] & \
+        (pos[None, None, None, :] < torch.tensor([s, 11])[:, None, None, None])
+    with torch.no_grad():
+        lc = cpu(ids, attn_mask=mask)
+        lg = gpu(ids.to(dev), attn_mask=mask.to(dev)).cpu()
+    logit_err = _max_err(lc, lg)
+    losses = []
+    for model, d in ((cpu, "cpu"), (gpu, dev)):
+        loss = model(ids.to(d), labels=lab.to(d), attn_mask=mask.to(d))
+        loss.backward()
+        losses.append(float(loss.detach()))
+    grad_err = _agree_grads(list(cpu.parameters()),
+                            list(gpu.parameters()))
+    loss_err = abs(losses[0] - losses[1])
+    print(f"[agree:masked] tiny Llama, padded batch (lengths {s}/11) with "
+          f"attn_mask: logits max_err={logit_err:.3e} loss cpu/cuda="
+          f"{losses[0]:.6f}/{losses[1]:.6f} first grads max(|err| - 1e-4 "
+          f"|grad|)={grad_err:.3e}", flush=True)
+    if logit_err > 1e-4 or loss_err > 1e-4 or grad_err > 1e-4:
+        raise AssertionError("agree:masked: the masked Llama disagrees "
+                             "between the CPU and the card")
+
+    h, f = 32, 64
+    arrs = [rng.standard_normal(shp).astype(np.float32) * sc
+            for shp, sc in (((2, 8, h), 1.0), ((h, f), 0.2), ((f, h), 0.2),
+                            ((f,), 1.0), ((h,), 1.0), ((h,), 1.0),
+                            ((h,), 1.0))]
+    outs, leaves = [], []
+    for d in ("cpu", dev):
+        ts = [torch.from_numpy(a).to(d).requires_grad_() for a in arrs]
+        o = IF.fused_feedforward(ts[0], ts[1], ts[2], linear1_bias=ts[3],
+                                 linear2_bias=ts[4], ln2_scale=ts[5],
+                                 ln2_bias=ts[6], dropout1_rate=0.0,
+                                 dropout2_rate=0.0, activation="gelu")
+        o.backward(torch.ones_like(o))
+        outs.append(o.detach().cpu())
+        leaves.append(ts)
+    ffn_err = _max_err(*outs)
+    ffn_grad = _agree_grads(*leaves)
+    print(f"[agree:masked] tiny fused_feedforward (post-norm, gelu, p=0): "
+          f"out max_err={ffn_err:.3e} grads max(|err| - 1e-4 |grad|)="
+          f"{ffn_grad:.3e}", flush=True)
+    if ffn_err > 1e-4 or ffn_grad > 1e-4:
+        raise AssertionError("agree:masked: fused_feedforward disagrees "
+                             "between the CPU and the card")
+
+    b, sq, hq, hkv, d_ = 2, 64, 4, 2, 16
+    col = np.arange(sq)
+    for causal, nb, kh in ((True, 1, 1), (True, 2, hkv), (False, 2, hq),
+                           (False, 4, hkv)):
+        shp = (b, kh, sq)
+        lts = np.maximum(rng.integers(1, sq + 1, shp), col + 1)
+        if causal:
+            idx = lts[..., None] if nb == 1 else np.stack(
+                [lts, np.minimum(lts + rng.integers(0, sq, shp), sq)], -1)
+        else:
+            ute = np.minimum(rng.integers(0, sq, shp), col)
+            idx = np.stack([lts, ute], -1) if nb == 2 else np.stack(
+                [lts, np.minimum(lts + rng.integers(0, sq // 2, shp), sq),
+                 np.maximum(ute - rng.integers(0, sq // 2, shp), 0), ute],
+                -1)
+        idx = torch.from_numpy(idx.astype(np.int32))
+        qkv = [rng.standard_normal(shp_).astype(np.float32)
+               for shp_ in ((b, sq, hq, d_), (b, sq, hkv, d_),
+                            (b, sq, hkv, d_))]
+        res = []
+        for d in ("cpu", dev):
+            ts = [torch.from_numpy(a).to(d).requires_grad_() for a in qkv]
+            o, lse = F.flashmask_attention(*ts, idx.to(d), causal=causal,
+                                           return_softmax_lse=True)
+            o.backward(torch.ones_like(o))
+            res.append((o.detach().cpu(), lse.cpu(), ts))
+        seen = res[0][1] > -1e29
+        err = max(_max_err(res[0][0], res[1][0]),
+                  _max_err(res[0][1][seen], res[1][1][seen]))
+        g_err = _agree_grads(res[0][2], res[1][2])
+        print(f"[agree:masked] F.flashmask_attention causal={causal} "
+              f"bounds={nb} kh={kh}: out/lse max_err={err:.3e} grads "
+              f"max(|err| - 1e-4 |grad|)={g_err:.3e}", flush=True)
+        if err > 1e-4 or g_err > 1e-4:
+            raise AssertionError("agree:masked: flashmask disagrees between "
+                                 "the CPU and the card")
+    _require_launched("agree:masked", K.launch_counts(), MASKED_KERNELS)
+
+
+MASKED_KERNELS = ("flashmask_attention", "flashmask_attention_bwd",
+                  "bias_dropout_residual_ln")
+FLASHMASK_SHAPE = (4, 2048, 16, 128)       # [train]'s attention geometry
+FLASHMASK_CALLS = 3
+FLASHMASK_7B = (1, 8192, 32, 128)          # Llama-2-7B attention, S = 8192
+
+
+def _profile_calls(tag, call, note):
+    """One more call of `call` under torch.profiler: device time by kernel
+    and the device's idle share of the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _print_profile(tag, prof, wall, note)
+
+
+def phase_flashmask(K, dev):
+    """The flashmask path: F.flashmask_attention through autograd at the
+    training geometry [4, 2048, 16, 128] bf16 with a packed-document
+    causal mask; a warm-up and FLASHMASK_CALLS timed forward+backward
+    calls with the launch counts set to 0 before and read after (each
+    call must launch the masked forward and backward once); out and
+    grads held against the plain versions. Then the forward at the
+    Llama-2-7B width, [1, 8192, 32, 128], beside SDPA with the dense mask,
+    its output held against SDPA's within the bf16 attention tolerance.
+    Returns the launch counts of the timed calls."""
+    from paddle_tpu_torch.nn import functional as F
+
+    _release()
+    rng = np.random.default_rng(21)
+    b, s, h, d = FLASHMASK_SHAPE
+    causal, bounds, dense, pairs = _flashmask_case(rng, dev, b, s, h, h,
+                                                   "doc")
+    del dense
+    idx = bounds[0][..., None]           # the document ends, 1 bound
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, s, h, d), dtype=np.float32)).to(dev, torch.bfloat16)
+        for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def call():
+        for t in leaves:
+            t.grad = None
+        out = F.flashmask_attention(*leaves, idx, causal=True)
+        out.backward(do)
+        return out
+
+    call()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(FLASHMASK_CALLS):
+        out = call()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / FLASHMASK_CALLS
+    launches = K.launch_counts()
+    want_out, want_lse = K.flashmask_attention_fwd_plain(q, k, v, *bounds,
+                                                         causal=True)
+    want = K.flashmask_attention_bwd_plain(q, k, v, want_out, want_lse, do,
+                                           *bounds, causal=True)
+    out_err = _max_err(out.detach(), want_out)
+    rule = _grad_rule([t.grad for t in leaves], want)
+    print(f"[flashmask] F.flashmask_attention fwd+bwd [{b}, {s}, {h}, {d}] "
+          f"bf16, packed documents (lengths 64-1024), causal, "
+          f"{pairs} visible pairs: ms_per_call={ms:.3f} (host clock, "
+          f"{FLASHMASK_CALLS} calls) out max_err={out_err:.3e} (<= 2e-2) "
+          f"dq/dk/dv err/allowed(bf16 rule)="
+          + "/".join(f"{w:.3f}" for w in rule["worst"]) +
+          f" launches {json.dumps({n: launches[n] for n in MASKED_KERNELS})}",
+          flush=True)
+    if out_err > TOL[torch.bfloat16] or max(rule["worst"]) > 1.0:
+        raise AssertionError("[flashmask] the path's out or grads disagree "
+                             "with the plain versions")
+    _profile_calls("profile:flashmask", call, "one forward+backward call")
+    for n in ("flashmask_attention", "flashmask_attention_bwd"):
+        if launches[n] != FLASHMASK_CALLS:
+            raise AssertionError(f"[flashmask] {n} launched {launches[n]} "
+                                 f"times in {FLASHMASK_CALLS} calls")
+    del out, want, want_out, want_lse, leaves, q, k, v, do
+    _release()
+
+    # Llama-2-7B attention width at S = 8192 (no plain version: its float32
+    # score tensors alone would be 8.6 GB each)
+    b, s, h, d = FLASHMASK_7B
+    causal, bounds, dense, pairs = _flashmask_case(rng, dev, b, s, h, h,
+                                                   "doc")
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b, s, h, d), dtype=np.float32)).to(dev, torch.bfloat16)
+        for _ in range(3))
+    got, _ = K.flashmask_attention_fwd(q, k, v, *bounds, causal=True)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ref = sdpa(qt, kt, vt, attn_mask=dense).transpose(1, 2)
+    err = _max_err(got, ref)
+    k_ms = _time_ms(lambda: K.flashmask_attention_fwd(q, k, v, *bounds,
+                                                      causal=True), 5)
+    l_ms = _time_ms(lambda: sdpa(qt, kt, vt, attn_mask=dense), 5)
+    bound, by = _bound_ms((4 * q.numel()) * 2 + _bounds_bytes(bounds),
+                          4 * d * pairs, torch.bfloat16)
+    print(f"[flashmask] 7B width [{b}, {s}, {h}, {d}] bf16, packed documents: "
+          f"{pairs} visible pairs; kernel_ms={k_ms:.4f} sdpa_dense_mask_ms="
+          f"{l_ms:.4f} bound_ms={bound:.4f} ({by}); max_abs_err vs SDPA="
+          f"{err:.3e} (<= 2e-2)", flush=True)
+    if err > TOL[torch.bfloat16]:
+        raise AssertionError("[flashmask] the 8192 forward disagrees with "
+                             "SDPA")
+    return launches
+
+
+FFN_SHAPE = (32, 512, 768, 3072)           # BERT-base: hidden 768, FFN 3072
+FFN_CALLS = 5
+
+
+def phase_fused_ffn(K, dev):
+    """The fused FFN path at BERT-base width (bert.py:13): fused_feedforward
+    post-norm on [32, 512, 768] bf16, gelu, dropout1 = dropout2 = 0.1,
+    ln_epsilon 1e-12, training; forward and backward, a warm-up and
+    FFN_CALLS timed calls; bdrln must launch once per call. Then the
+    FusedBiasDropoutResidualLayerNorm layer at the same shape. One more
+    call is held against the plain versions on the same inputs: the same
+    ops replayed from the same generator state with the plain bdrln in
+    place of the kernel. The path's output must equal the kernel's on the
+    replay's pre-LN tensor bit for bit (so dropout1, GELU, the bias, the
+    residual and the seed are the path's), the kernel's there the plain
+    bdrln's within one bf16 ulp plus 2^-16 (|n w| + |b| + |w|), and every
+    input's gradient the replay's within 1e-2 of its norm (the replay's
+    LayerNorm backward differentiates the float32 y, the path's the y
+    saved in bf16: ~0.5% apart). The |w| term is new against [kernels]'
+    rule: n = (y - mean) / std is near 0 where y ~ mean, the two sides'
+    float32 means (summed in other orders) differ by ~1e-7 absolute, and
+    LN2's b is 0 here, so |b| gives no slack. Returns the launch counts of
+    the timed fused_feedforward calls."""
+    from paddle_tpu_torch.incubate.nn import FusedBiasDropoutResidualLayerNorm
+    from paddle_tpu_torch.framework.random import next_seed
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import functional as F
+
+    _release()
+    b, s, h, f = FFN_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(
+            torch.bfloat16).requires_grad_()
+
+    x = rnd(b, s, h)
+    w1, w2 = rnd(h, f, std=0.02), rnd(f, h, std=0.02)
+    b1, b2 = rnd(f, std=0.02), rnd(h, std=0.02)
+    s2 = torch.ones(h, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    c2 = torch.zeros(h, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    g = torch.randn((b, s, h), generator=gen, device=dev).to(torch.bfloat16)
+
+    def call():
+        out = IF.fused_feedforward(
+            x, w1, w2, linear1_bias=b1, linear2_bias=b2, ln2_scale=s2,
+            ln2_bias=c2, dropout1_rate=0.1, dropout2_rate=0.1,
+            activation="gelu", ln_epsilon=1e-12, pre_layer_norm=False,
+            training=True)
+        out.backward(g)
+        return out
+
+    call()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(FFN_CALLS):
+        out = call()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / FFN_CALLS
+    launches = K.launch_counts()
+    print(f"[fused_ffn] fused_feedforward post-norm [{b}, {s}, {h}] -> {f} "
+          f"bf16, gelu, dropout 0.1/0.1, eps 1e-12, training, fwd+bwd: "
+          f"ms_per_call={ms:.3f} (host clock, {FFN_CALLS} calls); "
+          f"bias_dropout_residual_ln launches="
+          f"{launches['bias_dropout_residual_ln']}", flush=True)
+    if launches["bias_dropout_residual_ln"] != FFN_CALLS:
+        raise AssertionError("[fused_ffn] bdrln did not launch once per "
+                             "call")
+    _profile_calls("profile:fused_ffn", call, "one forward+backward call")
+
+    params = (x, w1, w2, b1, b2, s2, c2)
+    dgen = torch.Generator(device=dev)
+
+    def held(plain):
+        """(out, grads, the kernel's out on the replay's pre-LN tensor):
+        the path, or the replay of its ops with the plain bdrln."""
+        dgen.manual_seed(1)
+        for t in params:
+            t.grad = None
+        if not plain:
+            o = IF.fused_feedforward(
+                x, w1, w2, linear1_bias=b1, linear2_bias=b2, ln2_scale=s2,
+                ln2_bias=c2, dropout1_rate=0.1, dropout2_rate=0.1,
+                activation="gelu", ln_epsilon=1e-12, pre_layer_norm=False,
+                training=True, generator=dgen)
+            o.backward(g)
+            return o.detach().float(), [t.grad.float() for t in params], None
+        hid = torch.nn.functional.gelu(F.linear(x, w1, b1),
+                                       approximate="tanh")
+        hid = F.dropout(hid, 0.1, training=True, generator=dgen)
+        pre = torch.matmul(hid, w2)
+        seed = next_seed(dgen)
+        o = K.bias_dropout_residual_ln_plain(pre, x, s2, c2, b2, 1e-12, 0.1,
+                                             seed)[0]
+        o.backward(g)
+        kern = K.bias_dropout_residual_ln(
+            *(t.detach() for t in (pre, x, s2, c2, b2)), 1e-12, 0.1, seed)[0]
+        return (o.detach().float(), [t.grad.float() for t in params],
+                kern.float())
+
+    got, got_grads, _ = held(plain=False)
+    want, want_grads, kern = held(plain=True)
+    same_pre = torch.equal(got, kern)
+    c2f, s2f = c2.detach().float(), s2.detach().float()
+    allow = _ulp_bf16(want) + 2.0 ** -16 * (
+        (want - c2f).abs() + c2f.abs() + s2f.abs())
+    worst = float(((kern - want).abs() / allow).max())
+    grad_rel = [float((a - w).norm() / w.norm())
+                for a, w in zip(got_grads, want_grads)]
+    print(f"[fused_ffn] held against the plain replay: out equal to the "
+          f"kernel on the replay's pre-LN tensor: {same_pre}; kernel vs "
+          f"plain bdrln there max_abs_err={_max_err(kern, want):.3e} worst "
+          f"err/allowed={worst:.3f}; grads' |got - want| / |want| (x, w1, "
+          f"w2, b1, b2, ln2 scale, ln2 bias)="
+          + ", ".join(f"{r:.2e}" for r in grad_rel), flush=True)
+    if not (same_pre and worst <= 1.0 and all(r <= 1e-2 for r in grad_rel)):
+        raise AssertionError("[fused_ffn] the path disagrees with the plain "
+                             "replay on the same inputs")
+
+    layer = FusedBiasDropoutResidualLayerNorm(h, dropout_rate=0.1,
+                                              epsilon=1e-12, device=dev,
+                                              dtype=torch.bfloat16)
+    xr, res = rnd(b, s, h), rnd(b, s, h)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FFN_CALLS):
+        o = layer(xr, res)
+        o.backward(g)
+    torch.cuda.synchronize()
+    lms = (time.perf_counter() - t0) * 1e3 / FFN_CALLS
+    n = K.launch_counts()["bias_dropout_residual_ln"]
+    print(f"[fused_ffn] FusedBiasDropoutResidualLayerNorm({h}) [{b}, {s}, "
+          f"{h}] bf16, p 0.1, fwd+bwd: ms_per_call={lms:.3f}; "
+          f"bias_dropout_residual_ln launches={n}", flush=True)
+    if n != FFN_CALLS or not bool(torch.isfinite(o).all()):
+        raise AssertionError("[fused_ffn] the layer did not launch bdrln "
+                             "once per call, or its output is not finite")
+    return launches
 
 
 # [train]: the config bench.py trains on the TPU (bench.py:150-154), at

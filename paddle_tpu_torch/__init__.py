@@ -2,9 +2,10 @@
 
 This package serves Llama through the paged continuous-batching engine and
 trains it (``model(ids, labels=labels)``, AdamW, ``compile_train_step``)
-on one NVIDIA Hopper card. The plain tensor code is PyTorch; every kernel
-that ``paddle_tpu`` writes in Pallas for the TPU on these paths is a CUDA
-C++ kernel written for ``sm_90a`` under ``csrc/``, built at first use by
+on one NVIDIA Hopper card, with flashmask attention and the fused FFN
+epilogue ops beside. The plain tensor code is PyTorch; every kernel that
+``paddle_tpu`` writes in Pallas for the TPU is a CUDA C++ kernel written
+for ``sm_90a`` under ``csrc/``, built at first use by
 ``ops.kernels._build`` and launched through ``ctypes``.
 
 Layout (each module names its ``paddle_tpu`` counterpart):
@@ -12,12 +13,17 @@ Layout (each module names its ``paddle_tpu`` counterpart):
 - ``device``: device resolution (CUDA unless the caller asks for the CPU).
 - ``ops.kernels``: the kernel wrappers (ragged paged attention, paged
   decode attention and their int8 twins, RMSNorm, SwiGLU, flash attention
-  forward and backward, fused RoPE), each beside its plain PyTorch version
-  and a launch counter, and the autograd functions over them.
+  forward and backward with and without a flashmask range mask, fused
+  RoPE, bias + dropout + residual + LayerNorm), each beside its plain
+  PyTorch version and a launch counter, and the autograd functions over
+  them.
+- ``framework.random``: a default generator per device and ``seed``.
 - ``quantization.page_quant``: int8 KV page codes and the offset-0 scale
   freeze rule.
-- ``nn``: functional surface (with the losses) and the layers the Llama
-  model uses.
+- ``nn``: functional surface (with the losses, masked attention and
+  ``flashmask_attention``) and the layers.
+- ``incubate.nn``: ``fused_bias_dropout_residual_layer_norm``,
+  ``fused_feedforward`` and ``FusedBiasDropoutResidualLayerNorm``.
 - ``models.llama``: the Llama model, its loss and the paged-model
   contract.
 - ``optimizer``: Adam and AdamW (fp32 masters), regularizers, gradient

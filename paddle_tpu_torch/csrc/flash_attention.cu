@@ -10,8 +10,19 @@
 // repeated. A row that sees no key (causal with S_q > S_k) writes 0 and
 // lse = NEG_INF + log(L_EPS), which is -1e30 in float32, never NaN.
 //
+// Flashmask (ptt_flashmask_attention_fwd): up to two intervals of masked
+// query rows per key, bounds [B, kh, S_k] int32 with kh 1, H_kv or H (the
+// kernel picks the bound row of its query head). Query i cannot see key t
+// when start[t] <= i < end[t] or start2[t] <= i < end2[t], in query-row
+// coordinates, on top of the tests above. A tile's bounds are staged in
+// shared memory beside its K tile. The count of intervals (0, 1, 2) is a
+// template argument of the one kernel: with 0 the bounds are never read
+// and the predicate compiles away. Tiles that the ranges mask whole are
+// still computed (only the causal skip applies).
+//
 // Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py:
-// _flash_fwd_bhsd / _fwd_kernel (flash_attention_fwd), and the JAX
+// _flash_fwd_bhsd / _fwd_kernel (flash_attention_fwd; with the mask
+// operands and _range_mask, flashmask_attention_fwd), and the JAX
 // package's Pallas-on-GPU lowering of the same function,
 // paddle_tpu/ops/primitive/lowering_gpu.py: _flash_fwd_gpu. What bounds it
 // on the H100: operations. A causal prefill of S tokens does ~2 * S^2 * D
@@ -35,6 +46,7 @@
 // wgmma. Tiles are issued heaviest first (the last query tiles of a causal
 // launch see the most keys).
 #include "common.cuh"
+#include "flash_mask.cuh"
 
 namespace {
 
@@ -58,19 +70,26 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// NJ: accumulator columns per lane, at least ceil(D / 16)
-template <typename T, int NJ>
+using ptt::Bounds;
+using ptt::bound_row;
+using ptt::range_visible;
+using ptt::stage_bounds;
+
+// NJ: accumulator columns per lane, at least ceil(D / 16); NM: masked
+// row intervals per key (0: no range mask, mb unused)
+template <typename T, int NJ, int NM>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
-                 int D, float scale, int causal) {
+                 float* __restrict__ lse, Bounds mb, int Sq, int Sk, int H,
+                 int Hkv, int D, float scale, int causal) {
   extern __shared__ float sm[];
   const int DP = D + 1;                 // padded stride: no bank conflicts
   float* q_s = sm;                      // [BQ, DP]
   float* k_s = q_s + BQ * DP;           // [BK, DP]
   float* v_s = k_s + BK * DP;           // [BK, D]
   float* p_s = v_s + BK * D;            // [BQ, BK + 1]
+  int* b_s = (int*)(p_s + BQ * (BK + 1));   // [2 * NM, BK] bounds
 
   const int tid = threadIdx.x;
   const int rg = tid / LANES, lane = tid % LANES;
@@ -86,6 +105,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + ((int64_t)b * Sk * Hkv + g) * D;
   const T* vb = v + ((int64_t)b * Sk * Hkv + g) * D;
   T* ob = out + ((int64_t)b * Sq * H + h) * D;
+  const int64_t mrow = NM ? bound_row(mb, b, h, g, H, Sk) : 0;
 
   for (int i = tid; i < BQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -119,6 +139,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       k_s[t * DP + d] = kv;
       v_s[t * D + d] = vv;
     }
+    if constexpr (NM > 0) stage_bounds<NM>(b_s, mb, mrow, k0, BK, Sk);
     __syncthreads();
 
     float s[RPT][KPT];
@@ -126,16 +147,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[KPT];
+    // D % 8 == 0: eight columns per step, unrolled in the source (see the
+    // PV loop below for why the unrolling is not left to the compiler)
+    for (int d0 = 0; d0 < D; d0 += 8) {
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = q_s[(rg * RPT + i) * DP + d];
+      for (int dd = 0; dd < 8; ++dd) {
+        const int d = d0 + dd;
+        float qv[RPT], kv[KPT];
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) kv[j] = k_s[(lane + j * LANES) * DP + d];
+        for (int i = 0; i < RPT; ++i) qv[i] = q_s[(rg * RPT + i) * DP + d];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+        for (int j = 0; j < KPT; ++j)
+          kv[j] = k_s[(lane + j * LANES) * DP + d];
 #pragma unroll
-        for (int j = 0; j < KPT; ++j) s[i][j] += qv[i] * kv[j];
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < KPT; ++j) s[i][j] += qv[i] * kv[j];
+      }
     }
 
 #pragma unroll
@@ -147,7 +175,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
         const int kp = k0 + lane + j * LANES;
-        ok[j] = kp < Sk && (!causal || qi + off >= kp);
+        ok[j] = kp < Sk && (!causal || qi + off >= kp) &&
+                range_visible<NM>(b_s, BK, lane + j * LANES, qi);
         s[i][j] = ok[j] ? s[i][j] * scale : ptt::NEG_INF;
         m_cur = fmaxf(m_cur, s[i][j]);
       }
@@ -169,7 +198,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
+    // Unrolled by 4 on purpose. Left to itself, nvcc chose per
+    // instantiation: one iteration of this loop (32 FFMAs) took 94
+    // instructions in the unmasked kernel as it stood before the mask
+    // came in and 147 in the same body compiled beside the mask code (the
+    // d < D tests kept inside the loop), and the kernel ran 52% slower.
+    // Unrolled by 4, every instantiation beats the former unmasked kernel
+    // (flash_fwd_ab.py times the versions side by side; PERF.md).
     const int t_end = min(BK, k_end - k0);
+#pragma unroll 4
     for (int t = 0; t < t_end; ++t) {
       float p[RPT];
 #pragma unroll
@@ -200,35 +237,63 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NJ>
+template <typename K>
+int allow_smem(K kern, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int NJ, int NM>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int B, int Sq, int Sk, int H, int Hkv, int D, float scale,
-           int causal, cudaStream_t s) {
+           const Bounds& mb, int B, int Sq, int Sk, int H, int Hkv, int D,
+           float scale, int causal, cudaStream_t s) {
   const size_t smem = sizeof(float) *
       ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D +
-       (size_t)BQ * (BK + 1));
-  auto kern = flash_fwd_kernel<T, NJ>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+       (size_t)BQ * (BK + 1)) + sizeof(int) * 2 * NM * BK;
   dim3 grid((unsigned)(B * H), (unsigned)((Sq + BQ - 1) / BQ));
+  auto kern = flash_fwd_kernel<T, NJ, NM>;
+  if (int e = allow_smem(kern, smem)) return e;
   kern<<<grid, kThreads, smem, s>>>((const T*)q, (const T*)k, (const T*)v,
-                                    (T*)out, lse, Sq, Sk, H, Hkv, D, scale,
-                                    causal);
+                                    (T*)out, lse, mb, Sq, Sk, H, Hkv, D,
+                                    scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int NM>
 int launch_d(const void* q, const void* k, const void* v, void* out,
-             float* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
-             float scale, int causal, cudaStream_t s) {
-  if (D <= 16) return launch<T, 1>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, scale, causal, s);
-  if (D <= 32) return launch<T, 2>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, scale, causal, s);
-  if (D <= 64) return launch<T, 4>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, scale, causal, s);
-  if (D <= 128) return launch<T, 8>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, scale, causal, s);
-  return launch<T, 16>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, scale, causal, s);
+             float* lse, const Bounds& mb, int B, int Sq, int Sk, int H,
+             int Hkv, int D, float scale, int causal, cudaStream_t s) {
+#define PTT_FWD(NJ) return launch<T, NJ, NM>(q, k, v, out, lse, mb, B, Sq, \
+    Sk, H, Hkv, D, scale, causal, s)
+  if (D <= 16) PTT_FWD(1);
+  if (D <= 32) PTT_FWD(2);
+  if (D <= 64) PTT_FWD(4);
+  if (D <= 128) PTT_FWD(8);
+  PTT_FWD(16);
+#undef PTT_FWD
+}
+
+int fwd_entry(const void* q, const void* k, const void* v, void* out,
+              void* lse, const Bounds& mb, int nm, int B, int Sq, int Sk,
+              int H, int Hkv, int D, float scale, int causal, int dtype,
+              void* stream) {
+  if (B <= 0 || Sq <= 0 || H <= 0) return 0;
+  if (Sk < 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D % 8 != 0 || D > 256 ||
+      (long long)B * H > 0x7fffffffLL || (Sq + BQ - 1) / BQ > 65535 ||
+      !ptt::bounds_ok(mb, nm, H, Hkv))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  PTT_DISPATCH(dtype, T,
+    if (nm == 0)
+      return launch_d<T, 0>(q, k, v, out, (float*)lse, mb, B, Sq, Sk, H, Hkv,
+                            D, scale, causal, s);
+    if (nm == 1)
+      return launch_d<T, 1>(q, k, v, out, (float*)lse, mb, B, Sq, Sk, H, Hkv,
+                            D, scale, causal, s);
+    return launch_d<T, 2>(q, k, v, out, (float*)lse, mb, B, Sq, Sk, H, Hkv,
+                          D, scale, causal, s))
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -238,13 +303,19 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
                                        int B, int Sq, int Sk, int H, int Hkv,
                                        int D, float scale, int causal,
                                        int dtype, void* stream) {
-  if (B <= 0 || Sq <= 0 || H <= 0) return 0;
-  if (Sk < 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D % 8 != 0 || D > 256 ||
-      (long long)B * H > 0x7fffffffLL || (Sq + BQ - 1) / BQ > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  PTT_DISPATCH(dtype, T,
-    return launch_d<T>(q, k, v, out, (float*)lse, B, Sq, Sk, H, Hkv, D,
-                       scale, causal, s))
-  return (int)cudaErrorInvalidValue;
+  const Bounds none = {nullptr, nullptr, nullptr, nullptr, 1};
+  return fwd_entry(q, k, v, out, lse, none, 0, B, Sq, Sk, H, Hkv, D, scale,
+                   causal, dtype, stream);
+}
+
+// start/end (and start2/end2 when nm == 2): [B, kh, Sk] int32
+extern "C" int ptt_flashmask_attention_fwd(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    const void* start, const void* end, const void* start2, const void* end2,
+    int kh, int nm, int B, int Sq, int Sk, int H, int Hkv, int D,
+    float scale, int causal, int dtype, void* stream) {
+  const Bounds mb = {(const int*)start, (const int*)end, (const int*)start2,
+                     (const int*)end2, kh};
+  return fwd_entry(q, k, v, out, lse, mb, nm, B, Sq, Sk, H, Hkv, D, scale,
+                   causal, dtype, stream);
 }

@@ -15,10 +15,21 @@
 // S_q and key rows past S_k add nothing. Under GQA, dK and dV of KV head g
 // are the sums over the H / H_kv query heads that read it.
 //
+// Flashmask (ptt_flashmask_attention_bwd) adds the forward's range mask:
+// bounds [B, kh, S_k] int32 (kh 1, H_kv or H), query i cannot see key t
+// when start[t] <= i < end[t] or start2[t] <= i < end2[t]. P is zeroed by
+// the mask, never by exp, so rows that see no key (lse -1e30) add nothing.
+// The dQ kernel stages the bounds of each K tile beside it; the dK/dV
+// kernel stages its 64 keys' bounds once per query head of the group,
+// since with kh = H the bound row changes with the head. The count of
+// intervals (0, 1, 2) is a template argument: with 0 the kernels are the
+// unmasked ones.
+//
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
 // _flash_bwd_bhsd, its dq pallas_call (:360, body _bwd_dq_kernel) and its
 // dk/dv pallas_call (:393, body _bwd_dkv_kernel), and the group sum of
-// _flash_core_bwd. What bounds it on the H100: operations. The function
+// _flash_core_bwd (with the mask operands and _range_mask, the backward of
+// flashmask_attention_fwd, _flashmask_core_bwd). What bounds it on the H100: operations. The function
 // does five products over the visible (query, key) pairs, 10 * pairs * D
 // operations per head, against ~8 * S * D * 2 bytes of q, k, v, out, dout,
 // dq, dk, dv: at S = 2048, D = 128 the causal operations (0.17 ms over 989
@@ -44,6 +55,7 @@
 // CUDA cores in float32, far below the tensor-core rate. The planned
 // redesign stages tiles with TMA and runs the products on wgmma.
 #include "common.cuh"
+#include "flash_mask.cuh"
 
 namespace {
 
@@ -61,6 +73,11 @@ constexpr int QPT = 2;                            // queries per thread
 constexpr int BKV = GROUPS * KRT;                 // 64 keys per block
 constexpr int BQ2 = LANES * QPT;                  // 32 queries per tile
 
+using ptt::Bounds;
+using ptt::bound_row;
+using ptt::range_visible;
+using ptt::stage_bounds;
+
 // Stages rows [r0, r0 + n) of a [S, heads, D] tensor (one head) into a
 // float32 [n, DP] tile, zeros past S.
 template <typename T>
@@ -73,15 +90,16 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int r0, int n,
   }
 }
 
-// NJ: accumulator columns per lane, at least ceil(D / 16)
-template <typename T, int NJ>
+// NJ: accumulator columns per lane, at least ceil(D / 16); NM: masked
+// row intervals per key (0: no range mask)
+template <typename T, int NJ, int NM>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int Sq, int Sk, int H, int Hkv, int D, float scale,
-                    int causal) {
+                    Bounds mb, int Sq, int Sk, int H, int Hkv, int D,
+                    float scale, int causal) {
   extern __shared__ float sm[];
   const int DP = D + 1;                  // padded stride: no bank conflicts
   float* q_s = sm;                       // [BQ, DP]
@@ -91,6 +109,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ds_s = v_s + BK * DP;           // [BQ, BK + 1]
   float* lse_s = ds_s + BQ * (BK + 1);   // [BQ]
   float* dl_s = lse_s + BQ;              // [BQ]
+  int* b_s = (int*)(dl_s + BQ);          // [2 * NM, BK] bounds
 
   const int tid = threadIdx.x;
   const int rg = tid / LANES, lane = tid % LANES;
@@ -107,6 +126,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + ((int64_t)b * Sk * Hkv + g) * D;
   const T* vb = v + ((int64_t)b * Sk * Hkv + g) * D;
   T* dqb = dq + ((int64_t)b * Sq * H + h) * D;
+  const int64_t mrow = NM ? bound_row(mb, b, h, g, H, Sk) : 0;
 
   stage(q_s, qb, q0, BQ, Sq, q_stride, D, DP);
   stage(do_s, dob, q0, BQ, Sq, q_stride, D, DP);
@@ -130,6 +150,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                     // staging done; last tile's reads done
     stage(k_s, kb, k0, BK, Sk, kv_stride, D, DP);
     stage(v_s, vb, k0, BK, Sk, kv_stride, D, DP);
+    if (NM) stage_bounds<NM>(b_s, mb, mrow, k0, BK, Sk);
     __syncthreads();
 
     float s[RPT][KPT], dp[RPT][KPT];
@@ -165,7 +186,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
         const int kp = k0 + lane + j * LANES;
-        const bool ok = qi < Sq && kp < Sk && (!causal || qi + off >= kp);
+        const bool ok = qi < Sq && kp < Sk && (!causal || qi + off >= kp) &&
+                        range_visible<NM>(b_s, BK, lane + j * LANES, qi);
         const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
         ds_s[r * (BK + 1) + lane + j * LANES] = p * (dp[i][j] - dl_s[r]);
       }
@@ -201,14 +223,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, int NM>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
-                     int D, float scale, int causal) {
+                     T* __restrict__ dv, Bounds mb, int Sq, int Sk, int H,
+                     int Hkv, int D, float scale, int causal) {
   extern __shared__ float sm[];
   const int DP = D + 1;
   float* k_s = sm;                       // [BKV, DP]
@@ -219,6 +241,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ds_s = p_s + BKV * (BQ2 + 1);   // [BKV, BQ2 + 1]
   float* lse_s = ds_s + BKV * (BQ2 + 1); // [BQ2]
   float* dl_s = lse_s + BQ2;             // [BQ2]
+  int* b_s = (int*)(dl_s + BQ2);         // [2 * NM, BKV] bounds
 
   const int tid = threadIdx.x;
   const int rg = tid / LANES, lane = tid % LANES;
@@ -249,6 +272,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t bh = (int64_t)b * H + h;
     const T* qb = q + ((int64_t)b * Sq * H + h) * D;
     const T* dob = dout + ((int64_t)b * Sq * H + h) * D;
+    if (NM && (r == 0 || mb.kh == H)) {
+      // the tile's bounds for this head: the row changes with the head
+      // only when kh = H; the last head's reads ended at a sync
+      __syncthreads();
+      stage_bounds<NM>(b_s, mb, bound_row(mb, b, h, g, H, Sk), k0, BKV, Sk);
+    }
     for (int q0 = qt0; q0 < Sq; q0 += BQ2) {
       __syncthreads();                   // last tile's reads done
       stage(q_s, qb, q0, BQ2, Sq, q_stride, D, DP);
@@ -295,7 +324,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int t = lane + j * LANES;
           const int qi = q0 + t;
           // padded query rows add nothing to dK / dV
-          const bool ok = qi < Sq && kp < Sk && (!causal || qi + off >= kp);
+          const bool ok = qi < Sq && kp < Sk && (!causal || qi + off >= kp) &&
+                          range_visible<NM>(b_s, BKV, kr, qi);
           const float p = ok ? expf(s[i][j] * scale - lse_s[t]) : 0.f;
           p_s[kr * (BQ2 + 1) + t] = p;
           ds_s[kr * (BQ2 + 1) + t] = p * (dp[i][j] - dl_s[t]);
@@ -352,18 +382,20 @@ int allow_smem(K kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, int NM>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk, void* dv,
-           int B, int Sq, int Sk, int H, int Hkv, int D, float scale,
-           int causal, cudaStream_t s) {
+           const Bounds& mb, int B, int Sq, int Sk, int H, int Hkv, int D,
+           float scale, int causal, cudaStream_t s) {
   const size_t dp = (size_t)D + 1;
   const size_t smem_q = sizeof(float) *
-      (2 * BQ * dp + 2 * BK * dp + (size_t)BQ * (BK + 1) + 2 * BQ);
+      (2 * BQ * dp + 2 * BK * dp + (size_t)BQ * (BK + 1) + 2 * BQ) +
+      sizeof(int) * 2 * NM * BK;
   const size_t smem_kv = sizeof(float) *
-      (2 * BKV * dp + 2 * BQ2 * dp + 2 * (size_t)BKV * (BQ2 + 1) + 2 * BQ2);
-  auto kq = flash_bwd_dq_kernel<T, NJ>;
-  auto kkv = flash_bwd_dkv_kernel<T, NJ>;
+      (2 * BKV * dp + 2 * BQ2 * dp + 2 * (size_t)BKV * (BQ2 + 1) + 2 * BQ2) +
+      sizeof(int) * 2 * NM * BKV;
+  auto kq = flash_bwd_dq_kernel<T, NJ, NM>;
+  auto kkv = flash_bwd_dkv_kernel<T, NJ, NM>;
   int e = allow_smem(kq, smem_q);
   if (e) return e;
   e = allow_smem(kkv, smem_kv);
@@ -371,29 +403,54 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid_q((unsigned)(B * H), (unsigned)((Sq + BQ - 1) / BQ));
   kq<<<grid_q, kThreads, smem_q, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, Sq, Sk, H, Hkv, D, scale, causal);
+      (T*)dq, mb, Sq, Sk, H, Hkv, D, scale, causal);
   e = (int)cudaGetLastError();
   if (e || Sk == 0) return e;
   dim3 grid_kv((unsigned)(B * Hkv), (unsigned)((Sk + BKV - 1) / BKV));
   kkv<<<grid_kv, kThreads, smem_kv, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, Sq, Sk, H, Hkv, D, scale, causal);
+      (T*)dk, (T*)dv, mb, Sq, Sk, H, Hkv, D, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int NM>
 int launch_d(const void* q, const void* k, const void* v, const void* dout,
              const float* lse, const float* delta, void* dq, void* dk,
-             void* dv, int B, int Sq, int Sk, int H, int Hkv, int D,
-             float scale, int causal, cudaStream_t s) {
-#define PTT_BWD(NJ) return launch<T, NJ>(q, k, v, dout, lse, delta, dq, dk, \
-    dv, B, Sq, Sk, H, Hkv, D, scale, causal, s)
+             void* dv, const Bounds& mb, int B, int Sq, int Sk, int H,
+             int Hkv, int D, float scale, int causal, cudaStream_t s) {
+#define PTT_BWD(NJ) return launch<T, NJ, NM>(q, k, v, dout, lse, delta, dq, \
+    dk, dv, mb, B, Sq, Sk, H, Hkv, D, scale, causal, s)
   if (D <= 16) PTT_BWD(1);
   if (D <= 32) PTT_BWD(2);
   if (D <= 64) PTT_BWD(4);
   if (D <= 128) PTT_BWD(8);
   PTT_BWD(16);
 #undef PTT_BWD
+}
+
+int bwd_entry(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, void* dk,
+              void* dv, const Bounds& mb, int nm, int B, int Sq, int Sk,
+              int H, int Hkv, int D, float scale, int causal, int dtype,
+              void* stream) {
+  if (B <= 0 || Sq <= 0 || H <= 0) return 0;
+  if (Sk < 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D % 8 != 0 || D > 256 ||
+      (long long)B * H > 0x7fffffffLL || (Sq + BQ - 1) / BQ > 65535 ||
+      (Sk + BKV - 1) / BKV > 65535 || !ptt::bounds_ok(mb, nm, H, Hkv))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* l = (const float*)lse;
+  const float* dl = (const float*)delta;
+  PTT_DISPATCH(dtype, T,
+    if (nm == 0)
+      return launch_d<T, 0>(q, k, v, dout, l, dl, dq, dk, dv, mb, B, Sq, Sk,
+                            H, Hkv, D, scale, causal, s);
+    if (nm == 1)
+      return launch_d<T, 1>(q, k, v, dout, l, dl, dq, dk, dv, mb, B, Sq, Sk,
+                            H, Hkv, D, scale, causal, s);
+    return launch_d<T, 2>(q, k, v, dout, l, dl, dq, dk, dv, mb, B, Sq, Sk, H,
+                          Hkv, D, scale, causal, s))
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -405,14 +462,20 @@ extern "C" int ptt_flash_attention_bwd(const void* q, const void* k,
                                        int Sq, int Sk, int H, int Hkv, int D,
                                        float scale, int causal, int dtype,
                                        void* stream) {
-  if (B <= 0 || Sq <= 0 || H <= 0) return 0;
-  if (Sk < 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D % 8 != 0 || D > 256 ||
-      (long long)B * H > 0x7fffffffLL || (Sq + BQ - 1) / BQ > 65535 ||
-      (Sk + BKV - 1) / BKV > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  PTT_DISPATCH(dtype, T,
-    return launch_d<T>(q, k, v, dout, (const float*)lse, (const float*)delta,
-                       dq, dk, dv, B, Sq, Sk, H, Hkv, D, scale, causal, s))
-  return (int)cudaErrorInvalidValue;
+  const Bounds none = {nullptr, nullptr, nullptr, nullptr, 1};
+  return bwd_entry(q, k, v, dout, lse, delta, dq, dk, dv, none, 0, B, Sq, Sk,
+                   H, Hkv, D, scale, causal, dtype, stream);
+}
+
+// start/end (and start2/end2 when nm == 2): [B, kh, Sk] int32
+extern "C" int ptt_flashmask_attention_bwd(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, void* dk, void* dv,
+    const void* start, const void* end, const void* start2, const void* end2,
+    int kh, int nm, int B, int Sq, int Sk, int H, int Hkv, int D,
+    float scale, int causal, int dtype, void* stream) {
+  const Bounds mb = {(const int*)start, (const int*)end, (const int*)start2,
+                     (const int*)end2, kh};
+  return bwd_entry(q, k, v, dout, lse, delta, dq, dk, dv, mb, nm, B, Sq, Sk,
+                   H, Hkv, D, scale, causal, dtype, stream);
 }

@@ -1,27 +1,81 @@
 """Functional surface of the port's serving and training paths: the
 counterparts of ``paddle_tpu.nn.functional.rms_norm``, ``swiglu`` (the
-``swiglu`` op), ``fused_rope`` (the ``fused_rope`` op),
-``scaled_dot_product_attention``, ``paged_attention`` and
-``ragged_paged_attention`` (``paddle_tpu/nn/functional/attention.py:
-105-204``), ``cross_entropy`` (``nn/functional/loss.py:22``, hard labels)
-and the ``fused_linear_cross_entropy`` op (``ops/impl/fused.py:271-396``),
-with the same argument checks. Each routes to its kernel wrapper in
+``swiglu`` op), ``fused_rope`` (the ``fused_rope`` op), ``linear``,
+``dropout`` (``nn/functional/common.py:18, :28``), ``layer_norm``
+(``nn/functional/norm.py:54``), ``scaled_dot_product_attention``,
+``flashmask_attention``, ``paged_attention`` and ``ragged_paged_attention``
+(``paddle_tpu/nn/functional/attention.py``), ``cross_entropy``
+(``nn/functional/loss.py:22``, hard labels) and the
+``fused_linear_cross_entropy`` op (``ops/impl/fused.py:271-396``), with the
+same argument checks. The kernel ops route to their wrappers in
 ``ops.kernels`` (the CUDA kernel for CUDA tensors, the plain version for
 CPU tensors), the differentiable ones through the kernel's autograd
-function.
+function. Attention with a dense mask or with dropout while training is
+plain PyTorch (``_sdpa_dense``) on both devices, as the JAX package
+computes it in XLA (``_sdpa_xla``) outside any kernel. Functionals that
+draw random numbers take ``generator=`` (default: the device's generator
+in ``framework.random``).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..framework.random import default_generator
 from ..ops import kernels as _k
+from ..ops.kernels.decode_attention import NEG_INF
 
-_MASK = ("scaled_dot_product_attention with an attn_mask comes with the "
-         "flashmask slice of the port; the flash kernel attends unmasked "
-         "(causal or full)")
-_DROPOUT = ("scaled_dot_product_attention with dropout while training comes "
-            "with a later slice of the port; the flash kernel has no dropout")
+
+def linear(x, weight, bias=None):
+    """y = x @ weight (+ bias); weight [in, out] (paddle's layout)."""
+    out = torch.matmul(x, weight)
+    return out if bias is None else out + bias
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            generator=None):
+    """Zero each element (or each slice along `axis`, which shares one
+    draw) with probability p. "upscale_in_train" divides the kept values
+    by 1 - p in training; "downscale_in_infer" keeps them as they are and
+    multiplies by 1 - p outside training."""
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    gen = generator if generator is not None else default_generator(x.device)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        shape = tuple(s if i in axes else 1 for i, s in enumerate(x.shape))
+    else:
+        shape = x.shape
+    keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - p
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    return torch.where(keep, x, torch.zeros_like(x))
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """LayerNorm over the trailing `normalized_shape` dims, in float32 for
+    bf16/f16 inputs; the normalized value is cast to x's type BEFORE the
+    weight multiply and the bias add (the fused bdrln op multiplies in
+    float32 and casts last)."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    dims = tuple(range(x.dim() - len(normalized_shape), x.dim()))
+    xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    mean = xf.mean(dims, keepdim=True)
+    var = xf.var(dims, unbiased=False, keepdim=True)
+    out = ((xf - mean) * torch.reciprocal(torch.sqrt(var + epsilon))).to(
+        x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
 
 
 def rms_norm(x, weight, epsilon=1e-6):
@@ -41,19 +95,172 @@ def fused_rope(x, cos, sin):
     return _k.FusedRoPE.apply(x, cos, sin)
 
 
+def _sdpa_dense(q, k, v, mask=None, dropout_p=0.0, causal=False,
+                training=True, return_lse=False, generator=None):
+    """``_sdpa_xla``: attention with the [B, H, S, T] logits materialized.
+    q/k/v [B, S, H, D] (K/V heads repeated under GQA); mask bool (True =
+    attend) or additive, broadcast against the logits; logits in float32,
+    probabilities in q's type, dropout on the probabilities while
+    training. return_lse adds the float32 logsumexp of the masked logits
+    [B, H, S] (of -1e30 logits on a row that sees nothing)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if kt.shape[1] != qt.shape[1]:
+        rep = qt.shape[1] // kt.shape[1]
+        kt = kt.repeat_interleave(rep, dim=1)
+        vt = vt.repeat_interleave(rep, dim=1)
+    logits = (torch.einsum("bhsd,bhtd->bhst", qt, kt) * scale).float()
+    if causal:
+        s, t = logits.shape[-2], logits.shape[-1]
+        cm = torch.ones(s, t, dtype=torch.bool, device=q.device).tril(t - s)
+        logits = logits.masked_fill(~cm, NEG_INF)
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            logits = logits.masked_fill(~mask, NEG_INF)
+        else:
+            logits = logits + mask.float()
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_p > 0.0 and training:
+        gen = generator if generator is not None else \
+            default_generator(q.device)
+        keep = torch.rand(probs.shape, generator=gen, device=q.device) < \
+            1.0 - dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros_like(probs))
+    out = torch.einsum("bhst,bhtd->bhsd", probs, vt).transpose(1, 2)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=False):
+                                 training=True, generator=None):
     """Layout [B, S, H, D]; key/value may have fewer heads (GQA). With no
     mask and no active dropout this is the flash kernel, causal with
     bottom-right alignment when ``is_causal``, and its backward is the
-    flash backward kernel. A mask, or dropout while training, raises
-    NotImplementedError."""
-    if attn_mask is not None:
-        raise NotImplementedError(_MASK)
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(_DROPOUT)
-    return _k.FlashAttention.apply(query, key, value, is_causal, None)
+    flash backward kernel. With a mask (bool, True = attend, or additive)
+    or dropout while training it is the dense plain path."""
+    if attn_mask is None and (dropout_p == 0.0 or not training):
+        return _k.FlashAttention.apply(query, key, value, is_causal, None)
+    return _sdpa_dense(query, key, value, attn_mask, dropout_p, is_causal,
+                       training=training, generator=generator)
+
+
+def _flashmask_intervals(idx, causal, s):
+    """startend_row_indices [B, kh, T, {1, 2, 4}] -> up to two masked row
+    intervals per key column, (start, end, start2, end2), each [B, kh, T]
+    int32 (start2/end2 None when one suffices):
+
+      causal,  1 bound : masked [start, S)
+      causal,  2 bounds: masked [start, end)
+      ~causal, 2 bounds: masked [LT_start, S) and [0, UT_end)
+      ~causal, 4 bounds: masked [LT_start, LT_end) and [UT_start, UT_end)
+    """
+    nb = idx.shape[-1]
+    if causal:
+        if nb == 1:
+            ms = idx[..., 0]
+            return ms, torch.full_like(ms, s), None, None
+        if nb == 2:
+            return idx[..., 0], idx[..., 1], None, None
+        raise ValueError(f"causal flashmask expects 1 or 2 bounds, got {nb}")
+    if nb == 2:
+        ms = idx[..., 0]
+        return ms, torch.full_like(ms, s), torch.zeros_like(ms), idx[..., 1]
+    if nb == 4:
+        return idx[..., 0], idx[..., 1], idx[..., 2], idx[..., 3]
+    raise ValueError(
+        f"bidirectional flashmask expects 2 or 4 bounds, got {nb}")
+
+
+def _window_to_indices(window_size, b, s, t, causal, device):
+    """Sliding-window attention as startend_row_indices: one bound per key
+    column (T of them), rows clipped to the query length S. The causal
+    diagonal is bottom-right aligned (query row i sits at position
+    i + T - S), so the band around key j covers positions [j - w1, j + w0],
+    minus the (T - S) offset in query-row coordinates."""
+    if isinstance(window_size, int):
+        window_size = (window_size, window_size)
+    w0, w1 = window_size
+    off = t - s
+    col = torch.arange(t, dtype=torch.int32, device=device)
+    if causal:
+        idx = (col + w0 + 1 - off).clamp(0, s)[None, None, :, None]
+    else:
+        lo = (col + w0 + 1 - off).clamp(0, s)
+        hi = (col - w1 - off).clamp(0, s)
+        idx = torch.stack([lo, hi], dim=-1)[None, None]
+    return idx.expand((b,) + tuple(idx.shape[1:])).to(torch.int32)
+
+
+def flashmask_attention(query, key, value, startend_row_indices=None,
+                        dropout=0.0, causal=False, window_size=None,
+                        return_softmax_lse=False, return_seed_offset=False,
+                        training=True, generator=None):
+    """Attention with a sparse row-range mask. query [B, S, H, D], key/value
+    [B, T, H_kv, D]; startend_row_indices [B, kh, T, {1, 2, 4}] int (kh 1,
+    H_kv or H; see ``_flashmask_intervals``) or window_size (an int or
+    (left, right)), not both. With bounds and no active dropout this is the
+    flashmask kernel (forward and, through autograd, backward), which never
+    builds the dense mask; with dropout while training the same intervals
+    become a dense mask for the plain path. Without bounds it is the dense
+    plain path (causal or not). Rows that see no key output 0. Returns out,
+    or a list [out, lse] / [out, seed_offset] / [out, lse, seed_offset]:
+    lse [B, H, S] float32, detached (see ``ops.kernels.flash_attention``
+    for its value on rows that see no key); seed_offset int64 zeros [2]."""
+    b, s, h, _ = query.shape
+    t, h_kv = key.shape[1], key.shape[2]
+    if window_size is not None:
+        if startend_row_indices is not None:
+            raise ValueError(
+                "window_size and startend_row_indices are exclusive")
+        startend_row_indices = _window_to_indices(window_size, b, s, t,
+                                                  causal, query.device)
+    lse = None
+    if startend_row_indices is not None:
+        ms, me, ms2, me2 = _flashmask_intervals(
+            startend_row_indices.to(torch.int32), causal, s)
+        kh = ms.shape[1]
+        if kh not in (1, h, h_kv):
+            raise ValueError(f"flashmask head dim {kh} must be 1, num_heads "
+                             f"{h}, or k_num_heads {h_kv}")
+        if dropout == 0.0 or not training:
+            out, lse = _k.FlashmaskAttention.apply(
+                query, key, value, ms.contiguous(), me.contiguous(),
+                None if ms2 is None else ms2.contiguous(),
+                None if me2 is None else me2.contiguous(), causal, None)
+        else:
+            rows = torch.arange(s, device=query.device)[None, None, :, None]
+            masked = (ms[:, :, None, :] <= rows) & (rows < me[:, :, None, :])
+            if ms2 is not None:
+                masked = masked | ((ms2[:, :, None, :] <= rows) &
+                                   (rows < me2[:, :, None, :]))
+            mask = ~masked                                   # B, kh, S, T
+            if causal:
+                cm = torch.ones(s, t, dtype=torch.bool,
+                                device=query.device).tril(t - s)
+                mask = mask & cm
+            if kh == h_kv and h_kv != h:
+                mask = mask.repeat_interleave(h // h_kv, dim=1)
+            out, lse = _sdpa_dense(query, key, value, mask, dropout, False,
+                                   training=training, return_lse=True,
+                                   generator=generator)
+            out = out * mask.any(-1).transpose(1, 2)[..., None]
+    elif return_softmax_lse:
+        out, lse = _sdpa_dense(query, key, value, None, dropout, causal,
+                               training=training, return_lse=True,
+                               generator=generator)
+    else:
+        out = _sdpa_dense(query, key, value, None, dropout, causal,
+                          training=training, generator=generator)
+    outputs = [out]
+    if return_softmax_lse:
+        outputs.append(lse.float().detach())
+    if return_seed_offset:
+        outputs.append(torch.zeros(2, dtype=torch.int64,
+                                   device=query.device))
+    return outputs[0] if len(outputs) == 1 else outputs
 
 
 def paged_attention(query, k_pages, v_pages, block_tables, context_lens,

@@ -6,20 +6,30 @@ A wrapper given a CPU tensor computes the plain version; given a CUDA
 tensor it launches the kernel built from ``paddle_tpu_torch/csrc`` (see
 ``_build``) or raises. Nothing falls back.
 
-The autograd functions (``FlashAttention``, ``RMSNorm``, ``SwiGLU``,
-``FusedRoPE``) run a wrapper forward. Flash attention's backward is a
-kernel too (``flash_attention_bwd``), as the TPU's is; the others'
-backwards are plain PyTorch (``*_bwd_plain``), as the JAX package computes
-them in XLA outside Pallas.
+The autograd functions (``FlashAttention``, ``FlashmaskAttention``,
+``RMSNorm``, ``SwiGLU``, ``FusedRoPE``, ``BiasDropoutResidualLN``) run a
+wrapper forward. Flash attention's backward is a kernel too
+(``flash_attention_bwd``, ``flashmask_attention_bwd``), as the TPU's is;
+the others' backwards are plain PyTorch (``*_bwd_plain``), as the JAX
+package computes them in XLA outside Pallas. The flashmask wrappers launch
+the flash kernels with a range mask and count their launches apart.
 """
 
 from __future__ import annotations
 
+from .bias_dropout_residual_ln import (BiasDropoutResidualLN,
+                                       bias_dropout_residual_ln,
+                                       bias_dropout_residual_ln_bwd_plain,
+                                       bias_dropout_residual_ln_plain)
 from .decode_attention import (paged_decode_attention,
                                paged_decode_attention_plain)
-from .flash_attention import (FlashAttention, flash_attention_bwd,
-                              flash_attention_bwd_plain, flash_attention_fwd,
-                              flash_attention_fwd_plain)
+from .flash_attention import (FlashAttention, FlashmaskAttention,
+                              flash_attention_bwd, flash_attention_bwd_plain,
+                              flash_attention_fwd, flash_attention_fwd_plain,
+                              flashmask_attention_bwd,
+                              flashmask_attention_bwd_plain,
+                              flashmask_attention_fwd,
+                              flashmask_attention_fwd_plain)
 from .quantized_attention import (paged_decode_attention_int8,
                                   paged_decode_attention_int8_plain,
                                   ragged_paged_attention_int8,
@@ -67,6 +77,20 @@ KERNELS = {
         paged_decode_attention_int8,
         "paddle_tpu_torch/csrc/quantized_attention.cu",
         "paddle_tpu/ops/pallas/quantized_attention.py:213"),
+    # the flash kernels with the range mask (template over the count of
+    # intervals), counted apart from the unmasked launches
+    "flashmask_attention": (
+        flashmask_attention_fwd, "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:183 (_range_mask :208)"),
+    "flashmask_attention_bwd": (
+        flashmask_attention_bwd,
+        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:360; :393 "
+        "(_range_mask :208)"),
+    "bias_dropout_residual_ln": (
+        bias_dropout_residual_ln,
+        "paddle_tpu_torch/csrc/bias_dropout_residual_ln.cu",
+        "paddle_tpu/ops/pallas/fused_ffn.py:153"),
 }
 
 
@@ -81,9 +105,14 @@ def reset_launch_counts():
 
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
-           "FlashAttention", "FusedRoPE", "RMSNorm", "SwiGLU",
+           "BiasDropoutResidualLN", "FlashAttention", "FlashmaskAttention",
+           "FusedRoPE", "RMSNorm", "SwiGLU", "bias_dropout_residual_ln",
+           "bias_dropout_residual_ln_bwd_plain",
+           "bias_dropout_residual_ln_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_fwd_plain",
+           "flashmask_attention_bwd", "flashmask_attention_bwd_plain",
+           "flashmask_attention_fwd", "flashmask_attention_fwd_plain",
            "fused_rope", "fused_rope_bwd_plain", "fused_rope_plain",
            "paged_decode_attention", "paged_decode_attention_plain",
            "paged_decode_attention_int8", "paged_decode_attention_int8_plain",

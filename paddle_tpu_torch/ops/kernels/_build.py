@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo"]
 SOURCES = ("rms_norm", "swiglu", "decode_attention", "ragged_attention",
            "flash_attention", "rope", "quantized_attention",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "bias_dropout_residual_ln")
 
 _LIBS = {}
 _LOCK = threading.Lock()

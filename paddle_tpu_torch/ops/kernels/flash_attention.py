@@ -20,6 +20,19 @@ KV head's group of query heads. ``FlashAttention`` is the autograd
 function that pairs the two: its forward is the forward kernel and it
 saves q, k, v, out and the float32 lse. Bound and design: see the notes in
 the CUDA sources.
+
+Flashmask (``flashmask_attention_fwd`` / ``_bwd`` and their ``_plain``
+versions; ``_flashmask_core``, ``_expand_mask_heads`` and
+``flashmask_attention_fwd`` of the JAX module) is the same pair of kernels
+with a range mask: bounds [B, kh, S_k] int32 (kh 1, H_kv or H, read by the
+kernels per query head, never expanded), one or two intervals of query
+rows per key that cannot see it, [start[t], end[t]) and [start2[t],
+end2[t]), on top of the causal and length tests. Its launches are counted
+apart from the unmasked ones. A row that sees no key writes 0 and lse =
+NEG_INF + log(L_EPS) (-1e30 in float32; the JAX package's dense path gives
+the logsumexp of its -1e30 logits there instead, so such rows' lse are not
+compared). ``FlashmaskAttention`` is its autograd function: the bounds get
+no gradient and lse comes out detached, as JAX's stop_gradient has it.
 """
 
 from __future__ import annotations
@@ -42,9 +55,32 @@ def _causal_mask(s_q, s_k, device):
         s_k - s_q)
 
 
-def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
+def _visible(b, s_q, s_k, h_kv, rep, causal, bounds, device):
+    """bool [B or 1, H_kv, rep or 1, S_q, S_k] of the (query, key) pairs
+    that attend, or None when every pair does. bounds: None or (start,
+    end, start2, end2) of [B, kh, S_k] (start2/end2 may be None)."""
+    vis = _causal_mask(s_q, s_k, device) if causal else None
+    if bounds is None:
+        return vis
+    start, end, start2, end2 = bounds
+    rows = torch.arange(s_q, device=device)[:, None]
+
+    def heads(m):       # [B, kh, S_k] -> [B, kh or H_kv, 1 or rep, 1, S_k]
+        if m.shape[1] == h_kv * rep and rep > 1:
+            return m.reshape(b, h_kv, rep, 1, s_k)
+        return m[:, :, None, None, :]
+
+    masked = (heads(start) <= rows) & (rows < heads(end))
+    if start2 is not None:
+        masked = masked | ((heads(start2) <= rows) & (rows < heads(end2)))
+    return ~masked if vis is None else ~masked & vis
+
+
+def flash_attention_fwd_plain(q, k, v, causal=False, scale=None,
+                              bounds=None):
     """q: [B, S_q, H, D]; k/v: [B, S_k, H_kv, D] -> (out [B, S_q, H, D] in
-    q's type, lse [B, H, S_q] float32).
+    q's type, lse [B, H, S_q] float32). bounds: the flashmask operands
+    (start, end, start2, end2), or None.
 
     Scores, softmax and the PV product run in float32, and P stays float32
     for the PV product, as in ``_flash_fwd_gpu``. (The TPU kernel rounds P
@@ -58,13 +94,13 @@ def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qg = q.reshape(b, s_q, h_kv, rep, d).float()
     s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale
-    if causal:
-        cm = _causal_mask(s_q, s_k, q.device)
-        s = s.masked_fill(~cm, NEG_INF)
+    vis = _visible(b, s_q, s_k, h_kv, rep, causal, bounds, q.device)
+    if vis is not None:
+        s = s.masked_fill(~vis, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    if causal:
-        p = p * cm           # rows with no visible key: exp(0) -> 0
+    if vis is not None:
+        p = p * vis          # rows with no visible key: exp(0) -> 0
     lc = p.sum(dim=-1, keepdim=True).clamp_min(L_EPS)
     acc = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
     out = acc / lc.permute(0, 3, 1, 2, 4)
@@ -96,34 +132,103 @@ def _check(q, k, v, what="flash_attention_fwd"):
                          f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
 
 
+_MASK_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+
+
+def _check_bounds(q, k, bounds, what):
+    """Raise unless bounds are (start, end, start2, end2) int32 tensors of
+    one shape [B, kh, S_k] with kh 1, H_kv or H (start2/end2 both None or
+    both given). Returns (pointer arguments, kh, intervals)."""
+    start, end, start2, end2 = bounds
+    if (start2 is None) != (end2 is None):
+        raise ValueError(f"{what}: start2 and end2 must be given together")
+    given = {"start": start, "end": end}
+    if start2 is not None:
+        given.update(start2=start2, end2=end2)
+    _build.require_cuda(q, what, **given)
+    b, _, h, _ = q.shape
+    s_k, h_kv = k.shape[1], k.shape[2]
+    kh = start.shape[1] if start.dim() == 3 else -1
+    for name, t in given.items():
+        if t.dtype != torch.int32 or tuple(t.shape) != (b, kh, s_k) or \
+                kh not in (1, h_kv, h):
+            raise ValueError(f"{what}: {name} must be int32 [B, kh, S_k] = "
+                             f"[{b}, 1|{h_kv}|{h}, {s_k}] like start, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    ptrs = [_build.ptr(t) for t in (start, end)] + (
+        [_build.ptr(start2), _build.ptr(end2)] if start2 is not None
+        else [None, None])
+    return ptrs + [kh, 2 if start2 is not None else 1]
+
+
+def _fwd(q, k, v, causal, scale, bounds, what):
+    """Launch the forward kernel (masked when bounds is not None)."""
+    _check(q, k, v, what)
+    b, s_q, h, d = q.shape
+    s_k, h_kv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    head = [_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            _build.ptr(lse)]
+    tail = [b, s_q, s_k, h, h_kv, d, float(scale), int(bool(causal)),
+            _build.dtype_code(q), _build.stream(q)]
+    if bounds is None:
+        fn = _build.function("flash_attention", "ptt_flash_attention_fwd",
+                             _ARGS)
+        _build.check(fn(*head, *tail), what)
+    else:
+        fn = _build.function("flash_attention", "ptt_flashmask_attention_fwd",
+                             _ARGS[:5] + _MASK_ARGS + _ARGS[5:])
+        _build.check(fn(*head, *_check_bounds(q, k, bounds, what), *tail),
+                     what)
+    return out, lse
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """q: [B, S_q, H, D]; k/v: [B, S_k, H_kv, D] -> (out, lse [B, H, S_q]).
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
     raise)."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, scale)
-    _check(q, k, v)
-    b, s_q, h, d = q.shape
-    s_k, h_kv = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    fn = _build.function("flash_attention", "ptt_flash_attention_fwd", _ARGS)
-    _build.check(fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
-                    _build.ptr(out), _build.ptr(lse), b, s_q, s_k, h, h_kv, d,
-                    float(scale), int(bool(causal)), _build.dtype_code(q),
-                    _build.stream(q)), "flash_attention_fwd")
+    res = _fwd(q, k, v, causal, scale, None, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
-    return out, lse
+    return res
 
 
 flash_attention_fwd.launches = 0
 
 
+def flashmask_attention_fwd_plain(q, k, v, start, end, start2=None,
+                                  end2=None, causal=True, scale=None):
+    """(out, lse) of attention in which query rows in [start[t], end[t])
+    (and [start2[t], end2[t])) cannot see key t; bounds [B, kh, S_k]."""
+    return flash_attention_fwd_plain(q, k, v, causal, scale,
+                                     (start, end, start2, end2))
+
+
+def flashmask_attention_fwd(q, k, v, start, end, start2=None, end2=None,
+                            causal=True, scale=None):
+    """q: [B, S_q, H, D]; k/v: [B, S_k, H_kv, D]; bounds int32 [B, kh,
+    S_k] -> (out, lse [B, H, S_q]). CPU tensors take the plain version;
+    CUDA tensors launch the masked kernel (or raise)."""
+    if q.device.type == "cpu":
+        return flashmask_attention_fwd_plain(q, k, v, start, end, start2,
+                                             end2, causal, scale)
+    res = _fwd(q, k, v, causal, scale, (start, end, start2, end2),
+               "flashmask_attention_fwd")
+    flashmask_attention_fwd.launches += 1
+    return res
+
+
+flashmask_attention_fwd.launches = 0
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
-                              scale=None):
+                              scale=None, bounds=None):
     """q/out/dout: [B, S_q, H, D]; k/v: [B, S_k, H_kv, D]; lse: the
     forward's [B, H, S_q] float32 -> (dq, dk, dv) in the types of q, k, v.
+    bounds: the flashmask operands (start, end, start2, end2), or None.
 
     Everything runs in float32: delta = rowsum(dout * out), P recomputed as
     exp(S * scale - lse) and zeroed where masked, and P and dS stay float32
@@ -141,8 +246,9 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
     delta = (dog * out.reshape(b, s_q, h_kv, rep, d).float()).sum(-1)
     s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale
     p = torch.exp(s - lse.reshape(b, h_kv, rep, s_q, 1))
-    if causal:
-        p = p.masked_fill(~_causal_mask(s_q, s_k, q.device), 0.0)
+    vis = _visible(b, s_q, s_k, h_kv, rep, causal, bounds, q.device)
+    if vis is not None:
+        p = p.masked_fill(~vis, 0.0)
     dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
     dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vf)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
@@ -156,47 +262,81 @@ _BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None):
-    """(dq, dk, dv) of ``flash_attention_fwd``. CPU tensors take the plain
-    version; CUDA tensors launch the two backward kernels (or raise).
+def _bwd(q, k, v, out, lse, dout, causal, scale, bounds, what):
+    """Launch the two backward kernels (masked when bounds is not None).
     delta = rowsum(dout * out) is one float32 reduction here, as the JAX
     package computes it in XLA before its kernels."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
-                                         scale)
-    _check(q, k, v, "flash_attention_bwd")
-    _build.require_cuda(q, "flash_attention_bwd", out=out, lse=lse,
-                        dout=dout)
+    _check(q, k, v, what)
+    _build.require_cuda(q, what, out=out, lse=lse, dout=dout)
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
     if out.shape != q.shape or dout.shape != q.shape or \
             out.dtype != q.dtype or dout.dtype != q.dtype:
-        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} "
-                         f"{out.dtype} and dout {tuple(dout.shape)} "
-                         f"{dout.dtype} must match q {tuple(q.shape)} "
-                         f"{q.dtype}")
+        raise ValueError(f"{what}: out {tuple(out.shape)} {out.dtype} and "
+                         f"dout {tuple(dout.shape)} {dout.dtype} must match "
+                         f"q {tuple(q.shape)} {q.dtype}")
     if lse.shape != (b, h, s_q) or lse.dtype != torch.float32:
-        raise ValueError(f"flash_attention_bwd: lse must be [B, H, S_q] = "
-                         f"{(b, h, s_q)} float32, got {tuple(lse.shape)} "
-                         f"{lse.dtype}")
+        raise ValueError(f"{what}: lse must be [B, H, S_q] = {(b, h, s_q)} "
+                         f"float32, got {tuple(lse.shape)} {lse.dtype}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _build.function("flash_attention_bwd", "ptt_flash_attention_bwd",
-                         _BWD_ARGS)
-    _build.check(fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
-                    _build.ptr(dout), _build.ptr(lse), _build.ptr(delta),
-                    _build.ptr(dq), _build.ptr(dk), _build.ptr(dv), b, s_q,
-                    s_k, h, h_kv, d, float(scale), int(bool(causal)),
-                    _build.dtype_code(q), _build.stream(q)),
-                 "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    head = [_build.ptr(t) for t in (q, k, v, dout, lse, delta, dq, dk, dv)]
+    tail = [b, s_q, s_k, h, h_kv, d, float(scale), int(bool(causal)),
+            _build.dtype_code(q), _build.stream(q)]
+    if bounds is None:
+        fn = _build.function("flash_attention_bwd", "ptt_flash_attention_bwd",
+                             _BWD_ARGS)
+        _build.check(fn(*head, *tail), what)
+    else:
+        fn = _build.function("flash_attention_bwd",
+                             "ptt_flashmask_attention_bwd",
+                             _BWD_ARGS[:9] + _MASK_ARGS + _BWD_ARGS[9:])
+        _build.check(fn(*head, *_check_bounds(q, k, bounds, what), *tail),
+                     what)
     return dq, dk, dv
 
 
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None):
+    """(dq, dk, dv) of ``flash_attention_fwd``. CPU tensors take the plain
+    version; CUDA tensors launch the two backward kernels (or raise)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
+                                         scale)
+    res = _bwd(q, k, v, out, lse, dout, causal, scale, None,
+               "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return res
+
+
 flash_attention_bwd.launches = 0
+
+
+def flashmask_attention_bwd_plain(q, k, v, out, lse, dout, start, end,
+                                  start2=None, end2=None, causal=True,
+                                  scale=None):
+    """(dq, dk, dv) of ``flashmask_attention_fwd_plain``."""
+    return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale,
+                                     (start, end, start2, end2))
+
+
+def flashmask_attention_bwd(q, k, v, out, lse, dout, start, end,
+                            start2=None, end2=None, causal=True, scale=None):
+    """(dq, dk, dv) of ``flashmask_attention_fwd``. CPU tensors take the
+    plain version; CUDA tensors launch the masked dQ and dK/dV kernels (or
+    raise)."""
+    if q.device.type == "cpu":
+        return flashmask_attention_bwd_plain(q, k, v, out, lse, dout, start,
+                                             end, start2, end2, causal, scale)
+    res = _bwd(q, k, v, out, lse, dout, causal, scale,
+               (start, end, start2, end2), "flashmask_attention_bwd")
+    flashmask_attention_bwd.launches += 1
+    return res
+
+
+flashmask_attention_bwd.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -218,3 +358,28 @@ class FlashAttention(torch.autograd.Function):
                                          dout.contiguous(), ctx.causal,
                                          ctx.scale)
         return dq, dk, dv, None, None
+
+
+class FlashmaskAttention(torch.autograd.Function):
+    """(out, lse) = flashmask attention through ``flashmask_attention_fwd``;
+    the backward is ``flashmask_attention_bwd`` on the saved q, k, v, out,
+    lse and bounds (the counterpart of ``_flashmask_core``'s custom_vjp).
+    The bounds get no gradient and lse is non-differentiable. start2/end2
+    may be None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, start, end, start2, end2, causal, scale):
+        out, lse = flashmask_attention_fwd(q, k, v, start, end, start2, end2,
+                                           causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse, start, end, start2, end2)
+        ctx.mark_non_differentiable(lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, start, end, start2, end2 = ctx.saved_tensors
+        dq, dk, dv = flashmask_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), start, end, start2, end2,
+            ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None, None, None, None

@@ -9,7 +9,9 @@ dummy length-1 row), and the two paged serving steps of the contract —
 both sides, and the logits, the prefill's K/V and the written page pools
 must agree. ``generate`` with and without its KV cache gives the JAX
 ``generate``'s greedy tokens, and the loss with labels is the JAX model's
-fused loss. The two paged steps also run over int8 pools
+fused loss. With a padded-batch attention mask the logits, the loss and
+every parameter's gradient match the JAX model's, and attention dropout
+is checked by its statistics. The two paged steps also run over int8 pools
 with per-page scale rows (``k_scales``/``v_scales``): the logits, the
 written codes and the scale rows must agree with the JAX Llama's.
 
@@ -136,10 +138,22 @@ def test_generate_greedy_tokens_match_jax(pair, use_cache):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _padded_batch(rng, vocab):
+    """ids [2, 9] and a padded-batch mask [2, 1, 9, 9] (causal, keys past
+    each row's length 9 / 6 hidden), as numpy."""
+    ids = rng.integers(0, vocab, (2, 9)).astype(np.int32)
+    pos = np.arange(9)
+    lens = np.array([9, 6])
+    mask = (pos[None, :] <= pos[:, None])[None, None] & \
+        (pos[None, None, None, :] < lens[:, None, None, None])
+    return ids, mask
+
+
 def test_paths_of_later_slices_raise(pair):
-    """The loss (labels) is served: it equals the JAX model's fused loss.
-    An attention mask comes with the flashmask slice and training-time
-    dropout with a later one: each raises, none is served wrongly."""
+    """The paths that earlier slices refused are served now: the loss
+    (labels) equals the JAX model's fused loss, an attention mask gives
+    the JAX model's logits, and attention dropout while training runs
+    (outside training it is off)."""
     from paddle_tpu_torch.nn import functional as F
     jm, tm, _ = pair
     rng = np.random.default_rng(8)
@@ -152,14 +166,70 @@ def test_paths_of_later_slices_raise(pair):
         got = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
     assert got.dim() == 0
     np.testing.assert_allclose(float(got), want, atol=1e-5)
-    ids = torch.ones(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="flashmask"):
-        tm(ids, attn_mask=torch.ones(1, 1, 4, 4, dtype=torch.bool))
+    ids, mask = _padded_batch(rng, tm.config.vocab_size)
+    with no_grad():
+        want = np.asarray(jm(paddle.to_tensor(ids),
+                             attn_mask=paddle.to_tensor(mask))._value)
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(ids), attn_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
     q = torch.ones(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        F.scaled_dot_product_attention(q, q, q, dropout_p=0.1, training=True)
-    out = F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
-    assert out.shape == q.shape            # dropout is off outside training
+    out = F.scaled_dot_product_attention(q, q, q, dropout_p=0.1,
+                                         training=True)
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    out = F.scaled_dot_product_attention(q, q, q, dropout_p=0.1,
+                                         training=False)
+    assert torch.equal(out, F.scaled_dot_product_attention(q, q, q))
+
+
+def test_masked_loss_and_grads_match_jax(pair):
+    """A padded batch with its attention mask: the loss and every
+    parameter's gradient against the JAX model's."""
+    jm, tm, _ = pair
+    rng = np.random.default_rng(12)
+    ids, mask = _padded_batch(rng, tm.config.vocab_size)
+    labels = rng.integers(0, tm.config.vocab_size, (2, 9)).astype(np.int32)
+    labels[1, 6:] = -100                    # the padding scores nothing
+    jl = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(labels),
+            attn_mask=paddle.to_tensor(mask))
+    jl.backward()
+    j_grads = {n: np.asarray(p.grad._value) for n, p in jm.named_parameters()}
+    jm.clear_gradients()
+    tl = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels),
+            attn_mask=torch.from_numpy(mask))
+    tl.backward()
+    t_grads = {n: p.grad.numpy().copy() for n, p in tm.named_parameters()}
+    tm.zero_grad(set_to_none=True)
+    np.testing.assert_allclose(tl.item(), float(jl.numpy()), atol=1e-5)
+    assert sorted(t_grads) == sorted(j_grads)
+    for n, want in j_grads.items():
+        np.testing.assert_allclose(t_grads[n], want, atol=1e-5, rtol=1e-4,
+                                   err_msg=n)
+
+
+def test_attention_dropout_statistics():
+    """SDPA dropout while training, seen through one-hot values (out =
+    the dropped probabilities): about p of them are 0 (within 5 sigma) and
+    the others are _sdpa_xla's probabilities divided by 1 - p."""
+    from paddle_tpu.nn.functional.attention import _sdpa_xla
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(14)
+    b, s, h, p = 2, 64, 2, 0.3
+    q = rng.standard_normal((b, s, h, 16)).astype(np.float32)
+    k = rng.standard_normal((b, s, 1, 16)).astype(np.float32)
+    v = np.broadcast_to(np.eye(s, dtype=np.float32)[None, :, None, :],
+                        (b, s, 1, s)).copy()
+    probs = np.asarray(_sdpa_xla(*map(jnp.asarray, (q, k, v)),
+                                 training=False))
+    gen = torch.Generator().manual_seed(0)
+    out = F.scaled_dot_product_attention(*map(torch.from_numpy, (q, k, v)),
+                                         dropout_p=p, training=True,
+                                         generator=gen).numpy()
+    dropped = out == 0
+    rate = dropped.mean()
+    assert abs(rate - p) <= 5 * np.sqrt(p * (1 - p) / out.size)
+    np.testing.assert_allclose(out[~dropped], probs[~dropped] / (1 - p),
+                               rtol=1e-5, atol=1e-7)
 
 
 def test_paged_prefill_ragged_logits_match_jax(pair):
