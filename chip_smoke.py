@@ -3,16 +3,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from paddle_tpu_torch/csrc (one nvcc per
-source, all started together), then:
+source, all started together; each build's seconds printed), then:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it, in bfloat16 and
    float32, with the kernel's, the plain version's and (where one PyTorch
    call computes the same function) the library call's time; the int8
    attention kernels read pages quantized by page_quant from random rows;
-   the flash backward at the training shape [4, 2048, 16, 128] and with
-   GQA at [1, 2048, 32 -> 8, 128] in bfloat16 and at a small shape in
-   float32, its dq, dk and dv each held; flashmask forward and backward
+   the flash kernels take two routes by type (flash_attention.route):
+   bfloat16 and float16 the tensor-core kernels, held against the plain
+   versions that round P and dS where they do (p_dtype) and, beside the
+   library call, against the float32 plain version; float32 the SIMT
+   kernels; the flash backward at the training shape [4, 2048, 16, 128]
+   and with GQA at [1, 2048, 32 -> 8, 128] in bfloat16, its dq, dk and dv
+   each held; the edges of both routes in bfloat16 and float32 (S_q < S_k,
+   S_q > S_k, S = 300, D = 64, GQA, the masked forms), float16 at one
+   shape; flashmask forward and backward
    (a packed-document mask at [4, 2048, 16, 128], per-KV-head bounds under
    GQA, bidirectional 4 bounds, a window of 256; SDPA with the dense mask
    as the library time) and bias + dropout + residual + LayerNorm at
@@ -63,8 +69,9 @@ source, all started together), then:
 
 Each flashmask, fused_ffn, serving and training run's launch counts are
 set to 0 just before it and read just after it; every kernel of its path
-must have launched, and the int8 runs must launch the float paged
-attention kernels 0 times. Then
+must have launched, the int8 runs must launch the float paged attention
+kernels 0 times, and every flash launch of the training, dense-serving and
+flashmask runs (bfloat16) must take the tensor-core route. Then
 it prints the card's name and power limit, one JSON line with every
 kernel's numbers, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero without that line. Without a CUDA card
@@ -75,6 +82,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -85,10 +93,17 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}  # dense tensor-core bf16; fp32 non-tensor
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 # the bf16 flash backward, element by element: |got - want| <=
 # 2^-7 |want| (one bf16 rounding of either side) + 2^-8 rms(want)
 BWD_REL_BF16, BWD_FLOOR_BF16 = 2.0 ** -7, 2.0 ** -8
+# the 16-bit (tensor-core) flash backward: at most this share of the
+# elements beyond that rule, every element within it plus one rounding of
+# each term of its product (see _within)
+BWD_OVER_SHARE = 1e-5
+# a 16-bit kernel's error against the float32 plain version, at most this
+# multiple of the library call's
+LIB_ERR_FACTOR = 2.0
 ITERS = 20                          # timed launches per kernel
 L2_FLUSH_BYTES = 256 << 20          # > the H100's 50 MB L2
 # device clock cycles (~1 ms) the stream spins before each timed launch
@@ -285,11 +300,73 @@ def _causal_pairs(s_q, s_k):
     return sum(max(0, min(i + off + 1, s_k)) for i in range(s_q))
 
 
+def _p_dtype(dtype):
+    """The rounding of P and dS in the flash kernel of this type: the
+    tensor-core kernels (16-bit inputs) round them to the input type where
+    the TPU kernel does; the float32 SIMT kernels keep them float32."""
+    return None if dtype == torch.float32 else dtype
+
+
+def _sdpa(q, k, v, causal, dense=None):
+    """PyTorch's scaled_dot_product_attention on [B, H, S, D] views of
+    paddle-layout tensors: is_causal where S_q = S_k and no mask is given,
+    else a dense bool mask (bottom-right causal when none is given)."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    s_q, s_k = q.shape[1], k.shape[1]
+    gqa = q.shape[2] != k.shape[2]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if dense is None and causal and s_q != s_k:
+        dense = torch.ones(s_q, s_k, dtype=torch.bool,
+                           device=q.device).tril(s_k - s_q)
+    if dense is None:
+        return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+    return sdpa(qt, kt, vt, attn_mask=dense, enable_gqa=gqa)
+
+
+def _accuracy_fwd(K, q, k, v, got, causal, bounds=None, dense=None):
+    """(kernel's, library's) largest error against the float32 plain
+    version on float32 copies of the inputs, over the rows that see a key
+    (SDPA gives NaN where a row sees none)."""
+    want, lse = K.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                            causal, None, bounds)
+    seen = (lse > -1e29).transpose(1, 2)[..., None]
+    lib = _sdpa(q, k, v, causal, dense).transpose(1, 2)
+
+    def err(a):
+        return float(torch.where(seen, (a.float() - want).abs(), 0.0).max())
+    return err(got), err(lib)
+
+
+def _accuracy_bwd(K, q, k, v, do, got, causal, bounds=None, dense=None,
+                  library=True):
+    """(kernel's, library's) largest errors of dq, dk, dv against the
+    float32 plain backward on float32 copies of the inputs (out and lse
+    from the float32 plain forward). The library's gradients: SDPA's
+    backward under autograd after its own forward (None without a
+    library)."""
+    f = [x.float() for x in (q, k, v, do)]
+    out32, lse32 = K.flash_attention_fwd_plain(*f[:3], causal, None, bounds)
+    want = K.flash_attention_bwd_plain(*f[:3], out32, lse32, f[3], causal,
+                                       None, bounds)
+    del out32, lse32, f
+    kerr = [_max_err(a, r) for a, r in zip(got, want)]
+    lerr = None
+    if library:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = _sdpa(*leaves, causal, dense)
+        grads = torch.autograd.grad(o, leaves, do.transpose(1, 2))
+        lerr = [_max_err(g, r) for g, r in zip(grads, want)]
+    return kerr, lerr
+
+
 def check_flash(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
                 library=True):
-    """Causal flash attention. The library call is PyTorch's
+    """Causal flash attention against its plain version, rounding P where
+    the kernel of this type does. The library call is PyTorch's
     scaled_dot_product_attention on [B, H, S, D] views (its causal mask is
-    top-left aligned, so it is timed only where S_q = S_k)."""
+    top-left aligned, so it is timed only where S_q = S_k; its accuracy,
+    beside the kernel's, against the float32 plain version, is taken with
+    a bottom-right bool mask where S_q != S_k)."""
     q = torch.from_numpy(rng.standard_normal(
         (b, s_q, h, d), dtype=np.float32)).to(dev, dtype)
     k = torch.from_numpy(rng.standard_normal(
@@ -297,7 +374,9 @@ def check_flash(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
     v = torch.from_numpy(rng.standard_normal(
         (b, s_k, h_kv, d), dtype=np.float32)).to(dev, dtype)
     got, lse = K.flash_attention_fwd(q, k, v, causal=True)
-    want, want_lse = K.flash_attention_fwd_plain(q, k, v, causal=True)
+    pd = _p_dtype(dtype)
+    want, want_lse = K.flash_attention_fwd_plain(q, k, v, causal=True,
+                                                 p_dtype=pd)
     torch.cuda.synchronize()
     blind = max(0, s_q - s_k)              # rows that see no key
     if blind and float(got[:, :blind].float().abs().max()) != 0.0:
@@ -307,32 +386,59 @@ def check_flash(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
     if lse_err > 1e-3 or not bool((lse[~finite] <= -1e29).all()):
         raise AssertionError(f"flash: lse disagrees with the plain version "
                              f"(max abs err {lse_err})")
+    acc = None if pd is None else _accuracy_fwd(K, q, k, v, got, True)
     elt = q.element_size()
     lib = None
-    if library:
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                    enable_gqa=h != h_kv))
+    if library and s_q == s_k:
+        lib = _time_ms(lambda: _sdpa(q, k, v, True))
     return {"got": got, "want": want, "err": _max_err(got, want),
-            "lse_err": lse_err,
+            "lse_err": lse_err, "acc": acc,
             "flops": 4 * b * h * d * _causal_pairs(s_q, s_k),
             "bytes": (2 * q.numel() + 2 * k.numel()) * elt + lse.numel() * 4,
             "ms": _time_ms(lambda: K.flash_attention_fwd(q, k, v,
                                                          causal=True)),
             "plain_ms": _time_ms(lambda: K.flash_attention_fwd_plain(
-                q, k, v, causal=True), ITERS // 10),
+                q, k, v, causal=True, p_dtype=pd), ITERS // 10),
             "library_ms": lib}
+
+
+def _rounding_terms(K, q, k, v, out, lse, do, causal, bounds=None):
+    """For each element of dq, dk and dv, the sum of the absolute terms of
+    the product the 16-bit kernels take it from, over the operand they
+    round: scale |dS| |K|, scale |dS|^T |Q| and P^T |dO| (float32, the
+    plain backward's P and dS)."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import _visible
+    b, s_q, h, d = q.shape
+    s_k, h_kv = k.shape[1], k.shape[2]
+    rep = h // h_kv
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, s_q, h_kv, rep, d).float()
+    dog = do.reshape(b, s_q, h_kv, rep, d).float()
+    delta = (dog * out.reshape(b, s_q, h_kv, rep, d).float()).sum(-1)
+    p = torch.exp(torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale -
+                  lse.reshape(b, h_kv, rep, s_q, 1))
+    vis = _visible(b, s_q, s_k, h_kv, rep, causal, bounds, q.device)
+    if vis is not None:
+        p = p.masked_fill(~vis, 0.0)
+    ds = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.float())
+    ds = (p * (ds - delta.permute(0, 2, 3, 1)[..., None])).abs_()
+    tq = torch.einsum("bgrqk,bkgd->bqgrd", ds, k.float().abs()) * scale
+    tk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qg.abs()) * scale
+    del ds
+    tv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog.abs())
+    return tq.reshape(b, s_q, h, d), tk, tv
 
 
 def check_flash_bwd(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
                     library=True):
-    """The causal flash backward against its plain version on the same
-    q, k, v, dout and the forward kernel's out and lse. The library call
-    is PyTorch's flash attention backward
+    """The causal flash backward against its plain version (rounding P and
+    dS where the kernel of this type does) on the same q, k, v, dout and
+    the forward kernel's out and lse. The library call is PyTorch's
+    backward of the same function: aten's flash attention backward
     (aten._scaled_dot_product_flash_attention_backward, on [B, H, S, D]
-    views, after its own forward; timed only with S_q = S_k and no GQA),
-    a yardstick the port never calls."""
+    views, after its own forward) where S_q = S_k without GQA, SDPA's
+    backward with enable_gqa under autograd under GQA; a yardstick the
+    port never calls."""
     q, do = (torch.from_numpy(rng.standard_normal(
         (b, s_q, h, d), dtype=np.float32)).to(dev, dtype) for _ in range(2))
     k, v = (torch.from_numpy(rng.standard_normal(
@@ -340,54 +446,68 @@ def check_flash_bwd(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
         for _ in range(2))
     out, lse = K.flash_attention_fwd(q, k, v, causal=True)
     got = K.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-    want = K.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
+    pd = _p_dtype(dtype)
+    want = K.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                       p_dtype=pd)
     torch.cuda.synchronize()
-    errs = [_max_err(a, r) for a, r in zip(got, want)]
-    scales, means, rms, worst = [], [], [], []
-    for a, r in zip(got, want):
-        r = r.float()
-        scales.append(float(r.abs().max()))
-        means.append(float(r.abs().mean()))
-        rms.append(float(r.square().mean().sqrt()))
-        allow = BWD_REL_BF16 * r.abs() + BWD_FLOOR_BF16 * rms[-1]
-        worst.append(float(((a.float() - r).abs() / allow).max()))
-    if dtype == torch.bfloat16:
+    terms = None if pd is None else _rounding_terms(K, q, k, v, out, lse, do,
+                                                    True)
+    res = _grad_rule(got, want, terms)
+    del terms
+    if dtype != torch.float32:
         # the rule must reject a kernel wrong by one typical value on a
         # tail of keys: add one rms to dk's last 10% of keys
-        r = want[1].float()
-        bad = got[1].float()
-        bad[:, -max(1, s_k // 10):] += rms[1]
-        allow = BWD_REL_BF16 * r.abs() + BWD_FLOOR_BF16 * rms[1]
-        tail = float(((bad - r).abs() / allow).max())
+        bad = list(got)
+        bad[1] = got[1].float()
+        bad[1][:, -max(1, s_k // 10):] += res["rms"][1]
+        tail = _grad_rule(bad, want, _rounding_terms(
+            K, q, k, v, out, lse, do, True))
+        passed, _ = _within("flash_attention_bwd", tail, dtype)
         print(f"[kernels] flash_attention_bwd rule on dk with one rms added "
-              f"to its last 10% of keys: err/allowed={tail:.1f} (must be "
-              f"> 1)", flush=True)
-        if tail <= 1.0:
-            raise AssertionError("flash_attention_bwd: the bf16 rule does "
+              f"to its last 10% of keys: share beyond "
+              f"{tail['over'][1]:.3e}, err/bound {tail['bound'][1]:.1f} "
+              f"(must fail)", flush=True)
+        if passed:
+            raise AssertionError("flash_attention_bwd: the 16-bit rule does "
                                  "not reject a wrong tail of keys")
-        del bad
+        del bad, tail
+    # the library: aten's flash backward where it applies, else SDPA's
+    # (blind rows give NaN in SDPA: no library there)
+    acc = None
+    if pd is not None:
+        acc = _accuracy_bwd(K, q, k, v, do, got, True,
+                            library=s_q <= s_k)
     elt = q.element_size()
     lib = None
     if library:
         lib = _library_flash_bwd(q, k, v, do)
-    return {"got": got, "want": want, "err": max(errs), "errs": errs,
-            "scales": scales, "means": means, "rms": rms, "worst": worst,
-            # five products over the visible pairs: S, dP, dV, dQ, dK
-            "flops": 10 * b * h * d * _causal_pairs(s_q, s_k),
-            # q, out, dout and k, v read, lse read, dq, dk, dv written
-            "bytes": (4 * q.numel() + 4 * k.numel()) * elt + lse.numel() * 4,
-            "ms": _time_ms(lambda: K.flash_attention_bwd(
-                q, k, v, out, lse, do, causal=True)),
-            "plain_ms": _time_ms(lambda: K.flash_attention_bwd_plain(
-                q, k, v, out, lse, do, causal=True), ITERS // 10),
-            "library_ms": lib}
+    res.update({
+        "got": got, "want": want, "acc": acc,
+        # five products over the visible pairs: S, dP, dV, dQ, dK
+        "flops": 10 * b * h * d * _causal_pairs(s_q, s_k),
+        # q, out, dout and k, v read, lse read, dq, dk, dv written
+        "bytes": (4 * q.numel() + 4 * k.numel()) * elt + lse.numel() * 4,
+        "ms": _time_ms(lambda: K.flash_attention_bwd(
+            q, k, v, out, lse, do, causal=True)),
+        "plain_ms": _time_ms(lambda: K.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, causal=True, p_dtype=pd), ITERS // 10),
+        "library_ms": lib})
+    return res
 
 
 def _library_flash_bwd(q, k, v, do):
-    """ms of one aten flash attention backward at this shape, or None
-    (printed) when this PyTorch build has no such call for it."""
+    """ms of PyTorch's backward of causal attention at this shape: aten's
+    flash attention backward without GQA, SDPA's backward with enable_gqa
+    under autograd with it; None (printed) when this PyTorch build refuses
+    the call."""
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     try:
+        if q.shape[2] != k.shape[2]:
+            leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+            o = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, is_causal=True, enable_gqa=True)
+            return _time_ms(lambda: torch.autograd.grad(
+                o, leaves, dot, retain_graph=True))
         fw = torch.ops.aten._scaled_dot_product_flash_attention(
             qt, kt, vt, 0.0, True, False)
         bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
@@ -473,9 +593,13 @@ def check_flashmask(K, dev, dtype, rng, b, s, h, h_kv, form, d=128,
     k, v = (torch.from_numpy(rng.standard_normal(
         (b, s, h_kv, d), dtype=np.float32)).to(dev, dtype) for _ in range(2))
     got, lse = K.flashmask_attention_fwd(q, k, v, *bounds, causal=causal)
+    pd = _p_dtype(dtype)
     want, want_lse = K.flashmask_attention_fwd_plain(q, k, v, *bounds,
-                                                     causal=causal)
+                                                     causal=causal,
+                                                     p_dtype=pd)
     torch.cuda.synchronize()
+    acc = None if pd is None else _accuracy_fwd(K, q, k, v, got, causal,
+                                                bounds, dense)
     seen = want_lse > -1e29
     lse_err = float((lse - want_lse)[seen].abs().max())
     if lse_err > 1e-3 or not bool((lse[~seen] <= -1e29).all()):
@@ -490,30 +614,39 @@ def check_flashmask(K, dev, dtype, rng, b, s, h, h_kv, form, d=128,
                                     enable_gqa=h != h_kv))
     del dense
     return {"got": got, "want": want, "err": _max_err(got, want),
-            "lse_err": lse_err, "pairs": pairs,
+            "lse_err": lse_err, "pairs": pairs, "acc": acc,
             "flops": 4 * d * pairs,
             "bytes": (2 * q.numel() + 2 * k.numel()) * elt +
             lse.numel() * 4 + _bounds_bytes(bounds),
             "ms": _time_ms(lambda: K.flashmask_attention_fwd(
                 q, k, v, *bounds, causal=causal)),
             "plain_ms": _time_ms(lambda: K.flashmask_attention_fwd_plain(
-                q, k, v, *bounds, causal=causal), ITERS // 10),
+                q, k, v, *bounds, causal=causal, p_dtype=pd), ITERS // 10),
             "library_ms": lib}
 
 
-def _grad_rule(got, want):
+def _grad_rule(got, want, terms=None):
     """The flash backward's checks over (dq, dk, dv): max errors, largest
-    values, mean, rms and the worst err / (2^-7 |want| + 2^-8 rms(want))."""
-    out = {"errs": [], "scales": [], "means": [], "rms": [], "worst": []}
-    for a, r in zip(got, want):
+    values, mean, rms and the worst err / (2^-7 |want| + 2^-8 rms(want));
+    with the rounded products' absolute term sums (``_rounding_terms``),
+    also the share of elements beyond that allowance and the worst err /
+    (the allowance + 2^-7 terms)."""
+    out = {"errs": [], "scales": [], "means": [], "rms": [], "worst": [],
+           "over": [], "bound": []}
+    for i, (a, r) in enumerate(zip(got, want)):
         r = r.float()
         rms = float(r.square().mean().sqrt())
         allow = BWD_REL_BF16 * r.abs() + BWD_FLOOR_BF16 * rms
-        out["errs"].append(_max_err(a, r))
+        err = (a.float() - r).abs()
+        out["errs"].append(float(err.max()))
         out["scales"].append(float(r.abs().max()))
         out["means"].append(float(r.abs().mean()))
         out["rms"].append(rms)
-        out["worst"].append(float(((a.float() - r).abs() / allow).max()))
+        out["worst"].append(float((err / allow).max()))
+        if terms is not None:
+            out["over"].append(float((err > allow).double().mean()))
+            out["bound"].append(float(
+                (err / (allow + BWD_REL_BF16 * terms[i].float())).max()))
     out["err"] = max(out["errs"])
     return out
 
@@ -533,10 +666,17 @@ def check_flashmask_bwd(K, dev, dtype, rng, b, s, h, h_kv, form, d=128,
     out, lse = K.flashmask_attention_fwd(q, k, v, *bounds, causal=causal)
     got = K.flashmask_attention_bwd(q, k, v, out, lse, do, *bounds,
                                     causal=causal)
+    pd = _p_dtype(dtype)
     want = K.flashmask_attention_bwd_plain(q, k, v, out, lse, do, *bounds,
-                                           causal=causal)
+                                           causal=causal, p_dtype=pd)
     torch.cuda.synchronize()
-    res = _grad_rule(got, want)
+    res = _grad_rule(got, want, None if pd is None else _rounding_terms(
+        K, q, k, v, out, lse, do, causal, bounds))
+    # the library (SDPA with the dense mask) gives NaN on rows that see no
+    # key: its accuracy is taken only where every row sees one
+    acc = None if pd is None else _accuracy_bwd(
+        K, q, k, v, do, got, causal, bounds, dense,
+        library=bool(dense.any(-1).all()))
     elt = q.element_size()
     lib = None
     if library:
@@ -550,14 +690,15 @@ def check_flashmask_bwd(K, dev, dtype, rng, b, s, h, h_kv, form, d=128,
         del o
     del dense
     res.update({
-        "got": got, "want": want, "pairs": pairs,
+        "got": got, "want": want, "pairs": pairs, "acc": acc,
         "flops": 10 * d * pairs,     # S, dP, dV, dQ, dK over visible pairs
         "bytes": (4 * q.numel() + 4 * k.numel()) * elt + lse.numel() * 4 +
         _bounds_bytes(bounds),
         "ms": _time_ms(lambda: K.flashmask_attention_bwd(
             q, k, v, out, lse, do, *bounds, causal=causal)),
         "plain_ms": _time_ms(lambda: K.flashmask_attention_bwd_plain(
-            q, k, v, out, lse, do, *bounds, causal=causal), ITERS // 10),
+            q, k, v, out, lse, do, *bounds, causal=causal, p_dtype=pd),
+            ITERS // 10),
         "library_ms": lib})
     return res
 
@@ -660,14 +801,40 @@ def _within(name, res, dtype):
     own size (one bf16 rounding, up to 2^-7 relative, of two float32 values
     that differ in their last bits) plus a floor of 2^-8 of the tensor's
     rms (elements near zero, where the float32 sums cancel), so an error
-    the size of a typical value anywhere fails."""
+    the size of a typical value anywhere fails.
+
+    The 16-bit flash kernels (bfloat16, float16: the tensor-core route)
+    round P and dS to the input type before the dV, dK and dQ products, as
+    the TPU kernel does, and are held against the plain version that rounds
+    at the same points (forward: 2e-2 absolute, as above). Both sides round
+    float32 values that differ in their last bits, so where a value sits at
+    a rounding midpoint the two take neighbouring 16-bit values: one term
+    of the sum moves by one ulp, up to 2^-7 of itself. Such a flip can
+    carry an element past the rule above where a few large terms cancel:
+    flash_rounding_check.py shows the plain version itself, against a
+    float64 version with the same roundings, past it on about one element
+    in a million at [4, 2048, 16, 128], by up to 2x, while the kernels'
+    float32 accumulation is exact to half an ulp. So in 16 bits at most
+    BWD_OVER_SHARE of the elements may pass that allowance, and none may
+    pass it plus 2^-7 times the sum of its product's absolute terms over
+    the rounded operand (scale |dS||K|, scale |dS|^T|Q|, P^T|dO|: every
+    term flipped at once).
+    A kernel wrong by a typical value on a tenth of the keys still fails
+    (checked on every run). Beside that, each 16-bit row holds the kernel's
+    largest error against the float32 plain version (on float32 copies of
+    the inputs) to at most LIB_ERR_FACTOR times the library call's (SDPA,
+    or its backward) against the same: the redesign is to be as accurate
+    as the library, which rounds P and dS to 16 bits too."""
     if name in ("flash_attention_bwd", "flashmask_attention_bwd"):
         if dtype == torch.float32:
             ok = all(e <= 1e-4 * max(1.0, m)
                      for e, m in zip(res["errs"], res["scales"]))
             return ok, "<= 1e-4 of max|grad| per dq/dk/dv"
-        ok = all(w <= 1.0 for w in res["worst"])
-        return ok, "<= 2^-7|want| + 2^-8 rms(want) per element"
+        ok = all(o <= BWD_OVER_SHARE for o in res["over"]) and \
+            all(w <= 1.0 for w in res["bound"])
+        return ok, (f"<= 2^-7|want| + 2^-8 rms(want) but for <= "
+                    f"{BWD_OVER_SHARE:g} of elements; all <= that + 2^-7 "
+                    f"sum|terms|")
     if dtype == torch.float32:
         return res["err"] <= TOL[dtype], f"<= {TOL[dtype]}"
     if name == "bias_dropout_residual_ln":
@@ -687,7 +854,17 @@ def phase_kernels(K, dev):
     rng = np.random.default_rng(0)
     rng8 = np.random.default_rng(1)      # the int8 cases' own inputs
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        if dtype == torch.float16:
+            # the tensor-core kernels' float16 instantiations
+            cases = [
+                ("flash_attention[f16]", lambda: check_flash(
+                    K, dev, dtype, rng, 2, 512, 512, 16, 16)),
+                ("flash_attention_bwd[f16]", lambda: check_flash_bwd(
+                    K, dev, dtype, rng, 2, 512, 512, 16, 16)),
+            ]
+            _run_cases(cases, dtype, out)
+            continue
         cases = [
             ("ragged_paged_attention", lambda: check_ragged(
                 K, dev, dtype, 32, rng)),
@@ -733,8 +910,7 @@ def phase_kernels(K, dev):
                 ("flash_attention_bwd", lambda: check_flash_bwd(
                     K, dev, dtype, rng, 4, 2048, 2048, 16, 16)),
                 ("flash_attention_bwd[gqa8]", lambda: check_flash_bwd(
-                    K, dev, dtype, rng, 1, 2048, 2048, 32, 8,
-                    library=False)),
+                    K, dev, dtype, rng, 1, 2048, 2048, 32, 8)),
                 # flashmask: a packed-document causal mask at the training
                 # shape, per-KV-head 2-bound causal under GQA at the 7B
                 # width, bidirectional 4 bounds, a causal window of 256
@@ -762,18 +938,38 @@ def phase_kernels(K, dev):
                 ("bias_dropout_residual_ln[p0]", lambda: check_bdrln(
                     K, dev, dtype, rng, 16384, 768, 0.0)),
             ]
+        # the edges of both flash routes (bf16: tensor cores; f32: SIMT):
+        # bottom-right causal alignment (S_q < S_k); rows that see no key
+        # (S_q > S_k); ragged tiles (S = 300, no multiple of 64 or 128);
+        # D = 64; GQA; the masked forms at a small shape
+        cases += [
+            ("flash_attention[bottom_right]", lambda: check_flash(
+                K, dev, dtype, rng, 1, 100, 300, 32, 32)),
+            ("flash_attention[q_longer]", lambda: check_flash(
+                K, dev, dtype, rng, 1, 300, 100, 32, 32)),
+            ("flash_attention[s300]", lambda: check_flash(
+                K, dev, dtype, rng, 2, 300, 300, 8, 4)),
+            ("flash_attention[d64]", lambda: check_flash(
+                K, dev, dtype, rng, 2, 300, 300, 8, 4, d=64)),
+            ("flash_attention_bwd[bottom_right]", lambda: check_flash_bwd(
+                K, dev, dtype, rng, 1, 100, 300, 8, 8, library=False)),
+            ("flash_attention_bwd[q_longer]", lambda: check_flash_bwd(
+                K, dev, dtype, rng, 1, 300, 100, 8, 8, library=False)),
+            ("flash_attention_bwd[s300]", lambda: check_flash_bwd(
+                K, dev, dtype, rng, 2, 300, 300, 8, 4, library=False)),
+            ("flash_attention_bwd[small]", lambda: check_flash_bwd(
+                K, dev, dtype, rng, 2, 300, 300, 8, 4, d=64,
+                library=False)),
+            ("flashmask_attention[small]", lambda: check_flashmask(
+                K, dev, dtype, rng, 2, 300, 8, 4, "bidir", d=64,
+                library=False)),
+            ("flashmask_attention_bwd[small]",
+             lambda: check_flashmask_bwd(
+                 K, dev, dtype, rng, 2, 300, 8, 4, "gqa", d=64,
+                 library=False)),
+        ]
         if dtype == torch.float32:
             cases += [
-                ("flash_attention_bwd[small]", lambda: check_flash_bwd(
-                    K, dev, dtype, rng, 2, 300, 300, 8, 4, d=64,
-                    library=False)),
-                ("flashmask_attention[small]", lambda: check_flashmask(
-                    K, dev, dtype, rng, 2, 300, 8, 4, "bidir", d=64,
-                    library=False)),
-                ("flashmask_attention_bwd[small]",
-                 lambda: check_flashmask_bwd(
-                     K, dev, dtype, rng, 2, 300, 8, 4, "gqa", d=64,
-                     library=False)),
                 # an odd h: the scalar path; h > 1536: y recomputed, not
                 # cached in shared memory
                 ("bias_dropout_residual_ln[odd]", lambda: check_bdrln(
@@ -781,52 +977,73 @@ def phase_kernels(K, dev):
                 ("bias_dropout_residual_ln[wide]", lambda: check_bdrln(
                     K, dev, dtype, rng, 64, 4096, 0.1)),
             ]
-            # bottom-right causal alignment; rows that see no key
-            cases += [
-                ("flash_attention[bottom_right]", lambda: check_flash(
-                    K, dev, dtype, rng, 1, 100, 300, 32, 32, library=False)),
-                ("flash_attention[q_longer]", lambda: check_flash(
-                    K, dev, dtype, rng, 1, 300, 100, 32, 32, library=False)),
-            ]
-        for name, run in cases:
-            res = run()
-            base = name.split("[")[0]
-            ok, tol = _within(base, res, dtype)
-            bound, by = _bound_ms(res["bytes"], res["flops"], dtype)
-            lib = res["library_ms"]
-            lse = f" lse_err={res['lse_err']:.3e}" if "lse_err" in res else ""
-            if "pairs" in res:
-                lse += f" visible_pairs={res['pairs']}"
-            if "y_err" in res:
-                lse += (f" y_err={res['y_err']:.3e} keep_rate="
-                        f"{res['keep_rate']:.6f} keep_mask=bit-equal "
-                        f"composition_ms(F.layer_norm(r+F.dropout(x+b)))="
-                        f"{res['composition_ms']:.4f}")
-            if "errs" in res:
-                lse += " dq/dk/dv_err=" + "/".join(
-                    f"{e:.3e}" for e in res["errs"]) + " max|grad|=" + \
-                    "/".join(f"{m:.3f}" for m in res["scales"]) + \
-                    " mean|grad|=" + "/".join(
-                        f"{m:.4f}" for m in res["means"]) + " rms=" + \
-                    "/".join(f"{m:.4f}" for m in res["rms"]) + \
-                    " err/allowed(bf16 rule)=" + "/".join(
-                        f"{w:.3f}" for w in res["worst"])
-            print(f"[kernels] {name:35s} {str(dtype)[6:]:9s} "
-                  f"max_abs_err={res['err']:.3e} ({tol}){lse} "
-                  f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-                  f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
-                  f"bound_ms={bound:.4f} ({by})", flush=True)
-            if not ok:
-                raise AssertionError(f"{name} {dtype}: max_abs_err "
-                                     f"{res['err']} not {tol}")
-            if dtype == torch.bfloat16 and name == base:
-                out[name] = {"max_abs_err": res["err"], "ms": res["ms"],
-                             "plain_ms": res["plain_ms"], "bound_ms": bound,
-                             "bound_by": by, "library_ms": lib}
-            del res
-        torch.cuda.empty_cache()
+        _run_cases(cases, dtype, out)
     measure_write_rows(dev)
     return out
+
+
+def _run_cases(cases, dtype, out):
+    """Run [kernels] cases of one type: print each row, raise on a rule
+    broken, and keep the bf16 rows under their base names in `out`."""
+    for name, run in cases:
+        res = run()
+        base = name.split("[")[0]
+        ok, tol = _within(base, res, dtype)
+        bound, by = _bound_ms(res["bytes"], res["flops"], dtype)
+        lib = res["library_ms"]
+        lse = f" lse_err={res['lse_err']:.3e}" if "lse_err" in res else ""
+        if "pairs" in res:
+            lse += f" visible_pairs={res['pairs']}"
+        if "y_err" in res:
+            lse += (f" y_err={res['y_err']:.3e} keep_rate="
+                    f"{res['keep_rate']:.6f} keep_mask=bit-equal "
+                    f"composition_ms(F.layer_norm(r+F.dropout(x+b)))="
+                    f"{res['composition_ms']:.4f}")
+        if "errs" in res:
+            lse += " dq/dk/dv_err=" + "/".join(
+                f"{e:.3e}" for e in res["errs"]) + " max|grad|=" + \
+                "/".join(f"{m:.3f}" for m in res["scales"]) + \
+                " mean|grad|=" + "/".join(
+                    f"{m:.4f}" for m in res["means"]) + " rms=" + \
+                "/".join(f"{m:.4f}" for m in res["rms"]) + \
+                " err/allowed(bf16 rule)=" + "/".join(
+                    f"{w:.3f}" for w in res["worst"])
+            if res["over"]:
+                lse += " share_beyond=" + "/".join(
+                    f"{o:.2e}" for o in res["over"]) + \
+                    " err/(allowed+2^-7 sum|terms|)=" + "/".join(
+                        f"{w:.3f}" for w in res["bound"])
+        acc_ok = True
+        if res.get("acc") is not None:
+            kerr, lerr = res["acc"]
+            fmt = (lambda e: "/".join(f"{x:.3e}" for x in e)) if \
+                isinstance(kerr, list) else (lambda e: f"{e:.3e}")
+            lse += (f" vs_f32_plain: kernel_err={fmt(kerr)} library_err="
+                    f"{'null' if lerr is None else fmt(lerr)}")
+            if lerr is not None:
+                pairs = zip(kerr, lerr) if isinstance(kerr, list) else \
+                    [(kerr, lerr)]
+                acc_ok = all(a <= LIB_ERR_FACTOR * b for a, b in pairs)
+                lse += f" (kernel <= {LIB_ERR_FACTOR:g}x library)"
+        print(f"[kernels] {name:35s} {str(dtype)[6:]:9s} "
+              f"max_abs_err={res['err']:.3e} ({tol}){lse} "
+              f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+              f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
+              f"bound_ms={bound:.4f} ({by})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} {dtype}: max_abs_err "
+                                 f"{res['err']} not {tol}")
+        if not acc_ok:
+            raise AssertionError(f"{name} {dtype}: the kernel's error "
+                                 f"against the float32 plain version is "
+                                 f"more than {LIB_ERR_FACTOR:g}x the "
+                                 f"library's: {res['acc']}")
+        if dtype == torch.bfloat16 and name == base:
+            out[name] = {"max_abs_err": res["err"], "ms": res["ms"],
+                         "plain_ms": res["plain_ms"], "bound_ms": bound,
+                         "bound_by": by, "library_ms": lib}
+        del res
+    torch.cuda.empty_cache()
 
 
 def measure_write_rows(dev):
@@ -874,6 +1091,35 @@ def measure_write_rows(dev):
 # driver
 # ----------------------------------------------------------------------
 
+SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")
+
+
+def check_sass(build):
+    """The tensor-core flash kernels as built: every bfloat16 D = 128
+    kernel of the two sm90 libraries must contain tensor-core products
+    (HGMMA, from wgmma) and TMA loads (UTMALDG); prints the counts."""
+    from pathlib import Path
+
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    for src in SM90_SOURCES:
+        sass = subprocess.run([str(tool), "-sass", str(build._target(src)[1])],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        for part in sass.split("Function : ")[1:]:
+            fn, body = part.split("\n", 1)
+            if "__nv_bfloat16Li128E" not in fn:
+                continue
+            kind = "dq" if "flash_dq" in fn else (
+                "dkv" if "flash_dkv" in fn else "fwd")
+            nm = fn.split("Li128ELi")[1][0]
+            hg, tma = body.count("HGMMA"), body.count("UTMALDG")
+            print(f"[sass] {src} {kind}<bf16,128,{nm}>: HGMMA {hg} "
+                  f"UTMALDG {tma}", flush=True)
+            if not hg or not tma:
+                raise AssertionError(f"[sass] {src} {kind}: no wgmma or no "
+                                     "TMA in the bf16 D=128 kernel")
+
+
 def _nvidia_smi():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -893,12 +1139,14 @@ def main():
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     waited = _build.build_all()
-    print(f"[build] {json.dumps({k: round(v, 2) for k, v in waited.items()})}"
+    print(f"[build] seconds per source "
+          f"{json.dumps({k: round(v, 2) for k, v in waited.items()})}"
           f" total_s={time.perf_counter() - t0:.2f}", flush=True)
     for name in _build.SOURCES:
         for line in _build.ptxas_report(name).splitlines():
-            if "registers" in line:
+            if "Used" in line and "registers" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
+    check_sass(_build)
 
     records = phase_kernels(K, dev)
     phase_agree(dev)
@@ -916,7 +1164,7 @@ def main():
     train, model, opt, batch = phase_train(K, dev)
     phase_profile_train(model, opt, batch)
     launches = {k: serve[k] + dense[k] + serve8[k] + dense8[k] + train[k] +
-                masked[k] + ffn[k] for k in K.KERNELS}
+                masked[k] + ffn[k] for k in K.launch_counts()}
     _require_launched("all serving, training, flashmask and fused_ffn runs",
                       launches, K.KERNELS)
 
@@ -924,9 +1172,16 @@ def main():
     print(name_power)
     kernels = []
     for name, (_fn, source, replaces) in K.KERNELS.items():
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        **records[name]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               **records[name]}
+        if name in K.ROUTED:
+            # source: the tensor-core kernel, which every 16-bit launch
+            # above took; float32 launches take the SIMT kernel
+            row["float32_source"] = K.SIMT_SOURCES[name]
+            row["launches_by_route"] = {
+                rt: launches[f"{name}.{rt}"] for rt in K.ROUTES}
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1329,29 +1584,44 @@ def phase_flashmask(K, dev):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / FLASHMASK_CALLS
     launches = K.launch_counts()
-    want_out, want_lse = K.flashmask_attention_fwd_plain(q, k, v, *bounds,
-                                                         causal=True)
-    want = K.flashmask_attention_bwd_plain(q, k, v, want_out, want_lse, do,
-                                           *bounds, causal=True)
+    # the plain versions round P and dS where the tensor-core kernels do;
+    # the plain backward takes the kernel's out and lse, as in [kernels]
+    bf16 = torch.bfloat16
+    want_out, _ = K.flashmask_attention_fwd_plain(q, k, v, *bounds,
+                                                  causal=True, p_dtype=bf16)
+    k_out, k_lse = K.flashmask_attention_fwd(q, k, v, *bounds, causal=True)
+    want = K.flashmask_attention_bwd_plain(q, k, v, k_out, k_lse, do,
+                                           *bounds, causal=True,
+                                           p_dtype=bf16)
     out_err = _max_err(out.detach(), want_out)
-    rule = _grad_rule([t.grad for t in leaves], want)
+    rule = _grad_rule([t.grad for t in leaves], want, _rounding_terms(
+        K, q, k, v, k_out, k_lse, do, True, bounds))
+    grads_ok, grads_rule = _within("flashmask_attention_bwd", rule, bf16)
     print(f"[flashmask] F.flashmask_attention fwd+bwd [{b}, {s}, {h}, {d}] "
           f"bf16, packed documents (lengths 64-1024), causal, "
           f"{pairs} visible pairs: ms_per_call={ms:.3f} (host clock, "
           f"{FLASHMASK_CALLS} calls) out max_err={out_err:.3e} (<= 2e-2) "
-          f"dq/dk/dv err/allowed(bf16 rule)="
-          + "/".join(f"{w:.3f}" for w in rule["worst"]) +
-          f" launches {json.dumps({n: launches[n] for n in MASKED_KERNELS})}",
+          f"dq/dk/dv share beyond 2^-7|want| + 2^-8 rms(want)="
+          + "/".join(f"{o:.2e}" for o in rule["over"]) +
+          " err/(that + 2^-7 sum|terms|)="
+          + "/".join(f"{w:.3f}" for w in rule["bound"]) +
+          f" ({grads_rule})" +
+          f" launches {json.dumps({n: launches[n] for n in MASKED_KERNELS})}"
+          f" tensor-core route "
+          f"{json.dumps({n: launches[n + '.sm90'] for n in MASKED_KERNELS[:2]})}",
           flush=True)
-    if out_err > TOL[torch.bfloat16] or max(rule["worst"]) > 1.0:
+    if out_err > TOL[bf16] or not grads_ok:
         raise AssertionError("[flashmask] the path's out or grads disagree "
                              "with the plain versions")
     _profile_calls("profile:flashmask", call, "one forward+backward call")
     for n in ("flashmask_attention", "flashmask_attention_bwd"):
-        if launches[n] != FLASHMASK_CALLS:
+        if launches[n] != FLASHMASK_CALLS or \
+                launches[f"{n}.sm90"] != FLASHMASK_CALLS:
             raise AssertionError(f"[flashmask] {n} launched {launches[n]} "
-                                 f"times in {FLASHMASK_CALLS} calls")
-    del out, want, want_out, want_lse, leaves, q, k, v, do
+                                 f"times ({launches[f'{n}.sm90']} on the "
+                                 f"tensor-core route) in {FLASHMASK_CALLS} "
+                                 f"calls")
+    del out, want, want_out, k_out, k_lse, leaves, q, k, v, do
     _release()
 
     # Llama-2-7B attention width at S = 8192 (no plain version: its float32
@@ -1533,8 +1803,10 @@ TRAIN_CFG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
                  num_key_value_heads=16, max_position_embeddings=2048)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
 # launches of each kernel in one training step of TRAIN_CFG: two RMSNorms
-# per layer and the final one; two RoPEs (q, k) per layer
+# per layer and the final one; two RoPEs (q, k) per layer; every flash
+# launch on the tensor-core route (bf16, head dim 128)
 TRAIN_PER_STEP = {"flash_attention": 12, "flash_attention_bwd": 12,
+                  "flash_attention.sm90": 12, "flash_attention_bwd.sm90": 12,
                   "rms_norm": 25, "swiglu": 12, "fused_rope": 24}
 
 
@@ -1580,7 +1852,7 @@ def phase_train(K, dev):
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to(dev)
         for _ in range(2))
     losses, ms = [], []
-    totals = dict.fromkeys(K.KERNELS, 0)
+    totals = dict.fromkeys(K.launch_counts(), 0)
     for i in range(TRAIN_STEPS + 1):
         K.reset_launch_counts()
         torch.cuda.synchronize()
@@ -1701,6 +1973,8 @@ def _kernel_kind(name):
     products are the float32 ones), the rest as PyTorch's own."""
     n = name.lower()
     for key, kind in (("flash_bwd", "flash backward"),
+                      ("flash_dq", "flash backward"),
+                      ("flash_dkv", "flash backward"),
                       ("flash_fwd", "flash forward"),
                       ("rms_norm", "rmsnorm"), ("swiglu", "swiglu"),
                       ("rope", "rope")):
@@ -1908,6 +2182,14 @@ def phase_serve_dense(K, model, kv_dtype=None, twin=None):
     else:
         _require_launched(tag, launches, DENSE_INT8_KERNELS)
         _require_idle(tag, launches, FLOAT_PAGED_KERNELS)
+    # one flash forward per layer and admission, on the tensor-core route
+    want = cfg.num_hidden_layers * st["prefill_admits"]
+    if launches["flash_attention"] != want or \
+            launches["flash_attention.sm90"] != want:
+        raise AssertionError(f"[{tag}] flash launches "
+                             f"{launches['flash_attention']} (tensor-core "
+                             f"route {launches['flash_attention.sm90']}), "
+                             f"expected {want}")
     _profile_admission(model, prompts, kw, n_new,
                        "profile:dense" if kv_dtype is None
                        else "profile:dense:int8")

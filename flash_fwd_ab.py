@@ -1,9 +1,12 @@
 """A/B timing of versions of the flash forward kernel on one CUDA card.
 
     python3 flash_fwd_ab.py NAME=SRC.cu [NAME=SRC.cu ...] [--sass DIR]
+                            [--tol X]
 
-Each SRC is a version of paddle_tpu_torch/csrc/flash_attention.cu, for
-example the parent commit's, written out first with
+Each SRC is a version of the flash forward: paddle_tpu_torch/csrc/
+flash_attention.cu (C entries ptt_flash_attention_fwd and
+ptt_flashmask_attention_fwd) or flash_fwd_sm90.cu (the same entries with
+an _sm90 suffix), for example the parent commit's, written out first with
 
     git show HEAD~1:paddle_tpu_torch/csrc/flash_attention.cu >build/ab/p.cu
 
@@ -19,10 +22,14 @@ one process on the same inputs, in the order A B ... B A:
 - nm1-doc: the same with chip_smoke's packed-document mask.
 
 The outputs must be bit-equal across versions (nm1-none also to nm0);
-the script exits 1 otherwise. Times are chip_smoke._time_ms: one launch
-at a time, each after L2 is emptied. With --sass DIR the SASS of the
-bfloat16 D = 128 kernels goes to DIR, one file per kernel, and the script
-prints each kernel's count of instructions, shared loads and FFMAs.
+the script exits 1 otherwise. Versions whose arithmetic differs (the SIMT
+kernel keeps P in float32, the tensor-core kernel rounds it to bf16) are
+held instead, with --tol X, to a largest absolute difference of X from the
+first version's outputs. Times are chip_smoke._time_ms: one launch at a
+time, each after L2 is emptied. With --sass DIR the SASS of the bfloat16
+D = 128 kernels goes to DIR, one file per kernel, and the script prints
+each kernel's count of instructions, shared loads, FFMAs, branches,
+tensor-core products (HGMMA) and TMA loads (UTMALDG).
 """
 
 from __future__ import annotations
@@ -41,8 +48,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 SHAPES = ((4, 2048, 16, 128), (4, 256, 32, 128))   # training, admission
-KERNEL = re.compile(r"(flash(?:mask)?_fwd_kernel)I13__nv_bfloat16Li8E"
-                    r"(?:Li(\d)E)?")
+KERNEL = re.compile(r"(flash(?:mask)?_fwd(?:_sm90)?_kernel)I13__nv_bfloat16"
+                    r"Li(8|128)E(?:Li(\d)E)?")
 
 
 def _build(versions):
@@ -69,7 +76,7 @@ def _kernel_label(fn_name):
     m = KERNEL.search(fn_name)
     if m is None:
         return None
-    return f"{m.group(1)}<bf16,8,{m.group(2) or 0}>"
+    return f"{m.group(1)}<bf16,{m.group(2)},{m.group(3) or 0}>"
 
 
 def _registers(lib):
@@ -101,17 +108,21 @@ def _sass(name, lib, out_dir):
         count = lambda op: sum(1 for i in ins if i.split(".")[0] == op)
         print(f"  sass {name} {label}: {len(ins)} instructions, "
               f"LDS {count('LDS')}, FFMA {count('FFMA')}, "
-              f"BRA {count('BRA')}", flush=True)
+              f"BRA {count('BRA')}, HGMMA {count('HGMMA')}, "
+              f"UTMALDG {count('UTMALDG')}", flush=True)
         safe = re.sub(r"[^A-Za-z0-9]+", "_", label).strip("_")
         (out_dir / f"{name}_{safe}.sass").write_text(body)
 
 
 def _entries(lib_path):
+    """(unmasked, masked or None) C entries of a version, with or without
+    the tensor-core sources' _sm90 suffix."""
     from paddle_tpu_torch.ops.kernels.flash_attention import _ARGS, _MASK_ARGS
     lib = ctypes.CDLL(str(lib_path))
-    plain = lib.ptt_flash_attention_fwd
+    sfx = "_sm90" if hasattr(lib, "ptt_flash_attention_fwd_sm90") else ""
+    plain = getattr(lib, "ptt_flash_attention_fwd" + sfx)
     plain.argtypes, plain.restype = _ARGS, ctypes.c_int
-    masked = getattr(lib, "ptt_flashmask_attention_fwd", None)
+    masked = getattr(lib, "ptt_flashmask_attention_fwd" + sfx, None)
     if masked is not None:
         masked.argtypes = _ARGS[:5] + _MASK_ARGS + _ARGS[5:]
         masked.restype = ctypes.c_int
@@ -122,6 +133,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("versions", nargs="+", metavar="NAME=SRC.cu")
     ap.add_argument("--sass", metavar="DIR")
+    ap.add_argument("--tol", type=float, default=None, metavar="X",
+                    help="hold versions to the first within X (absolute) "
+                         "instead of bit-equality")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("flash_fwd_ab.py needs a CUDA card")
@@ -179,10 +193,14 @@ def main():
         for key, out in outs.items():
             case = key.split(":")[1]
             ref = first.setdefault("nm0" if case == "nm1-none" else case, out)
-            if not torch.equal(out, ref):
+            diff = (out.float() - ref.float()).abs().max().item()
+            if (args.tol is None and not torch.equal(out, ref)) or \
+                    (args.tol is not None and not diff <= args.tol):
                 ok = False
-                print(f"MISMATCH {shape} {key}: max |diff| "
-                      f"{(out.float() - ref.float()).abs().max().item()}")
+                print(f"MISMATCH {shape} {key}: max |diff| {diff}")
+            elif args.tol is not None:
+                print(f"{list(shape)} {key}: max |diff| from the first "
+                      f"version {diff:.3e} (<= {args.tol})")
         names = list(calls)
         times = {n: [] for n in names}
         for order in (names, names[::-1], names, names[::-1]):
@@ -195,7 +213,8 @@ def main():
         print(f"{list(shape)} ms, each run: " + "  ".join(
             f"{n} " + "/".join(f"{x:.4f}" for x in t)
             for n, t in times.items()), flush=True)
-    print("outputs bit-equal:", ok)
+    print("outputs bit-equal:" if args.tol is None else
+          f"outputs within {args.tol} of the first version:", ok)
     sys.exit(0 if ok else 1)
 
 

@@ -9,9 +9,13 @@ kernel only when h % 128 == 0 and XLA otherwise). Its dropout seed is one
 int in [0, 2^31 - 1) drawn per call while training with p > 0, as the JAX
 op draws it. ``fused_feedforward`` keeps its two GEMMs as ``torch.matmul``
 (the JAX package leaves them to XLA), runs the ``swiglu`` activation
-through the SwiGLU kernel and the others in plain PyTorch (``gelu`` is
-JAX's default tanh approximation), dropout1 and the pre-norm tail in plain
-PyTorch, and the post-norm tail through the bdrln op.
+through the SwiGLU kernel and the others in plain PyTorch (the JAX op
+takes any ``jax.nn`` activation by name; ``_ACTIVATIONS`` maps the
+elementwise ones to their ``torch.nn.functional`` counterparts, ``gelu``
+being JAX's default tanh approximation), dropout1 and the pre-norm tail
+in plain PyTorch, and the post-norm tail through the bdrln op. Both take
+the JAX op's parameters in order (``name`` ignored); ``generator=`` is
+keyword-only after them.
 """
 
 from __future__ import annotations
@@ -23,16 +27,37 @@ from ...nn import functional as F
 from ...ops import kernels as _k
 from ...ops.kernels.bias_dropout_residual_ln import _ln
 
+_F = torch.nn.functional
+# jax.nn name -> the same function in torch (jax.nn's defaults: gelu
+# approximate=True, leaky_relu slope 0.01, elu/celu alpha 1)
 _ACTIVATIONS = {
     "relu": torch.relu,
-    "gelu": lambda t: torch.nn.functional.gelu(t, approximate="tanh"),
+    "relu6": _F.relu6,
+    "gelu": lambda t: _F.gelu(t, approximate="tanh"),
+    "silu": _F.silu,
+    "swish": _F.silu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "elu": _F.elu,
+    "selu": _F.selu,
+    "celu": _F.celu,
+    "leaky_relu": _F.leaky_relu,
+    "softplus": _F.softplus,
+    "soft_sign": _F.softsign,
+    "log_sigmoid": _F.logsigmoid,
+    "hard_sigmoid": _F.hardsigmoid,
+    "hard_silu": _F.hardswish,
+    "hard_swish": _F.hardswish,
+    "hard_tanh": _F.hardtanh,
+    "mish": _F.mish,
 }
 
 
 def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
                                            ln_scale=None, ln_bias=None,
                                            dropout_rate=0.5, ln_epsilon=1e-5,
-                                           training=True, generator=None):
+                                           training=True, name=None, *,
+                                           generator=None):
     """out = LayerNorm(residual + dropout(x + bias)) * ln_scale + ln_bias
     over the last dim, in one kernel. ln_scale/ln_bias default to ones and
     zeros; bias, ln_scale and ln_bias share one dtype. generator draws the
@@ -52,7 +77,8 @@ def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
                       linear2_bias=None, ln1_scale=None, ln1_bias=None,
                       ln2_scale=None, ln2_bias=None, dropout1_rate=0.5,
                       dropout2_rate=0.5, activation="relu", ln_epsilon=1e-5,
-                      pre_layer_norm=False, training=True, generator=None):
+                      pre_layer_norm=False, training=True, name=None, *,
+                      generator=None):
     """The transformer FFN block:
 
         residual = x

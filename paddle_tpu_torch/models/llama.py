@@ -95,10 +95,10 @@ class LlamaAttention(nn.Module):
         self.head_dim = h // self.num_heads
         kv_out = self.num_kv_heads * self.head_dim
         kw = {"device": device, "dtype": dtype}
-        self.q_proj = Linear(h, h, **kw)
-        self.k_proj = Linear(h, kv_out, **kw)
-        self.v_proj = Linear(h, kv_out, **kw)
-        self.o_proj = Linear(h, h, **kw)
+        self.q_proj = Linear(h, h, bias_attr=False, **kw)
+        self.k_proj = Linear(h, kv_out, bias_attr=False, **kw)
+        self.v_proj = Linear(h, kv_out, bias_attr=False, **kw)
+        self.o_proj = Linear(h, h, bias_attr=False, **kw)
 
     def _proj(self, hidden):
         b, s = hidden.shape[0], hidden.shape[1]
@@ -211,9 +211,9 @@ class LlamaMLP(nn.Module):
         super().__init__()
         h, ffn = config.hidden_size, config.intermediate_size
         kw = {"device": device, "dtype": dtype}
-        self.gate_proj = Linear(h, ffn, **kw)
-        self.up_proj = Linear(h, ffn, **kw)
-        self.down_proj = Linear(ffn, h, **kw)
+        self.gate_proj = Linear(h, ffn, bias_attr=False, **kw)
+        self.up_proj = Linear(h, ffn, bias_attr=False, **kw)
+        self.down_proj = Linear(ffn, h, bias_attr=False, **kw)
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -380,8 +380,8 @@ class LlamaForCausalLM(nn.Module, PagedGenerationMixin):
         dtype = getattr(torch, config.dtype) if dtype is None else dtype
         self.llama = LlamaModel(config, device=device, dtype=dtype)
         self.lm_head = None if config.tie_word_embeddings else Linear(
-            config.hidden_size, config.vocab_size, device=device,
-            dtype=dtype)
+            config.hidden_size, config.vocab_size, bias_attr=False,
+            device=device, dtype=dtype)
         self.eval()
 
     @property

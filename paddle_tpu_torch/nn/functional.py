@@ -5,9 +5,12 @@ counterparts of ``paddle_tpu.nn.functional.rms_norm``, ``swiglu`` (the
 (``nn/functional/norm.py:54``), ``scaled_dot_product_attention``,
 ``flashmask_attention``, ``paged_attention`` and ``ragged_paged_attention``
 (``paddle_tpu/nn/functional/attention.py``), ``cross_entropy``
-(``nn/functional/loss.py:22``, hard labels) and the
+(``nn/functional/loss.py:22``) and the
 ``fused_linear_cross_entropy`` op (``ops/impl/fused.py:271-396``), with the
-same argument checks. The kernel ops route to their wrappers in
+same argument checks. Each function takes the JAX function's parameters in
+its order, with its names and defaults (``name`` is taken and ignored, as
+paddle's is); torch-only extras (``generator=``) are keyword-only after
+them. The kernel ops route to their wrappers in
 ``ops.kernels`` (the CUDA kernel for CUDA tensors, the plain version for
 CPU tensors), the differentiable ones through the kernel's autograd
 function. Attention with a dense mask or with dropout while training is
@@ -28,14 +31,14 @@ from ..ops import kernels as _k
 from ..ops.kernels.decode_attention import NEG_INF
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """y = x @ weight (+ bias); weight [in, out] (paddle's layout)."""
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
-            generator=None):
+            name=None, *, generator=None):
     """Zero each element (or each slice along `axis`, which shares one
     draw) with probability p. "upscale_in_train" divides the kept values
     by 1 - p in training; "downscale_in_infer" keeps them as they are and
@@ -58,7 +61,8 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     return torch.where(keep, x, torch.zeros_like(x))
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     """LayerNorm over the trailing `normalized_shape` dims, in float32 for
     bf16/f16 inputs; the normalized value is cast to x's type BEFORE the
     weight multiply and the bias add (the fused bdrln op multiplies in
@@ -78,15 +82,29 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     return out
 
 
-def rms_norm(x, weight, epsilon=1e-6):
-    """Row RMSNorm over the last dim: float32 compute, the weight multiply
-    in float32, one cast to x's type (the Pallas kernel's order)."""
-    return _k.RMSNorm.apply(x, weight, epsilon)
+def rms_norm(x, weight=None, bias=None, epsilon=1e-6, begin_norm_axis=-1,
+             name=None):
+    """RMSNorm over the dims from `begin_norm_axis` on, through the RMSNorm
+    kernel (the trailing dims flattened into one row; weight, of their
+    shape, flattened alike; no weight multiplies by ones): float32 compute,
+    the weight multiply in float32, one cast to x's type (the Pallas
+    kernel's order). bias, of the same shape, is added after the cast in
+    plain PyTorch, as the JAX op adds it in XLA."""
+    axis = begin_norm_axis % x.dim()
+    n = math.prod(x.shape[axis:])
+    w = (torch.ones(n, dtype=x.dtype, device=x.device) if weight is None
+         else weight.reshape(n))
+    out = _k.RMSNorm.apply(x.reshape(*x.shape[:axis], n), w,
+                           epsilon).reshape(x.shape)
+    return out if bias is None else out + bias
 
 
-def swiglu(x, y):
-    """silu(x) * y in float32, cast to x's type."""
-    return _k.SwiGLU.apply(x, y)
+def swiglu(x, y=None, name=None):
+    """silu(x) * y in float32, cast to x's type; with y None, x's last dim
+    splits in two halves (x, y), as the JAX op splits it."""
+    if y is None:
+        x, y = x.chunk(2, dim=-1)
+    return _k.SwiGLU.apply(x.contiguous(), y.contiguous())
 
 
 def fused_rope(x, cos, sin):
@@ -135,7 +153,8 @@ def _sdpa_dense(q, k, v, mask=None, dropout_p=0.0, causal=False,
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, generator=None):
+                                 training=True, name=None, *,
+                                 generator=None):
     """Layout [B, S, H, D]; key/value may have fewer heads (GQA). With no
     mask and no active dropout this is the flash kernel, causal with
     bottom-right alignment when ``is_causal``, and its backward is the
@@ -197,7 +216,8 @@ def _window_to_indices(window_size, b, s, t, causal, device):
 def flashmask_attention(query, key, value, startend_row_indices=None,
                         dropout=0.0, causal=False, window_size=None,
                         return_softmax_lse=False, return_seed_offset=False,
-                        training=True, generator=None):
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None, *, generator=None):
     """Attention with a sparse row-range mask. query [B, S, H, D], key/value
     [B, T, H_kv, D]; startend_row_indices [B, kh, T, {1, 2, 4}] int (kh 1,
     H_kv or H; see ``_flashmask_intervals``) or window_size (an int or
@@ -208,7 +228,9 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
     plain path (causal or not). Rows that see no key output 0. Returns out,
     or a list [out, lse] / [out, seed_offset] / [out, lse, seed_offset]:
     lse [B, H, S] float32, detached (see ``ops.kernels.flash_attention``
-    for its value on rows that see no key); seed_offset int64 zeros [2]."""
+    for its value on rows that see no key); seed_offset int64 zeros [2].
+    fixed_seed_offset and rng_name are taken and ignored, as in the JAX
+    op: dropout draws from `generator`, and there is no seed counter."""
     b, s, h, _ = query.shape
     t, h_kv = key.shape[1], key.shape[2]
     if window_size is not None:
@@ -264,7 +286,7 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
 
 
 def paged_attention(query, k_pages, v_pages, block_tables, context_lens,
-                    scale=None, k_scales=None, v_scales=None):
+                    scale=None, k_scales=None, v_scales=None, name=None):
     """Decode-phase attention over a block-paged KV cache.
 
     query: [B, H, D] (one token per sequence) or [B, 1, H, D];
@@ -296,7 +318,7 @@ def paged_attention(query, k_pages, v_pages, block_tables, context_lens,
 
 def ragged_paged_attention(query, k_pages, v_pages, block_tables,
                            context_lens, q_lens, scale=None, k_scales=None,
-                           v_scales=None):
+                           v_scales=None, name=None):
     """Mixed prefill+decode attention over a block-paged KV cache in one
     launch. query: [C, Q_max, H, D] right-padded rows; row r's q_lens[r]
     real queries sit at the TAIL of its context; context_lens [C] counts
@@ -318,31 +340,78 @@ def ragged_paged_attention(query, k_pages, v_pages, block_tables,
                                      context_lens, q_lens, scale=scale)
 
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean"):  # noqa: A002
-    """Softmax cross-entropy of logits `input` [..., C] against hard int
-    labels [...] (or [..., 1]), in plain PyTorch: the counterpart of
-    ``paddle_tpu.nn.functional.cross_entropy`` for hard labels. Labels
-    equal to ignore_index add 0; "mean" divides by the count of the others
-    (at least 1). Soft labels, class weights and label smoothing come with
-    a later slice of the port."""
-    if label.dim() == input.dim() and label.shape[-1] == 1:
-        label = label[..., 0]
-    if label.shape != input.shape[:-1]:
-        raise ValueError(f"cross_entropy: labels {tuple(label.shape)} do "
-                         f"not fit logits {tuple(input.shape)} (hard labels "
-                         "only; soft labels come with a later slice)")
-    valid = label != ignore_index
-    logp = torch.log_softmax(input, dim=-1)
-    idx = torch.where(valid, label, torch.zeros_like(label)).long()
-    loss = -logp.gather(-1, idx[..., None])[..., 0]
-    loss = torch.where(valid, loss, torch.zeros_like(loss))
+def _reduce(loss, reduction):
     if reduction == "mean":
-        return loss.sum() / valid.sum().clamp_min(1).to(loss.dtype)
+        return loss.mean()
     if reduction == "sum":
         return loss.sum()
     if reduction == "none":
         return loss
     raise ValueError(f"cross_entropy: unknown reduction {reduction!r}")
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """Cross-entropy of `input` (logits, or probabilities when use_softmax
+    is False) along `axis`, in plain PyTorch as the JAX op computes it in
+    XLA (``paddle_tpu/nn/functional/loss.py:22``).
+
+    Soft labels (soft_label, or label of input's shape): target = label,
+    smoothed to (1 - e) label + e / C; loss -sum(w_c target log p) per
+    sample; "mean" with a class weight w divides by sum(w_c target).
+    Hard labels (int, [...] or with a 1 at `axis`): -log p[label], with
+    label smoothing (1 - e) nll + e mean(-log p); labels equal to
+    ignore_index add 0; a class weight multiplies each sample's loss by
+    w[label] and "mean" divides by the sum of those weights, otherwise
+    "mean" divides by the count of the labels not ignored (at least 1)."""
+    logits = input
+    ax = axis % logits.dim()
+    if use_softmax:
+        logp = torch.log_softmax(logits, dim=ax)
+    else:
+        logp = torch.log(logits.clamp_min(1e-30))
+    if soft_label or tuple(label.shape) == tuple(logits.shape):
+        target = label
+        if label_smoothing > 0:
+            n = logits.shape[ax]
+            target = (1 - label_smoothing) * target + label_smoothing / n
+        if weight is not None:
+            wshape = [1] * logits.dim()
+            wshape[ax] = -1
+            wb = weight.reshape(wshape)
+            loss = -(wb * target * logp).sum(ax)
+            if reduction == "mean":
+                return loss.sum() / (wb * target).sum(ax).sum().clamp_min(
+                    1e-12)
+            return _reduce(loss, reduction)
+        return _reduce(-(target * logp).sum(ax), reduction)
+
+    lbl = label
+    if lbl.dim() == logits.dim() and lbl.shape[ax] == 1:
+        lbl = lbl.squeeze(ax)
+    if tuple(lbl.shape) != tuple(logp.shape[:ax] + logp.shape[ax + 1:]):
+        raise ValueError(f"cross_entropy: labels {tuple(label.shape)} do "
+                         f"not fit logits {tuple(logits.shape)} at axis "
+                         f"{axis}")
+    valid = lbl != ignore_index
+    idx = torch.where(valid, lbl, torch.zeros_like(lbl)).long()
+    nll = -logp.gather(ax, idx.unsqueeze(ax)).squeeze(ax)
+    if label_smoothing > 0:
+        loss = ((1 - label_smoothing) * nll +
+                label_smoothing * -logp.mean(ax))
+    else:
+        loss = nll
+    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    if weight is not None:
+        w = weight[lbl.clamp(0, weight.shape[0] - 1).long()]
+        w = torch.where(valid, w, torch.zeros_like(w))
+        loss = loss * w
+        if reduction == "mean":
+            return loss.sum() / w.sum().clamp_min(1e-12)
+    if reduction == "mean":
+        return loss.sum() / valid.sum().clamp_min(1).to(loss.dtype)
+    return _reduce(loss, reduction)
 
 
 def _flce_logits(hid, weight, off, chunk, v, transpose_w):

@@ -6,6 +6,10 @@ A wrapper given a CPU tensor computes the plain version; given a CUDA
 tensor it launches the kernel built from ``paddle_tpu_torch/csrc`` (see
 ``_build``) or raises. Nothing falls back.
 
+The flash wrappers take one of two routes (``ROUTES``), counted apart:
+tensor-core kernels for bf16/f16 with head dim 64 or 128, float32 SIMT
+kernels for the rest (``flash_attention.route``).
+
 The autograd functions (``FlashAttention``, ``FlashmaskAttention``,
 ``RMSNorm``, ``SwiGLU``, ``FusedRoPE``, ``BiasDropoutResidualLN``) run a
 wrapper forward. Flash attention's backward is a kernel too
@@ -55,9 +59,10 @@ KERNELS = {
         swiglu, "paddle_tpu_torch/csrc/swiglu.cu",
         "paddle_tpu/ops/pallas/fused_ffn.py:58"),
     # one CUDA kernel for the TPU kernel and the JAX package's
-    # Pallas-on-GPU lowering of the same function
+    # Pallas-on-GPU lowering of the same function (the tensor-core route;
+    # float32 takes SIMT_SOURCES)
     "flash_attention": (
-        flash_attention_fwd, "paddle_tpu_torch/csrc/flash_attention.cu",
+        flash_attention_fwd, "paddle_tpu_torch/csrc/flash_fwd_sm90.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:183; "
         "paddle_tpu/ops/primitive/lowering_gpu.py:98"),
     "fused_rope": (
@@ -66,7 +71,7 @@ KERNELS = {
     # one C entry launching a dQ kernel and a dK/dV kernel, for the TPU
     # backward's two pallas_calls
     "flash_attention_bwd": (
-        flash_attention_bwd, "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        flash_attention_bwd, "paddle_tpu_torch/csrc/flash_bwd_sm90.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:360; :393"),
     # the float kernels' templates over int8 pages with per-page scales
     "ragged_paged_attention_int8": (
@@ -80,11 +85,11 @@ KERNELS = {
     # the flash kernels with the range mask (template over the count of
     # intervals), counted apart from the unmasked launches
     "flashmask_attention": (
-        flashmask_attention_fwd, "paddle_tpu_torch/csrc/flash_attention.cu",
+        flashmask_attention_fwd, "paddle_tpu_torch/csrc/flash_fwd_sm90.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:183 (_range_mask :208)"),
     "flashmask_attention_bwd": (
         flashmask_attention_bwd,
-        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu_torch/csrc/flash_bwd_sm90.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:360; :393 "
         "(_range_mask :208)"),
     "bias_dropout_residual_ln": (
@@ -94,17 +99,41 @@ KERNELS = {
 }
 
 
+# the flash wrappers launch one of two routes by type and head dim
+# (flash_attention.route): "sm90" (tensor cores, bf16/f16, D 64 or 128)
+# or "simt" (float32 CUDA cores, every other case)
+ROUTES = ("sm90", "simt")
+ROUTED = ("flash_attention", "flash_attention_bwd", "flashmask_attention",
+          "flashmask_attention_bwd")
+# the float32 (SIMT) route's source of each routed wrapper
+SIMT_SOURCES = {
+    "flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flashmask_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flashmask_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+}
+
+
 def launch_counts():
-    """{kernel name: launches since the last reset}."""
-    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    """{kernel name: launches since the last reset}; the flash kernels also
+    by route, as "<name>.sm90" and "<name>.simt"."""
+    out = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    for name in ROUTED:
+        fn = KERNELS[name][0]
+        for rt in ROUTES:
+            out[f"{name}.{rt}"] = getattr(fn, f"{rt}_launches")
+    return out
 
 
 def reset_launch_counts():
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
+    for name in ROUTED:
+        for rt in ROUTES:
+            setattr(KERNELS[name][0], f"{rt}_launches", 0)
 
 
-__all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
+__all__ = ["KERNELS", "ROUTED", "ROUTES", "SIMT_SOURCES", "launch_counts", "reset_launch_counts",
            "BiasDropoutResidualLN", "FlashAttention", "FlashmaskAttention",
            "FusedRoPE", "RMSNorm", "SwiGLU", "bias_dropout_residual_ln",
            "bias_dropout_residual_ln_bwd_plain",

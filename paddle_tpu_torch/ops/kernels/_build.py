@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo"]
 SOURCES = ("rms_norm", "swiglu", "decode_attention", "ragged_attention",
            "flash_attention", "rope", "quantized_attention",
-           "flash_attention_bwd", "bias_dropout_residual_ln")
+           "flash_attention_bwd", "bias_dropout_residual_ln",
+           "flash_fwd_sm90", "flash_bwd_sm90")
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -91,18 +92,23 @@ def _finish(name, job):
 
 def build_all(names=SOURCES):
     """Compile every listed source in parallel (one nvcc each) and load
-    the libraries. Returns {name: seconds spent waiting for its build}."""
+    the libraries. Returns {name: seconds its nvcc ran} (0 for a library
+    already built)."""
     t0 = time.perf_counter()
     jobs = {}
     waited = {}
     try:
         for n in names:
             jobs[n] = _start(n)
-        for n, job in jobs.items():
-            if job is not None:
-                _finish(n, job)
-                jobs[n] = None
-            waited[n] = time.perf_counter() - t0
+            if jobs[n] is None:
+                waited[n] = 0.0
+        while any(job is not None for job in jobs.values()):
+            for n, job in jobs.items():
+                if job is not None and job[0].poll() is not None:
+                    _finish(n, job)
+                    jobs[n] = None
+                    waited[n] = time.perf_counter() - t0
+            time.sleep(0.05)
     finally:
         for job in jobs.values():       # a failed build stops the others
             if job is not None:

@@ -6,20 +6,32 @@
 / ``_flash_core_bwd``) and of ``paddle_tpu/ops/primitive/lowering_gpu.py``
 (``_flash_fwd_gpu``), which computes the same forward.
 
-``flash_attention_fwd`` launches the CUDA kernel ``csrc/flash_attention.cu``
-for CUDA tensors and takes the plain version ``flash_attention_fwd_plain``
-for CPU tensors. Both take paddle's layout, mask causally with bottom-right
-alignment, read K/V heads by index under GQA, accumulate in float32, and
-return ``(out, lse)``: out in q's type, lse ``[B, H, S_q]`` float32 (the
-TPU kernel's lane-broadcast lse layout is dropped).
+``flash_attention_fwd`` launches a CUDA kernel for CUDA tensors and takes
+the plain version ``flash_attention_fwd_plain`` for CPU tensors. Both take
+paddle's layout, mask causally with bottom-right alignment, read K/V heads
+by index under GQA, accumulate in float32, and return ``(out, lse)``: out
+in q's type, lse ``[B, H, S_q]`` float32 (the TPU kernel's lane-broadcast
+lse layout is dropped).
 
-``flash_attention_bwd`` (CUDA kernels ``csrc/flash_attention_bwd.cu``) and
-``flash_attention_bwd_plain`` give (dq, dk, dv) from q, k, v, the forward's
-out and lse, and the output's gradient; dk/dv are already summed over each
-KV head's group of query heads. ``FlashAttention`` is the autograd
-function that pairs the two: its forward is the forward kernel and it
-saves q, k, v, out and the float32 lse. Bound and design: see the notes in
-the CUDA sources.
+``flash_attention_bwd`` and ``flash_attention_bwd_plain`` give (dq, dk,
+dv) from q, k, v, the forward's out and lse, and the output's gradient;
+dk/dv are already summed over each KV head's group of query heads.
+
+Two routes, chosen by type and head dim (``route``), never by failure:
+bfloat16 and float16 inputs with D in {64, 128} launch the tensor-core
+kernels ``csrc/flash_fwd_sm90.cu`` / ``csrc/flash_bwd_sm90.cu`` (wgmma on
+TMA-staged tiles; P and dS rounded to the input type before the PV, dV,
+dK and dQ products, as the TPU kernel does); float32, and any other head
+dim (D % 8 == 0 up to 256), launch the float32 SIMT kernels
+``csrc/flash_attention.cu`` / ``csrc/flash_attention_bwd.cu`` (P and dS
+kept float32). A route's kernel that fails to build or launch raises. Each
+wrapper counts its launches in ``launches`` and per route in
+``sm90_launches`` / ``simt_launches``. The plain versions keep P and dS in
+float32 by default; ``p_dtype`` rounds them where the TPU kernel does.
+
+``FlashAttention`` is the autograd function that pairs the two: its
+forward is the forward kernel and it saves q, k, v, out and the float32
+lse. Bound and design: see the notes in the CUDA sources.
 
 Flashmask (``flashmask_attention_fwd`` / ``_bwd`` and their ``_plain``
 versions; ``_flashmask_core``, ``_expand_mask_heads`` and
@@ -77,17 +89,19 @@ def _visible(b, s_q, s_k, h_kv, rep, causal, bounds, device):
 
 
 def flash_attention_fwd_plain(q, k, v, causal=False, scale=None,
-                              bounds=None):
+                              bounds=None, *, p_dtype=None):
     """q: [B, S_q, H, D]; k/v: [B, S_k, H_kv, D] -> (out [B, S_q, H, D] in
     q's type, lse [B, H, S_q] float32). bounds: the flashmask operands
     (start, end, start2, end2), or None.
 
-    Scores, softmax and the PV product run in float32, and P stays float32
-    for the PV product, as in ``_flash_fwd_gpu``. (The TPU kernel rounds P
-    to v's type and ``_sdpa_reference`` rounds the probabilities to q's type
-    first: in bfloat16 that moves outputs by up to ~1e-2, inside the bf16
-    attention tolerance of 2e-2.) A row with no visible key writes 0 and
-    lse = NEG_INF + log(L_EPS), the finalize's clamp, as the kernels do."""
+    Scores, softmax and the PV product run in float32. By default P stays
+    float32 for the PV product, as in ``_flash_fwd_gpu`` and the SIMT
+    kernel. With ``p_dtype`` (the tensor-core kernel's rounding, and the TPU
+    kernel's: ``tiles.online_softmax_update(p_dtype=v.dtype)``) the
+    normalizer l sums float32 P and P is then rounded to p_dtype before the
+    PV product, which still sums in float32. A row with no visible key
+    writes 0 and lse = NEG_INF + log(L_EPS), the finalize's clamp, as the
+    kernels do."""
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
     rep = h // h_kv
@@ -102,6 +116,8 @@ def flash_attention_fwd_plain(q, k, v, causal=False, scale=None,
     if vis is not None:
         p = p * vis          # rows with no visible key: exp(0) -> 0
     lc = p.sum(dim=-1, keepdim=True).clamp_min(L_EPS)
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
     acc = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
     out = acc / lc.permute(0, 3, 1, 2, 4)
     lse = (m + torch.log(lc))[..., 0].reshape(b, h, s_q)
@@ -110,6 +126,52 @@ def flash_attention_fwd_plain(q, k, v, causal=False, scale=None,
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+SM90_DTYPES = (torch.bfloat16, torch.float16)
+SM90_HEAD_DIMS = (64, 128)
+# (direction, masked, route) -> (csrc source, C entry)
+ENTRIES = {
+    ("fwd", False, "sm90"): ("flash_fwd_sm90", "ptt_flash_attention_fwd_sm90"),
+    ("fwd", True, "sm90"): ("flash_fwd_sm90",
+                            "ptt_flashmask_attention_fwd_sm90"),
+    ("bwd", False, "sm90"): ("flash_bwd_sm90", "ptt_flash_attention_bwd_sm90"),
+    ("bwd", True, "sm90"): ("flash_bwd_sm90",
+                            "ptt_flashmask_attention_bwd_sm90"),
+    ("fwd", False, "simt"): ("flash_attention", "ptt_flash_attention_fwd"),
+    ("fwd", True, "simt"): ("flash_attention", "ptt_flashmask_attention_fwd"),
+    ("bwd", False, "simt"): ("flash_attention_bwd",
+                             "ptt_flash_attention_bwd"),
+    ("bwd", True, "simt"): ("flash_attention_bwd",
+                            "ptt_flashmask_attention_bwd"),
+}
+
+
+def route(q):
+    """The kernel route of a launch on q: "sm90" (tensor cores) for
+    bfloat16/float16 with head dim 64 or 128, else "simt" (float32 CUDA
+    cores). A stated routing by type and shape: the float32 checks hold
+    the SIMT kernels to 1e-4, which TF32 tensor-core products would break,
+    and no path of the port has another head dim in 16 bits."""
+    if q.dtype in SM90_DTYPES and q.shape[-1] in SM90_HEAD_DIMS:
+        return "sm90"
+    return "simt"
+
+
+def entry(direction, masked, q):
+    """(csrc source, C entry) that a launch on q takes."""
+    return ENTRIES[(direction, bool(masked), route(q))]
+
+
+def _aligned(t):
+    """t itself, or a copy when its data does not start on 16 bytes (TMA
+    tensor maps need 16-byte aligned bases; a contiguous view into a larger
+    buffer may start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _count(wrapper, rt):
+    wrapper.launches += 1
+    setattr(wrapper, f"{rt}_launches", getattr(wrapper, f"{rt}_launches") + 1)
 
 
 def _check(q, k, v, what="flash_attention_fwd"):
@@ -162,8 +224,12 @@ def _check_bounds(q, k, bounds, what):
 
 
 def _fwd(q, k, v, causal, scale, bounds, what):
-    """Launch the forward kernel (masked when bounds is not None)."""
+    """Launch the forward kernel of q's route (masked when bounds is not
+    None). Returns (out, lse, route)."""
     _check(q, k, v, what)
+    rt = route(q)
+    if rt == "sm90":
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -173,16 +239,15 @@ def _fwd(q, k, v, causal, scale, bounds, what):
             _build.ptr(lse)]
     tail = [b, s_q, s_k, h, h_kv, d, float(scale), int(bool(causal)),
             _build.dtype_code(q), _build.stream(q)]
+    src, sym = entry("fwd", bounds is not None, q)
     if bounds is None:
-        fn = _build.function("flash_attention", "ptt_flash_attention_fwd",
-                             _ARGS)
+        fn = _build.function(src, sym, _ARGS)
         _build.check(fn(*head, *tail), what)
     else:
-        fn = _build.function("flash_attention", "ptt_flashmask_attention_fwd",
-                             _ARGS[:5] + _MASK_ARGS + _ARGS[5:])
+        fn = _build.function(src, sym, _ARGS[:5] + _MASK_ARGS + _ARGS[5:])
         _build.check(fn(*head, *_check_bounds(q, k, bounds, what), *tail),
                      what)
-    return out, lse
+    return out, lse, rt
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
@@ -191,20 +256,24 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     raise)."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, scale)
-    res = _fwd(q, k, v, causal, scale, None, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
-    return res
+    out, lse, rt = _fwd(q, k, v, causal, scale, None, "flash_attention_fwd")
+    _count(flash_attention_fwd, rt)
+    return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.sm90_launches = 0
+flash_attention_fwd.simt_launches = 0
 
 
 def flashmask_attention_fwd_plain(q, k, v, start, end, start2=None,
-                                  end2=None, causal=True, scale=None):
+                                  end2=None, causal=True, scale=None, *,
+                                  p_dtype=None):
     """(out, lse) of attention in which query rows in [start[t], end[t])
     (and [start2[t], end2[t])) cannot see key t; bounds [B, kh, S_k]."""
     return flash_attention_fwd_plain(q, k, v, causal, scale,
-                                     (start, end, start2, end2))
+                                     (start, end, start2, end2),
+                                     p_dtype=p_dtype)
 
 
 def flashmask_attention_fwd(q, k, v, start, end, start2=None, end2=None,
@@ -215,27 +284,33 @@ def flashmask_attention_fwd(q, k, v, start, end, start2=None, end2=None,
     if q.device.type == "cpu":
         return flashmask_attention_fwd_plain(q, k, v, start, end, start2,
                                              end2, causal, scale)
-    res = _fwd(q, k, v, causal, scale, (start, end, start2, end2),
-               "flashmask_attention_fwd")
-    flashmask_attention_fwd.launches += 1
-    return res
+    out, lse, rt = _fwd(q, k, v, causal, scale, (start, end, start2, end2),
+                        "flashmask_attention_fwd")
+    _count(flashmask_attention_fwd, rt)
+    return out, lse
 
 
 flashmask_attention_fwd.launches = 0
+flashmask_attention_fwd.sm90_launches = 0
+flashmask_attention_fwd.simt_launches = 0
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
-                              scale=None, bounds=None):
+                              scale=None, bounds=None, *, p_dtype=None):
     """q/out/dout: [B, S_q, H, D]; k/v: [B, S_k, H_kv, D]; lse: the
     forward's [B, H, S_q] float32 -> (dq, dk, dv) in the types of q, k, v.
     bounds: the flashmask operands (start, end, start2, end2), or None.
 
     Everything runs in float32: delta = rowsum(dout * out), P recomputed as
-    exp(S * scale - lse) and zeroed where masked, and P and dS stay float32
-    for the dV, dK and dQ products, as in the CUDA kernels. (The TPU kernel
-    rounds P and dS to the input type before those products, and
-    ``_flash_core_bwd`` rounds each query head's dk/dv before the group sum:
-    in bfloat16 that moves gradients by about one bf16 rounding.)"""
+    exp(S * scale - lse) and zeroed where masked, dS = P * (dP - delta). By
+    default P and dS stay float32 for the dV, dK and dQ products, as in the
+    SIMT kernels. With ``p_dtype`` they are rounded to it before those
+    products, as in the tensor-core kernels and the TPU kernel
+    (``flash_attention.py`` ``_bwd_dq_kernel``: dS to k's type;
+    ``_bwd_dkv_kernel``: P to dout's, dS to q's type); dS itself is still
+    computed from the float32 P. (``_flash_core_bwd`` also rounds each query
+    head's dk/dv before the group sum; here, as in the kernels, the group
+    sums in float32 and rounds once.)"""
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
     rep = h // h_kv
@@ -249,9 +324,12 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
     vis = _visible(b, s_q, s_k, h_kv, rep, causal, bounds, q.device)
     if vis is not None:
         p = p.masked_fill(~vis, 0.0)
-    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
     dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vf)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
+        ds = ds.to(p_dtype).float()
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
     dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) * scale
     dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qg) * scale
     return (dq.reshape(b, s_q, h, d).to(q.dtype), dk.to(k.dtype),
@@ -263,9 +341,10 @@ _BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
 
 
 def _bwd(q, k, v, out, lse, dout, causal, scale, bounds, what):
-    """Launch the two backward kernels (masked when bounds is not None).
-    delta = rowsum(dout * out) is one float32 reduction here, as the JAX
-    package computes it in XLA before its kernels."""
+    """Launch the two backward kernels of q's route (masked when bounds is
+    not None). delta = rowsum(dout * out) is one float32 reduction here, as
+    the JAX package computes it in XLA before its kernels. Returns (dq, dk,
+    dv, route)."""
     _check(q, k, v, what)
     _build.require_cuda(q, what, out=out, lse=lse, dout=dout)
     b, s_q, h, d = q.shape
@@ -279,6 +358,9 @@ def _bwd(q, k, v, out, lse, dout, causal, scale, bounds, what):
         raise ValueError(f"{what}: lse must be [B, H, S_q] = {(b, h, s_q)} "
                          f"float32, got {tuple(lse.shape)} {lse.dtype}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    rt = route(q)
+    if rt == "sm90":
+        q, k, v, dout = (_aligned(t) for t in (q, k, v, dout))
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -286,17 +368,16 @@ def _bwd(q, k, v, out, lse, dout, causal, scale, bounds, what):
     head = [_build.ptr(t) for t in (q, k, v, dout, lse, delta, dq, dk, dv)]
     tail = [b, s_q, s_k, h, h_kv, d, float(scale), int(bool(causal)),
             _build.dtype_code(q), _build.stream(q)]
+    src, sym = entry("bwd", bounds is not None, q)
     if bounds is None:
-        fn = _build.function("flash_attention_bwd", "ptt_flash_attention_bwd",
-                             _BWD_ARGS)
+        fn = _build.function(src, sym, _BWD_ARGS)
         _build.check(fn(*head, *tail), what)
     else:
-        fn = _build.function("flash_attention_bwd",
-                             "ptt_flashmask_attention_bwd",
+        fn = _build.function(src, sym,
                              _BWD_ARGS[:9] + _MASK_ARGS + _BWD_ARGS[9:])
         _build.check(fn(*head, *_check_bounds(q, k, bounds, what), *tail),
                      what)
-    return dq, dk, dv
+    return dq, dk, dv, rt
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None):
@@ -305,21 +386,24 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None):
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
                                          scale)
-    res = _bwd(q, k, v, out, lse, dout, causal, scale, None,
-               "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
-    return res
+    *res, rt = _bwd(q, k, v, out, lse, dout, causal, scale, None,
+                    "flash_attention_bwd")
+    _count(flash_attention_bwd, rt)
+    return tuple(res)
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.sm90_launches = 0
+flash_attention_bwd.simt_launches = 0
 
 
 def flashmask_attention_bwd_plain(q, k, v, out, lse, dout, start, end,
                                   start2=None, end2=None, causal=True,
-                                  scale=None):
+                                  scale=None, *, p_dtype=None):
     """(dq, dk, dv) of ``flashmask_attention_fwd_plain``."""
     return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale,
-                                     (start, end, start2, end2))
+                                     (start, end, start2, end2),
+                                     p_dtype=p_dtype)
 
 
 def flashmask_attention_bwd(q, k, v, out, lse, dout, start, end,
@@ -330,13 +414,15 @@ def flashmask_attention_bwd(q, k, v, out, lse, dout, start, end,
     if q.device.type == "cpu":
         return flashmask_attention_bwd_plain(q, k, v, out, lse, dout, start,
                                              end, start2, end2, causal, scale)
-    res = _bwd(q, k, v, out, lse, dout, causal, scale,
-               (start, end, start2, end2), "flashmask_attention_bwd")
-    flashmask_attention_bwd.launches += 1
-    return res
+    *res, rt = _bwd(q, k, v, out, lse, dout, causal, scale,
+                    (start, end, start2, end2), "flashmask_attention_bwd")
+    _count(flashmask_attention_bwd, rt)
+    return tuple(res)
 
 
 flashmask_attention_bwd.launches = 0
+flashmask_attention_bwd.sm90_launches = 0
+flashmask_attention_bwd.simt_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

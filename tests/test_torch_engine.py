@@ -531,7 +531,8 @@ FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import paddle_tpu\b"
 
 def test_no_module_of_the_port_imports_jax_or_paddle_tpu():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "flash_fwd_ab.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "flash_fwd_ab.py",
+              ROOT / "flash_rounding_check.py"]
     assert len(files) > 10
     for path in files:
         hits = FORBIDDEN.findall(path.read_text())
