@@ -1,6 +1,6 @@
 """Smoke run of paddle_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from paddle_tpu_torch/csrc (one nvcc per
 source, all started together; each build's seconds printed), then:
@@ -23,7 +23,12 @@ source, all started together; each build's seconds printed), then:
    GQA, bidirectional 4 bounds, a window of 256; SDPA with the dense mask
    as the library time) and bias + dropout + residual + LayerNorm at
    BERT-base's [16384, 768] (its keep mask bit-equal to the plain
-   Philox's); then the cost of the plain int8 page write
+   Philox's); paged decode attention (float and int8 pages) at the
+   smoke's contexts, at contexts up to the engine's whole table ([long]),
+   with 16 query heads a KV head ([rep16]), the tiny model's D = 16 and the
+   scalar path's D = 18, each with its split plan and CUDA launches per
+   call; RMSNorm at the prefill, training, decode ([4, 4096]) and odd
+   ([37, 333]) shapes; then the cost of the plain int8 page write
    (page_quant.write_rows) at the decode shape;
 2. agree: a 2-layer tiny Llama in float32 with the same seeded weights on
    the CPU (plain versions) and on the card (kernels) — generate_batch
@@ -75,7 +80,15 @@ flashmask runs (bfloat16) must take the tensor-core route. Then
 it prints the card's name and power limit, one JSON line with every
 kernel's numbers, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero without that line. Without a CUDA card
-it exits 2 before doing anything.
+it exits 2 before doing anything. The serving runs also print decode
+attention's launches per decode step and, profiled, its share of the
+device's busy time.
+
+--parent DIR names a copy of an earlier commit's paddle_tpu_torch/csrc
+(for example `git archive HEAD~1 paddle_tpu_torch/csrc | tar -x -C
+build/parent_src`): its decode attention, int8 decode attention and RMSNorm
+are built beside this tree's and timed on the same inputs in the order
+parent, kernel, kernel, parent (parent_ms on the [kernels] rows).
 """
 
 from __future__ import annotations
@@ -229,9 +242,18 @@ def check_ragged(K, dev, dtype, h_kv, rng, int8=False):
             "library_ms": None}
 
 
-def check_decode(K, dev, dtype, rng, h_kv=32, int8=False):
-    b, h, d, page, p_max = 4, 32, 128, 16, 256
-    lens = [1000, 517, 64, 1]
+# the smoke's decode batch (Llama-2-7B heads at B = 4, the engine's table
+# of 256 pages of 16) and the long one, where the bound (~0.045 ms in bf16)
+# rather than launch latency sets the floor
+DECODE_LENS = (1000, 517, 64, 1)
+LONG_LENS = (4096, 3000, 2048, 1)
+
+
+def check_decode(K, dev, dtype, rng, h_kv=32, int8=False, lens=DECODE_LENS,
+                 b=4, h=32, d=128, page=16, p_max=256):
+    """The decode kernel against its plain version; the record carries the
+    split plan (from shapes alone) and the CUDA launches of one call (the
+    split kernel, and the merge when the plan has more than one split)."""
     rows = [(n, 1, False) for n in lens]
     kp, vp, bt = _paged_case(rng, dev, dtype, rows, h, h_kv, d, page, p_max)
     ctx = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -251,12 +273,18 @@ def check_decode(K, dev, dtype, rng, h_kv=32, int8=False):
         2 * sum(lens) * h_kv * d * pools[0].element_size()
     if int8:                  # one float32 K and V scale per page read
         nbytes += 2 * 4 * sum(-(-n // page) for n in lens)
-    return {"got": got, "want": want, "err": _max_err(got, want),
-            "flops": 4 * sum(lens) * h * d, "bytes": nbytes,
-            "ms": _time_ms(lambda: fn(q, *pools, bt, ctx)),
-            "plain_ms": _time_ms(lambda: plain(q, *pools, bt, ctx),
-                                 ITERS // 10),
-            "library_ms": None}
+    splits, pps = K.split_plan(b, h, h_kv, p_max, page)
+    res = {"got": got, "want": want, "err": _max_err(got, want),
+           "flops": 4 * sum(lens) * h * d, "bytes": nbytes,
+           "plan": (splits, pps), "launches_per_call": 1 + (splits > 1),
+           "plain_ms": _time_ms(lambda: plain(q, *pools, bt, ctx),
+                                ITERS // 10),
+           "library_ms": None}
+    name = "quantized_attention" if int8 else "decode_attention"
+    res.update(_with_parent(lambda: fn(q, *pools, bt, ctx),
+                            lambda: _parent_decode(name, q, pools, bt, ctx),
+                            name, want))
+    return res
 
 
 def check_rms(K, dev, dtype, rng, t=1024, hid=4096):
@@ -269,13 +297,103 @@ def check_rms(K, dev, dtype, rng, t=1024, hid=4096):
     want = K.rms_norm_plain(x, w, eps)
     torch.cuda.synchronize()
     elt = x.element_size()
-    return {"got": got, "want": want, "err": _max_err(got, want),
-            "flops": 4 * x.numel(),
-            "bytes": 2 * x.numel() * elt + hid * w.element_size(),
-            "ms": _time_ms(lambda: K.rms_norm(x, w, eps)),
-            "plain_ms": _time_ms(lambda: K.rms_norm_plain(x, w, eps)),
-            "library_ms": _time_ms(lambda: torch.nn.functional.rms_norm(
-                x, (hid,), w, eps))}
+    res = {"got": got, "want": want, "err": _max_err(got, want),
+           "flops": 4 * x.numel(),
+           "bytes": 2 * x.numel() * elt + hid * w.element_size(),
+           "plain_ms": _time_ms(lambda: K.rms_norm_plain(x, w, eps)),
+           "library_ms": _time_ms(lambda: torch.nn.functional.rms_norm(
+               x, (hid,), w, eps))}
+    res.update(_with_parent(lambda: K.rms_norm(x, w, eps),
+                            lambda: _parent_rms(x, w, eps), "rms_norm",
+                            want))
+    return res
+
+
+# ----------------------------------------------------------------------
+# the parent commit's versions of the kernels this tree redesigned, timed
+# beside them in the same call (python3 chip_smoke.py --parent DIR)
+# ----------------------------------------------------------------------
+
+PARENT_SOURCES = ("decode_attention", "quantized_attention", "rms_norm")
+_PARENT = {}             # source name -> ctypes library of the parent's build
+
+
+def _start_parent(src_dir):
+    """One nvcc per parent source in src_dir (a copy of the parent's
+    paddle_tpu_torch/csrc), into build/parent/, with the port's flags."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops.kernels import _build
+    out = Path(__file__).resolve().parent / "build" / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    src_dir = Path(src_dir).resolve()
+    return {name: (out / f"lib{name}.so", subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src_dir), "-o",
+         str(out / f"lib{name}.so"), str(src_dir / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in PARENT_SOURCES}
+
+
+def _finish_parent(jobs):
+    import ctypes
+    for name, (lib, proc) in jobs.items():
+        log = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n"
+                               f"{log[-3000:]}")
+        for kernel, used in _ptxas_kernels(log):
+            print(f"[ptxas:parent] {name}: {kernel}: {used}")
+        _PARENT[name] = ctypes.CDLL(str(lib))
+
+
+def _parent_decode(name, q, pools, bt, ctx):
+    """The parent's decode entry (no workspace argument) on these inputs."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import _build
+    int8 = name == "quantized_attention"
+    fn = getattr(_PARENT[name], "ptt_decode_attention_int8" if int8
+                 else "ptt_decode_attention")
+    fn.argtypes = [ctypes.c_void_p] * (8 if int8 else 6) + \
+        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    b, h, d = q.shape
+    _, page, h_kv, _ = pools[0].shape
+    out = torch.empty_like(q)
+    _build.check(fn(*[_build.ptr(t) for t in (q, *pools, bt, ctx, out)], b,
+                    h, h_kv, d, page, bt.shape[1], 1.0 / math.sqrt(d),
+                    _build.dtype_code(q), _build.stream(q)),
+                 f"parent {name}")
+    return out
+
+
+def _parent_rms(x, w, eps):
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels.rms_norm import _ARGS
+    fn = _PARENT["rms_norm"].ptt_rms_norm
+    fn.argtypes, fn.restype = _ARGS, ctypes.c_int
+    h = x.shape[-1]
+    out = torch.empty_like(x)
+    _build.check(fn(_build.ptr(x), _build.ptr(w), _build.ptr(out),
+                    x.numel() // h, h, float(eps), _build.dtype_code(x),
+                    _build.dtype_code(w), _build.stream(x)), "parent rms_norm")
+    return out
+
+
+def _with_parent(run, parent, name, want):
+    """{"ms": the kernel's time} -- with the parent's build loaded, both
+    timed in the order parent, kernel, kernel, parent (each the mean of
+    the two), plus the parent's time and its error against the plain
+    version (printed, not held: the parent is not under test)."""
+    if name not in _PARENT:
+        return {"ms": _time_ms(run)}
+    err = _max_err(parent(), want)
+    torch.cuda.synchronize()
+    p1, k1, k2, p2 = (_time_ms(f) for f in (parent, run, run, parent))
+    return {"ms": (k1 + k2) / 2, "parent_ms": (p1 + p2) / 2,
+            "parent_abba": (p1, k1, k2, p2), "parent_err": err}
 
 
 def check_swiglu(K, dev, dtype, rng, t=1024, f=11008):
@@ -894,6 +1012,21 @@ def phase_kernels(K, dev):
                 K, dev, dtype, rng8, int8=True)),
             ("paged_decode_attention_int8[gqa8]", lambda: check_decode(
                 K, dev, dtype, rng8, h_kv=8, int8=True)),
+            # contexts up to the engine's whole table (4096 tokens)
+            ("paged_decode_attention[long]", lambda: check_decode(
+                K, dev, dtype, rng, lens=LONG_LENS)),
+            ("paged_decode_attention_int8[long]", lambda: check_decode(
+                K, dev, dtype, rng8, int8=True, lens=LONG_LENS)),
+            # the decode step's RMSNorm (65 launches a step at B = 4) and
+            # a width that is no whole number of vectors (the scalar path)
+            ("rms_norm[decode]", lambda: check_rms(K, dev, dtype, rng, 4,
+                                                   4096)),
+            ("rms_norm[odd]", lambda: check_rms(K, dev, dtype, rng, 37,
+                                                333)),
+            # 16 query heads a KV head: two row groups of 8 per page range
+            ("paged_decode_attention[rep16]", lambda: check_decode(
+                K, dev, dtype, rng, h_kv=2, lens=(300, 17), b=2,
+                d=64, p_max=32)),
         ]
         if dtype == torch.bfloat16:
             # the training step's shapes: [train] runs B=4, S=2048, 16
@@ -970,6 +1103,19 @@ def phase_kernels(K, dev):
         ]
         if dtype == torch.float32:
             cases += [
+                # the tiny model's heads (D = 16, rep 2) over a table of 64
+                # pages of 4: the vector path with four floats a lane, two
+                # page ranges and the merge, an idle slot; D = 18: the
+                # scalar path
+                ("paged_decode_attention[d16]", lambda: check_decode(
+                    K, dev, dtype, rng, h_kv=2, lens=(200, 97, 4, 0), h=4,
+                    d=16, page=4, p_max=64)),
+                ("paged_decode_attention_int8[d16]", lambda: check_decode(
+                    K, dev, dtype, rng8, h_kv=2, int8=True,
+                    lens=(200, 97, 4, 0), h=4, d=16, page=4, p_max=64)),
+                ("paged_decode_attention[d18]", lambda: check_decode(
+                    K, dev, dtype, rng, h_kv=4, lens=(600, 129, 1), b=3,
+                    h=8, d=18, p_max=40)),
                 # an odd h: the scalar path; h > 1536: y recomputed, not
                 # cached in shared memory
                 ("bias_dropout_residual_ln[odd]", lambda: check_bdrln(
@@ -999,6 +1145,15 @@ def _run_cases(cases, dtype, out):
                     f"{res['keep_rate']:.6f} keep_mask=bit-equal "
                     f"composition_ms(F.layer_norm(r+F.dropout(x+b)))="
                     f"{res['composition_ms']:.4f}")
+        if "plan" in res:
+            lse += (f" splits={res['plan'][0]} pages_per_split="
+                    f"{res['plan'][1]} launches_per_call="
+                    f"{res['launches_per_call']}")
+        if "parent_ms" in res:
+            lse += (f" parent_ms={res['parent_ms']:.4f} (order parent, "
+                    f"kernel, kernel, parent: " + "/".join(
+                        f"{t:.4f}" for t in res["parent_abba"]) +
+                    f"; parent_err={res['parent_err']:.3e})")
         if "errs" in res:
             lse += " dq/dk/dv_err=" + "/".join(
                 f"{e:.3e}" for e in res["errs"]) + " max|grad|=" + \
@@ -1120,6 +1275,27 @@ def check_sass(build):
                                      "TMA in the bf16 D=128 kernel")
 
 
+def _ptxas_kernels(log):
+    """[(kernel, what ptxas reports for it)] from an `-Xptxas -v` log:
+    registers, barriers, stack and spills, the kernel's name demangled
+    (c++filt, where the toolkit's host has it) without its parameters."""
+    import shutil
+    entries, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = [line.split("'")[1], []]
+            entries.append(cur)
+        elif cur is not None and ("Used" in line or "spill" in line):
+            cur[1].append(line.split(":", 1)[-1].strip())
+    names = [e[0] for e in entries]
+    if names and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    return [(n.replace("(anonymous namespace)::", "").replace("void ", "")
+             .split("(")[0], "; ".join(e[1])) for n, e in zip(names, entries)]
+
+
 def _nvidia_smi():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1128,6 +1304,14 @@ def _nvidia_smi():
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a copy of the parent commit's "
+                         "paddle_tpu_torch/csrc: its versions of "
+                         f"{', '.join(PARENT_SOURCES)} are built and timed "
+                         "beside this tree's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -1138,14 +1322,19 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    parent = _start_parent(args.parent) if args.parent else None
     waited = _build.build_all()
     print(f"[build] seconds per source "
           f"{json.dumps({k: round(v, 2) for k, v in waited.items()})}"
           f" total_s={time.perf_counter() - t0:.2f}", flush=True)
+    if parent:
+        _finish_parent(parent)
+        print(f"[build] the parent's {', '.join(PARENT_SOURCES)} from "
+              f"{args.parent}: timed beside this tree's kernels "
+              f"(parent_ms)", flush=True)
     for name in _build.SOURCES:
-        for line in _build.ptxas_report(name).splitlines():
-            if "Used" in line and "registers" in line:
-                print(f"[ptxas] {name}: {line.strip()}")
+        for kernel, used in _ptxas_kernels(_build.ptxas_report(name)):
+            print(f"[ptxas] {name}: {kernel}: {used}")
     check_sass(_build)
 
     records = phase_kernels(K, dev)
@@ -2067,6 +2256,7 @@ def phase_serve(K, model, kv_dtype=None, twin=None):
     print(f"[{tag}] prefix_hits={st['prefix_hits']} hit_tokens="
           f"{st['prefix_hit_tokens']} preemptions={st['preemptions']}")
     print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+    _print_decode_launches(tag, K, launches, eng, kv_dtype)
     _print_twin_diff(tag, gen, twin)
     for o, p, g in zip(out, prompts, gen):
         if len(o) != len(p) + n_new or not np.array_equal(o[:len(p)], p):
@@ -2098,6 +2288,26 @@ DENSE_INT8_KERNELS = ("flash_attention", "fused_rope",
                       "paged_decode_attention_int8", "rms_norm", "swiglu")
 # what an int8 run must never launch: no float pool behind the flag
 FLOAT_PAGED_KERNELS = ("ragged_paged_attention", "paged_decode_attention")
+
+
+def _print_decode_launches(tag, K, launches, eng, kv_dtype):
+    """Decode attention's wrapper calls over the run, the decode steps they
+    make (one call a layer a step), the split plan at the engine's shapes
+    and the CUDA launches that gives each decode step (split kernel, and
+    the merge when there is more than one split)."""
+    cfg = eng.model.config
+    name = ("paged_decode_attention" if kv_dtype is None
+            else "paged_decode_attention_int8")
+    layers = cfg.num_hidden_layers
+    p_max = eng.blocks.block_tables.shape[1]
+    splits, pps = K.split_plan(eng.max_slots, cfg.num_attention_heads,
+                               cfg.num_key_value_heads, p_max, eng.page_size)
+    per_call = 1 + (splits > 1)
+    print(f"[{tag}] decode attention: {launches[name]} calls = "
+          f"{launches[name] // layers} decode steps x {layers} layers; plan "
+          f"at B={eng.max_slots}, table width {p_max}: splits={splits} "
+          f"pages_per_split={pps}; CUDA launches per call {per_call}, per "
+          f"decode step {per_call * layers}", flush=True)
 
 
 def _require_launched(tag, launches, names):
@@ -2167,6 +2377,7 @@ def phase_serve_dense(K, model, kv_dtype=None, twin=None):
           f"ragged steps={st['ragged_steps']} "
           f"preemptions={st['preemptions']}")
     print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+    _print_decode_launches(tag, K, launches, eng, kv_dtype)
     _print_twin_diff(tag, gen, twin)
     for o, p, g in zip(out, prompts, gen):
         if len(o) != len(p) + n_new or not np.array_equal(o[:len(p)], p):
@@ -2216,6 +2427,14 @@ def _print_profile(tag, prof, wall, note):
         return
     print(f"[{tag}] {note}: wall_s={wall:.3f} device_busy_s={busy:.3f} "
           f"idle_share={1 - busy / wall:.3f} kernel_launches={n_kernels}")
+    # the paged decode attention kernels (split and merge, float and int8)
+    dec = [r for r in rows if "decode_" in r[1] and "ptt::" in r[1]]
+    if dec:
+        print(f"[{tag}] decode attention: "
+              f"{sum(r[0] for r in dec) / 1e3:.2f} ms = "
+              f"{100 * sum(r[0] for r in dec) / 1e6 / busy:.1f}% of busy "
+              f"time, {sum(r[2] for r in dec)} launches (the merge's time "
+              f"includes its wait on the split kernel)")
     for us, key, count in rows[:14]:
         print(f"[{tag}] {us / 1e3:10.2f} ms {100 * us / 1e6 / busy:5.1f}% "
               f"x{count:<6d} {key[:90]}")

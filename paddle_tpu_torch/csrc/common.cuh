@@ -40,6 +40,46 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half_rn(x);
 }
 
+template <int BYTES> struct RawWord;
+template <> struct RawWord<16> { typedef uint4 type; };
+template <> struct RawWord<8> { typedef uint2 type; };
+template <> struct RawWord<4> { typedef unsigned type; };
+template <> struct RawWord<2> { typedef unsigned short type; };
+template <> struct RawWord<1> { typedef unsigned char type; };
+
+// N consecutive elements of X held in registers as raw words and moved by
+// one load or store of up to 16 bytes each (the address must be aligned to
+// min(16, N * sizeof(X)) bytes); get/set read and write one element.
+template <typename X, int N>
+struct Vec {
+  static constexpr int BYTES = N * (int)sizeof(X);
+  static constexpr int WORD = BYTES >= 16 ? 16 : BYTES;
+  static constexpr int WORDS = BYTES / WORD;
+  typedef typename RawWord<WORD>::type word;
+  word w[WORDS];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) w[i] = word{};
+  }
+  __device__ __forceinline__ void load(const X* p) {
+    const word* s = reinterpret_cast<const word*>(p);
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) w[i] = s[i];
+  }
+  __device__ __forceinline__ void store(X* p) const {
+    word* d = reinterpret_cast<word*>(p);
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) d[i] = w[i];
+  }
+  __device__ __forceinline__ float get(int j) const {
+    return to_f(reinterpret_cast<const X*>(w)[j]);
+  }
+  __device__ __forceinline__ void set(int j, X v) {
+    reinterpret_cast<X*>(w)[j] = v;
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -9,26 +9,29 @@
 // Replaces the TPU kernels paddle_tpu/ops/pallas/quantized_attention.py:
 // _decode_int8_kernel (paged_decode_attention_int8, pallas_call :213) and
 // _ragged_int8_kernel (ragged_paged_attention_int8, pallas_call :331).
-// Each page is dequantized as it is staged into shared memory,
-// code * (scale[pid] * (1/127)); a float pool never exists. What bounds
-// them on the H100: memory for decode (the int8 context, half the bf16
-// bytes, plus q, out and the scales), operations for long prefill rows,
-// as their float twins. Masking, the online softmax and the finalize are
-// the float kernels' own.
+// The ragged kernel dequantizes each page as it stages it in shared memory,
+// code * (scale[pid] * (1/127)); the decode kernel folds the two per-page
+// multipliers into the page's scores and probabilities (see
+// decode_attention.cuh). A float pool never exists. What bounds them on
+// the H100: memory for decode (the int8 context, half the bf16 bytes, plus
+// q, out and the scales), operations for long prefill rows, as their float
+// twins. Masking, the online softmax and the finalize are the float
+// kernels' own. The decode entry takes the float entry's workspace (sized
+// by the same split plan).
 #include "decode_attention.cuh"
 #include "ragged_attention.cuh"
 
 extern "C" int ptt_decode_attention_int8(
     const void* q, const void* k_pages, const void* v_pages,
     const float* k_scales, const float* v_scales, const int* block_tables,
-    const int* context_lens, void* out, int B, int H, int Hkv, int D, int page,
-    int P, float scale, int dtype, void* stream) {
+    const int* context_lens, void* out, void* ws, int B, int H, int Hkv,
+    int D, int page, int P, float scale, int dtype, void* stream) {
   if (k_scales == nullptr || v_scales == nullptr)
     return (int)cudaErrorInvalidValue;
   int rc = 0;
   PTT_DISPATCH(dtype, T, rc = ptt::launch_decode<T, int8_t>(
       q, k_pages, v_pages, k_scales, v_scales, block_tables, context_lens,
-      out, B, H, Hkv, D, page, P, scale, (cudaStream_t)stream))
+      out, (float*)ws, B, H, Hkv, D, page, P, scale, (cudaStream_t)stream))
   return rc;
 }
 

@@ -26,7 +26,9 @@ from .bias_dropout_residual_ln import (BiasDropoutResidualLN,
                                        bias_dropout_residual_ln_bwd_plain,
                                        bias_dropout_residual_ln_plain)
 from .decode_attention import (paged_decode_attention,
-                               paged_decode_attention_plain)
+                               paged_decode_attention_plain,
+                               paged_decode_attention_split_plain,
+                               split_plan)
 from .flash_attention import (FlashAttention, FlashmaskAttention,
                               flash_attention_bwd, flash_attention_bwd_plain,
                               flash_attention_fwd, flash_attention_fwd_plain,
@@ -36,6 +38,7 @@ from .flash_attention import (FlashAttention, FlashmaskAttention,
                               flashmask_attention_fwd_plain)
 from .quantized_attention import (paged_decode_attention_int8,
                                   paged_decode_attention_int8_plain,
+                                  paged_decode_attention_int8_split_plain,
                                   ragged_paged_attention_int8,
                                   ragged_paged_attention_int8_plain)
 from .ragged_attention import (ragged_paged_attention,
@@ -144,8 +147,11 @@ __all__ = ["KERNELS", "ROUTED", "ROUTES", "SIMT_SOURCES", "launch_counts", "rese
            "flashmask_attention_fwd", "flashmask_attention_fwd_plain",
            "fused_rope", "fused_rope_bwd_plain", "fused_rope_plain",
            "paged_decode_attention", "paged_decode_attention_plain",
+           "paged_decode_attention_split_plain",
            "paged_decode_attention_int8", "paged_decode_attention_int8_plain",
+           "paged_decode_attention_int8_split_plain",
            "ragged_paged_attention", "ragged_paged_attention_plain",
            "ragged_paged_attention_int8", "ragged_paged_attention_int8_plain",
-           "rms_norm", "rms_norm_bwd_plain", "rms_norm_plain", "swiglu",
+           "rms_norm", "rms_norm_bwd_plain", "rms_norm_plain", "split_plan",
+           "swiglu",
            "swiglu_bwd_plain", "swiglu_plain"]

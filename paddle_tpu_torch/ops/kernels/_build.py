@@ -191,6 +191,11 @@ def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def ptr_or_null(t):
+    """A tensor's pointer, or NULL for None (an optional workspace)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
 def stream(t):
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

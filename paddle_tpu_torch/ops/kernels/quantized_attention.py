@@ -8,8 +8,12 @@ The pools hold int8 codes with one float32 scale per page
 INV_QMAX)``. ``paged_decode_attention_int8`` and
 ``ragged_paged_attention_int8`` launch the CUDA kernels of
 ``csrc/quantized_attention.cu`` (the float kernels' templates with the
-dequant fused into the page staging) for CUDA tensors, and take the plain
-versions for CPU tensors. The plain versions gather each row's context
+dequant fused in: the ragged kernel's page staging, the decode kernel's
+per-page score and probability multipliers) for CUDA tensors, and take the
+plain versions for CPU tensors. The decode kernel takes the float
+kernel's split plan and workspace (``decode_attention.split_plan``);
+``paged_decode_attention_int8_split_plain`` is its split-K algorithm in
+plain PyTorch. The plain versions gather each row's context
 and dequantize what they gathered, never the pool, then attend as the
 float plain versions do (an empty context gives 0, padded query rows 0).
 
@@ -26,7 +30,9 @@ import torch
 
 from ...quantization.page_quant import INV_QMAX
 from . import _build
-from .decode_attention import decode_over_context
+from .decode_attention import (checked_plan, decode_over_context,
+                               decode_split_over_context, split_plan,
+                               workspace)
 from .ragged_attention import ragged_over_context, tile_queries
 
 
@@ -49,6 +55,24 @@ def paged_decode_attention_int8_plain(q, k_pages, v_pages, k_scales,
     return decode_over_context(
         q, gather_dequant(k_pages, k_scales, block_tables),
         gather_dequant(v_pages, v_scales, block_tables), context_lens, scale)
+
+
+def paged_decode_attention_int8_split_plain(q, k_pages, v_pages, k_scales,
+                                            v_scales, block_tables,
+                                            context_lens, scale=None,
+                                            pages_per_split=None):
+    """``paged_decode_attention_int8_plain`` computed as the kernel
+    computes it: split-K over ranges of `pages_per_split` pages (by
+    default the kernel's plan), then the merge."""
+    b, h, _ = q.shape
+    _, page, h_kv, _ = k_pages.shape
+    if pages_per_split is None:
+        pages_per_split = split_plan(b, h, h_kv, block_tables.shape[1],
+                                     page)[1]
+    return decode_split_over_context(
+        q, gather_dequant(k_pages, k_scales, block_tables),
+        gather_dequant(v_pages, v_scales, block_tables), context_lens, page,
+        pages_per_split, scale)
 
 
 def ragged_paged_attention_int8_plain(q, k_pages, v_pages, k_scales,
@@ -98,7 +122,7 @@ def _check_cuda(what, q, **tensors):
             raise ValueError(f"{what}: {name} must be int32")
 
 
-_DECODE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+_DECODE_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _RAGGED_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -123,15 +147,18 @@ def paged_decode_attention_int8(q, k_pages, v_pages, k_scales, v_scales,
     b, h, d = q.shape
     _, page, h_kv, _ = k_pages.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    p_max = block_tables.shape[1]
+    splits, _ = checked_plan(b, h, h_kv, p_max, page)
     out = torch.empty_like(q)
+    ws = workspace(q, splits)
     fn = _build.function("quantized_attention", "ptt_decode_attention_int8",
                          _DECODE_ARGS)
     _build.check(fn(_build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
                     _build.ptr(k_scales), _build.ptr(v_scales),
                     _build.ptr(block_tables), _build.ptr(context_lens),
-                    _build.ptr(out), b, h, h_kv, d, page,
-                    block_tables.shape[1], float(scale),
-                    _build.dtype_code(q), _build.stream(q)), what)
+                    _build.ptr(out), _build.ptr_or_null(ws), b, h, h_kv, d,
+                    page, p_max, float(scale), _build.dtype_code(q),
+                    _build.stream(q)), what)
     paged_decode_attention_int8.launches += 1
     return out
 

@@ -6,7 +6,9 @@
 tensor and takes the plain version ``rms_norm_plain`` for a CPU tensor.
 Both compute in float32, multiply by the weight in float32 and cast once
 to the input's type. Bound and design: see the note in the CUDA source
-(memory-bound, one block per row).
+(memory-bound; each row read once in 16-byte vectors and held in
+registers, the weight loaded once per thread; a scalar path for widths
+that are no whole number of vectors).
 
 ``RMSNorm`` is the autograd function: its forward is ``rms_norm`` (the
 kernel on the card), its backward the vjp of ``_rms_xla`` in plain

@@ -78,7 +78,10 @@ def _pools(rng, n_pages, page, h_kv, d):
                                                             h_kv, d))
 
 
-@pytest.mark.parametrize("shape", [(6, 40), (2, 3, 64)])
+# widths of the CUDA kernel's paths: 333 the scalar one, 2048 (training) and
+# 4096 (Llama-2-7B) the vector one
+@pytest.mark.parametrize("shape", [(6, 40), (2, 3, 64), (5, 333), (3, 2048),
+                                   (2, 4096)])
 def test_rms_norm_plain_matches_pallas(shape):
     rng = np.random.default_rng(0)
     x = _f32(rng, shape)
