@@ -10,11 +10,16 @@ source, all started together; each build's seconds printed), then:
    float32, with the kernel's, the plain version's and (where one PyTorch
    call computes the same function) the library call's time; the int8
    attention kernels read pages quantized by page_quant from random rows;
-   the flash kernels take two routes by type (flash_attention.route):
-   bfloat16 and float16 the tensor-core kernels, held against the plain
-   versions that round P and dS where they do (p_dtype) and, beside the
-   library call, against the float32 plain version; float32 the SIMT
-   kernels; the flash backward at the training shape [4, 2048, 16, 128]
+   the flash and ragged kernels take two routes by type and shape
+   (flash_attention.route, ragged_attention.route): bfloat16 and float16
+   the tensor-core kernels, held against the plain versions that round P
+   and dS where they do (p_dtype; ragged: the kernel's own tiled walk,
+   element by element) and against the float32 plain version (flash:
+   beside the library call); float32 the SIMT kernels; ragged attention
+   (float and int8 pages) at the smoke's mixed rows, with GQA 8, at
+   contexts up to the engine's whole table ([long]), D = 64, a window of
+   Q_max = 8 ([q8]), a 40-slot mixed step ([c40]) and float16, each
+   printing its route; the flash backward at the training shape [4, 2048, 16, 128]
    and with GQA at [1, 2048, 32 -> 8, 128] in bfloat16, its dq, dk and dv
    each held; the edges of both routes in bfloat16 and float32 (S_q < S_k,
    S_q > S_k, S = 300, D = 64, GQA, the masked forms), float16 at one
@@ -75,20 +80,22 @@ source, all started together; each build's seconds printed), then:
 Each flashmask, fused_ffn, serving and training run's launch counts are
 set to 0 just before it and read just after it; every kernel of its path
 must have launched, the int8 runs must launch the float paged attention
-kernels 0 times, and every flash launch of the training, dense-serving and
-flashmask runs (bfloat16) must take the tensor-core route. Then
+kernels 0 times, every flash launch of the training, dense-serving and
+flashmask runs (bfloat16) and every ragged launch of the serving runs must
+take the tensor-core route. Then
 it prints the card's name and power limit, one JSON line with every
 kernel's numbers, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero without that line. Without a CUDA card
 it exits 2 before doing anything. The serving runs also print decode
-attention's launches per decode step and, profiled, its share of the
-device's busy time.
+attention's launches per decode step and, profiled, its share and the
+ragged kernel's share of the device's busy time.
 
 --parent DIR names a copy of an earlier commit's paddle_tpu_torch/csrc
 (for example `git archive HEAD~1 paddle_tpu_torch/csrc | tar -x -C
-build/parent_src`): its decode attention, int8 decode attention and RMSNorm
-are built beside this tree's and timed on the same inputs in the order
-parent, kernel, kernel, parent (parent_ms on the [kernels] rows).
+build/parent_src`): its decode attention, ragged attention (float and
+int8 pages) and RMSNorm are built beside this tree's and timed on the same
+inputs in the order parent, kernel, kernel, parent (parent_ms on the
+[kernels] rows).
 """
 
 from __future__ import annotations
@@ -197,25 +204,81 @@ def _int8_pools(kp, vp):
     return (kq, vq, ks, vs)
 
 
-def check_ragged(K, dev, dtype, h_kv, rng, int8=False):
-    # mixed rows at the serving shapes: a suffix chunk after a 300-token
-    # prefix, a first chunk ending mid-page, a decode row, a dummy row
-    c, q_max, h, d, page, p_max = 4, 256, 32, 128, 16, 256
-    rows = [(556, 256, False), (200, 200, False), (777, 1, False),
-            (1, 1, True)]
+# the smoke's ragged rows (Llama-2-7B heads, the engine's table of 256
+# pages of 16): a suffix chunk after a 300-token prefix, a first chunk
+# ending mid-page, a decode row, a dummy row; (context, q_len, dummy)
+RAGGED_ROWS = ((556, 256, False), (200, 200, False), (777, 1, False),
+               (1, 1, True))
+# [long]: a 256-query chunk at the tail of a 4096-token context (the whole
+# table), decode rows at 3000 and 2048, a dummy row
+RAGGED_LONG = ((4096, 256, False), (3000, 1, False), (2048, 1, False),
+               (1, 1, True))
+# [q8]: a short suffix or verify window (Q_max 8), contexts mid-page
+RAGGED_Q8 = ((37, 8, False), (21, 5, False), (90, 1, False), (1, 1, True))
+# [c40]: a mixed step at 40 slots (tables of 64 pages): four chunks of up
+# to 256 queries, 35 decode rows, a dummy row; at GQA 8 a block holds 32
+# positions, so 40 x 8 = 320 (row, query tile) items, past the 256 that
+# the kernel's blocks rank by keys (its fixed order: last query tile first)
+RAGGED_C40 = ((600, 256, False), (256, 256, False), (900, 200, False),
+              (333, 77, False)) + tuple(
+                  (17 + 29 * i, 1, False) for i in range(35)) + \
+    ((1, 1, True),)
+
+
+def _row_rule(got, want, extra=None):
+    """Largest err / (2^-7 |want| + 2^-8 rms of want's row over D [+ extra])
+    over the elements of a [C, Q, H, D] output (the flash backward's form,
+    with the rms of each (row, query, head)); an element allowed 0 passes
+    only when it is exact."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    allow = BWD_REL_BF16 * want.abs() + \
+        BWD_FLOOR_BF16 * want.square().mean(-1, keepdim=True).sqrt()
+    if extra is not None:
+        allow = allow + extra
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / allow)
+    return float(ratio.max())
+
+
+def check_ragged(K, dev, dtype, h_kv, rng, int8=False, rows=RAGGED_ROWS,
+                 q_max=256, h=32, d=128, page=16, p_max=256):
+    """Ragged paged attention against its plain versions. The tensor-core
+    route (16-bit q, D 64/128, pages of a multiple of 8) rounds P (int8: P
+    times the key's V multiplier) to q's type before the P V product: each
+    element is held to 2^-7 |want| + 2^-8 rms(want's row) against the
+    kernel's own walk (``*_tiled_plain`` with p_dtype: the same tiles, the
+    same rounding points), and to that plus half an ulp of each rounded P
+    term (half_ulp * sum_k w_k |V_k|, from the plain version over |V|)
+    against the float32-P plain version (the TPU kernel's rounding). The
+    same walk with the last 64 keys of the longest decode row dropped must
+    fail the first rule. The SIMT route keeps P float32 and is held to TOL.
+    With the parent's build loaded, its ragged entry is timed beside the
+    kernel (parent, kernel, kernel, parent)."""
+    from paddle_tpu_torch.ops.kernels import ragged_attention as RA
+    c = len(rows)
     kp, vp, bt = _paged_case(rng, dev, dtype, rows, h, h_kv, d, page, p_max)
     ctx = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
     ql = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
     q = torch.from_numpy(rng.standard_normal(
         (c, q_max, h, d), dtype=np.float32)).to(dev, dtype)
     if int8:
-        fn, plain = K.ragged_paged_attention_int8, \
-            K.ragged_paged_attention_int8_plain
+        fn, plain, tiled = K.ragged_paged_attention_int8, \
+            K.ragged_paged_attention_int8_plain, \
+            K.ragged_paged_attention_int8_tiled_plain
     else:
-        fn, plain = K.ragged_paged_attention, K.ragged_paged_attention_plain
+        fn, plain, tiled = K.ragged_paged_attention, \
+            K.ragged_paged_attention_plain, \
+            K.ragged_paged_attention_tiled_plain
+    name = fn.__name__
     pools = _int8_pools(kp, vp) if int8 else (kp, vp)
+    rt = RA.route(q, page)
+    before = getattr(fn, f"{rt}_launches")
     got = fn(q, *pools, bt, ctx, ql)
-    want = plain(q, *pools, bt, ctx, ql)
+    if getattr(fn, f"{rt}_launches") != before + 1:
+        raise AssertionError(f"{name}: the launch took no {rt} route")
+    pd = dtype if rt == "sm90" else None
+    want = tiled(q, *pools, bt, ctx, ql, p_dtype=pd) if pd is not None \
+        else plain(q, *pools, bt, ctx, ql)
     torch.cuda.synchronize()
     err = _max_err(got, want)
     pad_zero = all(float(got[i, n:].float().abs().max()) == 0.0
@@ -234,12 +297,42 @@ def check_ragged(K, dev, dtype, h_kv, rng, int8=False):
               + 2 * sum(r[0] for r in rows) * h_kv * d * kv_elt)
     if int8:
         nbytes += 2 * 4 * sum(-(-r[0] // page) for r in rows)
-    return {"got": got, "want": want, "err": err, "flops": flops,
-            "bytes": nbytes,
-            "ms": _time_ms(lambda: fn(q, *pools, bt, ctx, ql)),
-            "plain_ms": _time_ms(lambda: plain(q, *pools, bt, ctx, ql),
-                                 ITERS // 10),
-            "library_ms": None}
+    res = {"got": got, "want": want, "err": err, "route": rt, "flops": flops,
+           "bytes": nbytes,
+           "plain_ms": _time_ms(lambda: plain(q, *pools, bt, ctx, ql,
+                                              p_dtype=pd), ITERS // 10),
+           "library_ms": None}
+    if pd is not None:
+        res["tiled"] = _row_rule(got, want)
+        # per batch row: the largest error and the rms of its real outputs
+        res["rows"] = [(_max_err(got[i, :n], want[i, :n]),
+                        float(want[i, :n].float().square().mean().sqrt()))
+                       for i, (_, n, _) in enumerate(rows)]
+        f32p = plain(q, *pools, bt, ctx, ql)
+        vabs = (pools[0], pools[1].abs(), *pools[2:]) if int8 else \
+            (pools[0], pools[1].abs())
+        half_ulp = torch.finfo(dtype).eps / 2
+        terms = plain(q, *vabs, bt, ctx, ql).float() * half_ulp
+        res["err_f32p"] = _max_err(got, f32p)
+        res["f32p"] = _row_rule(got, f32p, terms)
+        del f32p, terms
+        # a kernel that drops a key tile: the longest decode row without
+        # its last 64 keys (its query then sits 64 positions earlier)
+        dec = max((i for i, (n_ctx, n, dummy) in enumerate(rows)
+                   if n == 1 and not dummy and n_ctx > 64),
+                  key=lambda i: rows[i][0])
+        short = ctx.clone()
+        short[dec] -= 64
+        res["dropped"] = _row_rule(tiled(q, *pools, bt, short, ql,
+                                         p_dtype=pd), want)
+        if res["dropped"] <= 1.0:
+            raise AssertionError(f"{name}: the 16-bit rule does not reject "
+                                 f"a dropped key tile")
+    res.update(_with_parent(
+        lambda: fn(q, *pools, bt, ctx, ql),
+        lambda: _parent_ragged(int8, q, pools, bt, ctx, ql),
+        "quantized_attention" if int8 else "ragged_attention", want))
+    return res
 
 
 # the smoke's decode batch (Llama-2-7B heads at B = 4, the engine's table
@@ -314,7 +407,8 @@ def check_rms(K, dev, dtype, rng, t=1024, hid=4096):
 # beside them in the same call (python3 chip_smoke.py --parent DIR)
 # ----------------------------------------------------------------------
 
-PARENT_SOURCES = ("decode_attention", "quantized_attention", "rms_norm")
+PARENT_SOURCES = ("decode_attention", "quantized_attention", "rms_norm",
+                  "ragged_attention")
 _PARENT = {}             # source name -> ctypes library of the parent's build
 
 
@@ -347,23 +441,52 @@ def _finish_parent(jobs):
 
 
 def _parent_decode(name, q, pools, bt, ctx):
-    """The parent's decode entry (no workspace argument) on these inputs."""
+    """The parent's decode entry on these inputs (the split-K entry of this
+    tree's signature: a workspace sized by the same split plan)."""
     import ctypes
 
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import decode_attention as DA
+    from paddle_tpu_torch.ops.kernels import quantized_attention as QA
     int8 = name == "quantized_attention"
     fn = getattr(_PARENT[name], "ptt_decode_attention_int8" if int8
                  else "ptt_decode_attention")
-    fn.argtypes = [ctypes.c_void_p] * (8 if int8 else 6) + \
-        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = QA._DECODE_ARGS if int8 else DA._ARGS
     fn.restype = ctypes.c_int
     b, h, d = q.shape
     _, page, h_kv, _ = pools[0].shape
     out = torch.empty_like(q)
-    _build.check(fn(*[_build.ptr(t) for t in (q, *pools, bt, ctx, out)], b,
-                    h, h_kv, d, page, bt.shape[1], 1.0 / math.sqrt(d),
+    ws = DA.workspace(q, DA.split_plan(b, h, h_kv, bt.shape[1], page)[0])
+    _build.check(fn(*[_build.ptr(t) for t in (q, *pools, bt, ctx, out)],
+                    _build.ptr_or_null(ws), b, h, h_kv, d, page, bt.shape[1],
+                    1.0 / math.sqrt(d), _build.dtype_code(q),
+                    _build.stream(q)), f"parent {name}")
+    return out
+
+
+def _parent_ragged(int8, q, pools, bt, ctx, ql):
+    """The parent's ragged entry (the SIMT kernel, float or int8 pages) on
+    these inputs."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import quantized_attention as QA
+    from paddle_tpu_torch.ops.kernels import ragged_attention as RA
+    if int8:
+        fn = _PARENT["quantized_attention"].ptt_ragged_attention_int8
+        fn.argtypes = QA._RAGGED_ARGS
+    else:
+        fn = _PARENT["ragged_attention"].ptt_ragged_attention
+        fn.argtypes = RA._ARGS
+    fn.restype = ctypes.c_int
+    c, q_max, h, d = q.shape
+    _, page, h_kv, _ = pools[0].shape
+    out = torch.empty_like(q)
+    _build.check(fn(*[_build.ptr(t) for t in (q, *pools, bt, ctx, ql, out)],
+                    c, q_max, h, h_kv, d, page, bt.shape[1],
+                    RA.tile_queries(q_max, h // h_kv), 1.0 / math.sqrt(d),
                     _build.dtype_code(q), _build.stream(q)),
-                 f"parent {name}")
+                 "parent ragged attention")
     return out
 
 
@@ -942,7 +1065,19 @@ def _within(name, res, dtype):
     largest error against the float32 plain version (on float32 copies of
     the inputs) to at most LIB_ERR_FACTOR times the library call's (SDPA,
     or its backward) against the same: the redesign is to be as accurate
-    as the library, which rounds P and dS to 16 bits too."""
+    as the library, which rounds P and dS to 16 bits too.
+
+    The 16-bit ragged rows (the tensor-core route) are held element by
+    element to 2^-7 |want| + 2^-8 rms(want's row over D) against the
+    kernel's own walk (the same key tiles, P rounded at the same points),
+    so that at 4096 keys, where a typical output is ~0.02, a dropped key
+    tile still fails (checked on every run); against the float32-P plain
+    version, to that plus half a 16-bit ulp of every rounded P term
+    (check_ragged)."""
+    if "tiled" in res:
+        return res["tiled"] <= 1.0, ("<= 2^-7|want| + 2^-8 rms(row) of the "
+                                     f"kernel's walk: worst "
+                                     f"{res['tiled']:.3f}")
     if name in ("flash_attention_bwd", "flashmask_attention_bwd"):
         if dtype == torch.float32:
             ok = all(e <= 1e-4 * max(1.0, m)
@@ -971,6 +1106,9 @@ def phase_kernels(K, dev):
     bf16 and f32. Returns {name: bf16 record} for the JSON line."""
     rng = np.random.default_rng(0)
     rng8 = np.random.default_rng(1)      # the int8 cases' own inputs
+    # the ragged rows added with the tensor-core ragged kernel, drawing
+    # apart so that every earlier row keeps its inputs
+    rng_r = np.random.default_rng(3)
     out = {}
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         if dtype == torch.float16:
@@ -980,6 +1118,8 @@ def phase_kernels(K, dev):
                     K, dev, dtype, rng, 2, 512, 512, 16, 16)),
                 ("flash_attention_bwd[f16]", lambda: check_flash_bwd(
                     K, dev, dtype, rng, 2, 512, 512, 16, 16)),
+                ("ragged_paged_attention[f16]", lambda: check_ragged(
+                    K, dev, dtype, 32, rng_r)),
             ]
             _run_cases(cases, dtype, out)
             continue
@@ -1029,6 +1169,23 @@ def phase_kernels(K, dev):
                 d=64, p_max=32)),
         ]
         if dtype == torch.bfloat16:
+            # the tensor-core ragged kernel's edges: contexts up to the
+            # engine's whole table, D = 64 (GQA 8 -> 4), a short window
+            cases += [
+                ("ragged_paged_attention[long]", lambda: check_ragged(
+                    K, dev, dtype, 32, rng_r, rows=RAGGED_LONG)),
+                ("ragged_paged_attention_int8[long]", lambda: check_ragged(
+                    K, dev, dtype, 32, rng_r, int8=True, rows=RAGGED_LONG)),
+                ("ragged_paged_attention[d64]", lambda: check_ragged(
+                    K, dev, dtype, 4, rng_r, h=8, d=64)),
+                ("ragged_paged_attention[q8]", lambda: check_ragged(
+                    K, dev, dtype, 32, rng_r, rows=RAGGED_Q8, q_max=8)),
+                ("ragged_paged_attention_int8[q8]", lambda: check_ragged(
+                    K, dev, dtype, 32, rng_r, int8=True, rows=RAGGED_Q8,
+                    q_max=8)),
+                ("ragged_paged_attention[c40]", lambda: check_ragged(
+                    K, dev, dtype, 8, rng_r, rows=RAGGED_C40, p_max=64)),
+            ]
             # the training step's shapes: [train] runs B=4, S=2048, 16
             # heads of 128; GQA at the 7B width
             cases += [
@@ -1149,6 +1306,15 @@ def _run_cases(cases, dtype, out):
             lse += (f" splits={res['plan'][0]} pages_per_split="
                     f"{res['plan'][1]} launches_per_call="
                     f"{res['launches_per_call']}")
+        if "route" in res:
+            lse += f" route={res['route']}"
+        if "f32p" in res:
+            lse += (f" vs_f32P_plain: kernel_err={res['err_f32p']:.3e} "
+                    f"err/allowed={res['f32p']:.3f} (<= 1: the same rule "
+                    f"+ half an ulp of each P term) dropped_tile: "
+                    f"err/allowed={res['dropped']:.1f} (must fail) rows "
+                    f"err/rms=" + "/".join(f"{e:.2e}:{r:.2e}"
+                                           for e, r in res["rows"]))
         if "parent_ms" in res:
             lse += (f" parent_ms={res['parent_ms']:.4f} (order parent, "
                     f"kernel, kernel, parent: " + "/".join(
@@ -1188,6 +1354,10 @@ def _run_cases(cases, dtype, out):
         if not ok:
             raise AssertionError(f"{name} {dtype}: max_abs_err "
                                  f"{res['err']} not {tol}")
+        if res.get("f32p", 0.0) > 1.0:
+            raise AssertionError(f"{name} {dtype}: the kernel's error "
+                                 f"against the float32-P plain version is "
+                                 f"{res['f32p']} of its allowance")
         if not acc_ok:
             raise AssertionError(f"{name} {dtype}: the kernel's error "
                                  f"against the float32 plain version is "
@@ -1250,29 +1420,42 @@ SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")
 
 
 def check_sass(build):
-    """The tensor-core flash kernels as built: every bfloat16 D = 128
-    kernel of the two sm90 libraries must contain tensor-core products
-    (HGMMA, from wgmma) and TMA loads (UTMALDG); prints the counts."""
+    """The tensor-core kernels as built: every bfloat16 D = 128 kernel of
+    the two flash sm90 libraries, and every kernel of the ragged one (both
+    16-bit types, D 64 and 128, float and int8 pages),
+    must contain tensor-core products (HGMMA, from wgmma) and TMA loads
+    (UTMALDG); prints the counts."""
     from pathlib import Path
 
     tool = Path(build._nvcc()).with_name("cuobjdump")
-    for src in SM90_SOURCES:
+    for src in SM90_SOURCES + ("ragged_sm90",):
         sass = subprocess.run([str(tool), "-sass", str(build._target(src)[1])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
         for part in sass.split("Function : ")[1:]:
             fn, body = part.split("\n", 1)
-            if "__nv_bfloat16Li128E" not in fn:
-                continue
-            kind = "dq" if "flash_dq" in fn else (
-                "dkv" if "flash_dkv" in fn else "fwd")
-            nm = fn.split("Li128ELi")[1][0]
             hg, tma = body.count("HGMMA"), body.count("UTMALDG")
-            print(f"[sass] {src} {kind}<bf16,128,{nm}>: HGMMA {hg} "
-                  f"UTMALDG {tma}", flush=True)
+            if src == "ragged_sm90":
+                # ..._kernelI<T><KV>Li<D>E...
+                args = fn.split("ragged_sm90_kernelI")[1]
+                t = "f16" if args.startswith("6__half") else "bf16"
+                kv = "int8" if args[len("6__half" if t == "f16" else
+                                        "13__nv_bfloat16"):][:1] == "a" \
+                    else t
+                d = args.split("Li")[1].split("E")[0]
+                kind = f"ragged<{t},{kv},{d}>"
+            else:
+                if "__nv_bfloat16Li128E" not in fn:
+                    continue
+                kind = "dq" if "flash_dq" in fn else (
+                    "dkv" if "flash_dkv" in fn else "fwd")
+                nm = fn.split("Li128ELi")[1][0]
+                kind = f"{kind}<bf16,128,{nm}>"
+            print(f"[sass] {src} {kind}: HGMMA {hg} UTMALDG {tma}",
+                  flush=True)
             if not hg or not tma:
                 raise AssertionError(f"[sass] {src} {kind}: no wgmma or no "
-                                     "TMA in the bf16 D=128 kernel")
+                                     "TMA")
 
 
 def _ptxas_kernels(log):
@@ -2272,6 +2455,7 @@ def phase_serve(K, model, kv_dtype=None, twin=None):
     else:
         _require_launched(tag, launches, SERVE_INT8_KERNELS)
         _require_idle(tag, launches, FLOAT_PAGED_KERNELS)
+    _require_sm90_ragged(tag, launches)
     _profile_serve(model, prompts, kw, n_new,
                    "profile" if kv_dtype is None else "profile:int8")
     return launches, gen
@@ -2288,6 +2472,7 @@ DENSE_INT8_KERNELS = ("flash_attention", "fused_rope",
                       "paged_decode_attention_int8", "rms_norm", "swiglu")
 # what an int8 run must never launch: no float pool behind the flag
 FLOAT_PAGED_KERNELS = ("ragged_paged_attention", "paged_decode_attention")
+RAGGED_KERNELS = ("ragged_paged_attention", "ragged_paged_attention_int8")
 
 
 def _print_decode_launches(tag, K, launches, eng, kv_dtype):
@@ -2315,6 +2500,16 @@ def _require_launched(tag, launches, names):
     if idle:
         raise AssertionError(f"[{tag}] kernels never launched on the path: "
                              f"{idle}")
+
+
+def _require_sm90_ragged(tag, launches):
+    """Every ragged launch of a bfloat16 serving run (float or int8 pages
+    of 16, head dim 128) took the tensor-core route."""
+    off = {n: (launches[n], launches[f"{n}.sm90"]) for n in RAGGED_KERNELS
+           if launches[f"{n}.sm90"] != launches[n]}
+    if off:
+        raise AssertionError(f"[{tag}] ragged launches off the tensor-core "
+                             f"route (launches, sm90): {off}")
 
 
 def _require_idle(tag, launches, names):
@@ -2393,6 +2588,7 @@ def phase_serve_dense(K, model, kv_dtype=None, twin=None):
     else:
         _require_launched(tag, launches, DENSE_INT8_KERNELS)
         _require_idle(tag, launches, FLOAT_PAGED_KERNELS)
+    _require_sm90_ragged(tag, launches)
     # one flash forward per layer and admission, on the tensor-core route
     want = cfg.num_hidden_layers * st["prefill_admits"]
     if launches["flash_attention"] != want or \
@@ -2428,6 +2624,7 @@ def _print_profile(tag, prof, wall, note):
     print(f"[{tag}] {note}: wall_s={wall:.3f} device_busy_s={busy:.3f} "
           f"idle_share={1 - busy / wall:.3f} kernel_launches={n_kernels}")
     # the paged decode attention kernels (split and merge, float and int8)
+    # and the ragged kernels (tensor-core and SIMT)
     dec = [r for r in rows if "decode_" in r[1] and "ptt::" in r[1]]
     if dec:
         print(f"[{tag}] decode attention: "
@@ -2435,6 +2632,13 @@ def _print_profile(tag, prof, wall, note):
               f"{100 * sum(r[0] for r in dec) / 1e6 / busy:.1f}% of busy "
               f"time, {sum(r[2] for r in dec)} launches (the merge's time "
               f"includes its wait on the split kernel)")
+    rag = [r for r in rows if "ragged_" in r[1]]
+    if rag:
+        print(f"[{tag}] ragged attention: "
+              f"{sum(r[0] for r in rag) / 1e3:.2f} ms = "
+              f"{100 * sum(r[0] for r in rag) / 1e6 / busy:.1f}% of busy "
+              f"time, {sum(r[2] for r in rag)} launches "
+              f"({', '.join(sorted({r[1].split('<')[0][-40:] for r in rag}))})")
     for us, key, count in rows[:14]:
         print(f"[{tag}] {us / 1e3:10.2f} ms {100 * us / 1e6 / busy:5.1f}% "
               f"x{count:<6d} {key[:90]}")

@@ -16,7 +16,13 @@ in two parts:
    and the plain version's (``p_dtype=bf16``) against a float64 version
    that rounds P and dS to bf16 at the same points: the largest err /
    allowance and the share of elements past it. Both sides round float32
-   values that differ in their last bits, so a few elements flip.
+   values that differ in their last bits, so a few elements flip;
+3. the small shape: at [2, 300, 8 -> 4, 64] bf16 causal (the smoke's
+   ``flash_attention_bwd[small]``) over seeds 0-15, the share of
+   elements past the allowance for the kernel against the plain version
+   (the smoke's comparison, held there to 1e-5, which at 153,600 elements
+   a gradient allows one element), and for each of them against the
+   float64 version with the same roundings. Printed, not held.
 
 Prints the card's name and power limit first.
 """
@@ -41,10 +47,14 @@ def _ulps(got, exact):
 
 def _ref64(q, k, v, out, lse, do, p_dtype):
     """dq, dk, dv of causal attention in float64, P and dS rounded to
-    p_dtype before the products as the tensor-core kernels round them."""
+    p_dtype before the products as the tensor-core kernels round them
+    (GQA: each KV head serves rep consecutive query heads; its dk, dv sum
+    over them)."""
     b, s_q, h, d = q.shape
-    s_k = k.shape[1]
+    s_k, h_kv = k.shape[1], k.shape[2]
+    rep = h // h_kv
     scale = d ** -0.5
+    k, v = (x.repeat_interleave(rep, dim=2) for x in (k, v))
     qd, kd, vd, dod = (x.double().transpose(1, 2) for x in (q, k, v, do))
     p = torch.exp(qd @ kd.transpose(-1, -2) * scale - lse.double()[..., None])
     vis = torch.ones(s_q, s_k, dtype=torch.bool, device=q.device).tril(
@@ -55,7 +65,8 @@ def _ref64(q, k, v, out, lse, do, p_dtype):
     p, ds = p.to(p_dtype).double(), ds.to(p_dtype).double()
     grads = (ds @ kd * scale, ds.transpose(-1, -2) @ qd * scale,
              p.transpose(-1, -2) @ dod)
-    return [g.transpose(1, 2) for g in grads]
+    dq, dk, dv = (g.transpose(1, 2) for g in grads)
+    return [dq] + [g.reshape(b, s_k, h_kv, rep, d).sum(3) for g in (dk, dv)]
 
 
 def _past_rule(got, want):
@@ -118,6 +129,40 @@ def main():
               f"[{b}, {s}, {h}, {d}] bf16 causal: dq/dk/dv err/allowance "
               + "/".join(f"{w:.3f}" for w, _ in cells) + ", share past it "
               + "/".join(f"{f:.2e}" for _, f in cells), flush=True)
+
+    b, s, h, h_kv, d = 2, 300, 8, 4, 64
+    share = {"kernel vs plain": [], "plain vs float64": [],
+             "kernel vs float64": []}
+    for seed in range(16):
+        g = np.random.default_rng(seed)
+        q, do = (torch.from_numpy(g.standard_normal(
+            (b, s, h, d), dtype=np.float32)).to(dev, torch.bfloat16)
+            for _ in range(2))
+        k, v = (torch.from_numpy(g.standard_normal(
+            (b, s, h_kv, d), dtype=np.float32)).to(dev, torch.bfloat16)
+            for _ in range(2))
+        out, lse = K.flash_attention_fwd(q, k, v, causal=True)
+        kernel = K.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        plain = K.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                            causal=True,
+                                            p_dtype=torch.bfloat16)
+        ref = _ref64(q, k, v, out, lse, do, torch.bfloat16)
+        line = []
+        for name, got, want in (("kernel vs plain", kernel, plain),
+                                ("plain vs float64", plain, ref),
+                                ("kernel vs float64", kernel, ref)):
+            cells = [_past_rule(x, r) for x, r in zip(got, want)]
+            share[name].append(max(f for _, f in cells))
+            line.append(f"{name} err/allowance " + "/".join(
+                f"{w:.3f}" for w, _ in cells) + " share past it " +
+                "/".join(f"{f:.2e}" for _, f in cells))
+        print(f"[small] seed {seed} [{b}, {s}, {h} -> {h_kv}, {d}] bf16 "
+              f"causal, dq/dk/dv: " + "; ".join(line), flush=True)
+    n = b * s * h_kv * d
+    for name, f in share.items():
+        print(f"[small] {name}: seeds with a share past 1e-5 in dq, dk "
+              f"or dv (dk, dv: {n} elements): {sum(x > 1e-5 for x in f)} "
+              f"of {len(f)}; largest share {max(f):.2e}", flush=True)
     sys.exit(0 if ok else 1)
 
 

@@ -6,9 +6,10 @@ A wrapper given a CPU tensor computes the plain version; given a CUDA
 tensor it launches the kernel built from ``paddle_tpu_torch/csrc`` (see
 ``_build``) or raises. Nothing falls back.
 
-The flash wrappers take one of two routes (``ROUTES``), counted apart:
-tensor-core kernels for bf16/f16 with head dim 64 or 128, float32 SIMT
-kernels for the rest (``flash_attention.route``).
+The flash and ragged wrappers take one of two routes (``ROUTES``),
+counted apart: tensor-core kernels for bf16/f16 with head dim 64 or 128
+(ragged: and pages of a multiple of 8 tokens), float32 SIMT kernels for
+the rest (``flash_attention.route``, ``ragged_attention.route``).
 
 The autograd functions (``FlashAttention``, ``FlashmaskAttention``,
 ``RMSNorm``, ``SwiGLU``, ``FusedRoPE``, ``BiasDropoutResidualLN``) run a
@@ -40,17 +41,20 @@ from .quantized_attention import (paged_decode_attention_int8,
                                   paged_decode_attention_int8_plain,
                                   paged_decode_attention_int8_split_plain,
                                   ragged_paged_attention_int8,
-                                  ragged_paged_attention_int8_plain)
+                                  ragged_paged_attention_int8_plain,
+                                  ragged_paged_attention_int8_tiled_plain)
 from .ragged_attention import (ragged_paged_attention,
-                               ragged_paged_attention_plain)
+                               ragged_paged_attention_plain,
+                               ragged_paged_attention_tiled_plain)
 from .rms_norm import RMSNorm, rms_norm, rms_norm_bwd_plain, rms_norm_plain
 from .rope import FusedRoPE, fused_rope, fused_rope_bwd_plain, fused_rope_plain
 from .swiglu import SwiGLU, swiglu, swiglu_bwd_plain, swiglu_plain
 
 # wrapper -> (CUDA source it launches, TPU kernel it replaces)
 KERNELS = {
+    # the tensor-core route; float32 and pages of 4 take SIMT_SOURCES
     "ragged_paged_attention": (
-        ragged_paged_attention, "paddle_tpu_torch/csrc/ragged_attention.cu",
+        ragged_paged_attention, "paddle_tpu_torch/csrc/ragged_sm90.cu",
         "paddle_tpu/ops/pallas/ragged_attention.py:204"),
     "paged_decode_attention": (
         paged_decode_attention, "paddle_tpu_torch/csrc/decode_attention.cu",
@@ -76,10 +80,10 @@ KERNELS = {
     "flash_attention_bwd": (
         flash_attention_bwd, "paddle_tpu_torch/csrc/flash_bwd_sm90.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:360; :393"),
-    # the float kernels' templates over int8 pages with per-page scales
+    # int8 code pages with per-page scales: the tensor-core kernel's int8
+    # instantiation (the SIMT route: the float kernel's template)
     "ragged_paged_attention_int8": (
-        ragged_paged_attention_int8,
-        "paddle_tpu_torch/csrc/quantized_attention.cu",
+        ragged_paged_attention_int8, "paddle_tpu_torch/csrc/ragged_sm90.cu",
         "paddle_tpu/ops/pallas/quantized_attention.py:331"),
     "paged_decode_attention_int8": (
         paged_decode_attention_int8,
@@ -102,14 +106,19 @@ KERNELS = {
 }
 
 
-# the flash wrappers launch one of two routes by type and head dim
-# (flash_attention.route): "sm90" (tensor cores, bf16/f16, D 64 or 128)
-# or "simt" (float32 CUDA cores, every other case)
+# the flash and ragged wrappers launch one of two routes by type and
+# shape (flash_attention.route, ragged_attention.route): "sm90" (tensor
+# cores, bf16/f16, D 64 or 128) or "simt" (float32 CUDA cores, every other
+# case)
 ROUTES = ("sm90", "simt")
 ROUTED = ("flash_attention", "flash_attention_bwd", "flashmask_attention",
-          "flashmask_attention_bwd")
-# the float32 (SIMT) route's source of each routed wrapper
+          "flashmask_attention_bwd", "ragged_paged_attention",
+          "ragged_paged_attention_int8")
+# the SIMT route's source of each routed wrapper
 SIMT_SOURCES = {
+    "ragged_paged_attention": "paddle_tpu_torch/csrc/ragged_attention.cu",
+    "ragged_paged_attention_int8":
+        "paddle_tpu_torch/csrc/quantized_attention.cu",
     "flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
     "flashmask_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -118,8 +127,8 @@ SIMT_SOURCES = {
 
 
 def launch_counts():
-    """{kernel name: launches since the last reset}; the flash kernels also
-    by route, as "<name>.sm90" and "<name>.simt"."""
+    """{kernel name: launches since the last reset}; the routed kernels
+    also by route, as "<name>.sm90" and "<name>.simt"."""
     out = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
     for name in ROUTED:
         fn = KERNELS[name][0]
@@ -151,7 +160,9 @@ __all__ = ["KERNELS", "ROUTED", "ROUTES", "SIMT_SOURCES", "launch_counts", "rese
            "paged_decode_attention_int8", "paged_decode_attention_int8_plain",
            "paged_decode_attention_int8_split_plain",
            "ragged_paged_attention", "ragged_paged_attention_plain",
+           "ragged_paged_attention_tiled_plain",
            "ragged_paged_attention_int8", "ragged_paged_attention_int8_plain",
+           "ragged_paged_attention_int8_tiled_plain",
            "rms_norm", "rms_norm_bwd_plain", "rms_norm_plain", "split_plan",
            "swiglu",
            "swiglu_bwd_plain", "swiglu_plain"]

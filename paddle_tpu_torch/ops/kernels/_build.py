@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("rms_norm", "swiglu", "decode_attention", "ragged_attention",
            "flash_attention", "rope", "quantized_attention",
            "flash_attention_bwd", "bias_dropout_residual_ln",
-           "flash_fwd_sm90", "flash_bwd_sm90")
+           "flash_fwd_sm90", "flash_bwd_sm90", "ragged_sm90")
 
 _LIBS = {}
 _LOCK = threading.Lock()
