@@ -20,11 +20,17 @@ in two parts:
 3. the small shape: at [2, 300, 8 -> 4, 64] bf16 causal (the smoke's
    ``flash_attention_bwd[small]``) over seeds 0-15, the share of
    elements past the allowance for the kernel against the plain version
-   (the smoke's comparison, held there to 1e-5, which at 153,600 elements
-   a gradient allows one element), and for each of them against the
-   float64 version with the same roundings. Printed, not held.
+   (the smoke's comparison) and for each of them against the float64
+   version with the same roundings; then the kernel against the plain
+   version, and the plain version against the float64 one, under the
+   smoke's rule (chip_smoke._within: at most max(ceil(1e-5 n), 4)
+   elements of each gradient past the allowance, every element within it
+   plus 2^-7 of its product's absolute terms). It fails (exit 1) if the
+   rule rejects either on any seed.
 
-Prints the card's name and power limit first.
+    python3 flash_rounding_check.py [--small]
+
+--small runs part 3 alone. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -78,8 +84,14 @@ def _past_rule(got, want):
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--small", action="store_true",
+                    help="run only the small shape over seeds 0-15")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("flash_rounding_check.py needs a CUDA card")
+    import chip_smoke as CS
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import _build
 
@@ -97,7 +109,7 @@ def main():
             shape, dtype=np.float32)).to(dev, torch.bfloat16)
 
     ok = True
-    for s in (256, 2048, 8192):
+    for s in () if args.small else (256, 2048, 8192):
         b, h, d = 1, 8, 128
         q = torch.zeros(b, s, h, d, device=dev, dtype=torch.bfloat16)
         k, v, do = rnd((b, s, h, d)), rnd((b, s, h, d)), rnd((b, s, h, d))
@@ -116,23 +128,28 @@ def main():
               f"{e[2]:.2f}, dv {e[3]:.2f} (bf16 ulps; <= 1 for the "
               f"tensor-core kernels)", flush=True)
 
-    b, s, h, d = 4, 2048, 16, 128
-    q, k, v, do = (rnd((b, s, h, d)) for _ in range(4))
-    out, lse = K.flash_attention_fwd(q, k, v, causal=True)
-    kernel = K.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-    plain = K.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
-                                        p_dtype=torch.bfloat16)
-    ref = _ref64(q, k, v, out, lse, do, torch.bfloat16)
-    for name, grads in (("kernel", kernel), ("plain p_dtype=bf16", plain)):
-        cells = [_past_rule(g, r) for g, r in zip(grads, ref)]
-        print(f"[rounding] {name} vs float64 with the same roundings at "
-              f"[{b}, {s}, {h}, {d}] bf16 causal: dq/dk/dv err/allowance "
-              + "/".join(f"{w:.3f}" for w, _ in cells) + ", share past it "
-              + "/".join(f"{f:.2e}" for _, f in cells), flush=True)
+    if not args.small:
+        b, s, h, d = 4, 2048, 16, 128
+        q, k, v, do = (rnd((b, s, h, d)) for _ in range(4))
+        out, lse = K.flash_attention_fwd(q, k, v, causal=True)
+        kernel = K.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        plain = K.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                            causal=True,
+                                            p_dtype=torch.bfloat16)
+        ref = _ref64(q, k, v, out, lse, do, torch.bfloat16)
+        for name, grads in (("kernel", kernel),
+                            ("plain p_dtype=bf16", plain)):
+            cells = [_past_rule(g, r) for g, r in zip(grads, ref)]
+            print(f"[rounding] {name} vs float64 with the same roundings "
+                  f"at [{b}, {s}, {h}, {d}] bf16 causal: dq/dk/dv "
+                  f"err/allowance " + "/".join(f"{w:.3f}" for w, _ in cells)
+                  + ", share past it " + "/".join(f"{f:.2e}" for _, f in
+                                                   cells), flush=True)
 
     b, s, h, h_kv, d = 2, 300, 8, 4, 64
     share = {"kernel vs plain": [], "plain vs float64": [],
              "kernel vs float64": []}
+    held = {"kernel vs plain": [], "plain vs float64": []}
     for seed in range(16):
         g = np.random.default_rng(seed)
         q, do = (torch.from_numpy(g.standard_normal(
@@ -147,6 +164,7 @@ def main():
                                             causal=True,
                                             p_dtype=torch.bfloat16)
         ref = _ref64(q, k, v, out, lse, do, torch.bfloat16)
+        terms = CS._rounding_terms(K, q, k, v, out, lse, do, True)
         line = []
         for name, got, want in (("kernel vs plain", kernel, plain),
                                 ("plain vs float64", plain, ref),
@@ -156,6 +174,18 @@ def main():
             line.append(f"{name} err/allowance " + "/".join(
                 f"{w:.3f}" for w, _ in cells) + " share past it " +
                 "/".join(f"{f:.2e}" for _, f in cells))
+            if name != "kernel vs float64":
+                rule = CS._grad_rule(got, want, terms)
+                passed, _ = CS._within("flash_attention_bwd", rule,
+                                       torch.bfloat16)
+                held[name].append(passed)
+                line.append(f"{name} under the smoke's rule: elements "
+                            "past (allowed) " + "/".join(
+                                f"{c}({CS._over_allowed(n)})" for c, n in
+                                zip(rule["over_n"], rule["n"])) +
+                            " err/(allowance + 2^-7 sum|terms|) " +
+                            "/".join(f"{w:.3f}" for w in rule["bound"]) +
+                            f" {'passes' if passed else 'FAILS'}")
         print(f"[small] seed {seed} [{b}, {s}, {h} -> {h_kv}, {d}] bf16 "
               f"causal, dq/dk/dv: " + "; ".join(line), flush=True)
     n = b * s * h_kv * d
@@ -163,6 +193,10 @@ def main():
         print(f"[small] {name}: seeds with a share past 1e-5 in dq, dk "
               f"or dv (dk, dv: {n} elements): {sum(x > 1e-5 for x in f)} "
               f"of {len(f)}; largest share {max(f):.2e}", flush=True)
+    for name, passed in held.items():
+        print(f"[small] {name} under the smoke's rule: {sum(passed)} of "
+              f"{len(passed)} seeds pass", flush=True)
+        ok = ok and all(passed)
     sys.exit(0 if ok else 1)
 
 

@@ -1,4 +1,5 @@
-"""The port's ``incubate`` surface: the fused FFN epilogue ops."""
+"""The port's ``incubate`` surface: the fused FFN epilogue ops and the
+fused rotary position embedding."""
 
 from . import nn
 

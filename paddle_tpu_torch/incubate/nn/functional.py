@@ -1,6 +1,6 @@
-"""Fused FFN ops: the counterparts of ``paddle_tpu/ops/impl/fused.py``'s
-``fused_bias_dropout_residual_layer_norm`` (:117) and ``fused_feedforward``
-(:148).
+"""Fused ops: the counterparts of ``paddle_tpu/ops/impl/fused.py``'s
+``fused_bias_dropout_residual_layer_norm`` (:117), ``fused_feedforward``
+(:148) and ``fused_rotary_position_embedding`` (:48, on the RoPE kernel).
 
 ``fused_bias_dropout_residual_layer_norm`` is the bdrln op
 (``ops.kernels.BiasDropoutResidualLN``: the CUDA kernel for CUDA tensors,
@@ -124,3 +124,21 @@ def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
         out, residual, bias=linear2_bias, ln_scale=ln2_scale,
         ln_bias=ln2_bias, dropout_rate=dropout2_rate, ln_epsilon=ln_epsilon,
         training=training, generator=generator)
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style=True, name=None):
+    """Rotate-half RoPE of q (and k) by [S, D] or [1, S, 1, D] tables, q
+    and k in one kernel launch (``F.fused_rope_qk``); v passes through
+    unrotated. Returns (q, k, v), None where an input was None. As in the
+    JAX op, position_ids and use_neox_rotary_style are taken and ignored:
+    the tables' rows are the positions, and the rotation is rotate-half."""
+    def table(t):
+        return (t[0, :, 0] if t.dim() == 4 else t).contiguous()
+
+    cos, sin = table(cos), table(sin)
+    if k is None:
+        return F.fused_rope(q.contiguous(), cos, sin), None, v
+    q, k = F.fused_rope_qk(q.contiguous(), k.contiguous(), cos, sin)
+    return q, k, v

@@ -71,21 +71,6 @@ def _rope_tables(head_dim, max_len, theta):
             torch.from_numpy(sin.astype(np.float32)))
 
 
-def _rope_rows(x, cos, sin):
-    """Rotate-half RoPE with per-token positions: x [B, Q, H, D]; cos/sin
-    [B, D] (Q = 1 decode) or [B, Q, D] (ragged chunk), the table rows at
-    each token's own position."""
-    if cos.dim() == 3:
-        cos = cos[:, :, None, :].to(x.dtype)
-        sin = sin[:, :, None, :].to(x.dtype)
-    else:
-        cos = cos[:, None, None, :].to(x.dtype)
-        sin = sin[:, None, None, :].to(x.dtype)
-    d = x.shape[-1]
-    rot = torch.cat([-x[..., d // 2:], x[..., : d // 2]], dim=-1)
-    return x * cos + rot * sin
-
-
 class LlamaAttention(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
@@ -108,8 +93,11 @@ class LlamaAttention(nn.Module):
         return q, k, v
 
     def _qkv(self, hidden, cos, sin):
+        """q, k rotated by the per-token table rows cos/sin ([B, D] or
+        [B, Q, D], one RoPE launch), and v."""
         q, k, v = self._proj(hidden)
-        return _rope_rows(q, cos, sin), _rope_rows(k, cos, sin), v
+        q, k = F.fused_rope_qk(q, k, cos, sin)
+        return q, k, v
 
     def forward(self, hidden, rope_cos, rope_sin, attn_mask=None,
                 kv_cache=None):
@@ -119,8 +107,7 @@ class LlamaAttention(nn.Module):
         return is (out, (k, v)) with the grown cache."""
         b, s = hidden.shape[0], hidden.shape[1]
         q, k, v = self._proj(hidden)
-        q = F.fused_rope(q, rope_cos, rope_sin)
-        k = F.fused_rope(k, rope_cos, rope_sin)
+        q, k = F.fused_rope_qk(q, k, rope_cos, rope_sin)
         if kv_cache is not None:
             k = torch.cat([kv_cache[0], k], dim=1)
             v = torch.cat([kv_cache[1], v], dim=1)
@@ -136,8 +123,7 @@ class LlamaAttention(nn.Module):
         written at `pos` (a python int) in place. Returns (out, cache_k,
         cache_v)."""
         q, k, v = self._proj(hidden)
-        q = F.fused_rope(q, rope_cos, rope_sin)
-        k = F.fused_rope(k, rope_cos, rope_sin)
+        q, k = F.fused_rope_qk(q, k, rope_cos, rope_sin)
         cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
         cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
         out = _decode_attention(q, cache_k, cache_v, pos, self.num_heads,

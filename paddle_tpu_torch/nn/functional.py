@@ -1,6 +1,7 @@
 """Functional surface of the port's serving and training paths: the
 counterparts of ``paddle_tpu.nn.functional.rms_norm``, ``swiglu`` (the
-``swiglu`` op), ``fused_rope`` (the ``fused_rope`` op), ``linear``,
+``swiglu`` op), ``fused_rope`` (the ``fused_rope`` op; ``fused_rope_qk``
+rotates q and k in one launch), ``linear``,
 ``dropout`` (``nn/functional/common.py:18, :28``), ``layer_norm``
 (``nn/functional/norm.py:54``), ``scaled_dot_product_attention``,
 ``flashmask_attention``, ``paged_attention`` and ``ragged_paged_attention``
@@ -111,6 +112,15 @@ def fused_rope(x, cos, sin):
     """Rotate-half RoPE. x: [B, S, H, D]; cos/sin: [S, D], cast to x's
     type first. The tables get no gradient."""
     return _k.FusedRoPE.apply(x, cos, sin)
+
+
+def fused_rope_qk(q, k, cos, sin):
+    """Rotate-half RoPE of q [B, S, Hq, D] and k [B, S, Hk, D] (Hk
+    dividing Hq) by the same tables, in one kernel launch each way: the
+    port's own, where the JAX model rotates q and k apart. cos/sin: [S, D]
+    or the rows at each token's own position ([B, S, D], or [B, D] when
+    S = 1; these take no gradient). Returns (q_rot, k_rot)."""
+    return _k.FusedRoPEQK.apply(q, k, cos, sin)
 
 
 def _sdpa_dense(q, k, v, mask=None, dropout_p=0.0, causal=False,

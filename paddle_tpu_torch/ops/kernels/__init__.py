@@ -12,11 +12,13 @@ counted apart: tensor-core kernels for bf16/f16 with head dim 64 or 128
 the rest (``flash_attention.route``, ``ragged_attention.route``).
 
 The autograd functions (``FlashAttention``, ``FlashmaskAttention``,
-``RMSNorm``, ``SwiGLU``, ``FusedRoPE``, ``BiasDropoutResidualLN``) run a
-wrapper forward. Flash attention's backward is a kernel too
-(``flash_attention_bwd``, ``flashmask_attention_bwd``), as the TPU's is;
-the others' backwards are plain PyTorch (``*_bwd_plain``), as the JAX
-package computes them in XLA outside Pallas. The flashmask wrappers launch
+``RMSNorm``, ``SwiGLU``, ``FusedRoPE``, ``FusedRoPEQK``,
+``BiasDropoutResidualLN``) run a wrapper forward. Flash attention's
+backward is a kernel too (``flash_attention_bwd``,
+``flashmask_attention_bwd``), as the TPU's is, and so is RoPE's
+(``fused_rope_bwd``, the RoPE kernel's transposed form); the others'
+backwards are plain PyTorch (``*_bwd_plain``), as the JAX package computes
+them in XLA outside Pallas. The flashmask wrappers launch
 the flash kernels with a range mask and count their launches apart.
 """
 
@@ -47,7 +49,9 @@ from .ragged_attention import (ragged_paged_attention,
                                ragged_paged_attention_plain,
                                ragged_paged_attention_tiled_plain)
 from .rms_norm import RMSNorm, rms_norm, rms_norm_bwd_plain, rms_norm_plain
-from .rope import FusedRoPE, fused_rope, fused_rope_bwd_plain, fused_rope_plain
+from .rope import (FusedRoPE, FusedRoPEQK, fused_rope, fused_rope_bwd,
+                   fused_rope_bwd_plain, fused_rope_plain, fused_rope_qk,
+                   fused_rope_rows_plain)
 from .swiglu import SwiGLU, swiglu, swiglu_bwd_plain, swiglu_plain
 
 # wrapper -> (CUDA source it launches, TPU kernel it replaces)
@@ -72,9 +76,16 @@ KERNELS = {
         flash_attention_fwd, "paddle_tpu_torch/csrc/flash_fwd_sm90.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:183; "
         "paddle_tpu/ops/primitive/lowering_gpu.py:98"),
+    # every forward launch of the RoPE kernel: q alone, q and k together,
+    # [S, D] tables or per-token rows (the Llama's _rope_rows)
     "fused_rope": (
         fused_rope, "paddle_tpu_torch/csrc/rope.cu",
         "paddle_tpu/ops/pallas/norms.py:131"),
+    # the same kernel's transposed form: the vjp the JAX package takes in
+    # XLA beside the TPU kernel (_rope_bwd)
+    "fused_rope_bwd": (
+        fused_rope_bwd, "paddle_tpu_torch/csrc/rope.cu",
+        "paddle_tpu/ops/pallas/norms.py:131 (vjp _rope_bwd :150)"),
     # one C entry launching a dQ kernel and a dK/dV kernel, for the TPU
     # backward's two pallas_calls
     "flash_attention_bwd": (
@@ -126,14 +137,24 @@ SIMT_SOURCES = {
 }
 
 
+# parts of a kernel's launches counted apart: "<name>.<part>" -> (the
+# wrapper holding the count, its attribute); RoPE's q + k launches and
+# each RoPE form's launches on the scalar path
+PARTS = {"fused_rope.qk": (fused_rope_qk, "launches"),
+         "fused_rope.scalar": (fused_rope, "scalar_launches"),
+         "fused_rope_bwd.scalar": (fused_rope_bwd, "scalar_launches")}
+
+
 def launch_counts():
     """{kernel name: launches since the last reset}; the routed kernels
-    also by route, as "<name>.sm90" and "<name>.simt"."""
+    also by route, as "<name>.sm90" and "<name>.simt", and the PARTS."""
     out = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
     for name in ROUTED:
         fn = KERNELS[name][0]
         for rt in ROUTES:
             out[f"{name}.{rt}"] = getattr(fn, f"{rt}_launches")
+    for part, (fn, attr) in PARTS.items():
+        out[part] = getattr(fn, attr)
     return out
 
 
@@ -143,18 +164,23 @@ def reset_launch_counts():
     for name in ROUTED:
         for rt in ROUTES:
             setattr(KERNELS[name][0], f"{rt}_launches", 0)
+    for fn, attr in PARTS.values():
+        setattr(fn, attr, 0)
 
 
-__all__ = ["KERNELS", "ROUTED", "ROUTES", "SIMT_SOURCES", "launch_counts", "reset_launch_counts",
+__all__ = ["KERNELS", "PARTS", "ROUTED", "ROUTES", "SIMT_SOURCES",
+           "launch_counts", "reset_launch_counts",
            "BiasDropoutResidualLN", "FlashAttention", "FlashmaskAttention",
-           "FusedRoPE", "RMSNorm", "SwiGLU", "bias_dropout_residual_ln",
+           "FusedRoPE", "FusedRoPEQK", "RMSNorm", "SwiGLU",
+           "bias_dropout_residual_ln",
            "bias_dropout_residual_ln_bwd_plain",
            "bias_dropout_residual_ln_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_fwd_plain",
            "flashmask_attention_bwd", "flashmask_attention_bwd_plain",
            "flashmask_attention_fwd", "flashmask_attention_fwd_plain",
-           "fused_rope", "fused_rope_bwd_plain", "fused_rope_plain",
+           "fused_rope", "fused_rope_bwd", "fused_rope_bwd_plain",
+           "fused_rope_plain", "fused_rope_qk", "fused_rope_rows_plain",
            "paged_decode_attention", "paged_decode_attention_plain",
            "paged_decode_attention_split_plain",
            "paged_decode_attention_int8", "paged_decode_attention_int8_plain",

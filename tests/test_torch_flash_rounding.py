@@ -173,7 +173,7 @@ def test_route_by_type_and_head_dim(dtype, d, rt):
 def test_launch_counts_report_each_route():
     counts = K.launch_counts()
     assert set(counts) == set(K.KERNELS) | {
-        f"{n}.{rt}" for n in K.ROUTED for rt in K.ROUTES}
+        f"{n}.{rt}" for n in K.ROUTED for rt in K.ROUTES} | set(K.PARTS)
     K.reset_launch_counts()
     rng = np.random.default_rng(13)
     q = _t(_bf16(rng, (1, 8, 2, 64)))

@@ -53,6 +53,8 @@ FUNCTIONS = [
     (TIF.fused_bias_dropout_residual_layer_norm,
      JIF.fused_bias_dropout_residual_layer_norm),
     (TIF.fused_feedforward, JIF.fused_feedforward),
+    (TIF.fused_rotary_position_embedding,
+     JIF.fused_rotary_position_embedding),
 ]
 LAYERS = [
     (tnn.Linear, jnn.Linear),
