@@ -18,8 +18,9 @@ source, all started together; each build's seconds printed), then:
    beside the library call); float32 the SIMT kernels; ragged attention
    (float and int8 pages) at the smoke's mixed rows, with GQA 8, at
    contexts up to the engine's whole table ([long]), D = 64, a window of
-   Q_max = 8 ([q8]), a 40-slot mixed step ([c40]) and float16, each
-   printing its route; the flash backward at the training shape [4, 2048, 16, 128]
+   Q_max = 8 ([q8]), the verify windows of speculative decoding (4 rows of
+   q_len 5 in s_pad 8 at serving contexts, [verify]), a 40-slot mixed step
+   ([c40]) and float16, each printing its route; the flash backward at the training shape [4, 2048, 16, 128]
    and with GQA at [1, 2048, 32 -> 8, 128] in bfloat16, its dq, dk and dv
    each held; the edges of both routes in bfloat16 and float32 (S_q < S_k,
    S_q > S_k, S = 300, D = 64, GQA, the masked forms), float16 at one
@@ -50,7 +51,13 @@ source, all started together; each build's seconds printed), then:
    compile_train_step must agree; (agree:masked) the tiny Llama with a
    padded-batch attn_mask (logits, loss, gradients), a tiny
    fused_feedforward and F.flashmask_attention in each bound form must
-   agree;
+   agree; (agree:spec) speculative decoding on the tiny pair, float and
+   int8 pools, with the n-gram drafter, self-drafting and a chunked-prefill
+   interleave: CUDA spec-on tokens equal the CPU plain path's and (float)
+   the spec-off tokens, float self-drafting accepts every draft;
+   (surface) two threads streaming from one engine, a cancel, an
+   export/import round trip through the CPU engine and a weight swap
+   mid-run, each equal to the CPU plain path;
 3. flashmask: F.flashmask_attention through autograd at [4, 2048, 16,
    128] bf16 with packed documents (each call must launch the masked
    forward and backward kernels once; out and grads held against the
@@ -74,6 +81,14 @@ source, all started together; each build's seconds printed), then:
    the share of its generated tokens that differ from its bf16 twin's
    (printed, not checked: the weights are random), then profiled as
    their twins are;
+   then serve:spec and serve:spec:int8: the [serve] workload again with
+   speculative decoding, self-drafting (DraftModelDrafter over the serving
+   model, pools like the target's) and then the n-gram drafter: the spec
+   accounting, model steps and kernel launches per generated token beside
+   the spec-off twin's, peak memory; no drafter error, float verify
+   windows on the tensor-core ragged route, no float paged kernel in the
+   int8 runs, and each request's first divergence from its spec-off twin
+   a near-tie under the dense forward (SPEC_TIE_ULPS);
 7. train: with the serving model released, the configuration bench.py
    trains on the TPU (0.74B Llama, batch 4 x 2048, bf16 parameters,
    AdamW(1e-4, multi_precision=True)) takes a warm-up step and 5 timed
@@ -226,6 +241,11 @@ RAGGED_LONG = ((4096, 256, False), (3000, 1, False), (2048, 1, False),
                (1, 1, True))
 # [q8]: a short suffix or verify window (Q_max 8), contexts mid-page
 RAGGED_Q8 = ((37, 8, False), (21, 5, False), (90, 1, False), (1, 1, True))
+# [verify]: a speculative verify dispatch of the [serve:spec] runs: 4 rows
+# of q_len 5 (the last committed token and 4 drafts) in s_pad 8, at the
+# serving contexts (prompts of 300-900 tokens plus what has been generated)
+RAGGED_VERIFY = ((617, 5, False), (349, 5, False), (905, 5, False),
+                 (448, 5, False))
 # [c40]: a mixed step at 40 slots (tables of 64 pages): four chunks of up
 # to 256 queries, 35 decode rows, a dummy row; at GQA 8 a block holds 32
 # positions, so 40 x 8 = 320 (row, query tile) items, past the 256 that
@@ -327,10 +347,12 @@ def check_ragged(K, dev, dtype, h_kv, rng, int8=False, rows=RAGGED_ROWS,
         res["err_f32p"] = _max_err(got, f32p)
         res["f32p"] = _row_rule(got, f32p, terms)
         del f32p, terms
-        # a kernel that drops a key tile: the longest decode row without
-        # its last 64 keys (its query then sits 64 positions earlier)
-        dec = max((i for i, (n_ctx, n, dummy) in enumerate(rows)
-                   if n == 1 and not dummy and n_ctx > 64),
+        # a kernel that drops a key tile: the longest decode row (with no
+        # decode row, the longest row) without its last 64 keys (its
+        # queries then sit 64 positions earlier)
+        real = [i for i, (n_ctx, _, dummy) in enumerate(rows)
+                if not dummy and n_ctx > 64]
+        dec = max([i for i in real if rows[i][1] == 1] or real,
                   key=lambda i: rows[i][0])
         short = ctx.clone()
         short[dec] -= 64
@@ -343,6 +365,9 @@ def check_ragged(K, dev, dtype, h_kv, rng, int8=False, rows=RAGGED_ROWS,
         lambda: fn(q, *pools, bt, ctx, ql),
         lambda: _parent_ragged(int8, q, pools, bt, ctx, ql),
         "quantized_attention" if int8 else "ragged_attention", want))
+    if "parent_ms" in res:
+        res["parent_route"] = "sm90" if pd is not None and \
+            "ragged_sm90" in _PARENT else "simt"
     return res
 
 
@@ -419,7 +444,7 @@ def check_rms(K, dev, dtype, rng, t=1024, hid=4096):
 # ----------------------------------------------------------------------
 
 PARENT_SOURCES = ("decode_attention", "quantized_attention", "rms_norm",
-                  "ragged_attention", "rope")
+                  "ragged_attention", "ragged_sm90", "rope")
 _PARENT = {}             # source name -> ctypes library of the parent's build
 
 
@@ -432,11 +457,13 @@ def _start_parent(src_dir):
     out = Path(__file__).resolve().parent / "build" / "parent"
     out.mkdir(parents=True, exist_ok=True)
     src_dir = Path(src_dir).resolve()
+    # a parent older than a source (ragged_sm90 is younger than decode or
+    # RMSNorm) lacks it
     return {name: (out / f"lib{name}.so", subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src_dir), "-o",
          str(out / f"lib{name}.so"), str(src_dir / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name in PARENT_SOURCES}
+        for name in PARENT_SOURCES if (src_dir / f"{name}.cu").exists()}
 
 
 def _finish_parent(jobs):
@@ -476,28 +503,29 @@ def _parent_decode(name, q, pools, bt, ctx):
 
 
 def _parent_ragged(int8, q, pools, bt, ctx, ql):
-    """The parent's ragged entry (the SIMT kernel, float or int8 pages) on
-    these inputs."""
+    """The parent's ragged entry on these inputs, float or int8 pages: its
+    tensor-core kernel where it has one (ragged_sm90) and the tree's route
+    takes it, else its SIMT kernel."""
     import ctypes
 
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import quantized_attention as QA
     from paddle_tpu_torch.ops.kernels import ragged_attention as RA
-    if int8:
-        fn = _PARENT["quantized_attention"].ptt_ragged_attention_int8
-        fn.argtypes = QA._RAGGED_ARGS
-    else:
-        fn = _PARENT["ragged_attention"].ptt_ragged_attention
-        fn.argtypes = RA._ARGS
-    fn.restype = ctypes.c_int
     c, q_max, h, d = q.shape
-    _, page, h_kv, _ = pools[0].shape
+    n, page, h_kv, _ = pools[0].shape
+    sm90 = "ragged_sm90" in _PARENT and RA.route(q, page) == "sm90"
+    lib = _PARENT["ragged_sm90"] if sm90 else \
+        _PARENT["quantized_attention" if int8 else "ragged_attention"]
+    fn = getattr(lib, "ptt_ragged_attention" + ("_int8" if int8 else "")
+                 + ("_sm90" if sm90 else ""))
+    fn.argtypes = QA._RAGGED_ARGS if int8 else RA._ARGS
+    fn.restype = ctypes.c_int
     out = torch.empty_like(q)
     _build.check(fn(*[_build.ptr(t) for t in (q, *pools, bt, ctx, ql, out)],
                     c, q_max, h, h_kv, d, page, bt.shape[1],
-                    RA.tile_queries(q_max, h // h_kv), 1.0 / math.sqrt(d),
-                    _build.dtype_code(q), _build.stream(q)),
-                 "parent ragged attention")
+                    n if sm90 else RA.tile_queries(q_max, h // h_kv),
+                    1.0 / math.sqrt(d), _build.dtype_code(q),
+                    _build.stream(q)), "parent ragged attention")
     return out
 
 
@@ -517,16 +545,29 @@ def _parent_rms(x, w, eps):
 
 
 def _parent_rope(x, cos, sin):
-    """The parent's RoPE entry (one tensor, [S, D] tables) on x."""
+    """The parent's RoPE entry (one tensor, [S, D] tables) on x: its
+    ``ptt_rope`` (the tree's signature) or, in older parents,
+    ``ptt_fused_rope``."""
     import ctypes
 
     from paddle_tpu_torch.ops.kernels import _build
-    fn = _PARENT["rope"].ptt_fused_rope
+    from paddle_tpu_torch.ops.kernels import rope as RP
+    b, s, h, d = x.shape
+    out = torch.empty_like(x)
+    lib = _PARENT["rope"]
+    if hasattr(lib, "ptt_rope"):
+        fn = lib.ptt_rope
+        fn.argtypes, fn.restype = RP._ARGS, ctypes.c_int
+        null, vec = ctypes.c_void_p(None), ctypes.c_int(0)
+        _build.check(fn(_build.ptr(x), null, _build.ptr(out), null,
+                        _build.ptr(cos), _build.ptr(sin), b * s, s, h, 0, d,
+                        0, 0, _build.dtype_code(x), _build.dtype_code(cos),
+                        ctypes.byref(vec), _build.stream(x)), "parent rope")
+        return out
+    fn = lib.ptt_fused_rope
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + \
         [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    b, s, h, d = x.shape
-    out = torch.empty_like(x)
     _build.check(fn(_build.ptr(x), _build.ptr(cos), _build.ptr(sin),
                     _build.ptr(out), b * s * h, s, h, d, _build.dtype_code(x),
                     _build.dtype_code(cos), _build.stream(x)), "parent rope")
@@ -1229,6 +1270,8 @@ def phase_kernels(K, dev):
     rng_r = np.random.default_rng(3)
     # the RoPE kernel's forms added with its redesign, likewise apart
     rng_p = np.random.default_rng(4)
+    # the speculative verify windows, likewise apart
+    rng_v = np.random.default_rng(5)
     out = {}
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         if dtype == torch.float16:
@@ -1305,6 +1348,11 @@ def phase_kernels(K, dev):
                 ("ragged_paged_attention_int8[q8]", lambda: check_ragged(
                     K, dev, dtype, 32, rng_r, int8=True, rows=RAGGED_Q8,
                     q_max=8)),
+                ("ragged_paged_attention[verify]", lambda: check_ragged(
+                    K, dev, dtype, 32, rng_v, rows=RAGGED_VERIFY, q_max=8)),
+                ("ragged_paged_attention_int8[verify]",
+                 lambda: check_ragged(K, dev, dtype, 32, rng_v, int8=True,
+                                      rows=RAGGED_VERIFY, q_max=8)),
                 ("ragged_paged_attention[c40]", lambda: check_ragged(
                     K, dev, dtype, 8, rng_r, rows=RAGGED_C40, p_max=64)),
             ]
@@ -1484,6 +1532,8 @@ def _run_cases(cases, dtype, out):
                     f"err/rms=" + "/".join(f"{e:.2e}:{r:.2e}"
                                            for e, r in res["rows"]))
         if "parent_ms" in res:
+            if "parent_route" in res:
+                lse += f" parent_route={res['parent_route']}"
             lse += (f" parent_ms={res['parent_ms']:.4f} (order parent, "
                     f"kernel, kernel, parent: " + "/".join(
                         f"{t:.4f}" for t in res["parent_abba"]) +
@@ -1696,18 +1746,25 @@ def main():
     phase_agree_int8(dev)
     phase_agree_train(dev)
     phase_agree_masked(dev)
+    phase_agree_spec(dev)
+    phase_surface(dev)
     masked = phase_flashmask(K, dev)
     ffn = phase_fused_ffn(K, dev)
     model = _serving_model(dev)
-    serve, serve_out = phase_serve(K, model)
+    serve, serve_out, serve_st = phase_serve(K, model)
     dense, dense_out = phase_serve_dense(K, model)
-    serve8, _ = phase_serve(K, model, kv_dtype="int8", twin=serve_out)
+    serve8, serve8_out, serve8_st = phase_serve(K, model, kv_dtype="int8",
+                                                twin=serve_out)
     dense8, _ = phase_serve_dense(K, model, kv_dtype="int8", twin=dense_out)
+    spec = phase_serve_spec(K, model, serve_out, serve_st)
+    spec8 = phase_serve_spec(K, model, serve8_out, serve8_st,
+                             kv_dtype="int8")
     del model                            # [train] reads its own peak
     train, model, opt, batch = phase_train(K, dev)
     phase_profile_train(model, opt, batch)
-    launches = {k: serve[k] + dense[k] + serve8[k] + dense8[k] + train[k] +
-                masked[k] + ffn[k] for k in K.launch_counts()}
+    launches = {k: serve[k] + dense[k] + serve8[k] + dense8[k] + spec[k] +
+                spec8[k] + train[k] + masked[k] + ffn[k]
+                for k in K.launch_counts()}
     _require_launched("all serving, training, flashmask and fused_ffn runs",
                       launches, K.KERNELS)
 
@@ -2063,6 +2120,220 @@ def phase_agree_masked(dev):
             raise AssertionError("agree:masked: flashmask disagrees between "
                                  "the CPU and the card")
     _require_launched("agree:masked", K.launch_counts(), MASKED_KERNELS)
+
+
+# the tiny speculative workload of tests/test_speculative.py: four prompts,
+# one of them a repeating pattern the n-gram drafter can follow
+SPEC_PROMPTS = ([1, 2, 3], [9, 8, 7, 6, 5, 4, 3], [5, 6, 7, 8] * 5, [42, 17])
+# int8 pages: a verify window that opens a page freezes the page's scale
+# over every row of the window in it (a decode step: its one row), so
+# spec-on tokens may leave spec-off ones, as the JAX engine's do; the
+# share of generated tokens allowed to differ (tests/test_kv_int8.py's)
+INT8_SPEC_BUDGET = 0.25
+
+
+def _serve_tiny(model, prompts, n_new, **kw):
+    from paddle_tpu_torch.inference import GenerationEngine
+    eng = GenerationEngine(model, **kw)
+    rids = [eng.add_request(np.asarray(p), max_new_tokens=n_new)
+            for p in prompts]
+    with torch.inference_mode():
+        out = eng.run()
+    return eng, [out[r] for r in rids]
+
+
+def _no_drafter_error(tag, eng):
+    fb = eng.stats["spec_fallbacks"]
+    if fb.get("drafter_error"):
+        raise AssertionError(f"[{tag}] the drafter raised ({fb}): "
+                             f"{eng.spec_last_error!r}")
+
+
+def phase_agree_spec(dev):
+    """The tiny pair with speculative decoding, float and int8 pools: the
+    n-gram drafter and self-drafting (DraftModelDrafter over the model
+    itself), then a long prompt chunking through the ragged program while
+    running slots commit spec bundles. CUDA spec-on tokens must equal the
+    CPU plain path's spec-on tokens and, over float pools, the spec-off
+    tokens (int8: within INT8_SPEC_BUDGET, as on the CPU); float
+    self-drafting must accept every draft."""
+    from paddle_tpu_torch.inference import DraftModelDrafter
+    from paddle_tpu_torch.ops import kernels as K
+
+    _, cpu, gpu = _tiny_pair(dev)
+    kw = dict(max_slots=4, page_size=4, max_seq_len=96, mixed_step=False)
+    K.reset_launch_counts()
+    for kv in (None, "int8"):
+        name = "float" if kv is None else "int8"
+        off = [_serve_tiny(m, SPEC_PROMPTS, 24, spec_decode=False,
+                           kv_dtype=kv, **kw)[1] for m in (cpu, gpu)]
+        if not all(np.array_equal(a, b) for a, b in zip(*off)):
+            raise AssertionError(f"[agree:spec] {name} spec-off: CPU plain "
+                                 "path and CUDA kernel path disagree")
+        for drafter in ("ngram", "self-draft"):
+            runs = []
+            for m in (cpu, gpu):
+                spec = "ngram" if drafter == "ngram" else \
+                    DraftModelDrafter(m)
+                runs.append(_serve_tiny(m, SPEC_PROMPTS, 24, spec_decode=spec,
+                                        kv_dtype=kv, **kw))
+            (_, on_cpu), (eng, on_gpu) = runs
+            st = eng.stats
+            same_cpu = all(np.array_equal(a, b)
+                           for a, b in zip(on_gpu, on_cpu))
+            diff = sum(int(np.count_nonzero(a != b))
+                       for a, b in zip(on_gpu, off[1]))
+            print(f"[agree:spec] {name} {drafter}: cuda == cpu spec-on "
+                  f"{same_cpu}; generated tokens differing from spec-off "
+                  f"{diff}/{24 * len(SPEC_PROMPTS)}; verify dispatches="
+                  f"{st['spec_dispatches']} drafted="
+                  f"{st['spec_draft_tokens']} accepted="
+                  f"{st['spec_accepted_tokens']} rollbacks="
+                  f"{st['spec_rollbacks']} fallbacks={st['spec_fallbacks']}",
+                  flush=True)
+            _no_drafter_error("agree:spec", eng)
+            if not same_cpu:
+                raise AssertionError(f"[agree:spec] {name} {drafter}: CPU "
+                                     "plain path and CUDA kernel path "
+                                     "disagree")
+            if diff > (0 if kv is None else
+                       INT8_SPEC_BUDGET * 24 * len(SPEC_PROMPTS)):
+                raise AssertionError(f"[agree:spec] {name} {drafter}: "
+                                     f"{diff} tokens differ from spec-off")
+            if st["spec_dispatches"] < 1 or st["spec_draft_tokens"] < 1:
+                raise AssertionError(f"[agree:spec] {name} {drafter}: no "
+                                     "verify dispatch drafted anything")
+            if kv is None and drafter == "self-draft" and \
+                    st["spec_accepted_tokens"] != st["spec_draft_tokens"]:
+                raise AssertionError("[agree:spec] float self-drafting "
+                                     "rejected a draft")
+
+    # the chunked-prefill interleave: a 40-token prompt (5 chunks of 8)
+    # admitted mid-decode while self-drafted bundles commit
+    long_prompt = np.random.RandomState(7).randint(1, 128, size=40)
+    ikw = dict(max_slots=3, page_size=4, max_seq_len=96, prefill_chunk=8,
+               mixed_step=False)
+
+    def interleave(model, spec):
+        from paddle_tpu_torch.inference import GenerationEngine
+        eng = GenerationEngine(model, spec_decode=spec, **ikw)
+        r1 = eng.add_request(np.tile(np.array([5, 6, 7, 8]), 4), 24)
+        r2 = eng.add_request(np.array([9, 8, 7]), 24)
+        with torch.inference_mode():
+            while not (eng._reqs[r1].out and eng._reqs[r2].out):
+                eng.step()
+            r3 = eng.add_request(long_prompt, 12)
+            out = eng.run()
+        return eng, [out[r] for r in (r1, r2, r3)]
+
+    _, want = interleave(cpu, False)
+    eng, got = interleave(gpu, DraftModelDrafter(gpu))
+    _, off = interleave(gpu, False)
+    st = eng.stats
+    same = all(np.array_equal(a, b) for a, b in zip(got, want)) and \
+        all(np.array_equal(a, b) for a, b in zip(got, off))
+    print(f"[agree:spec] chunked-prefill interleave (self-draft): cuda "
+          f"spec-on == cuda spec-off == cpu {same}; ragged_steps="
+          f"{st['ragged_steps']} verify dispatches={st['spec_dispatches']} "
+          f"accepted={st['spec_accepted_tokens']}/"
+          f"{st['spec_draft_tokens']}", flush=True)
+    _no_drafter_error("agree:spec", eng)
+    if not same or st["ragged_steps"] < 5 or \
+            st["spec_accepted_tokens"] != st["spec_draft_tokens"]:
+        raise AssertionError("[agree:spec] the interleave disagrees, or did "
+                             "not chunk, or rejected a self-draft")
+    _require_launched("agree:spec", K.launch_counts(), RAGGED_KERNELS)
+
+
+# the weight [surface] changes in place mid-run (x 3: the tokens move)
+SWAP_PARAM = "llama.layers.0.self_attn.o_proj.weight"
+
+
+def phase_surface(dev):
+    """The request lifecycle on the card (tiny f32 pair): two threads
+    streaming from one engine, a cancel that frees every page at once, an
+    export/import round trip through the CPU engine and back, and a weight
+    swap mid-run, each held to the CPU plain path's tokens."""
+    import threading
+
+    from paddle_tpu_torch.inference import (GenerationEngine,
+                                            RequestCancelledError)
+
+    _, cpu, gpu = _tiny_pair(dev)
+    prompts = [np.array(p) for p in SPEC_PROMPTS[:3]]
+    kw = dict(max_slots=2, page_size=4, max_seq_len=64, mixed_step=False)
+    want = _serve_tiny(cpu, prompts, 16, **kw)[1]
+    gen = [w[len(p):].tolist() for w, p in zip(want, prompts)]
+
+    eng = GenerationEngine(gpu, **kw)
+    got = {}
+
+    def consume(idx):
+        for i in idx:
+            got[i] = list(eng.stream(prompts[i], 16))
+
+    threads = [threading.Thread(target=consume, args=(idx,))
+               for idx in ([0, 2], [1])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    streams_ok = got == dict(enumerate(gen))
+
+    it = eng.stream(prompts[0], 16)
+    next(it)
+    rid = max(eng._reqs)
+    eng.cancel_request(rid)
+    freed = bool(np.all(eng.blocks.refcount[1:] == 0))
+    try:
+        list(it)
+        cut = False
+    except RequestCancelledError:
+        cut = True
+
+    # export mid-decode -> the CPU engine -> export -> back to the card
+    rid = eng.add_request(prompts[2], max_new_tokens=16)
+    with torch.inference_mode():
+        while len(eng._reqs[rid].out) < 3:
+            eng.step()
+    snap = eng.remove_request(rid)
+    ceng = GenerationEngine(cpu, **kw)
+    crid = ceng.import_request(snap)
+    with torch.inference_mode():
+        while len(ceng._reqs[crid].out) < 4:
+            ceng.step()
+    snap2 = ceng.remove_request(crid)
+    rid = eng.import_request(snap2)
+    round_trip = np.array_equal(eng.run()[rid], want[2])
+
+    # a swap mid-run on fresh copies (the same change on both devices)
+    _, cpu2, gpu2 = _tiny_pair(dev)
+    outs = []
+    for m in (cpu2, gpu2):
+        e = GenerationEngine(m, **kw)
+        rids = [e.add_request(p, max_new_tokens=16) for p in prompts[:2]]
+        with torch.inference_mode():
+            while not all(len(e._reqs[r].out) >= 2 for r in rids):
+                e.step()
+        w = dict(m.named_parameters())[SWAP_PARAM]
+        e.swap_weights(lambda w=w: w.mul_(3.0), tag="b")
+        with torch.inference_mode():
+            res = e.run()
+        outs.append(([res[r] for r in rids], e._weight_epoch,
+                     len(e.blocks._index)))
+    swap_ok = all(np.array_equal(a, b) for a, b in zip(outs[0][0],
+                                                       outs[1][0]))
+    moved = any(not np.array_equal(a, w) for a, w in zip(outs[1][0], want))
+    print(f"[surface] two threads streaming == cpu run(): {streams_ok}; "
+          f"cancel freed every page: {freed}, stream raised "
+          f"RequestCancelledError: {cut}; export/import card -> cpu -> card "
+          f"token-exact: {round_trip}; swap_weights mid-run: cuda == cpu {swap_ok}, "
+          f"tokens moved {moved}, epoch {outs[1][1]}, index entries after "
+          f"{outs[1][2]}", flush=True)
+    if not (streams_ok and freed and cut and round_trip and swap_ok and
+            moved and outs[1][1] == 1 and outs[1][2] == 0):
+        raise AssertionError("[surface] the lifecycle surface disagrees "
+                             "with the CPU plain path")
 
 
 MASKED_KERNELS = ("flashmask_attention", "flashmask_attention_bwd",
@@ -2635,7 +2906,7 @@ def phase_serve(K, model, kv_dtype=None, twin=None):
     _require_sm90_ragged(tag, launches)
     _profile_serve(model, prompts, kw, n_new,
                    "profile" if kv_dtype is None else "profile:int8")
-    return launches, gen
+    return launches, gen, dict(st)
 
 
 # the kernels each serving run's path launches
@@ -2806,6 +3077,165 @@ def phase_serve_dense(K, model, kv_dtype=None, twin=None):
                        "profile:dense" if kv_dtype is None
                        else "profile:dense:int8")
     return launches, gen
+
+
+# the kernels a speculative serving run must launch (its decode rows ride
+# the verify windows of the ragged kernel; the plain decode kernel serves
+# fallback chunks and the draft model's steps)
+SPEC_KERNELS = ("ragged_paged_attention", "rms_norm", "swiglu", "fused_rope")
+SPEC_INT8_KERNELS = ("ragged_paged_attention_int8", "rms_norm", "swiglu",
+                     "fused_rope")
+# a first divergence from the spec-off twin is a near-tie when the dense
+# forward over the common prefix scores the two candidate tokens within
+# this many bf16 ulps (at the larger of the two logits) of each other:
+# twice the worst gap measured on the H100 (bf16 pools 4 ulps, int8 pools
+# 11: their KV carries the int8 rounding the dense forward does not)
+SPEC_TIE_ULPS = {None: 8.0, "int8": 24.0}
+
+
+def _model_steps(st):
+    """Model steps (one launch of every layer) an engine's stats record."""
+    return (st["prefill_admits"] + st["ragged_steps"] + st["decode_steps"]
+            + st["spec_dispatches"])
+
+
+def _first_divergences(tag, model, prompts, gen, twin, kv_dtype):
+    """Each request's tokens against its spec-off twin: at a first
+    divergence, the dense forward over the common prefix scores both
+    candidates, which must lie within SPEC_TIE_ULPS bf16 ulps."""
+    found = []
+    for i, (p, a, b) in enumerate(zip(prompts, gen, twin)):
+        neq = np.flatnonzero(np.asarray(a) != np.asarray(b))
+        if not neq.size:
+            continue
+        t = int(neq[0])
+        ids = torch.as_tensor(np.concatenate([p, a[:t]])[None],
+                              dtype=torch.long, device=model.device)
+        with torch.inference_mode():
+            logits = model(ids)[0, -1].float()
+        la, lb = float(logits[int(a[t])]), float(logits[int(b[t])])
+        ulp = 2.0 ** (math.floor(math.log2(max(abs(la), abs(lb), 1e-30)))
+                      - 7)
+        found.append((i, t, la, lb, abs(la - lb) / ulp,
+                      float(logits.max())))
+    worst = max((f[4] for f in found), default=0.0)
+    print(f"[{tag}] first divergences from the spec-off twin: {len(found)} "
+          f"of {len(prompts)} requests, (request, position) "
+          f"{[(f[0], f[1]) for f in found]}; dense-forward logits of the "
+          f"two candidates (spec-on, spec-off, gap in bf16 ulps, row max) "
+          f"{[(round(f[2], 4), round(f[3], 4), round(f[4], 2), round(f[5], 3)) for f in found]}; "
+          f"worst gap {worst:.2f} ulps (allowed "
+          f"{SPEC_TIE_ULPS[kv_dtype]:g})", flush=True)
+    if worst > SPEC_TIE_ULPS[kv_dtype]:
+        raise AssertionError(f"[{tag}] a divergence from the spec-off twin "
+                             f"is no near-tie: {worst:.2f} ulps")
+    return found
+
+
+def phase_serve_spec(K, model, twin, twin_st, kv_dtype=None):
+    """The [serve] workload (the same 8 requests of 300-900 tokens, 32
+    greedy tokens each) with speculative decoding: first self-drafting
+    (DraftModelDrafter over the serving model itself, with pools like the
+    target's: every verify window full at q_len 5 where the draft model
+    agrees), then the n-gram drafter. Each run prints the spec accounting,
+    dispatches and launches per generated token beside the spec-off twin's
+    (same call), the decode throughput and the peak memory; a drafter error
+    fails the phase; float verify windows must take the tensor-core
+    ragged route, an int8 run must launch no float paged kernel; each
+    request's first divergence from its twin must be a near-tie. Returns
+    the kernels' launch counts over both runs."""
+    from paddle_tpu_torch.inference import DraftModelDrafter, GenerationEngine
+
+    cfg = model.config
+    base = "serve:spec" if kv_dtype is None else "serve:spec:int8"
+    rng = np.random.default_rng(0)
+    prompts = _serving_prompts(rng, 8, 300, 900, cfg.vocab_size, 512, (0, 5))
+    kw = dict(max_slots=4, page_size=16, prefill_chunk=256, mixed_step=True,
+              prefix_cache=True, kv_dtype=kv_dtype)
+    n_new = 32
+    n_gen = n_new * len(prompts)
+    twin_tps = twin_st["decode_tokens"] / max(twin_st["decode_s"], 1e-9)
+    twin_steps = _model_steps(twin_st)
+    total = dict.fromkeys(K.launch_counts(), 0)
+    for drafter in ("draft_model", "ngram"):
+        tag = f"{base}:{drafter}"
+        _fresh_pools(model)
+        spec = DraftModelDrafter(model, kv_dtype=kv_dtype) \
+            if drafter == "draft_model" else "ngram"
+        eng = GenerationEngine(model, spec_decode=spec, **kw)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
+        with torch.inference_mode():
+            out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        for k in total:
+            total[k] += launches[k]
+        st = eng.stats
+        gen = [out[r][len(p):] for r, p in zip(rids, prompts)]
+        draft_st = eng._spec._eng.stats if drafter == "draft_model" else None
+        disp = max(st["spec_dispatches"], 1)
+        tps = (st["spec_tokens"] + st["decode_tokens"]) / max(
+            st["spec_verify_s"] + st["spec_draft_s"] + st["decode_s"], 1e-9)
+        n_launch = sum(launches[k] for k in K.KERNELS)
+        steps = _model_steps(st)
+        d_steps = 0 if draft_st is None else \
+            draft_st["ragged_steps"] + draft_st["decode_steps"]
+        print(f"[{tag}] requests={len(prompts)} new_tokens="
+              f"{sum(map(len, gen))} wall_s={wall:.3f} peak_mem_gb="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"kv_pool_bytes={st['kv_pool_bytes']}"
+              + ("" if draft_st is None else
+                 f" + the draft engine's {draft_st['kv_pool_bytes']}"))
+        print(f"[{tag}] verify dispatches={st['spec_dispatches']} "
+              f"drafted={st['spec_draft_tokens']} accepted="
+              f"{st['spec_accepted_tokens']} acceptance="
+              f"{st['spec_accepted_tokens'] / max(st['spec_draft_tokens'], 1):.4f}"
+              f" rollbacks={st['spec_rollbacks']} fallbacks="
+              f"{json.dumps(st['spec_fallbacks'])} tokens_per_verify_dispatch="
+              f"{st['spec_tokens'] / disp:.3f} (per row "
+              f"{st['spec_tokens'] / max(st['spec_rows'], 1):.3f}, rows "
+              f"{st['spec_rows']}) verify_s={st['spec_verify_s']:.3f} "
+              f"draft_s={st['spec_draft_s']:.3f} (host clock; per verify "
+              f"dispatch {1e3 * st['spec_verify_s'] / disp:.2f} and "
+              f"{1e3 * st['spec_draft_s'] / disp:.2f} ms)")
+        print(f"[{tag}] decode tokens_per_s={tps:.2f} ((verify + plain "
+              f"chunk tokens) / (verify + draft + chunk seconds), host "
+              f"clock) beside the spec-off twin's {twin_tps:.2f}; decode "
+              f"chunks={st['decode_chunks']} tokens={st['decode_tokens']}; "
+              f"ragged steps={st['ragged_steps']} mixed_decode_tokens="
+              f"{st['mixed_decode_tokens']}")
+        print(f"[{tag}] model steps per generated token: target "
+              f"{steps / n_gen:.4f} (spec-off twin {twin_steps / n_gen:.4f}), "
+              f"with the draft model's {(steps + d_steps) / n_gen:.4f}; "
+              f"kernel launches per generated token {n_launch / n_gen:.2f}")
+        print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+        _no_drafter_error(tag, eng)
+        # self-drafting always drafts; the n-gram drafter drafts only where
+        # a request repeats itself (random weights and prompts seldom do:
+        # its steps then fall back to the plain chunk, reason no_drafts)
+        if drafter == "draft_model" and (st["spec_dispatches"] < 1 or
+                                         st["spec_draft_tokens"] < 1):
+            raise AssertionError(f"[{tag}] no verify dispatch drafted "
+                                 "anything")
+        for g in gen:
+            if len(g) != n_new or g.min() < 0 or g.max() >= cfg.vocab_size:
+                raise AssertionError(f"[{tag}] a result is not prompt + "
+                                     f"{n_new} tokens of the vocabulary")
+        _check_rope_launches(tag, launches, cfg.num_hidden_layers)
+        if kv_dtype is None:
+            _require_launched(tag, launches, SPEC_KERNELS)
+        else:
+            _require_launched(tag, launches, SPEC_INT8_KERNELS)
+            _require_idle(tag, launches, FLOAT_PAGED_KERNELS)
+        _require_sm90_ragged(tag, launches)
+        _first_divergences(tag, model, prompts, gen, twin, kv_dtype)
+        del eng, spec
+    _fresh_pools(model)
+    return total
 
 
 def _print_profile(tag, prof, wall, note, steps=None):

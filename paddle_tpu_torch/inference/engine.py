@@ -38,22 +38,44 @@ What it keeps from the JAX engine:
   steps (a power of two) run back to back through ``model.paged_decode``.
 - **recompute preemption** when the page pool runs out, and requeueing of
   dense admissions that find the pool exhausted.
+- **speculative decoding** (``spec_decode=``: a ``speculative.Drafter``,
+  ``"ngram"``/``"ngram:<n>"``, or None to consult
+  ``PADDLE_TPU_SPEC_DECODE``): in a greedy pool each decode step drafts up
+  to ``spec_k`` tokens a slot and verifies every row in ONE ragged launch
+  (``model.paged_verify``, q_len = 1 + drafts), committing the longest
+  greedy-matching prefix plus the bonus token; rejected pages are trimmed
+  (``BlockManager.trim``), and a slot whose acceptance EWMA falls below
+  ``spec_min_accept`` serves ``spec_cooldown`` plain rows. Sampling pools,
+  no drafts and drafter errors fall back to the plain chunk.
+- **the request lifecycle**: trace ids and tenants (``add_request``),
+  ``stream``/``astream``/``stream_request`` from any number of threads
+  (every consumer steps the shared engine under one lock),
+  ``cancel_request``/``cancel_by_trace`` (freed within one step),
+  deadlines (``deadline_ms`` of an imported snapshot, swept at the top of
+  every step: ``DeadlineExceededError``), sequence checkpoint/restore
+  without KV (``export_request``/``remove_request``/``import_request``,
+  the wire format of ``make_sequence_snapshot``, interchangeable with the
+  JAX engine's) and ``swap_weights`` (prefix index, draft state and the
+  weight epoch reset under the step lock).
 
 What differs in this slice:
 
 - no JIT: steps run eagerly and pools are updated in place, under
   ``torch.inference_mode()`` (``step`` and ``fork_request``, the two
-  methods that write pools; ``run``, ``generate`` and the model's
-  ``generate_batch`` reach the device only through ``step``): the model's
-  parameters are trainable, and a pool written inside an autograd graph
-  would hold that graph across steps. The dense and
-  ragged batches are still padded to power-of-two (rows, tokens) buckets
-  and decode chunks to power-of-two lengths, as in JAX, so the shapes the
-  kernels see stay few (CUDA graphs over them come later).
-- the JAX engine's options for speculative decoding, the prefix store,
-  deadlines, streaming, export/import and metrics are not served yet:
-  asking for one raises NotImplementedError naming the slice that brings
-  it.
+  methods that write pools; ``run``, ``generate``, the streams and the
+  model's ``generate_batch`` reach the device only through ``step``): the
+  model's parameters are trainable, and a pool written inside an autograd
+  graph would hold that graph across steps. The dense and ragged batches
+  are still padded to power-of-two (rows, tokens) buckets and decode
+  chunks to power-of-two lengths, as in JAX, so the shapes the kernels see
+  stay few (CUDA graphs over them come later). The verify dispatch is an
+  eager method too: ``paged_verify``, the argmax on the device, one
+  ``[c, s_pad]`` host copy.
+- the JAX engine's prefix store, KV-page export/import (``with_kv=``, a
+  snapshot's ``kv``) and metrics registry are not served yet: asking for
+  one raises NotImplementedError naming the slice that brings it.
+  ``engine.stats`` holds what the registry's counters hold in JAX for the
+  parts served here (the spec counters among them).
 
 Model contract: ``paged_spec()``, ``paged_prefill(ids, lengths)`` ->
 (last-real-token logits [C, V], ks, vs [L, C, S_pad, H_kv, hd]),
@@ -69,6 +91,7 @@ rows, updated in place) and return them after the pools.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -147,6 +170,62 @@ def _prefix_chain(tokens, page_size):
         toks = tuple(int(t) for t in tokens[lo:lo + page_size])
         parent, h = h, hash((h, toks))
         yield h, parent, toks
+
+
+def new_trace_id():
+    """16-hex-character opaque request trace id, unique across processes
+    (the JAX package's ``observability.tracing.new_trace_id`` with
+    telemetry on)."""
+    return os.urandom(8).hex()
+
+
+def sanitize_tenant(tenant):
+    """Canonical tenant label: characters other than alphanumerics and
+    ``._-`` become ``_``, at most 64 of them; None stays None (the JAX
+    package's ``observability.tracing.sanitize_tenant``)."""
+    if tenant is None:
+        return None
+    out = "".join(c if (c.isalnum() or c in "._-") else "_"
+                  for c in str(tenant))
+    return out[:64] or "_"
+
+
+class DeadlineExceededError(RuntimeError):
+    """A request blew its end-to-end ``deadline_ms`` budget and was
+    expired at a step boundary (slot and pages freed; the tokens already
+    delivered stay delivered)."""
+
+
+class RequestCancelledError(RuntimeError):
+    """A request was torn down by ``cancel_request``/``cancel_by_trace``
+    before reaching its token budget."""
+
+
+def make_sequence_snapshot(tokens, prompt0=None, remaining=0,
+                           temperature=0.0, eos_token_id=None, priority=0,
+                           slo_ms=None, done=False, age_s=0.0,
+                           ttft_s=None, trace=None, tenant=None,
+                           deadline_ms=None):
+    """The serialized per-sequence engine state that ``export_request``
+    produces and ``import_request`` consumes — the JAX engine's wire
+    format, field for field, in plain Python ints, floats and lists, so a
+    snapshot crosses between the two packages. `tokens` holds only
+    verified-committed tokens (prompt + delivered output); draft tokens
+    never enter it. Clocks travel as ages (``age_s``, ``ttft_s``) and the
+    deadline as a budget relative to the original submission."""
+    tokens = [int(t) for t in tokens]
+    return {
+        "v": 1, "tokens": tokens,
+        "prompt0": int(len(tokens) if prompt0 is None else prompt0),
+        "remaining": int(remaining),
+        "temperature": float(temperature),
+        "eos_token_id": eos_token_id,
+        "priority": int(priority), "slo_ms": slo_ms,
+        "done": bool(done), "age_s": float(age_s), "ttft_s": ttft_s,
+        "deadline_ms": deadline_ms,
+        "trace": trace,
+        "tenant": tenant,
+    }
 
 
 class BlockManager:
@@ -267,10 +346,21 @@ class BlockManager:
         return pids, offs
 
     def release(self, slot):
-        """Unmap every page of `slot`: a still-shared page is only
-        unmapped; an indexed refcount-0 page keeps its content and parks
-        MRU in the cached LRU pool; the rest return to the free list."""
-        for blk in range(int(self.n_blocks[slot]) - 1, -1, -1):
+        """Unmap every page of `slot` (``trim(slot, 0)``)."""
+        self.trim(slot, 0)
+
+    def trim(self, slot, n_tokens):
+        """Unmap the slot's pages BEYOND those covering positions ``[0,
+        n_tokens)``; returns how many were unmapped. ``n_tokens > 0`` is
+        the speculative rollback: pages taken for rejected draft positions
+        go back now. A still-shared page is only unmapped; an indexed
+        refcount-0 page keeps its content and parks MRU in the cached LRU
+        pool; the rest return to the free list."""
+        keep = 0 if n_tokens <= 0 else -(-int(n_tokens) // self.page_size)
+        n = int(self.n_blocks[slot])
+        if keep >= n:
+            return 0
+        for blk in range(n - 1, keep - 1, -1):
             pid = int(self.block_tables[slot, blk])
             self.refcount[pid] -= 1
             if self.refcount[pid] <= 0:
@@ -281,7 +371,8 @@ class BlockManager:
                 else:
                     self._free.append(pid)
             self.block_tables[slot, blk] = 0
-        self.n_blocks[slot] = 0
+        self.n_blocks[slot] = keep
+        return n - keep
 
     def fork(self, src_slot, dst_slot):
         """Map dst_slot onto src_slot's pages copy-on-write."""
@@ -319,6 +410,16 @@ class BlockManager:
         if pids:
             self.block_tables[slot, :len(pids)] = pids
             self.n_blocks[slot] = len(pids)
+
+    def invalidate_index(self):
+        """Drop every prefix-index entry and return the parked cached
+        pages to the free list (a weight swap: their KV was computed under
+        the old weights). Live sequences keep their pages."""
+        self._index.clear()
+        self._hash_of.clear()
+        while self._cached:
+            pid, _ = self._cached.popitem(last=False)
+            self._free.append(pid)
 
     def register_prefix(self, slot, tokens):
         """Index every FULL page of `slot` whose KV for `tokens` is fully
@@ -358,6 +459,17 @@ class GenRequest:
     n_cached: int = 0             # of those, served by the prefix cache
     prompt0: int = 0              # ORIGINAL prompt length (preemption
     #                               folds generated tokens into `prompt`)
+    weight_epoch: int = 0         # the engine's weight epoch at admission:
+    #                               KV begun under older weights never
+    #                               registers in the prefix index
+    trace: str | None = None      # request trace id (set at submission or
+    #                               taken from an imported snapshot)
+    tenant: str | None = None     # owning tenant, as sanitize_tenant gives
+    deadline_ms: float | None = None  # end-to-end budget from t_submit,
+    #                               swept at step boundaries
+    deadline_exceeded: bool = False   # set before `done` by the sweep
+    cancelled: bool = False       # set before `done` by a cancel verb
+    cancel_reason: str | None = None
 
     @property
     def n_tokens(self):
@@ -365,7 +477,28 @@ class GenRequest:
 
     @property
     def n_generated(self):
+        """Tokens generated so far, including any that a preemption folded
+        into `prompt`."""
         return len(self.prompt) - self.prompt0 + len(self.out)
+
+    def generated_token(self, i):
+        """The i-th token of the request's generated sequence, stable
+        across preemptions. Lock-free readers race the preemption fold
+        (out -> prompt); both sides of the fold rebind rather than mutate,
+        so a torn view (out cleared, prompt not yet extended) is retried
+        until the writer finishes."""
+        for _ in range(100000):
+            prompt, out = self.prompt, self.out
+            folded = len(prompt) - self.prompt0
+            if i < folded:
+                return int(prompt[self.prompt0 + i])
+            j = i - folded
+            if j < len(out):
+                return out[j]
+            time.sleep(0)
+        raise IndexError(
+            f"generated token {i} of request {self.rid} never appeared "
+            f"({self.n_generated} generated)")
 
     def effective_priority(self, now):
         if self.slo_ms is not None and \
@@ -387,8 +520,8 @@ class GenerationEngine:
     def __init__(self, model, max_slots=4, page_size=16, max_seq_len=None,
                  n_pages=None, cache_dtype=None, kv_dtype=None, seed=None,
                  prefix_cache=True, prefill_chunk=256, mixed_step=None,
-                 prefix_store=None, spec_decode=None, spec_k=None,
-                 spec_min_accept=None, spec_cooldown=None):
+                 prefix_store=None, spec_decode=None, spec_k=4,
+                 spec_min_accept=0.25, spec_cooldown=16):
         """prefix_cache: share KV pages across requests with a common
         prompt prefix (copy-on-write, see BlockManager). prefill_chunk: max
         prompt tokens prefilled per dispatch (None: whole prompts).
@@ -397,7 +530,12 @@ class GenerationEngine:
         the model's; the float type of non-int8 pools). kv_dtype: "int8"
         stores the pools as int8 codes with one float32 scale per (layer,
         page) beside them; None consults PADDLE_TPU_KV_INT8 and otherwise
-        keeps float pools. seed: seeds the sampling generator."""
+        keeps float pools. seed: seeds the sampling generator.
+        spec_decode: a ``speculative.Drafter``, "ngram"/"ngram:<n>", False
+        (off), or None to consult PADDLE_TPU_SPEC_DECODE (a bad or unusable
+        ambient value serves plain; an explicit one raises). spec_k: drafts
+        per slot and step; spec_min_accept / spec_cooldown: the per-slot
+        acceptance EWMA below which a slot serves that many plain rows."""
         if kv_dtype is None:
             env = os.environ.get("PADDLE_TPU_KV_INT8", "")
             if env not in ("", "0", "false", "False"):
@@ -408,9 +546,6 @@ class GenerationEngine:
         self.kv_dtype = kv_dtype
         if prefix_store is not None:
             raise _unsupported("prefix_store", "fleet plane")
-        if spec_decode or any(v is not None for v in
-                              (spec_k, spec_min_accept, spec_cooldown)):
-            raise _unsupported("speculative decoding", "speculative decode")
         if not all(hasattr(model, m) for m in
                    ("paged_prefill", "paged_prefill_ragged", "paged_decode")):
             raise TypeError("the model must implement the paged contract "
@@ -474,6 +609,17 @@ class GenerationEngine:
         self._reqs = {}            # rid -> GenRequest
         self._next_rid = 0
         self._step_lock = threading.Lock()
+        self._streaming = set()    # rids a live stream consumes
+        # requests that a stream consumer's step retired for a run()
+        # caller, held for its next drain (bounded: drop-oldest)
+        self._results_bin = OrderedDict()
+        self._deadline_rids = set()    # rids with an armed deadline_ms
+        # lock fairness: urgent acquirers (cancel, import, stream resolve)
+        # register here and step drivers yield after each step meanwhile
+        self._urgent_mu = threading.Lock()
+        self._step_urgent = 0
+        self._weight_epoch = 0         # bumped by swap_weights
+        self._weights_tag = "init"
         self._gen = torch.Generator(device=self.device)
         if seed is None:
             self._gen.seed()
@@ -486,10 +632,49 @@ class GenerationEngine:
                       "ragged_steps": 0,
                       "ragged_s": 0.0, "decode_chunks": 0, "decode_s": 0.0,
                       "decode_tokens": 0, "mixed_decode_tokens": 0,
+                      "decode_steps": 0,
                       "preemptions": 0, "cow_flushes": 0,
+                      "cancels": 0, "deadline_exceeded": 0,
+                      "spec_dispatches": 0, "spec_rows": 0,
+                      "spec_draft_tokens": 0,
+                      "spec_accepted_tokens": 0, "spec_tokens": 0,
+                      "spec_rollbacks": 0, "spec_fallbacks": {},
+                      "spec_verify_s": 0.0, "spec_draft_s": 0.0,
                       "kv_pool_bytes": pool_bytes}
         self.ttft_s = deque(maxlen=4096)   # first-token latency per request
         model.eval()
+
+        self.spec_k = max(1, int(spec_k))
+        self.spec_min_accept = float(spec_min_accept)
+        self.spec_cooldown = max(1, int(spec_cooldown))
+        self._spec = None
+        self._spec_state = {}          # slot -> {"ewma", "cool"}
+        self.spec_env_ignored = None   # (value, reason) of a refused flag
+        self.spec_last_error = None    # the last drafter exception
+        from .speculative import make_drafter, spec_decode_from_env
+        from_env = spec_decode is None
+        if from_env:
+            spec_decode = spec_decode_from_env(
+                os.environ.get("PADDLE_TPU_SPEC_DECODE"))
+        if spec_decode:
+            if not hasattr(model, "paged_verify"):
+                if not from_env:
+                    raise ValueError(
+                        "spec_decode requires the ragged paged contract on "
+                        "the model (paged_verify + paged_prefill_ragged)")
+                self.spec_env_ignored = (str(spec_decode)[:40],
+                                         "model_contract")
+            else:
+                try:
+                    self._spec = make_drafter(spec_decode)
+                except ValueError:
+                    if not from_env:
+                        raise
+                    # an ambient typo serves plain, never fails startup
+                    self.spec_env_ignored = (str(spec_decode)[:40],
+                                             "unknown_value")
+        if self._spec is not None:
+            self._spec.bind(self)
 
     def reseed(self, seed):
         self._gen.manual_seed(int(seed))
@@ -674,38 +859,15 @@ class GenerationEngine:
         if not work:
             return
 
-        c = _next_pow2(len(work), floor=1)
-        s_pad = _next_pow2(max(len(w[2]) for w in work), floor=1)
-        ids = np.zeros((c, s_pad), np.int64)
-        q_lens = np.ones(c, np.int32)       # dummy rows: 1 trash token
-        start_pos = np.zeros(c, np.int32)
-        bt = np.zeros((c, self._pages_per_slot), np.int32)  # trash page 0
-        wpid = np.zeros((c, s_pad), np.int64)
-        woff = np.zeros((c, s_pad), np.int64)
-        temps = np.zeros(c, np.float32)
-        for i, (slot, _kind, toks, start, pids, offs) in enumerate(work):
-            n = len(toks)
-            ids[i, :n] = toks
-            q_lens[i] = n
-            start_pos[i] = start
-            nb = int(self.blocks.n_blocks[slot])
-            bt[i, :nb] = self.blocks.block_tables[slot, :nb]
-            wpid[i, :n] = pids
-            woff[i, :n] = offs
-            temps[i] = self._slots[slot].temperature
+        arrays = self._ragged_arrays(
+            [(slot, toks, start, pids, offs)
+             for slot, _kind, toks, start, pids, offs in work])
+        temps = np.zeros(len(arrays[0]), np.float32)
+        for i, w in enumerate(work):
+            temps[i] = self._slots[w[0]].temperature
         self._flush_cow()   # CoW copies land before this dispatch writes
-
-        t0 = time.perf_counter()
-        logits = self.model.paged_prefill_ragged(
-            self._put(ids), self._put(q_lens), self._put(start_pos),
-            self.k_pages, self.v_pages, self._put(bt), self._put(wpid),
-            self._put(woff), **self._scales())[0]
-        toks_np = sample_tokens(
-            logits, self._put(temps) if np.any(temps > 0) else None,
-            self._gen).cpu().numpy()        # host sync closes the window
+        toks_np = self._ragged_launch(*arrays, temps)
         now = time.perf_counter()
-        self.stats["ragged_steps"] += 1
-        self.stats["ragged_s"] += now - t0
 
         for i, (slot, kind, toks, start, _p, _o) in enumerate(work):
             req = self._slots[slot]
@@ -730,6 +892,63 @@ class GenerationEngine:
                 self._last_tok[slot] = tok
                 self._n_ctx[slot] += 1
                 self._retire_if_done(req)
+
+    def _ragged_arrays(self, rows):
+        """Host arrays of one ragged dispatch over rows (slot, tokens,
+        start, pids, offs), padded to a power-of-two (c, s_pad) bucket:
+        (ids, q_lens, start_pos, block tables, write pids, write offsets).
+        Dummy rows take q_len 1 and write the trash page 0."""
+        c = _next_pow2(len(rows), floor=1)
+        s_pad = _next_pow2(max(len(r[1]) for r in rows), floor=1)
+        ids = np.zeros((c, s_pad), np.int64)
+        q_lens = np.ones(c, np.int32)       # dummy rows: 1 trash token
+        start_pos = np.zeros(c, np.int32)
+        bt = np.zeros((c, self._pages_per_slot), np.int32)  # trash page 0
+        wpid = np.zeros((c, s_pad), np.int64)
+        woff = np.zeros((c, s_pad), np.int64)
+        for i, (slot, toks, start, pids, offs) in enumerate(rows):
+            n = len(toks)
+            ids[i, :n] = toks
+            q_lens[i] = n
+            start_pos[i] = start
+            nb = int(self.blocks.n_blocks[slot])
+            bt[i, :nb] = self.blocks.block_tables[slot, :nb]
+            wpid[i, :n] = pids
+            woff[i, :n] = offs
+        return ids, q_lens, start_pos, bt, wpid, woff
+
+    def _ragged_launch(self, ids, q_lens, start_pos, bt, wpid, woff,
+                       temps):
+        """Run one ragged step (``model.paged_prefill_ragged``) on explicit
+        host arrays and sample each row's next token from its last real
+        position. Returns the tokens [c] (a host copy, which syncs)."""
+        t0 = time.perf_counter()
+        logits = self.model.paged_prefill_ragged(
+            self._put(ids), self._put(q_lens), self._put(start_pos),
+            self.k_pages, self.v_pages, self._put(bt), self._put(wpid),
+            self._put(woff), **self._scales())[0]
+        toks_np = sample_tokens(
+            logits, self._put(temps) if np.any(temps > 0) else None,
+            self._gen).cpu().numpy()        # host sync closes the window
+        self.stats["ragged_steps"] += 1
+        self.stats["ragged_s"] += time.perf_counter() - t0
+        return toks_np
+
+    def _verify_launch(self, ids, q_lens, start_pos, bt, wpid, woff):
+        """The speculative verify dispatch on explicit host arrays: the
+        ragged step with the head at every position (``model.paged_verify``)
+        and its greedy argmax on the device. Returns the argmaxes
+        [c, s_pad] (one host copy, which syncs); only positions below a
+        row's q_len mean anything."""
+        t0 = time.perf_counter()
+        logits = self.model.paged_verify(
+            self._put(ids), self._put(q_lens), self._put(start_pos),
+            self.k_pages, self.v_pages, self._put(bt), self._put(wpid),
+            self._put(woff), **self._scales())[0]
+        toks_np = torch.argmax(logits.float(), dim=-1).cpu().numpy()
+        self.stats["spec_dispatches"] += 1
+        self.stats["spec_verify_s"] += time.perf_counter() - t0
+        return toks_np
 
     def _grow_for_chunk(self, active, k):
         """Allocate every page the next k tokens of each active slot cross
@@ -764,33 +983,11 @@ class GenerationEngine:
     def _decode_chunk(self, active, k):
         """k decode steps for the whole slot pool; idle slots write the
         trash page and keep their token."""
-        page = self.page_size
-        dev_active = self._put(self._active)
-        tokens = self._put(self._last_tok)
-        positions = self._put(self._n_ctx)
-        bt = self._put(self.blocks.block_tables)
-        rows = torch.arange(self.max_slots, device=self.device)
         temps = None
         if np.any(self._temps[np.asarray(active)] > 0):
-            temps = self._put(self._temps)
-        zero = torch.zeros((), dtype=torch.long, device=self.device)
-        t0 = time.perf_counter()
-        out = []
-        for _ in range(k):
-            ctx = torch.where(dev_active, positions + 1, zero).to(torch.int32)
-            wp = torch.where(dev_active,
-                             bt[rows, positions // page].long(), zero)
-            wo = torch.where(dev_active, positions % page, zero)
-            logits = self.model.paged_decode(
-                tokens, positions, self.k_pages, self.v_pages, bt, ctx, wp,
-                wo, **self._scales())[0]
-            tokens = torch.where(
-                dev_active, sample_tokens(logits, temps, self._gen), tokens)
-            positions = torch.where(dev_active, positions + 1, positions)
-            out.append(tokens)
-        toks_np = torch.stack(out).cpu().numpy()    # [k, B]; host sync
-        self.stats["decode_chunks"] += 1
-        self.stats["decode_s"] += time.perf_counter() - t0
+            temps = self._temps
+        toks_np = self._decode_launch(self._last_tok, self._n_ctx,
+                                      self._active, k, temps)
 
         for i in active:
             req = self._slots[i]
@@ -804,15 +1001,202 @@ class GenerationEngine:
                     break              # tail of the chunk is discarded
             self._retire_if_done(req)
 
+    def _decode_launch(self, tokens, positions, active, steps, temps=None):
+        """`steps` decode steps of the whole slot pool on explicit host
+        arrays (tokens, positions, active [max_slots]; temps [max_slots] or
+        None for greedy). Each step writes an active slot's token at its
+        position through the block table (whose pages the caller has
+        assigned) and attends over position + 1 keys; idle slots write the
+        trash page and keep their token. Returns the tokens [steps,
+        max_slots] (one host copy, which syncs)."""
+        page = self.page_size
+        dev_active = self._put(active)
+        tokens = self._put(tokens, torch.long)
+        positions = self._put(positions, torch.long)
+        bt = self._put(self.blocks.block_tables)
+        rows = torch.arange(self.max_slots, device=self.device)
+        if temps is not None:
+            temps = self._put(temps)
+        zero = torch.zeros((), dtype=torch.long, device=self.device)
+        t0 = time.perf_counter()
+        out = []
+        for _ in range(steps):
+            ctx = torch.where(dev_active, positions + 1, zero).to(torch.int32)
+            wp = torch.where(dev_active,
+                             bt[rows, positions // page].long(), zero)
+            wo = torch.where(dev_active, positions % page, zero)
+            logits = self.model.paged_decode(
+                tokens, positions, self.k_pages, self.v_pages, bt, ctx, wp,
+                wo, **self._scales())[0]
+            tokens = torch.where(
+                dev_active, sample_tokens(logits, temps, self._gen), tokens)
+            positions = torch.where(dev_active, positions + 1, positions)
+            out.append(tokens)
+        toks_np = torch.stack(out).cpu().numpy()    # [steps, B]; host sync
+        self.stats["decode_chunks"] += 1
+        self.stats["decode_steps"] += steps
+        self.stats["decode_s"] += time.perf_counter() - t0
+        return toks_np
+
+    # ------------------------------------------------------------------
+    # speculative decoding: draft-and-verify decode dispatch
+    # ------------------------------------------------------------------
+
+    def _spec_fallback(self, reason):
+        fb = self.stats["spec_fallbacks"]
+        fb[reason] = fb.get(reason, 0) + 1
+
+    def _spec_drop(self, slot):
+        """Forget a slot's draft state (retire, preempt, cancel, remove):
+        the drafter's per-slot state and the acceptance EWMA key on the
+        slot id, which is about to be reused."""
+        if self._spec is not None:
+            self._spec.drop_slot(slot)
+            self._spec_state.pop(slot, None)
+
+    def _spec_step(self, active):
+        """ONE draft-and-verify dispatch for the decode batch: draft up to
+        ``spec_k`` tokens a slot, verify every row in one ragged launch
+        (q_len = 1 + drafts), commit the longest greedy-matching draft
+        prefix plus the bonus token, stopping mid-bundle at EOS or the
+        budget, and trim the pages of rejected positions. Returns False
+        to fall back to the plain chunk: a sampling pool (verify is greedy
+        only), no slot proposing a draft, or a drafter error. Slots whose
+        acceptance EWMA collapsed serve a plain-row cooldown."""
+        arr = np.asarray(active)
+        if bool(np.any(self._temps[arr] > 0)):
+            self._spec_fallback("sampling")
+            return False
+
+        # per-slot budget: never past the new-token budget (accepting a
+        # drafts commits a + 1 tokens) or the slot's page capacity
+        live, caps = {}, {}
+        for i in active:
+            req = self._slots[i]
+            st = self._spec_state.setdefault(i, {"ewma": 1.0, "cool": 0})
+            if st["cool"] > 0:
+                st["cool"] -= 1
+                if st["cool"] == 0:
+                    st["ewma"] = 1.0     # parole: draft again
+                caps[i] = 0
+                continue
+            remaining = req.max_new_tokens - len(req.out)
+            n = int(self._n_ctx[i]) + 1
+            caps[i] = max(0, min(self.spec_k, remaining - 1,
+                                 self.max_seq_len - n))
+            if caps[i] > 0:
+                # a drafter reading only recent history declares it, so a
+                # long context is not copied per slot per dispatch
+                w = self._spec.history_window
+                out_arr = np.asarray(
+                    req.out if w is None else req.out[-w:], np.int32)
+                head = req.prompt if w is None else \
+                    req.prompt[max(0, len(req.prompt)
+                                   - (w - out_arr.size)):]
+                live[i] = np.concatenate([head, out_arr]) \
+                    if len(head) else out_arr
+        t0 = time.perf_counter()
+        try:
+            # no more than the largest per-slot budget: a model drafter
+            # runs a decode step per requested token
+            k_ask = min(self.spec_k, max(caps.values())) if live else 0
+            proposals = self._spec.propose(live, k_ask) if live else {}
+        except Exception as e:  # noqa: BLE001 — drafting is optional,
+            #                     decoding is not
+            self.spec_last_error = e
+            self._spec_fallback("drafter_error")
+            return False
+        finally:
+            self.stats["spec_draft_s"] += time.perf_counter() - t0
+        drafts = {i: [int(t) for t in proposals.get(i, ())][:caps[i]]
+                  for i in active}
+        if not any(drafts.values()):
+            self._spec_fallback("no_drafts")
+            return False
+
+        work = []      # (slot, drafts, pids, offs)
+        for slot in active:
+            if self._slots[slot] is None:   # preempted by an earlier row
+                continue
+            d = drafts.get(slot, [])
+            got = self._assign_or_preempt(work, slot,
+                                          int(self._n_ctx[slot]), 1 + len(d))
+            if got is None:
+                continue
+            work.append((slot, d) + got)
+        if not work:
+            return True            # everything preempted: step spent
+
+        arrays = self._ragged_arrays(
+            [(slot, [self._last_tok[slot]] + d, int(self._n_ctx[slot]),
+              pids, offs) for slot, d, pids, offs in work])
+        self._flush_cow()   # CoW copies land before this dispatch writes
+        toks_np = self._verify_launch(*arrays)
+        self.stats["spec_rows"] += len(work)
+
+        st_all = self.stats
+        for i, (slot, d, _pids, _offs) in enumerate(work):
+            req = self._slots[slot]
+            if req is None:
+                continue
+            m = len(d)
+            g = toks_np[i]
+            a = 0
+            while a < m and d[a] == int(g[a]):
+                a += 1
+            # commit g[0..a]: the confirmed drafts and the bonus token,
+            # stopping mid-bundle at EOS or at the budget
+            for t in g[:a + 1]:
+                req.out.append(int(t))
+                st_all["spec_tokens"] += 1
+                if (req.eos_token_id is not None
+                        and req.out[-1] == req.eos_token_id):
+                    break          # the tail of the bundle is discarded
+                if len(req.out) >= req.max_new_tokens:
+                    break
+            self._last_tok[slot] = req.out[-1]
+            self._n_ctx[slot] = len(req.prompt) + len(req.out) - 1
+            if m:
+                st_all["spec_draft_tokens"] += m
+                st_all["spec_accepted_tokens"] += a
+                st = self._spec_state.setdefault(
+                    slot, {"ewma": 1.0, "cool": 0})
+                st["ewma"] = 0.7 * st["ewma"] + 0.3 * (a / m)
+                if a < m:
+                    st_all["spec_rollbacks"] += 1
+                    # rejected positions' pages go back now; stale KV in
+                    # kept pages sits past the context and is masked by
+                    # position, then overwritten by the next write
+                    self.blocks.trim(slot, int(self._n_ctx[slot]) + 1)
+                if st["ewma"] < self.spec_min_accept:
+                    st["cool"] = self.spec_cooldown
+                self._spec.observe(slot, a, m)
+            self._retire_if_done(req)
+        return True
+
     # ------------------------------------------------------------------
     # requests and scheduling
     # ------------------------------------------------------------------
 
     def add_request(self, prompt, max_new_tokens=32, temperature=0.0,
-                    eos_token_id=None, priority=0, slo_ms=None):
+                    eos_token_id=None, priority=0, slo_ms=None,
+                    trace_id=None, tenant=None):
         """Queue a prompt (1-D int array / list / tensor). Returns a
         request id; admission happens inside step()/run(), ordered by
-        (effective priority, arrival)."""
+        (effective priority, arrival). `trace_id` carries an existing
+        trace through the request (else one is minted); `tenant` names its
+        owner."""
+        return self._submit(prompt, max_new_tokens, temperature,
+                            eos_token_id, priority, slo_ms,
+                            trace_id=trace_id, tenant=tenant).rid
+
+    def _submit(self, prompt, max_new_tokens, temperature, eos_token_id,
+                priority, slo_ms, streaming=False, trace_id=None,
+                tenant=None):
+        """Shared add_request/stream submission. Returns the GenRequest; a
+        streaming submission registers its rid in `_streaming` under the
+        same lock, so no concurrent consumer's step can retire and drain
+        it before the stream holds it."""
         arr = np.asarray(prompt.cpu() if torch.is_tensor(prompt) else prompt,
                          dtype=np.int64).reshape(-1)
         if arr.size == 0:
@@ -828,14 +1212,18 @@ class GenerationEngine:
                              float(temperature), eos_token_id,
                              priority=int(priority), slo_ms=slo_ms,
                              order=rid, t_submit=time.perf_counter(),
-                             prompt0=int(arr.size))
+                             prompt0=int(arr.size),
+                             trace=trace_id or new_trace_id(),
+                             tenant=sanitize_tenant(tenant))
             self._reqs[rid] = req
             if max_new_tokens <= 0:
                 req.done = True
                 self._finished[rid] = req
             else:
                 self._waiting.append(req)
-        return rid
+            if streaming:
+                self._streaming.add(rid)
+        return req
 
     def _sorted_waiting(self):
         """Admission order: (effective priority, arrival order)."""
@@ -851,6 +1239,7 @@ class GenerationEngine:
             req.done = True
             self._finished[req.rid] = req
             if req.slot >= 0:
+                self._spec_drop(req.slot)  # draft state keys on the slot
                 self._register_live(req)   # the next request with this
                 #                            context hits the cache
                 self.blocks.release(req.slot)
@@ -863,8 +1252,10 @@ class GenerationEngine:
     def _register_live(self, req):
         """Index the full pages covering this slot's prompt+generated
         tokens before its pages are released, capped at the last token
-        guaranteed fed through the model."""
-        if not self.prefix_cache or req.slot < 0:
+        guaranteed fed through the model. A sequence admitted under an
+        older weight epoch never registers: its KV predates the swap."""
+        if not self.prefix_cache or req.slot < 0 \
+                or req.weight_epoch != self._weight_epoch:
             return
         toks = np.concatenate([req.prompt, np.asarray(req.out, np.int32)])
         n_ok = min(int(self._n_ctx[req.slot]), len(toks) - 1)
@@ -878,6 +1269,7 @@ class GenerationEngine:
         maps back whatever survived."""
         req = self._slots[slot]
         self.stats["preemptions"] += 1
+        self._spec_drop(slot)
         self._register_live(req)
         self.blocks.release(slot)
         self._prefilling.discard(slot)
@@ -943,7 +1335,9 @@ class GenerationEngine:
                       else temperature), parent.eos_token_id,
                 priority=parent.priority if priority is None else priority,
                 slo_ms=slo_ms, order=child_rid,
-                t_submit=time.perf_counter(), prompt0=len(child_prompt))
+                t_submit=time.perf_counter(), prompt0=len(child_prompt),
+                trace=new_trace_id(), tenant=parent.tenant,
+                weight_epoch=parent.weight_epoch)   # shares parent's KV
             child.slot = slot
             child.n_prefilled = len(child.prompt)
             child.n_cached = int(self._n_ctx[parent.slot])
@@ -955,6 +1349,367 @@ class GenerationEngine:
             self._active[slot] = True
             return child_rid
 
+    # ------------------------------------------------------------------
+    # early teardown: deadlines swept at step boundaries, and cancellation
+    # ------------------------------------------------------------------
+
+    def _teardown_locked(self, req):
+        """Free a request's engine state now (the caller holds
+        ``_step_lock``), whatever its phase: mid-prefill, mid-spec, queued
+        or decoding. The outcome flag is set before ``done``: a lock-free
+        stream reader that sees ``done`` can already read why."""
+        if req.slot >= 0:
+            self._spec_drop(req.slot)
+            self._register_live(req)   # computed KV is still valid KV
+            self._flush_cow()          # before any page recycles
+            self.blocks.release(req.slot)
+            self._prefilling.discard(req.slot)
+            self._slots[req.slot] = None
+            self._n_ctx[req.slot] = 0
+            self._active[req.slot] = False
+            req.slot = -1
+        if req in self._waiting:
+            self._waiting.remove(req)
+        req.done = True
+        self._finished[req.rid] = req
+        self._deadline_rids.discard(req.rid)
+
+    def _expire_deadlines(self):
+        """Expire every request past its ``deadline_ms`` (the caller holds
+        ``_step_lock``; ``step`` sweeps first, so an expiry lands before
+        the next dispatch, between prefill chunks and spec bundles too)."""
+        now = time.perf_counter()
+        for rid in list(self._deadline_rids):
+            req = self._reqs.get(rid)
+            if req is None or req.done or req.deadline_ms is None:
+                self._deadline_rids.discard(rid)
+                continue
+            if (now - req.t_submit) * 1e3 <= req.deadline_ms:
+                continue
+            req.deadline_exceeded = True
+            self._teardown_locked(req)
+            self.stats["deadline_exceeded"] += 1
+
+    def cancel_request(self, rid, reason=None):
+        """Tear down a live request within one step. Returns True if it
+        was live and is now freed, False for an unknown or finished rid
+        (cancel is idempotent). `reason` is kept on the request
+        (``cancel_reason``)."""
+        with self._urgent_lock():
+            req = self._reqs.get(rid)
+            if req is None or req.done:
+                return False
+            req.cancelled = True
+            req.cancel_reason = reason
+            self._teardown_locked(req)
+            self.stats["cancels"] += 1
+            return True
+
+    def cancel_by_trace(self, trace, reason=None):
+        """Cancel the live request carrying this trace id (engine rids are
+        local to a process, trace ids are not)."""
+        if trace is None:
+            return False
+        with self._urgent_lock():
+            for req in self._reqs.values():
+                if req.trace == trace and not req.done:
+                    req.cancelled = True
+                    req.cancel_reason = reason
+                    self._teardown_locked(req)
+                    self.stats["cancels"] += 1
+                    return True
+        return False
+
+    @staticmethod
+    def _raise_if_cut(req):
+        """A stream's view of early teardown: an expired or cancelled
+        request raises, never reads as a normal end."""
+        if req.deadline_exceeded:
+            raise DeadlineExceededError(
+                f"request {req.rid} exceeded deadline_ms="
+                f"{req.deadline_ms} after {req.n_generated} tokens")
+        if req.cancelled:
+            raise RequestCancelledError(
+                f"request {req.rid} cancelled after "
+                f"{req.n_generated} tokens")
+
+    # ------------------------------------------------------------------
+    # streaming front end
+    # ------------------------------------------------------------------
+
+    def _bin_finished(self, finished):
+        """Hold requests that a stream consumer's step retired for a run()
+        caller until its next drain (drop-oldest beyond 1024: an abandoned
+        request is never collected)."""
+        for r in finished:
+            if r.rid not in self._streaming:
+                self._results_bin[r.rid] = r
+                while len(self._results_bin) > 1024:
+                    self._results_bin.popitem(last=False)
+
+    @contextlib.contextmanager
+    def _urgent_lock(self):
+        """The step lock for admission-critical acquirers (import, stream
+        resolve, cancel): step-driving loops yield after their next
+        release instead of re-acquiring at once (CPython locks are not
+        fair), which bounds a cancel's wait to about one step."""
+        with self._urgent_mu:
+            self._step_urgent += 1
+        try:
+            self._step_lock.acquire()
+        finally:
+            with self._urgent_mu:
+                self._step_urgent -= 1
+        try:
+            yield
+        finally:
+            self._step_lock.release()
+
+    def _step_or_wait(self, req, n):
+        """One step() under the cross-consumer lock for a stream consumer
+        racing other step drivers: wait for the lock in short slices and
+        return as soon as `req` advanced past `n` tokens (or finished), so
+        tokens another thread's step produced are delivered now; skip the
+        step when `req` already finished."""
+        while not self._step_lock.acquire(timeout=0.02):
+            if req.done or req.n_generated > n:
+                return
+        try:
+            if req.done:
+                return
+            self._bin_finished(self.step())
+        finally:
+            self._step_lock.release()
+            if self._step_urgent:
+                time.sleep(0.001)   # lock fairness — see _urgent_lock
+
+    def _follow(self, req, rid, start, pairs):
+        """Yield a request's generated tokens from index `start` as steps
+        produce them (``(index, token)`` pairs when `pairs`), stepping the
+        shared engine meanwhile; raise if it was cut."""
+        try:
+            n = start
+            while True:
+                while n < req.n_generated:
+                    tok = req.generated_token(n)
+                    yield (n, tok) if pairs else tok
+                    n += 1
+                if req.done:
+                    self._raise_if_cut(req)
+                    return
+                self._step_or_wait(req, n)
+        finally:
+            self._streaming.discard(rid)
+            if req.done:
+                self._reqs.pop(rid, None)   # see _drain_finished
+
+    def stream(self, prompt, max_new_tokens=32, temperature=0.0,
+               eos_token_id=None, priority=0, slo_ms=None, trace_id=None,
+               tenant=None):
+        """Submit a request and yield its generated token ids as they are
+        produced. Safe from several threads: every consumer steps the
+        shared engine under one lock, and a token any thread's step
+        produced reaches every stream. Tokens are read through the
+        request's generated sequence, so a preemption drops nothing."""
+        req = self._submit(prompt, max_new_tokens, temperature,
+                           eos_token_id, priority, slo_ms, streaming=True,
+                           trace_id=trace_id, tenant=tenant)
+        yield from self._follow(req, req.rid, 0, pairs=False)
+
+    async def astream(self, prompt, max_new_tokens=32, temperature=0.0,
+                      eos_token_id=None, priority=0, slo_ms=None,
+                      trace_id=None, tenant=None):
+        """Async stream(): an async generator of token ids whose engine
+        steps run in a worker thread, so the event loop stays free."""
+        import asyncio
+        req = self._submit(prompt, max_new_tokens, temperature,
+                           eos_token_id, priority, slo_ms, streaming=True,
+                           trace_id=trace_id, tenant=tenant)
+        rid = req.rid
+        try:
+            n = 0
+            while True:
+                while n < req.n_generated:
+                    yield req.generated_token(n)
+                    n += 1
+                if req.done:
+                    self._raise_if_cut(req)
+                    return
+                await asyncio.to_thread(self._step_or_wait, req, n)
+        finally:
+            self._streaming.discard(rid)
+            if req.done:
+                self._reqs.pop(rid, None)   # see _drain_finished
+
+    def stream_request(self, rid, start=0):
+        """Yield ``(index, token)`` of a resident request's generated
+        sequence from index `start`: the exactly-once resume surface (a
+        consumer that delivered `start` tokens, perhaps from another
+        engine, sees none again and misses none). The request is resolved
+        now, under the step lock, not at the first next()."""
+        with self._urgent_lock():
+            req = self._reqs.get(rid) or self._finished.get(rid)
+            if req is None:
+                raise KeyError(f"request {rid} is not resident")
+            self._streaming.add(rid)
+        return self._follow(req, rid, int(start), pairs=True)
+
+    # ------------------------------------------------------------------
+    # sequence checkpoint/restore (no KV: a restored sequence re-prefills,
+    # through the prefix cache where its pages survive)
+    # ------------------------------------------------------------------
+
+    def export_request(self, rid, with_kv=False):
+        """The snapshot (``make_sequence_snapshot``) of a resident
+        request, taken under the step lock: verified tokens only, never
+        drafts. Raises KeyError for an unknown rid."""
+        if with_kv:
+            raise _unsupported("export_request(with_kv=True) (KV pages on "
+                               "the kvpages/v1 wire)", "fleet plane")
+        with self._step_lock:
+            req = self._reqs.get(rid) or self._finished.get(rid)
+            if req is None:
+                raise KeyError(f"request {rid} is not resident "
+                               "(already drained?)")
+            return self._export_locked(req)
+
+    def _export_locked(self, req):
+        now = time.perf_counter()
+        return make_sequence_snapshot(
+            [int(t) for t in req.prompt] + [int(t) for t in req.out],
+            prompt0=int(req.prompt0),
+            remaining=int(req.max_new_tokens) - len(req.out),
+            temperature=float(req.temperature),
+            eos_token_id=None if req.eos_token_id is None
+            else int(req.eos_token_id),
+            priority=req.priority, slo_ms=req.slo_ms, done=req.done,
+            # clocks as ages: perf_counter epochs differ across processes
+            age_s=max(0.0, now - req.t_submit),
+            ttft_s=(None if req.t_first_token is None
+                    else max(0.0, req.t_first_token - req.t_submit)),
+            trace=req.trace, tenant=req.tenant,
+            deadline_ms=req.deadline_ms)
+
+    def find_rid_by_trace(self, trace):
+        """The resident request carrying `trace`. Raises KeyError when
+        none does."""
+        if not trace:
+            raise KeyError("empty trace id")
+        with self._step_lock:
+            for table in (self._reqs, self._finished):
+                for rid, req in table.items():
+                    if req.trace == trace:
+                        return rid
+        raise KeyError(f"no resident request carries trace {trace!r}")
+
+    def remove_request(self, rid, with_kv=False):
+        """Export a request's snapshot AND evict it (a planned migration):
+        pages released, slot freed, queues cleaned. Returns the snapshot;
+        a lingering stream of it ends."""
+        if with_kv:
+            raise _unsupported("remove_request(with_kv=True) (KV pages on "
+                               "the kvpages/v1 wire)", "fleet plane")
+        with self._step_lock:
+            req = self._reqs.get(rid)
+            if req is None:
+                raise KeyError(f"request {rid} is not resident")
+            snap = self._export_locked(req)
+            if req.slot >= 0:
+                self._spec_drop(req.slot)
+                self._register_live(req)    # surviving pages stay
+                self._flush_cow()           # mappable for a re-prefill
+                self.blocks.release(req.slot)
+                self._prefilling.discard(req.slot)
+                self._slots[req.slot] = None
+                self._active[req.slot] = False
+                self._n_ctx[req.slot] = 0
+                req.slot = -1
+            if req in self._waiting:
+                self._waiting.remove(req)
+            req.done = True
+            self._reqs.pop(rid, None)
+            self._finished.pop(rid, None)
+            self._streaming.discard(rid)
+            self._deadline_rids.discard(rid)
+        return snap
+
+    def import_request(self, snap, streaming=False):
+        """Queue a snapshot (from this engine, another, or the JAX
+        engine's ``export_request``). The generated sequence (prompt0 and
+        the delivered tokens) is kept, so ``stream_request(rid,
+        start=cursor)`` resumes exactly once; clocks and the deadline
+        continue from the original submission. Returns the new rid."""
+        if snap.get("kv"):
+            raise _unsupported("a snapshot's KV pages (kvpages/v1)",
+                               "fleet plane")
+        toks = np.asarray(snap["tokens"], np.int64).reshape(-1)
+        if toks.size == 0:
+            raise ValueError("empty sequence snapshot")
+        remaining = int(snap["remaining"])
+        if toks.size + max(remaining, 0) > self.max_seq_len:
+            raise ValueError(
+                f"snapshot ({toks.size} tokens + {remaining} remaining) "
+                f"exceeds engine max_seq_len={self.max_seq_len}")
+        with self._urgent_lock():
+            rid = self._next_rid
+            self._next_rid += 1
+            now = time.perf_counter()
+            req = GenRequest(
+                rid, toks.astype(np.int32), max(remaining, 0),
+                float(snap.get("temperature", 0.0)),
+                snap.get("eos_token_id"),
+                priority=int(snap.get("priority", 0)),
+                slo_ms=snap.get("slo_ms"), order=rid,
+                t_submit=now - float(snap.get("age_s", 0.0)),
+                prompt0=int(snap.get("prompt0", toks.size)),
+                trace=snap.get("trace") or new_trace_id(),
+                tenant=sanitize_tenant(snap.get("tenant")),
+                deadline_ms=snap.get("deadline_ms"))
+            if snap.get("ttft_s") is not None:
+                req.t_first_token = req.t_submit + float(snap["ttft_s"])
+            self._reqs[rid] = req
+            done = bool(snap.get("done")) or remaining <= 0 or (
+                req.eos_token_id is not None and req.n_generated > 0
+                and int(toks[-1]) == req.eos_token_id)
+            if done:
+                # nothing left to compute: resident for replay through
+                # stream_request, retired at once
+                req.done = True
+                self._finished[rid] = req
+            else:
+                self._waiting.append(req)
+                if req.deadline_ms is not None:
+                    self._deadline_rids.add(rid)
+            if streaming:
+                self._streaming.add(rid)
+        return rid
+
+    # ------------------------------------------------------------------
+    # hot weight swap
+    # ------------------------------------------------------------------
+
+    def swap_weights(self, loader, tag=None):
+        """Run `loader()` (which changes the model's parameters in place,
+        e.g. a checkpoint load) between steps, under the step lock and
+        ``torch.no_grad()`` (the parameters are trainable leaves; an
+        in-place copy into one raises under autograd). Then the prefix
+        index is dropped (cached KV is the old weights'), the drafter's
+        state and the acceptance EWMAs are reset, and the weight epoch
+        and tag move on: in-flight sequences keep their KV and continue
+        under the new weights, but never register it. Returns what the
+        loader returns."""
+        with self._step_lock:
+            with torch.no_grad():
+                out = loader()
+            self.blocks.invalidate_index()
+            if self._spec is not None:
+                self._spec.invalidate()
+                self._spec_state.clear()
+            self._weight_epoch += 1
+            self._weights_tag = str(tag) if tag is not None \
+                else f"epoch{self._weight_epoch}"
+        return out
+
     @torch.inference_mode()
     def step(self):
         """Admit waiting requests into free slots (mapping cached prefix
@@ -962,7 +1717,13 @@ class GenerationEngine:
         prefill, the rest into the ragged program. Then advance prefills
         through the ragged program (with the decode batch riding the same
         launch in mixed mode), then run one decode chunk for the pool.
-        Returns the requests that finished."""
+        Returns the requests that finished.
+
+        Callers hold ``_step_lock`` (``run``, the streams)."""
+        if self._deadline_rids:
+            # before admitting or dispatching: a blown deadline must not
+            # claim a slot or ride one dispatch further
+            self._expire_deadlines()
         free = [i for i, r in enumerate(self._slots) if r is None]
         if free and self._waiting:
             self._sorted_waiting()
@@ -981,6 +1742,7 @@ class GenerationEngine:
                     self.stats["prefix_misses"] += 1
             req.n_cached = req.n_prefilled = n_cached
             req.slot = slot
+            req.weight_epoch = self._weight_epoch
             self._slots[slot] = req
             self._temps[slot] = req.temperature
             self._active[slot] = False
@@ -1008,6 +1770,11 @@ class GenerationEngine:
                   if r is not None and i not in self._prefilling]
         if not active:
             return self._drain_finished()
+        # speculative decoding: the draft-and-verify dispatch replaces the
+        # plain chunk; False (sampling pool, no drafts, drafter error)
+        # falls through to the chunk
+        if self._spec is not None and self._spec_step(active):
+            return self._drain_finished()
         # as many steps as every running sequence can still take, a power
         # of two; a mid-chunk EOS just discards that slot's tail tokens
         k_max = min(self._slots[i].max_new_tokens - len(self._slots[i].out)
@@ -1024,23 +1791,37 @@ class GenerationEngine:
     def _drain_finished(self):
         out, self._finished = self._finished, {}
         for rid in out:
-            self._reqs.pop(rid, None)
+            # a stream-owned rid stays resident until its stream lets go
+            if rid not in self._streaming:
+                self._reqs.pop(rid, None)
         return list(out.values())
 
     def run(self):
         """Drive step() until every queued request finishes. Returns
-        {rid: np.ndarray(prompt + generated)}."""
+        {rid: np.ndarray(prompt + generated)} for the requests no live
+        stream consumes. Steps under the streams' lock, so run() and
+        streams may share the engine."""
         results = {}
+
+        def collect(reqs):
+            for req in reqs:
+                if req.rid not in self._streaming:
+                    results[req.rid] = np.concatenate(
+                        [req.prompt, np.asarray(req.out, np.int32)])
+
         while self.has_work():
             with self._step_lock:
                 finished = self.step()
-            for req in finished:
-                results[req.rid] = np.concatenate(
-                    [req.prompt, np.asarray(req.out, np.int32)])
+                while self._results_bin:   # retired by a stream's step
+                    finished.append(
+                        self._results_bin.popitem(last=False)[1])
+            collect(finished)
+            if self._step_urgent:
+                time.sleep(0.001)   # lock fairness — see _urgent_lock
         with self._step_lock:
-            for req in self._drain_finished():   # max_new_tokens <= 0
-                results[req.rid] = np.concatenate(
-                    [req.prompt, np.asarray(req.out, np.int32)])
+            collect(self._drain_finished())   # max_new_tokens <= 0
+            while self._results_bin:
+                collect([self._results_bin.popitem(last=False)[1]])
         return results
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,

@@ -3,7 +3,8 @@ causal ``forward`` (flash attention and fused RoPE kernels) with its loss
 (``labels``: the fused linear cross-entropy, llama.py:583-602), the
 rectangular ``generate`` with its static-size KV cache (``decode_step``),
 and the engine's paged contract (``paged_spec`` / ``paged_prefill`` /
-``paged_prefill_ragged`` / ``paged_decode``, llama.py:606-678).
+``paged_prefill_ragged`` / ``paged_decode`` / ``paged_verify``,
+llama.py:606-701).
 
 Layout follows the JAX package so that its parameters load name for name
 (``weights.from_paddle_tpu_state``): Linear weights are ``[in, out]``,
@@ -438,6 +439,21 @@ class LlamaForCausalLM(nn.Module, PagedGenerationMixin):
         rows = torch.arange(c, device=ids.device)
         h_last = hidden[rows, q_lens.long() - 1][:, None]
         out = (self._head(h_last)[:, 0], k_pages, v_pages)
+        return out if k_scales is None else out + (k_scales, v_scales)
+
+    def paged_verify(self, ids, q_lens, start_pos, k_pages, v_pages,
+                     block_tables, write_pids, write_offs, k_scales=None,
+                     v_scales=None):
+        """Speculative-decode verify: the ragged step of
+        ``paged_prefill_ragged`` (each row a window of 1 + drafts tokens at
+        the tail of its paged context), with the head at EVERY position,
+        so that the engine can accept the longest draft prefix the greedy
+        argmax confirms -> (logits [C, Q, V], k_pages, v_pages[, k_scales,
+        v_scales]). Positions at or past a row's q_len are padding."""
+        hidden = self.llama.paged_ragged_step(
+            ids, q_lens, start_pos, k_pages, v_pages, block_tables,
+            write_pids, write_offs, k_scales=k_scales, v_scales=v_scales)
+        out = (self._head(hidden), k_pages, v_pages)
         return out if k_scales is None else out + (k_scales, v_scales)
 
     def _head(self, hidden):

@@ -223,15 +223,23 @@ def test_preemption_under_a_small_pool_keeps_tokens(pair):
         np.testing.assert_array_equal(out[rid], w)
 
 
-@pytest.mark.parametrize("kw", [dict(kv_dtype="int4"), dict(spec_decode="ngram"),
-                                dict(prefix_store=object()), dict(spec_k=2)])
+@pytest.mark.parametrize("kw", [dict(kv_dtype="int4"), dict(spec_decode="ngarm"),
+                                dict(prefix_store=object()),
+                                dict(with_kv=True)])
 def test_options_of_later_slices_raise(pair, kw):
-    """Options of later slices raise NotImplementedError naming the slice;
-    a kv_dtype other than None or "int8" is refused as the JAX engine
-    refuses it."""
-    if "kv_dtype" in kw:
-        with pytest.raises(ValueError, match="kv_dtype"):
+    """Options of later slices raise NotImplementedError naming the slice
+    (the prefix store; KV pages on export, which come with the fleet
+    plane); a kv_dtype other than None or "int8" and an unknown
+    spec_decode value are refused as the JAX engine refuses them."""
+    if "kv_dtype" in kw or "spec_decode" in kw:
+        with pytest.raises(ValueError, match="kv_dtype|spec_decode"):
             GenerationEngine(pair[1], **kw)
+        return
+    if "with_kv" in kw:
+        eng = GenerationEngine(pair[1], **ENGINE_KW)
+        rid = eng.add_request([1, 2, 3], max_new_tokens=2)
+        with pytest.raises(NotImplementedError, match="slice"):
+            eng.export_request(rid, **kw)
         return
     with pytest.raises(NotImplementedError, match="slice"):
         GenerationEngine(pair[1], **kw)
