@@ -57,7 +57,14 @@ source, all started together; each build's seconds printed), then:
    the spec-off tokens, float self-drafting accepts every draft;
    (surface) two threads streaming from one engine, a cancel, an
    export/import round trip through the CPU engine and a weight swap
-   mid-run, each equal to the CPU plain path;
+   mid-run, each equal to the CPU plain path; (agree:graphs) the engine's
+   step programs as replayed CUDA graphs against the eager twin
+   (``_graphs = False``): greedy and seeded sampled tokens, float and int8
+   pools, prefix sharing and chunked prefill, dense admission, a fork (the
+   CoW copy program) and self-drafting must be token-identical with equal
+   kernel launches, a repeat wave of the same shapes must build no
+   program (the draft engine's too), and a weight swap in place must keep
+   every program (a moved parameter drops them);
 3. flashmask: F.flashmask_attention through autograd at [4, 2048, 16,
    128] bf16 with packed documents (each call must launch the masked
    forward and backward kernels once; out and grads held against the
@@ -67,28 +74,40 @@ source, all started together; each build's seconds printed), then:
    bf16 and the FusedBiasDropoutResidualLayerNorm layer, one bdrln launch
    a call;
 4. serve: Llama-2-7B geometry in bfloat16 with random weights from a seed
-   (all 32 layers) serves 8 requests of 300-900 tokens through
-   generate_batch (chunked prefill, a prefix hit, mixed steps); every
-   kernel of that path must launch, and a prefix-cache hit must occur;
-   then a window of the same workload on a fresh engine runs under
-   torch.profiler for the device time by kernel;
+   (all 32 layers) serves 8 requests of 300-900 tokens (chunked prefill,
+   a prefix hit, mixed steps) through one engine whose step programs are
+   CUDA graphs: a cold wave captures them, a warm wave of the same shapes
+   (it must build none) gives the numbers, and a third wave runs engine
+   steps 2-7 under torch.profiler (device time by kernel, idle share,
+   host launch calls and device kernels per engine step); then the eager
+   twin (``_graphs = False``) on a fresh engine, timed and profiled, must
+   give the warm wave's tokens and kernel launches; every kernel of that
+   path must launch, and a prefix-cache hit must occur;
 5. serve:dense: the same model serves 8 cold requests of 64-256 tokens,
    which the engine admits through the dense prefill (flash attention and
-   fused RoPE); then one dense admission of the same workload on a fresh
-   engine runs under torch.profiler;
+   fused RoPE), a cold and a warm wave; then the first dense admission of
+   a third wave (a replayed graph) runs under torch.profiler;
 6. serve:int8 and serve:dense:int8: the two workloads again with
    kv_dtype="int8" (int8 pools, the int8 attention kernels), each beside
    the share of its generated tokens that differ from its bf16 twin's
    (printed, not checked: the weights are random), then profiled as
    their twins are;
-   then serve:spec and serve:spec:int8: the [serve] workload again with
-   speculative decoding, self-drafting (DraftModelDrafter over the serving
-   model, pools like the target's) and then the n-gram drafter: the spec
-   accounting, model steps and kernel launches per generated token beside
-   the spec-off twin's, peak memory; no drafter error, float verify
+   then serve:spec and serve:spec:int8 (graphs, a cold and a warm wave
+   each): the [serve] workload with self-drafting (DraftModelDrafter over
+   the serving model, pools like the target's), then the n-gram drafter on
+   prompts that hold their own next token (on random weights, text that
+   merely repeats gives it nothing) beside their own spec-off run: the
+   spec accounting, drafting and verify ms per dispatch, model steps and
+   kernel launches per generated token beside the spec-off twin's, peak
+   memory; both drafters must draft, no drafter error, float verify
    windows on the tensor-core ragged route, no float paged kernel in the
    int8 runs, and each request's first divergence from its spec-off twin
-   a near-tie under the dense forward (SPEC_TIE_ULPS);
+   a near-tie under the dense forward (SPEC_TIE_ULPS); then spec:rescore
+   and spec:rescore:int8: self-drafting again, untimed, every dispatch
+   with a rejected draft rescored through the plain ragged version with
+   P in float32 and with P rounded as the kernel rounds it (rejections,
+   flips against the kernel, and the decisions P's rounding alone
+   changes);
 7. train: with the serving model released, the configuration bench.py
    trains on the TPU (0.74B Llama, batch 4 x 2048, bf16 parameters,
    AdamW(1e-4, multi_precision=True)) takes a warm-up step and 5 timed
@@ -1748,6 +1767,7 @@ def main():
     phase_agree_masked(dev)
     phase_agree_spec(dev)
     phase_surface(dev)
+    phase_agree_graphs(dev)
     masked = phase_flashmask(K, dev)
     ffn = phase_fused_ffn(K, dev)
     model = _serving_model(dev)
@@ -1759,6 +1779,8 @@ def main():
     spec = phase_serve_spec(K, model, serve_out, serve_st)
     spec8 = phase_serve_spec(K, model, serve8_out, serve8_st,
                              kv_dtype="int8")
+    phase_spec_rescore(model)
+    phase_spec_rescore(model, kv_dtype="int8")
     del model                            # [train] reads its own peak
     train, model, opt, batch = phase_train(K, dev)
     phase_profile_train(model, opt, batch)
@@ -2336,6 +2358,180 @@ def phase_surface(dev):
                              "with the CPU plain path")
 
 
+def _set_graphs(eng, on):
+    """Graphs on or off (the private eager twin) for an engine and its
+    draft model's private engine; before the engine's first step."""
+    eng._graphs = on
+    inner = getattr(eng._spec, "_eng", None)
+    if inner is not None:
+        inner._graphs = on
+
+
+def _trace_counts(eng):
+    """The engine's trace counters (the JAX engine's names), and the draft
+    model's engine's under "draft."."""
+    from paddle_tpu_torch.inference.programs import TRACE_COUNTERS
+    out = {n: getattr(eng, n) for n in TRACE_COUNTERS.values()}
+    inner = getattr(eng._spec, "_eng", None)
+    if inner is not None:
+        out.update({f"draft.{n}": getattr(inner, n)
+                    for n in TRACE_COUNTERS.values()})
+    return out
+
+
+def _captures(eng):
+    """{kind: CUDA graphs captured} of the engine (and its draft
+    engine's, under "draft.")."""
+    out = {k: v for k, v in eng._programs.captured().items() if v}
+    inner = getattr(eng._spec, "_eng", None)
+    if inner is not None:
+        out.update({f"draft.{k}": v for k, v in
+                    inner._programs.captured().items() if v})
+    return out
+
+
+def _wave(eng, prompts, n_new, temperature=0.0):
+    """One wave of requests through a (reused) engine; the prefix index is
+    dropped first, so a repeat wave sees the shapes of the first."""
+    eng.blocks.invalidate_index()
+    rids = [eng.add_request(np.asarray(p), max_new_tokens=n_new,
+                            temperature=temperature) for p in prompts]
+    with torch.inference_mode():
+        out = eng.run()
+    return [out[r] for r in rids]
+
+
+def phase_agree_graphs(dev):
+    """The tiny f32 model on the card, every step program a replayed CUDA
+    graph against the eager twin (``_graphs = False``): greedy and seeded
+    sampled tokens, float and int8 pools, the prefix-sharing chunked
+    workload and the dense-admission one, a fork mid-decode (the CoW copy
+    program) and self-drafting spec must be token-identical, with equal
+    kernel launch counts (the replays' counted from their captures); a
+    second wave of the same shapes adds nothing to any trace counter (the
+    draft engine's too); a weight swap through an in-place loader keeps
+    every program and gives a fresh engine's tokens, and a loader that
+    moves a parameter drops them (the counters show the rebuilds)."""
+    from paddle_tpu_torch.inference import DraftModelDrafter, GenerationEngine
+    from paddle_tpu_torch.ops import kernels as K
+
+    cfg, _, gpu = _tiny_pair(dev)
+    chunked = (_serving_prompts(np.random.default_rng(1), 6, 9, 20,
+                                cfg.vocab_size, 12, (0, 4)),
+               dict(max_slots=2, page_size=4, max_seq_len=64,
+                    prefix_cache=True, prefill_chunk=8, mixed_step=True))
+    dense = (_serving_prompts(np.random.default_rng(3), 6, 3, 9,
+                              cfg.vocab_size, 4, (0, 4)),
+             dict(max_slots=3, page_size=4, max_seq_len=64,
+                  prefix_cache=True, prefill_chunk=8, mixed_step=True))
+    spec_kw = dict(max_slots=4, page_size=4, max_seq_len=96,
+                   mixed_step=False)
+    bad = []
+    for kv in (None, "int8"):
+        name = "float" if kv is None else "int8"
+        cases = [(f"{name} chunked+prefix {mode}", chunked, t)
+                 for mode, t in (("greedy", 0.0), ("sampled", 0.8))]
+        cases += [(f"{name} dense admission {mode}", dense, t)
+                  for mode, t in (("greedy", 0.0), ("sampled", 0.8))]
+        for tag, (prompts, kw), temp in cases:
+            runs = []
+            for on in (True, False):
+                eng = GenerationEngine(gpu, kv_dtype=kv, seed=11, **kw)
+                _set_graphs(eng, on)
+                K.reset_launch_counts()
+                first = _wave(eng, prompts, 12, temp)
+                launches = K.launch_counts()
+                marks = _trace_counts(eng)
+                _wave(eng, prompts, 12, temp)
+                runs.append((first, launches, marks, _trace_counts(eng),
+                             _captures(eng)))
+            (g_tok, g_l, g_m, g_m2, caps), (e_tok, e_l, _, _, _) = runs
+            same = all(np.array_equal(a, b) for a, b in zip(g_tok, e_tok))
+            frozen = g_m == g_m2
+            print(f"[agree:graphs] {tag}: graphs == eager {same}; launches "
+                  f"equal {g_l == e_l}; repeat wave adds no program "
+                  f"{frozen} {json.dumps(g_m)}; captured {json.dumps(caps)}",
+                  flush=True)
+            if not (same and g_l == e_l and frozen and caps):
+                bad.append(tag)
+
+        # a fork mid-decode: the CoW copy program
+        runs = []
+        for on in (True, False):
+            eng = GenerationEngine(gpu, kv_dtype=kv, **chunked[1])
+            _set_graphs(eng, on)
+            rid = eng.add_request(np.array([3, 1, 4, 1, 5]), 12)
+            with torch.inference_mode():
+                while len(eng._reqs[rid].out) < 4:
+                    eng.step()
+                child = eng.fork_request(rid)
+                out = eng.run()
+            runs.append(([out[rid], out[child]], eng.copy_trace_count,
+                         _captures(eng).get("copy", 0)))
+        same = all(np.array_equal(a, b) for a, b in zip(runs[0][0],
+                                                         runs[1][0]))
+        print(f"[agree:graphs] {name} fork: graphs == eager {same}; copy "
+              f"programs {runs[0][1]}, captured {runs[0][2]}", flush=True)
+        if not (same and runs[0][2] >= 1):
+            bad.append(f"{name} fork")
+
+        # self-drafting: the verify program and the draft engine's
+        runs = []
+        for on in (True, False):
+            eng = GenerationEngine(gpu, kv_dtype=kv,
+                                   spec_decode=DraftModelDrafter(
+                                       gpu, kv_dtype=kv), **spec_kw)
+            _set_graphs(eng, on)
+            first = _wave(eng, SPEC_PROMPTS, 24)
+            marks = _trace_counts(eng)
+            _wave(eng, SPEC_PROMPTS, 24)
+            runs.append((first, marks, _trace_counts(eng), _captures(eng),
+                         eng.stats["spec_accepted_tokens"],
+                         eng.stats["spec_draft_tokens"]))
+            _no_drafter_error("agree:graphs", eng)
+        (g_tok, m1, m2, caps, acc, drafted), (e_tok, *_rest) = runs
+        same = all(np.array_equal(a, b) for a, b in zip(g_tok, e_tok))
+        print(f"[agree:graphs] {name} self-draft: graphs == eager {same}; "
+              f"accepted {acc}/{drafted}; repeat wave adds no program "
+              f"{m1 == m2} {json.dumps(m2)}; captured {json.dumps(caps)}",
+              flush=True)
+        if not (same and m1 == m2 and caps.get("verify")
+                and caps.get("draft.decode") and drafted > 0):
+            bad.append(f"{name} self-draft")
+
+    # weight swaps: in place (programs kept) and moving a parameter
+    prompts, kw = chunked
+    eng = GenerationEngine(gpu, **kw)
+    _wave(eng, prompts, 12)
+    marks = _trace_counts(eng)
+    w = dict(gpu.named_parameters())[SWAP_PARAM]
+    eng.swap_weights(lambda: w.mul_(3.0), tag="b")
+    swapped = _wave(eng, prompts, 12)
+    kept = _trace_counts(eng) == marks
+    fresh = _wave(GenerationEngine(gpu, **kw), prompts, 12)
+    equal = all(np.array_equal(a, b) for a, b in zip(swapped, fresh))
+
+    def move():
+        w.data = w.data * (1.0 / 3.0)      # a new tensor: a new address
+
+    eng.swap_weights(move, tag="c")
+    moved = _wave(eng, prompts, 12)
+    rebuilt = _trace_counts(eng)
+    again = _wave(GenerationEngine(gpu, **kw), prompts, 12)
+    print(f"[agree:graphs] swap_weights in place: programs kept {kept}, "
+          f"tokens == a fresh engine's {equal}; a moved parameter: "
+          f"programs rebuilt {json.dumps(rebuilt)} (before "
+          f"{json.dumps(marks)}), tokens == a fresh engine's "
+          f"{all(np.array_equal(a, b) for a, b in zip(moved, again))}",
+          flush=True)
+    if not (kept and equal and all(rebuilt[k] >= 2 * marks[k] for k in marks
+                                   if marks[k])
+            and all(np.array_equal(a, b) for a, b in zip(moved, again))):
+        bad.append("swap_weights")
+    if bad:
+        raise AssertionError(f"[agree:graphs] failed: {bad}")
+
+
 MASKED_KERNELS = ("flashmask_attention", "flashmask_attention_bwd",
                   "bias_dropout_residual_ln")
 FLASHMASK_SHAPE = (4, 2048, 16, 128)       # [train]'s attention geometry
@@ -2846,36 +3042,81 @@ def _print_twin_diff(tag, gen, twin):
           f"per request {first}")
 
 
+def _serve_wave(eng, prompts, n_new):
+    """One timed wave of the workload through a (reused) engine, the
+    prefix index dropped first so that a repeat wave has the first one's
+    shapes. Returns (generated tokens, the wave's stats (counters as
+    deltas, "engine_steps" added), wall seconds, kernel launches, ttft
+    seconds)."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    before = dict(eng.stats, spec_fallbacks=dict(eng.stats["spec_fallbacks"]))
+    n_ttft = len(eng.ttft_s)
+    eng.blocks.invalidate_index()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng._submit(p, n_new, 0.0, None, 0, None) for p in prompts]
+    n_steps = 0
+    with torch.inference_mode():
+        while eng.has_work():
+            eng.step()
+            n_steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    st = {k: (v - before[k] if isinstance(v, (int, float)) and
+              not isinstance(v, bool) and k != "kv_pool_bytes" else v)
+          for k, v in eng.stats.items()}
+    st["spec_fallbacks"] = {
+        r: n - before["spec_fallbacks"].get(r, 0)
+        for r, n in eng.stats["spec_fallbacks"].items()
+        if n - before["spec_fallbacks"].get(r, 0)}
+    st["engine_steps"] = n_steps
+    ttft = sorted(list(eng.ttft_s)[n_ttft:])
+    # a preemption folds generated tokens into the prompt
+    gen = [np.concatenate([r.prompt, np.asarray(r.out, np.int32)])[len(p):]
+           for r, p in zip(reqs, prompts)]
+    return gen, st, wall, launches, ttft
+
+
 def phase_serve(K, model, kv_dtype=None, twin=None):
     """8 requests of 300-900 tokens (requests 0 and 5 share a 512-token
-    prefix) through generate_batch, 32 greedy tokens each, on float pools
-    or (kv_dtype="int8") int8 pools. Returns the kernels' launch counts
-    over that run and the generated tokens."""
+    prefix), 32 greedy tokens each, on float pools or (kv_dtype="int8")
+    int8 pools, through one engine whose step programs are CUDA graphs: a
+    cold wave (each program's first use runs eagerly and captures it),
+    then a warm wave of the same shapes (replays only: it must build no
+    program) whose numbers stand for the run, and a third wave with engine
+    steps PROFILE_STEPS under torch.profiler. Then the eager twin
+    (``_graphs = False``) on a fresh engine: a timed wave, which must
+    give the warm wave's tokens and kernel launches, and a profiled one.
+    Returns the warm wave's kernel launches, generated tokens and stats."""
+    from paddle_tpu_torch.inference import GenerationEngine
+
     cfg = model.config
     tag = "serve" if kv_dtype is None else "serve:int8"
-    if kv_dtype is not None:
-        _fresh_pools(model)
+    _fresh_pools(model)
     rng = np.random.default_rng(0)
     prompts = _serving_prompts(rng, 8, 300, 900, cfg.vocab_size, 512, (0, 5))
     kw = dict(max_slots=4, page_size=16, prefill_chunk=256, mixed_step=True,
               prefix_cache=True, kv_dtype=kv_dtype)
     n_new = 32
-    eng = model.get_engine(**kw)
-    K.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = model.generate_batch(prompts, max_new_tokens=n_new, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = K.launch_counts()
-    st = eng.stats
-    ttft = sorted(eng.ttft_s)
-    gen = [o[len(p):] for o, p in zip(out, prompts)]
+    eng = GenerationEngine(model, **kw)
+    _, cold, cold_wall, _, _ = _serve_wave(eng, prompts, n_new)
+    marks = _trace_counts(eng)
+    gen, st, wall, launches, ttft = _serve_wave(eng, prompts, n_new)
+    frozen = _trace_counts(eng) == marks
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{tag}] CUDA graphs: cold wave wall_s={cold_wall:.3f} (decode "
+          f"tokens_per_s="
+          f"{cold['decode_tokens'] / max(cold['decode_s'], 1e-9):.2f}, "
+          f"captures included); programs captured "
+          f"{json.dumps(_captures(eng))}; warm wave builds none: {frozen} "
+          f"{json.dumps(_trace_counts(eng))}")
     print(f"[{tag}] requests={len(prompts)} prompt_tokens="
           f"{sum(map(len, prompts))} new_tokens={sum(map(len, gen))} "
-          f"wall_s={wall:.3f} peak_mem_gb="
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} "
-          f"kv_pool_bytes={st['kv_pool_bytes']}")
+          f"wall_s={wall:.3f} peak_mem_gb={peak:.2f} "
+          f"kv_pool_bytes={st['kv_pool_bytes']} (warm wave, graphs)")
     print(f"[{tag}] ttft_s p50={ttft[len(ttft) // 2]:.4f} "
           f"max={ttft[-1]:.4f} (host clock, from submission)")
     print(f"[{tag}] decode chunks={st['decode_chunks']} tokens="
@@ -2889,11 +3130,10 @@ def phase_serve(K, model, kv_dtype=None, twin=None):
     _print_decode_launches(tag, K, launches, eng, kv_dtype)
     _check_rope_launches(tag, launches, cfg.num_hidden_layers)
     _print_twin_diff(tag, gen, twin)
-    for o, p, g in zip(out, prompts, gen):
-        if len(o) != len(p) + n_new or not np.array_equal(o[:len(p)], p):
-            raise AssertionError("a result is not prompt + 32 new tokens")
-        if g.min() < 0 or g.max() >= cfg.vocab_size:
-            raise AssertionError("generated token out of the vocabulary")
+    for g in gen:
+        if len(g) != n_new or g.min() < 0 or g.max() >= cfg.vocab_size:
+            raise AssertionError(f"[{tag}] a result is not prompt + "
+                                 f"{n_new} tokens of the vocabulary")
     if len(set(np.concatenate(gen).tolist())) < 2:
         raise AssertionError("degenerate output: one token everywhere")
     if st["prefix_hits"] < 1:
@@ -2904,9 +3144,35 @@ def phase_serve(K, model, kv_dtype=None, twin=None):
         _require_launched(tag, launches, SERVE_INT8_KERNELS)
         _require_idle(tag, launches, FLOAT_PAGED_KERNELS)
     _require_sm90_ragged(tag, launches)
-    _profile_serve(model, prompts, kw, n_new,
-                   "profile" if kv_dtype is None else "profile:int8")
-    return launches, gen, dict(st)
+    if not frozen:
+        raise AssertionError(f"[{tag}] the warm wave built programs")
+    steps = st["engine_steps"]
+    _profile_serve(eng, prompts, n_new, f"profile:{tag}")
+    del eng
+    _fresh_pools(model)
+
+    # the eager twin
+    twin_eng = GenerationEngine(model, **kw)
+    twin_eng._graphs = False
+    e_gen, e_st, e_wall, e_launches, _ = _serve_wave(twin_eng, prompts,
+                                                     n_new)
+    e_peak = torch.cuda.max_memory_allocated() / 1e9
+    same = all(np.array_equal(a, b) for a, b in zip(gen, e_gen))
+    print(f"[{tag}:eager] the eager twin (_graphs = False): wall_s="
+          f"{e_wall:.3f} peak_mem_gb={e_peak:.2f} decode tokens_per_s="
+          f"{e_st['decode_tokens'] / max(e_st['decode_s'], 1e-9):.2f} "
+          f"ragged s={e_st['ragged_s']:.3f}; tokens == graphs' {same}; "
+          f"kernel launches == graphs' {e_launches == launches} ("
+          f"per engine step "
+          f"{sum(launches[k] for k in K.KERNELS) / max(steps, 1):.1f} "
+          f"wrapper launches over {steps} engine steps)", flush=True)
+    if not same or e_launches != launches:
+        raise AssertionError(f"[{tag}] graphs and the eager twin disagree "
+                             "(tokens or kernel launches)")
+    _profile_serve(twin_eng, prompts, n_new, f"profile:{tag}:eager")
+    del twin_eng
+    _fresh_pools(model)
+    return launches, gen, st
 
 
 # the kernels each serving run's path launches
@@ -2996,10 +3262,13 @@ def _require_idle(tag, launches, names):
 
 def phase_serve_dense(K, model, kv_dtype=None, twin=None):
     """The same model serves 8 cold requests of 64-256 tokens (no shared
-    prefix) through generate_batch, 32 greedy tokens each: every prompt
-    fits the chunk of 256, so the engine admits them through the dense
-    prefill. Returns the kernels' launch counts over that run and the
-    generated tokens."""
+    prefix), 32 greedy tokens each: every prompt fits the chunk of 256, so
+    the engine admits them through the dense prefill. A cold wave captures
+    the programs; the numbers are the warm wave's (replays, the same
+    shapes). Returns the warm wave's kernel launch counts and generated
+    tokens."""
+    from paddle_tpu_torch.inference import GenerationEngine
+
     cfg = model.config
     tag = "serve:dense" if kv_dtype is None else "serve:dense:int8"
     _fresh_pools(model)
@@ -3010,7 +3279,7 @@ def phase_serve_dense(K, model, kv_dtype=None, twin=None):
     kw = dict(max_slots=4, page_size=16, prefill_chunk=256, mixed_step=True,
               kv_dtype=kv_dtype)
     n_new = 32
-    shapes = []                 # (c, s_pad) of every dense admission
+    shapes = []                 # (c, s_pad) of every dense admission built
     prefill = model.paged_prefill
 
     def recorded_prefill(ids, lengths):
@@ -3018,28 +3287,27 @@ def phase_serve_dense(K, model, kv_dtype=None, twin=None):
         return prefill(ids, lengths)
 
     model.paged_prefill = recorded_prefill
-    eng = model.get_engine(**kw)
-    K.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = model.generate_batch(prompts, max_new_tokens=n_new, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = K.launch_counts()
-    del model.paged_prefill
-    st = eng.stats
-    ttft = sorted(eng.ttft_s)
-    gen = [o[len(p):] for o, p in zip(out, prompts)]
+    eng = GenerationEngine(model, **kw)
+    try:
+        _serve_wave(eng, prompts, n_new)
+        marks = _trace_counts(eng)
+        gen, st, wall, launches, ttft = _serve_wave(eng, prompts, n_new)
+    finally:
+        del model.paged_prefill
+    frozen = _trace_counts(eng) == marks
     admits = max(st["prefill_admits"], 1)
     print(f"[{tag}] requests={len(prompts)} prompt_tokens="
           f"{sum(map(len, prompts))} new_tokens={sum(map(len, gen))} "
           f"wall_s={wall:.3f} peak_mem_gb="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} "
-          f"kv_pool_bytes={st['kv_pool_bytes']}")
+          f"kv_pool_bytes={st['kv_pool_bytes']} (warm wave, graphs; "
+          f"programs captured {json.dumps(_captures(eng))}, the warm wave "
+          f"builds none: {frozen})")
     print(f"[{tag}] ttft_s p50={ttft[len(ttft) // 2]:.4f} "
           f"max={ttft[-1]:.4f} (host clock, from submission)")
     print(f"[{tag}] prefill_admits={st['prefill_admits']} "
-          f"buckets={shapes} prefill_tokens={st['prefill_tokens']} "
+          f"buckets={sorted(set(shapes))} prefill_tokens="
+          f"{st['prefill_tokens']} "
           f"prefill_s_per_admit={st['prefill_s'] / admits:.4f}; "
           f"decode chunks={st['decode_chunks']} tokens="
           f"{st['decode_tokens']} tokens_per_s="
@@ -3050,15 +3318,16 @@ def phase_serve_dense(K, model, kv_dtype=None, twin=None):
     _print_decode_launches(tag, K, launches, eng, kv_dtype)
     _check_rope_launches(tag, launches, cfg.num_hidden_layers)
     _print_twin_diff(tag, gen, twin)
-    for o, p, g in zip(out, prompts, gen):
-        if len(o) != len(p) + n_new or not np.array_equal(o[:len(p)], p):
-            raise AssertionError("a result is not prompt + 32 new tokens")
-        if g.min() < 0 or g.max() >= cfg.vocab_size:
-            raise AssertionError("generated token out of the vocabulary")
+    for g in gen:
+        if len(g) != n_new or g.min() < 0 or g.max() >= cfg.vocab_size:
+            raise AssertionError(f"[{tag}] a result is not prompt + "
+                                 f"{n_new} tokens of the vocabulary")
     if st["prefill_admits"] < 2 or not shapes or shapes[0] != (4, 256):
         raise AssertionError(f"expected >= 2 dense admissions, the first "
                              f"with (c, s_pad) = (4, 256); got "
                              f"{st['prefill_admits']}, {shapes}")
+    if not frozen:
+        raise AssertionError(f"[{tag}] the warm wave built programs")
     if kv_dtype is None:
         _require_launched(tag, launches, DENSE_KERNELS)
     else:
@@ -3073,9 +3342,11 @@ def phase_serve_dense(K, model, kv_dtype=None, twin=None):
                              f"{launches['flash_attention']} (tensor-core "
                              f"route {launches['flash_attention.sm90']}), "
                              f"expected {want}")
-    _profile_admission(model, prompts, kw, n_new,
+    _profile_admission(eng, prompts, n_new,
                        "profile:dense" if kv_dtype is None
                        else "profile:dense:int8")
+    del eng
+    _fresh_pools(model)
     return launches, gen
 
 
@@ -3132,64 +3403,102 @@ def _first_divergences(tag, model, prompts, gen, twin, kv_dtype):
     return found
 
 
+def _copying_prompts(model, kw, rng, n, length, rounds=3):
+    """n random prompts of `length` tokens that hold their own next token:
+    the engine (spec off) generates each prompt's first token, which is
+    written into the prompt at its middle, `rounds` times at successive
+    positions (a substitution can move the next token; each round writes
+    the new one), so that the n-gram drafter finds the first generated
+    token in the context and proposes what followed it. On random weights
+    greedy text never repeats its context (32 tokens after prompts of a
+    repeated segment: no n-gram hit), so prompts that merely repeat give
+    the drafter nothing to draft."""
+    from paddle_tpu_torch.inference import GenerationEngine
+
+    vocab = model.config.vocab_size
+    prompts = [rng.integers(1, vocab, length).astype(np.int32)
+               for _ in range(n)]
+    eng = GenerationEngine(model, **kw)
+    for r in range(rounds):
+        first = [int(g[0]) for g in _serve_wave(eng, prompts, 1)[0]]
+        for p, t in zip(prompts, first):
+            p[length // 2 + r] = t
+    del eng
+    return prompts
+
+
 def phase_serve_spec(K, model, twin, twin_st, kv_dtype=None):
-    """The [serve] workload (the same 8 requests of 300-900 tokens, 32
-    greedy tokens each) with speculative decoding: first self-drafting
+    """Speculative decoding at 7B with the step programs as CUDA graphs,
+    each run a cold wave (captures) and then a warm wave of the same
+    shapes, whose numbers stand for it: first self-drafting
     (DraftModelDrafter over the serving model itself, with pools like the
-    target's: every verify window full at q_len 5 where the draft model
-    agrees), then the n-gram drafter. Each run prints the spec accounting,
-    dispatches and launches per generated token beside the spec-off twin's
-    (same call), the decode throughput and the peak memory; a drafter error
-    fails the phase; float verify windows must take the tensor-core
-    ragged route, an int8 run must launch no float paged kernel; each
-    request's first divergence from its twin must be a near-tie. Returns
-    the kernels' launch counts over both runs."""
+    target's) on the [serve] workload (the same 8 requests of 300-900
+    tokens, 32 greedy tokens each), beside the [serve] warm wave (the
+    spec-off twin, graphs too); then the n-gram drafter on prompts that
+    hold their own next token (_copying_prompts), beside their own
+    spec-off run, which must draft. Each run prints the spec accounting,
+    drafting and verify ms per dispatch, dispatches and launches per
+    generated token and the decode throughput beside its twin's, and the
+    peak memory. A drafter error fails the phase; the verify windows must
+    take the tensor-core ragged route; an int8 run must launch no float
+    paged kernel; each request's first divergence from its twin must be a
+    near-tie. Returns the kernel launch counts over the runs' warm
+    waves."""
     from paddle_tpu_torch.inference import DraftModelDrafter, GenerationEngine
 
     cfg = model.config
     base = "serve:spec" if kv_dtype is None else "serve:spec:int8"
-    rng = np.random.default_rng(0)
-    prompts = _serving_prompts(rng, 8, 300, 900, cfg.vocab_size, 512, (0, 5))
     kw = dict(max_slots=4, page_size=16, prefill_chunk=256, mixed_step=True,
               prefix_cache=True, kv_dtype=kv_dtype)
     n_new = 32
-    n_gen = n_new * len(prompts)
-    twin_tps = twin_st["decode_tokens"] / max(twin_st["decode_s"], 1e-9)
-    twin_steps = _model_steps(twin_st)
     total = dict.fromkeys(K.launch_counts(), 0)
     for drafter in ("draft_model", "ngram"):
         tag = f"{base}:{drafter}"
+        if drafter == "draft_model":
+            rng = np.random.default_rng(0)
+            prompts = _serving_prompts(rng, 8, 300, 900, cfg.vocab_size,
+                                       512, (0, 5))
+            off_gen, off_st = twin, twin_st
+        else:
+            _fresh_pools(model)
+            prompts = _copying_prompts(model, kw, np.random.default_rng(6),
+                                       8, 1024)
+            off = GenerationEngine(model, **kw)
+            _serve_wave(off, prompts, n_new)
+            off_gen, off_st = _serve_wave(off, prompts, n_new)[:2]
+            del off
+        n_gen = n_new * len(prompts)
+        twin_tps = off_st["decode_tokens"] / max(off_st["decode_s"], 1e-9)
+        twin_steps = _model_steps(off_st)
         _fresh_pools(model)
         spec = DraftModelDrafter(model, kv_dtype=kv_dtype) \
             if drafter == "draft_model" else "ngram"
         eng = GenerationEngine(model, spec_decode=spec, **kw)
-        K.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
-        with torch.inference_mode():
-            out = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = K.launch_counts()
+        _serve_wave(eng, prompts, n_new)
+        marks = _trace_counts(eng)
+        inner = getattr(eng._spec, "_eng", None)
+        d_before = None if inner is None else dict(inner.stats)
+        gen, st, wall, launches, _ = _serve_wave(eng, prompts, n_new)
+        frozen = _trace_counts(eng) == marks
         for k in total:
             total[k] += launches[k]
-        st = eng.stats
-        gen = [out[r][len(p):] for r, p in zip(rids, prompts)]
-        draft_st = eng._spec._eng.stats if drafter == "draft_model" else None
+        d_steps = 0 if inner is None else sum(
+            inner.stats[k] - d_before[k]
+            for k in ("ragged_steps", "decode_steps"))
         disp = max(st["spec_dispatches"], 1)
         tps = (st["spec_tokens"] + st["decode_tokens"]) / max(
             st["spec_verify_s"] + st["spec_draft_s"] + st["decode_s"], 1e-9)
         n_launch = sum(launches[k] for k in K.KERNELS)
         steps = _model_steps(st)
-        d_steps = 0 if draft_st is None else \
-            draft_st["ragged_steps"] + draft_st["decode_steps"]
         print(f"[{tag}] requests={len(prompts)} new_tokens="
               f"{sum(map(len, gen))} wall_s={wall:.3f} peak_mem_gb="
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} "
               f"kv_pool_bytes={st['kv_pool_bytes']}"
-              + ("" if draft_st is None else
-                 f" + the draft engine's {draft_st['kv_pool_bytes']}"))
+              + ("" if inner is None else
+                 f" + the draft engine's {inner.stats['kv_pool_bytes']}")
+              + f" (warm wave, graphs; captured "
+              f"{json.dumps(_captures(eng))}; the warm wave builds none: "
+              f"{frozen})")
         print(f"[{tag}] verify dispatches={st['spec_dispatches']} "
               f"drafted={st['spec_draft_tokens']} accepted="
               f"{st['spec_accepted_tokens']} acceptance="
@@ -3200,27 +3509,26 @@ def phase_serve_spec(K, model, twin, twin_st, kv_dtype=None):
               f"{st['spec_tokens'] / max(st['spec_rows'], 1):.3f}, rows "
               f"{st['spec_rows']}) verify_s={st['spec_verify_s']:.3f} "
               f"draft_s={st['spec_draft_s']:.3f} (host clock; per verify "
-              f"dispatch {1e3 * st['spec_verify_s'] / disp:.2f} and "
-              f"{1e3 * st['spec_draft_s'] / disp:.2f} ms)")
+              f"dispatch {1e3 * st['spec_verify_s'] / disp:.2f} ms of "
+              f"verify and {1e3 * st['spec_draft_s'] / disp:.2f} ms of "
+              f"drafting)")
         print(f"[{tag}] decode tokens_per_s={tps:.2f} ((verify + plain "
               f"chunk tokens) / (verify + draft + chunk seconds), host "
-              f"clock) beside the spec-off twin's {twin_tps:.2f}; decode "
-              f"chunks={st['decode_chunks']} tokens={st['decode_tokens']}; "
-              f"ragged steps={st['ragged_steps']} mixed_decode_tokens="
-              f"{st['mixed_decode_tokens']}")
+              f"clock) beside the spec-off twin's {twin_tps:.2f} (graphs "
+              f"both); decode chunks={st['decode_chunks']} tokens="
+              f"{st['decode_tokens']}; ragged steps={st['ragged_steps']} "
+              f"mixed_decode_tokens={st['mixed_decode_tokens']}")
         print(f"[{tag}] model steps per generated token: target "
               f"{steps / n_gen:.4f} (spec-off twin {twin_steps / n_gen:.4f}), "
               f"with the draft model's {(steps + d_steps) / n_gen:.4f}; "
               f"kernel launches per generated token {n_launch / n_gen:.2f}")
         print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
         _no_drafter_error(tag, eng)
-        # self-drafting always drafts; the n-gram drafter drafts only where
-        # a request repeats itself (random weights and prompts seldom do:
-        # its steps then fall back to the plain chunk, reason no_drafts)
-        if drafter == "draft_model" and (st["spec_dispatches"] < 1 or
-                                         st["spec_draft_tokens"] < 1):
+        if st["spec_dispatches"] < 1 or st["spec_draft_tokens"] < 1:
             raise AssertionError(f"[{tag}] no verify dispatch drafted "
                                  "anything")
+        if not frozen:
+            raise AssertionError(f"[{tag}] the warm wave built programs")
         for g in gen:
             if len(g) != n_new or g.min() < 0 or g.max() >= cfg.vocab_size:
                 raise AssertionError(f"[{tag}] a result is not prompt + "
@@ -3232,10 +3540,158 @@ def phase_serve_spec(K, model, twin, twin_st, kv_dtype=None):
             _require_launched(tag, launches, SPEC_INT8_KERNELS)
             _require_idle(tag, launches, FLOAT_PAGED_KERNELS)
         _require_sm90_ragged(tag, launches)
-        _first_divergences(tag, model, prompts, gen, twin, kv_dtype)
-        del eng, spec
+        _first_divergences(tag, model, prompts, gen, off_gen, kv_dtype)
+        del eng, spec, inner
     _fresh_pools(model)
     return total
+
+
+def _verify_plain(model, eng, ids, q_lens, start_pos, bt, wpid, woff,
+                  p_dtype=None):
+    """A verify dispatch's argmaxes [c, s_pad] again, with attention
+    through the plain ragged version over a copy of the pages its rows
+    read and write (the engine's pools are left as they are): P in
+    float32 as the reference's ragged kernel keeps it, or with `p_dtype`
+    rounded to that type before the P V product as the tensor-core kernel
+    rounds it, every other rounding the plain version's."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels as K
+
+    dev = eng.device
+    pages = np.unique(np.concatenate([[0], bt.ravel(), wpid.ravel()]))
+    remap = np.zeros(eng.blocks.n_pages, np.int64)
+    remap[pages] = np.arange(len(pages))
+    idx = torch.as_tensor(pages, device=dev)
+    kp = [p[idx] for p in eng.k_pages]
+    vp = [p[idx] for p in eng.v_pages]
+    scales = {} if eng.k_scales is None else {
+        "k_scales": [x[idx] for x in eng.k_scales],
+        "v_scales": [x[idx] for x in eng.v_scales]}
+
+    def plain(q, k_pages, v_pages, block_tables, context_lens, q_lens,
+              scale=None, k_scales=None, v_scales=None, name=None):
+        if k_scales is None:
+            return K.ragged_paged_attention_plain(
+                q, k_pages, v_pages, block_tables, context_lens, q_lens,
+                scale, p_dtype=p_dtype)
+        return K.ragged_paged_attention_int8_plain(
+            q, k_pages, v_pages, k_scales, v_scales, block_tables,
+            context_lens, q_lens, scale, p_dtype=p_dtype)
+
+    def put(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    kernel = F.ragged_paged_attention
+    F.ragged_paged_attention = plain
+    try:
+        with torch.inference_mode():
+            logits = model.paged_verify(
+                put(ids), put(q_lens), put(start_pos), kp, vp,
+                put(remap[bt].astype(np.int32)), put(remap[wpid]),
+                put(woff), **scales)[0]
+    finally:
+        F.ragged_paged_attention = kernel
+    return torch.argmax(logits.float(), dim=-1).cpu().numpy()
+
+
+def phase_spec_rescore(model, kv_dtype=None):
+    """[spec:rescore] (ROADMAP C.1): the self-drafting [serve:spec] run
+    again (untimed). Each verify dispatch with a rejected draft is
+    rescored twice through the plain ragged version (``_verify_plain``):
+    with P in float32 (the reference's rounding) and with P rounded to
+    the model's type as the tensor-core kernel rounds it, all else equal.
+    Printed: the rejections; how many the float32-P rescoring accepts
+    (flips against the kernel, which differs from the plain version in
+    every rounding); how many decisions, rejections and acceptances, P's
+    rounding alone changes (the 16-bit-P rescoring against the float32-P
+    one); and the argmaxes over every verify position that differ between
+    the two rescorings, and between the kernel and the float32-P one.
+    Returns the counts."""
+    from paddle_tpu_torch.inference import DraftModelDrafter, GenerationEngine
+
+    cfg = model.config
+    tag = "spec:rescore" if kv_dtype is None else "spec:rescore:int8"
+    rng = np.random.default_rng(0)
+    prompts = _serving_prompts(rng, 8, 300, 900, cfg.vocab_size, 512, (0, 5))
+    _fresh_pools(model)
+    eng = GenerationEngine(model, spec_decode=DraftModelDrafter(
+        model, kv_dtype=kv_dtype), max_slots=4, page_size=16,
+        prefill_chunk=256, mixed_step=True, prefix_cache=True,
+        kv_dtype=kv_dtype)
+    p16 = model.llama.embed_tokens.weight.dtype
+    verify = eng._verify_launch
+    n = dict.fromkeys(("rejections", "flips", "p_flips", "accepted",
+                       "accept_flips", "p_accept_flips", "positions",
+                       "p_argmax_diff", "kernel_argmax_diff",
+                       "rescored_dispatches"), 0)
+
+    def rescored(ids, q_lens, start_pos, bt, wpid, woff):
+        g = verify(ids, q_lens, start_pos, bt, wpid, woff)
+        rows = []                           # (row, drafts, accepted)
+        for i in range(len(q_lens)):
+            m = int(q_lens[i]) - 1
+            a = 0
+            while a < m and int(ids[i, 1 + a]) == int(g[i, a]):
+                a += 1
+            if m > 0:
+                rows.append((i, m, a))
+        if not any(a < m for _, m, a in rows):
+            return g
+        args = (model, eng, ids, q_lens, start_pos, bt, wpid, woff)
+        g32 = _verify_plain(*args)
+        g16 = _verify_plain(*args, p_dtype=p16)
+        n["rescored_dispatches"] += 1
+        for i, m, a in rows:
+            draft = [int(t) for t in ids[i, 1:1 + m]]
+            ok32 = [int(g32[i, j]) == draft[j] for j in range(m)]
+            ok16 = [int(g16[i, j]) == draft[j] for j in range(m)]
+            n["accepted"] += a
+            n["accept_flips"] += a - sum(ok32[:a])
+            n["p_accept_flips"] += sum(x != y for x, y in
+                                       zip(ok32[:a], ok16[:a]))
+            if a < m:
+                n["rejections"] += 1
+                n["flips"] += ok32[a]
+                n["p_flips"] += ok32[a] != ok16[a]
+            n["positions"] += m + 1
+            n["p_argmax_diff"] += int((g32[i, :m + 1] != g16[i, :m + 1])
+                                      .sum())
+            n["kernel_argmax_diff"] += int((g32[i, :m + 1] != g[i, :m + 1])
+                                           .sum())
+        return g
+
+    eng._verify_launch = rescored
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=32)
+    with torch.inference_mode():
+        eng.run()
+    st = eng.stats
+    n["acceptance"] = st["spec_accepted_tokens"] / max(
+        st["spec_draft_tokens"], 1)
+    print(f"[{tag}] verify dispatches={st['spec_dispatches']} drafted="
+          f"{st['spec_draft_tokens']} accepted={st['spec_accepted_tokens']} "
+          f"(acceptance {n['acceptance']:.4f}); {n['rescored_dispatches']} "
+          f"dispatches rescored through the plain version with P in "
+          f"float32 and in {str(p16).split('.')[-1]}: rejections="
+          f"{n['rejections']}, of which the float32-P rescoring accepts "
+          f"(flips against the kernel) {n['flips']} and P's rounding alone "
+          f"decides differently {n['p_flips']}; accepted drafts "
+          f"{n['accepted']}, of which the float32-P rescoring rejects "
+          f"{n['accept_flips']} and P's rounding alone decides differently "
+          f"{n['p_accept_flips']}; argmaxes that differ over "
+          f"{n['positions']} verify positions: 16-bit P against float32 P "
+          f"(plain both) {n['p_argmax_diff']}, the kernel against float32 "
+          f"P {n['kernel_argmax_diff']}", flush=True)
+    _no_drafter_error(tag, eng)
+    if st["spec_rollbacks"] != n["rejections"]:
+        raise AssertionError(f"[{tag}] {n['rejections']} rejections seen, "
+                             f"the engine counted {st['spec_rollbacks']} "
+                             f"rollbacks")
+    if n["rescored_dispatches"] < 1:
+        raise AssertionError(f"[{tag}] no verify dispatch rejected a draft")
+    del eng, verify, rescored
+    _fresh_pools(model)
+    return n
 
 
 def _print_profile(tag, prof, wall, note, steps=None):
@@ -3257,8 +3713,14 @@ def _print_profile(tag, prof, wall, note, steps=None):
         print(f"[{tag}] the profiler recorded no device time: device "
               "breakdown not measured")
         return
-    per = "" if steps is None else \
+    # host calls that put work on the card: kernel and graph launches
+    # and copies (the CUDA runtime and driver calls the profiler records)
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key in HOST_LAUNCH_CALLS}
+    per = "" if steps is None else (
         f" kernel_launches_per_engine_step={n_kernels / steps:.1f}"
+        f" host_launch_calls_per_engine_step="
+        f"{sum(calls.values()) / steps:.1f} {json.dumps(calls)}")
     print(f"[{tag}] {note}: wall_s={wall:.3f} device_busy_s={busy:.3f} "
           f"idle_share={1 - busy / wall:.3f} kernel_launches={n_kernels}"
           f"{per}")
@@ -3288,74 +3750,174 @@ def _print_profile(tag, prof, wall, note, steps=None):
               f"x{count:<6d} {key[:90]}")
 
 
-def _profile_admission(model, prompts, kw, n_new, tag):
-    """The dense workload again on a fresh engine: its first dense
-    admission (the `_admit` call of engine step 0: c = 4, s_pad = 256)
-    under torch.profiler."""
+# the device kernels each counted wrapper launches, one per counted launch:
+# (kernel templates as the profiler names them, "<namespace>::<name><",
+# the launch_counts keys that count them); the decode merge follows its
+# split kernel only when the plan has more than one split, so only the
+# split kernel is held
+DEVICE_KERNELS = (
+    (("ragged_sm90_kernel",), ("ragged_paged_attention.sm90",
+                               "ragged_paged_attention_int8.sm90")),
+    (("ragged_kernel",), ("ragged_paged_attention.simt",
+                          "ragged_paged_attention_int8.simt")),
+    (("decode_split_kernel",), ("paged_decode_attention",
+                                "paged_decode_attention_int8")),
+    (("rms_norm_vec_kernel", "rms_norm_rows_kernel"), ("rms_norm",)),
+    (("swiglu_vec", "swiglu_scalar"), ("swiglu",)),
+    (("rope_vec_kernel", "rope_scalar_kernel"), ("fused_rope",
+                                                 "fused_rope_bwd")),
+    (("flash_fwd_sm90_kernel",), ("flash_attention.sm90",
+                                  "flashmask_attention.sm90")),
+    (("flash_fwd_kernel",), ("flash_attention.simt",
+                             "flashmask_attention.simt")),
+    (("bdrln_kernel",), ("bias_dropout_residual_ln",)))
+TRACE_LOSS = 0.005     # share of a name's kernels the trace may drop
+# host time left between the trace's start and the window's first launch,
+# and between the window's last kernel and the trace's stop: the profiler
+# keeps only device records whose times, moved onto the host's clock, fall
+# inside [start, stop], and that move is not exact, so a kernel launched
+# at once after the start (or ended just before the stop) can fall outside
+TRACE_EDGE_S = 0.05
+
+
+def _check_device_launches(tag, prof, counted):
+    """The device kernels a profiled window ran, by DEVICE_KERNELS' names,
+    against the launches the wrappers counted over the same window (with
+    graphs: the counts each replay adds from its capture). The window's
+    edges are padded by TRACE_EDGE_S of host time, since without that the
+    trace dropped the first kernels of a window (up to a layer or two of
+    them); a name may still run up to TRACE_LOSS of its counted launches
+    (at least one) fewer, less than one replay's worth (32 a layer loop);
+    never more. Some kernel must have run."""
+    rows = [(e.key, e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    seen, bad = {}, []
+    for names, keys in DEVICE_KERNELS:
+        ran = sum(c for k, c in rows
+                  if any(f"::{n}<" in k for n in names))
+        want = sum(counted[k] for k in keys)
+        seen[names[0]] = [ran, want]
+        if not want - max(1, int(want * TRACE_LOSS)) <= ran <= want:
+            bad.append(names[0])
+    shown = json.dumps({k: v for k, v in seen.items() if any(v)})
+    print(f"[{tag}] device kernels against counted launches over the "
+          f"window [traced, counted]: {shown}", flush=True)
+    if bad or not any(ran for ran, _ in seen.values()):
+        raise AssertionError(f"[{tag}] device kernels and counted launches "
+                             f"differ for {bad or 'every kernel (none ran)'}"
+                             f" [traced, counted]: {shown}")
+
+
+def _profile_admission(eng, prompts, n_new, tag):
+    """The dense workload again on `eng` (warm: its programs are built):
+    the first dense admission of the wave (the `_admit` call of its first
+    engine step: c = 4, s_pad = 256, a replayed graph) under
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.inference import GenerationEngine
+    from paddle_tpu_torch.ops import kernels as K
 
-    eng = GenerationEngine(model, **kw)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     admit = eng._admit
-    walls = []
+    walls, counted = [], {}
 
     def profiled_admit(admissions):
         torch.cuda.synchronize()
-        prof.start()
+        before = K.launch_counts()
+        prof.start_trace()
+        time.sleep(TRACE_EDGE_S)
         t0 = time.perf_counter()
         admit(admissions)                 # ends in a host sync
         walls.append(time.perf_counter() - t0)
-        prof.stop()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_EDGE_S)
+        prof.stop_trace()
+        after = K.launch_counts()
+        counted.update({k: after[k] - before[k] for k in after})
 
+    eng.blocks.invalidate_index()
+    tokens = eng.stats["prefill_tokens"]
     eng._admit = profiled_admit
-    with torch.inference_mode():
-        for p in prompts:
-            eng.add_request(p, max_new_tokens=n_new)
-        eng.step()
+    try:
+        with torch.inference_mode():
+            for p in prompts:
+                eng.add_request(p, max_new_tokens=n_new)
+            # the profiler's warm-up, as _profile_serve's step before its
+            # window: prepared just before the admission, the trace can
+            # still miss its first layer's kernels, so some device work
+            # is traced first
+            prof.prepare_trace()
+            x = torch.zeros(1 << 20, device=eng.device)
+            for _ in range(256):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+            del x
+            eng.step()
+    finally:
+        del eng._admit
     if len(walls) != 1:
         raise AssertionError("engine step 0 made no single dense admission")
     _print_profile(tag, prof, walls[0],
                    f"one dense admission (c=4, s_pad=256, "
-                   f"{eng.stats['prefill_tokens']} prompt tokens)")
+                   f"{eng.stats['prefill_tokens'] - tokens} prompt tokens)")
+    _check_device_launches(tag, prof, counted)
 
 
 PROFILE_STEPS = (2, 8)   # engine steps [from, to) of the profiled window
+# the host calls counted as launches in a profile: each puts work on the
+# card (a kernel, a whole CUDA graph, a copy)
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cudaLaunchKernelEx", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
-def _profile_serve(model, prompts, kw, n_new, tag):
-    """The same workload again on a fresh engine, with engine steps
-    PROFILE_STEPS under torch.profiler: device time by kernel and the
-    device's busy share of the window's wall time. (Profiled separately so
-    the timed run above carries no tracing cost; a window rather than the
+def _profile_serve(eng, prompts, n_new, tag):
+    """The same workload again on `eng` (warm: its programs are built),
+    with engine steps PROFILE_STEPS under torch.profiler: device time by
+    kernel, the device's busy share of the window's wall time, and host
+    launch calls and device kernels per engine step. (Profiled apart so
+    that the timed waves carry no tracing cost; a window rather than the
     whole run keeps the profiler's post-processing short.)"""
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.inference import GenerationEngine
+    from paddle_tpu_torch.ops import kernels as K
 
-    eng = GenerationEngine(model, **kw)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    eng.blocks.invalidate_index()
+    marks = _trace_counts(eng)
     with torch.inference_mode():
         for p in prompts:
             eng.add_request(p, max_new_tokens=n_new)
         n = 0
         while eng.has_work():
+            if n == PROFILE_STEPS[0] - 1:
+                # the profiler's warm-up: tracing set up a step before
+                # the window (started cold, a trace can miss the window's
+                # first kernels)
+                prof.prepare_trace()
             if n == PROFILE_STEPS[0]:
                 torch.cuda.synchronize()
                 before = dict(eng.stats)
-                prof.start()
+                counts = K.launch_counts()
+                prof.start_trace()
+                time.sleep(TRACE_EDGE_S)
                 t0 = time.perf_counter()
             eng.step()
             n += 1
             if n == PROFILE_STEPS[1]:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                prof.stop()
+                time.sleep(TRACE_EDGE_S)
+                prof.stop_trace()
                 after = dict(eng.stats)
+                counted = {k: v - counts[k]
+                           for k, v in K.launch_counts().items()}
     if n < PROFILE_STEPS[1]:
         raise AssertionError(f"the workload took {n} engine steps, fewer "
                              f"than the profiled window {PROFILE_STEPS}")
+    if _trace_counts(eng) != marks:
+        raise AssertionError(f"[{tag}] the profiled wave built programs")
     window = {k: after[k] - before[k] for k in
               ("ragged_steps", "decode_chunks", "decode_tokens",
                "mixed_decode_tokens")}
@@ -3363,6 +3925,7 @@ def _profile_serve(model, prompts, kw, n_new, tag):
                    f"engine steps {PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1} "
                    f"of {n} {json.dumps(window)}",
                    steps=PROFILE_STEPS[1] - PROFILE_STEPS[0])
+    _check_device_launches(tag, prof, counted)
 
 
 if __name__ == "__main__":

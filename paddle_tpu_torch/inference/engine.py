@@ -60,17 +60,21 @@ What it keeps from the JAX engine:
 
 What differs in this slice:
 
-- no JIT: steps run eagerly and pools are updated in place, under
-  ``torch.inference_mode()`` (``step`` and ``fork_request``, the two
-  methods that write pools; ``run``, ``generate``, the streams and the
-  model's ``generate_batch`` reach the device only through ``step``): the
-  model's parameters are trainable, and a pool written inside an autograd
-  graph would hold that graph across steps. The dense and ragged batches
-  are still padded to power-of-two (rows, tokens) buckets and decode
-  chunks to power-of-two lengths, as in JAX, so the shapes the kernels see
-  stay few (CUDA graphs over them come later). The verify dispatch is an
-  eager method too: ``paged_verify``, the argmax on the device, one
-  ``[c, s_pad]`` host copy.
+- no JIT: the JAX engine's compiled programs are the step programs of
+  ``programs.py`` — CUDA graphs on the card, captured once per bucket
+  (decode (steps, sampling), dense admission (c, s_pad, sampling), ragged
+  (c, s_pad, sampling), verify (c, s_pad), CoW copy (n)) and replayed
+  over static buffers, counted in the JAX engine's trace counters
+  (``decode_trace_count``, ``prefill_trace_count``,
+  ``ragged_trace_count``, ``spec_trace_count``, ``copy_trace_count``);
+  on the CPU the same programs run eagerly. The dense and ragged batches
+  are padded to power-of-two (rows, tokens) buckets and decode chunks to
+  power-of-two lengths, as in JAX, so the programs stay few. Pools are
+  updated in place under ``torch.inference_mode()`` (``step``,
+  ``fork_request`` and every program): the model's parameters are
+  trainable, and a pool written inside an autograd graph would hold that
+  graph across steps. The engine has no KV page upload program (the
+  JAX ``_build_upload``): KV import comes with the fleet plane.
 - the JAX engine's prefix store, KV-page export/import (``with_kv=``, a
   snapshot's ``kv``) and metrics registry are not served yet: asking for
   one raises NotImplementedError naming the slice that brings it.
@@ -102,6 +106,7 @@ import numpy as np
 import torch
 
 from ..quantization import page_quant
+from .programs import StepPrograms
 
 
 class PagedGenerationMixin:
@@ -141,16 +146,44 @@ class PagedGenerationMixin:
         results = eng.run()
         return [results[r] for r in rids]
 
+    def stream_generate(self, prompt, max_new_tokens=32, temperature=0.0,
+                        eos_token_id=None, max_slots=4, page_size=16,
+                        **engine_kw):
+        """Yield generated token ids one at a time through the engine's
+        streaming front end (``GenerationEngine.stream``)."""
+        with torch.no_grad():
+            self.eval()
+            eng = self.get_engine(max_slots=max_slots, page_size=page_size,
+                                  **engine_kw)
+            it = eng.stream(prompt, max_new_tokens, temperature,
+                            eos_token_id)
+        # no_grad per advance, NOT held across yields: the generator
+        # suspends with the caller's grad mode restored, so caller code
+        # running between tokens can still build a graph
+        while True:
+            with torch.no_grad():
+                try:
+                    tok = next(it)
+                except StopIteration:
+                    return
+            yield tok
+
 
 def sample_tokens(logits, temps, generator):
     """Greedy where temps == 0, categorical elsewhere. logits [B, V];
-    temps [B] float32 on the logits' device (None: all greedy)."""
+    temps [B] float32 on the logits' device (None: all greedy).
+
+    The categorical draw is the exponential race ``argmax(p / E)``, E ~
+    Exp(1) from `generator`: the draw ``torch.multinomial(p, 1)`` makes
+    (the same numbers from the same generator state), written out so that
+    a CUDA graph can capture it (no host check of p)."""
     greedy = torch.argmax(logits.float(), dim=-1)
     if temps is None:
         return greedy
     safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
     probs = torch.softmax(logits.float() / safe_t[:, None], dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    race = torch.empty_like(probs).exponential_(1, generator=generator)
+    sampled = torch.argmax(probs / race, dim=-1)
     return torch.where(temps > 0, sampled, greedy)
 
 
@@ -644,6 +677,17 @@ class GenerationEngine:
         self.ttft_s = deque(maxlen=4096)   # first-token latency per request
         model.eval()
 
+        # compiled step programs (programs.py): CUDA graphs on the card;
+        # False (private: the eager twin chip_smoke.py measures) runs every
+        # program eagerly through its static buffers, as on the CPU
+        self._graphs = self.device.type == "cuda"
+        self._programs = StepPrograms(self)
+        self.decode_trace_count = 0    # programs built per kind (the JAX
+        self.prefill_trace_count = 0   # engine's names; tests assert they
+        self.ragged_trace_count = 0    # freeze after warm-up)
+        self.copy_trace_count = 0
+        self.spec_trace_count = 0      # verify programs
+
         self.spec_k = max(1, int(spec_k))
         self.spec_min_accept = float(spec_min_accept)
         self.spec_cooldown = max(1, int(spec_cooldown))
@@ -683,9 +727,6 @@ class GenerationEngine:
     # device work
     # ------------------------------------------------------------------
 
-    def _put(self, x, dtype=None):
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
-
     def _scales(self):
         """The scale rows the paged model calls take (none for float
         pools); they are updated in place."""
@@ -700,13 +741,25 @@ class GenerationEngine:
         copies = self.blocks.drain_copies()
         if not copies:
             return
-        src = self._put([s for s, _ in copies], torch.long)
-        dst = self._put([d for _, d in copies], torch.long)
-        # a copied int8 page keeps its frozen scale
+        # one copy program per power-of-two count; padding pairs copy the
+        # trash page onto itself
+        n = _next_pow2(len(copies), floor=1)
+        src = np.zeros(n, np.int64)
+        dst = np.zeros(n, np.int64)
+        for i, (s, d) in enumerate(copies):
+            src[i], dst[i] = s, d
+        self._programs.run("copy", (n,), {"src": src, "dst": dst},
+                           self._copy_program)
+        self.stats["cow_flushes"] += 1
+
+    def _copy_program(self, inputs):
+        """The CoW copy step: dst pages take the src pages' content in
+        every pool; int8 scale rows ride along (a copied page keeps its
+        frozen scale)."""
+        src, dst = inputs["src"], inputs["dst"]
         for pool in (*self.k_pages, *self.v_pages, *(self.k_scales or ()),
                      *(self.v_scales or ())):
             pool[dst] = pool[src]
-        self.stats["cow_flushes"] += 1
 
     def _admit(self, admissions):
         """Prefill a batch of (req, slot) pairs — cold prompts that fit one
@@ -756,12 +809,13 @@ class GenerationEngine:
             temps[i] = req.temperature
 
         t0 = time.perf_counter()
-        logits, ks, vs = self.model.paged_prefill(self._put(ids),
-                                                  self._put(lens))
-        self._write_prefill(ks, vs, self._put(page_ids))
-        toks_np = sample_tokens(
-            logits, self._put(temps) if np.any(temps > 0) else None,
-            self._gen).cpu().numpy()        # host sync closes the window
+        sampling = bool(np.any(temps > 0))
+        host = {"ids": ids, "lens": lens, "page_ids": page_ids}
+        if sampling:
+            host["temps"] = temps
+        # the host copy after the program syncs and closes the window
+        toks_np = self._programs.run("prefill", (c, s_pad, sampling), host,
+                                     self._prefill_program).cpu().numpy()
         now = time.perf_counter()
         self.stats["prefill_admits"] += 1
         self.stats["prefill_s"] += now - t0
@@ -779,6 +833,14 @@ class GenerationEngine:
                 self.ttft_s.append(now - req.t_submit)
             self.blocks.register_prefix(slot, req.prompt)
             self._retire_if_done(req)
+
+    def _prefill_program(self, inputs):
+        """The dense admission step: ``paged_prefill``, the pool write
+        (``_write_prefill``) and each row's first token."""
+        logits, ks, vs = self.model.paged_prefill(inputs["ids"],
+                                                  inputs["lens"])
+        self._write_prefill(ks, vs, inputs["page_ids"])
+        return sample_tokens(logits, inputs.get("temps"), self._gen)
 
     def _write_prefill(self, ks, vs, page_ids):
         """Write a dense prefill's ks/vs [L, C, S_pad, H_kv, hd] into the
@@ -923,16 +985,40 @@ class GenerationEngine:
         host arrays and sample each row's next token from its last real
         position. Returns the tokens [c] (a host copy, which syncs)."""
         t0 = time.perf_counter()
-        logits = self.model.paged_prefill_ragged(
-            self._put(ids), self._put(q_lens), self._put(start_pos),
-            self.k_pages, self.v_pages, self._put(bt), self._put(wpid),
-            self._put(woff), **self._scales())[0]
-        toks_np = sample_tokens(
-            logits, self._put(temps) if np.any(temps > 0) else None,
-            self._gen).cpu().numpy()        # host sync closes the window
+        sampling = bool(np.any(temps > 0))
+        host = self._ragged_inputs(ids, q_lens, start_pos, bt, wpid, woff)
+        if sampling:
+            host["temps"] = temps
+        # the host copy after the program syncs and closes the window
+        toks_np = self._programs.run("ragged", (*ids.shape, sampling), host,
+                                     self._ragged_program).cpu().numpy()
         self.stats["ragged_steps"] += 1
         self.stats["ragged_s"] += time.perf_counter() - t0
         return toks_np
+
+    @staticmethod
+    def _ragged_inputs(ids, q_lens, start_pos, bt, wpid, woff):
+        return {"ids": ids, "q_lens": q_lens, "start_pos": start_pos,
+                "bt": bt, "wpid": wpid, "woff": woff}
+
+    def _ragged_model_args(self, inputs):
+        return (inputs["ids"], inputs["q_lens"], inputs["start_pos"],
+                self.k_pages, self.v_pages, inputs["bt"], inputs["wpid"],
+                inputs["woff"])
+
+    def _ragged_program(self, inputs):
+        """The ragged step: ``paged_prefill_ragged`` and each row's next
+        token from its last real position."""
+        logits = self.model.paged_prefill_ragged(
+            *self._ragged_model_args(inputs), **self._scales())[0]
+        return sample_tokens(logits, inputs.get("temps"), self._gen)
+
+    def _verify_program(self, inputs):
+        """The verify step: ``paged_verify`` and the greedy argmax at every
+        position."""
+        logits = self.model.paged_verify(
+            *self._ragged_model_args(inputs), **self._scales())[0]
+        return torch.argmax(logits.float(), dim=-1)
 
     def _verify_launch(self, ids, q_lens, start_pos, bt, wpid, woff):
         """The speculative verify dispatch on explicit host arrays: the
@@ -941,11 +1027,10 @@ class GenerationEngine:
         [c, s_pad] (one host copy, which syncs); only positions below a
         row's q_len mean anything."""
         t0 = time.perf_counter()
-        logits = self.model.paged_verify(
-            self._put(ids), self._put(q_lens), self._put(start_pos),
-            self.k_pages, self.v_pages, self._put(bt), self._put(wpid),
-            self._put(woff), **self._scales())[0]
-        toks_np = torch.argmax(logits.float(), dim=-1).cpu().numpy()
+        toks_np = self._programs.run(
+            "verify", ids.shape, self._ragged_inputs(
+                ids, q_lens, start_pos, bt, wpid, woff),
+            self._verify_program).cpu().numpy()
         self.stats["spec_dispatches"] += 1
         self.stats["spec_verify_s"] += time.perf_counter() - t0
         return toks_np
@@ -1009,34 +1094,44 @@ class GenerationEngine:
         assigned) and attends over position + 1 keys; idle slots write the
         trash page and keep their token. Returns the tokens [steps,
         max_slots] (one host copy, which syncs)."""
-        page = self.page_size
-        dev_active = self._put(active)
-        tokens = self._put(tokens, torch.long)
-        positions = self._put(positions, torch.long)
-        bt = self._put(self.blocks.block_tables)
-        rows = torch.arange(self.max_slots, device=self.device)
-        if temps is not None:
-            temps = self._put(temps)
-        zero = torch.zeros((), dtype=torch.long, device=self.device)
         t0 = time.perf_counter()
-        out = []
-        for _ in range(steps):
-            ctx = torch.where(dev_active, positions + 1, zero).to(torch.int32)
-            wp = torch.where(dev_active,
-                             bt[rows, positions // page].long(), zero)
-            wo = torch.where(dev_active, positions % page, zero)
-            logits = self.model.paged_decode(
-                tokens, positions, self.k_pages, self.v_pages, bt, ctx, wp,
-                wo, **self._scales())[0]
-            tokens = torch.where(
-                dev_active, sample_tokens(logits, temps, self._gen), tokens)
-            positions = torch.where(dev_active, positions + 1, positions)
-            out.append(tokens)
-        toks_np = torch.stack(out).cpu().numpy()    # [steps, B]; host sync
+        sampling = temps is not None
+        host = {"tokens": np.asarray(tokens, np.int64),
+                "positions": np.asarray(positions, np.int64),
+                "active": np.asarray(active, bool),
+                "bt": self.blocks.block_tables}
+        if sampling:
+            host["temps"] = np.asarray(temps, np.float32)
+        toks_np = self._programs.run(       # [steps, B]; the host copy syncs
+            "decode", (steps, sampling), host,
+            lambda inputs: self._decode_program(steps, inputs)).cpu().numpy()
         self.stats["decode_chunks"] += 1
         self.stats["decode_steps"] += steps
         self.stats["decode_s"] += time.perf_counter() - t0
         return toks_np
+
+    def _decode_program(self, steps, inputs):
+        """The decode chunk: `steps` decode steps of the whole slot pool,
+        sampling included, each feeding the next on the device."""
+        page = self.page_size
+        active, bt = inputs["active"], inputs["bt"]
+        tokens, positions = inputs["tokens"], inputs["positions"]
+        temps = inputs.get("temps")
+        rows = torch.arange(self.max_slots, device=self.device)
+        zero = torch.zeros((), dtype=torch.long, device=self.device)
+        out = []
+        for _ in range(steps):
+            ctx = torch.where(active, positions + 1, zero).to(torch.int32)
+            wp = torch.where(active, bt[rows, positions // page].long(), zero)
+            wo = torch.where(active, positions % page, zero)
+            logits = self.model.paged_decode(
+                tokens, positions, self.k_pages, self.v_pages, bt, ctx, wp,
+                wo, **self._scales())[0]
+            tokens = torch.where(
+                active, sample_tokens(logits, temps, self._gen), tokens)
+            positions = torch.where(active, positions + 1, positions)
+            out.append(tokens)
+        return torch.stack(out)
 
     # ------------------------------------------------------------------
     # speculative decoding: draft-and-verify decode dispatch
@@ -1701,6 +1796,9 @@ class GenerationEngine:
         with self._step_lock:
             with torch.no_grad():
                 out = loader()
+            # an in-place load keeps every address the programs captured;
+            # a moved parameter drops them (rebuilt at their next use)
+            self._programs.revalidate()
             self.blocks.invalidate_index()
             if self._spec is not None:
                 self._spec.invalidate()

@@ -229,8 +229,12 @@ class DraftModelDrafter(Drafter):
                 self._eng.blocks.release(slot)
 
     def invalidate(self):
+        """Forget every slot's draft KV (a weight swap); the private
+        engine's programs stay unless a parameter moved."""
         for slot in list(self._hist):
             self.drop_slot(slot)
+        if self._eng is not None:
+            self._eng._programs.revalidate()
 
 
 def spec_decode_from_env(value):

@@ -168,8 +168,29 @@ def reset_launch_counts():
         setattr(fn, attr, 0)
 
 
+def _counter(key):
+    """(wrapper, attribute) holding the count that ``launch_counts``
+    names `key`."""
+    if key in KERNELS:
+        return KERNELS[key][0], "launches"
+    if key in PARTS:
+        return PARTS[key]
+    name, rt = key.rsplit(".", 1)
+    return KERNELS[name][0], f"{rt}_launches"
+
+
+def add_launch_counts(delta, sign=1):
+    """Add `sign` times a {name: launches} delta, keyed as
+    ``launch_counts`` keys it, to the counters: the launches of a replayed
+    CUDA graph, whose wrappers ran only at its capture
+    (``inference.programs``)."""
+    for key, n in delta.items():
+        fn, attr = _counter(key)
+        setattr(fn, attr, getattr(fn, attr) + sign * n)
+
+
 __all__ = ["KERNELS", "PARTS", "ROUTED", "ROUTES", "SIMT_SOURCES",
-           "launch_counts", "reset_launch_counts",
+           "add_launch_counts", "launch_counts", "reset_launch_counts",
            "BiasDropoutResidualLN", "FlashAttention", "FlashmaskAttention",
            "FusedRoPE", "FusedRoPEQK", "RMSNorm", "SwiGLU",
            "bias_dropout_residual_ln",
