@@ -39,8 +39,11 @@ source, all started together; each build's seconds printed), then:
    the paged steps' per-token rows, a decode step's and a ragged chunk's;
    q and k of the training step and their gradients, the transposed
    form), tables in x's type, and the scalar path (D = 18), each printing
-   its path; then the cost of the plain int8 page write
-   (page_quant.write_rows) at the decode shape;
+   its path; GPT-3 1.3B's serving shapes (decode and ragged attention,
+   float and int8 pages, at 16 KV heads of 128; the dense admission's
+   causal flash at [4, 256, 16, 128]) and BERT-base's non-causal flash at
+   [8, 512, 12, 64] beside SDPA; then the cost of the plain int8 page
+   write (page_quant.write_rows) at the decode shape;
 2. agree: a 2-layer tiny Llama in float32 with the same seeded weights on
    the CPU (plain versions) and on the card (kernels) — generate_batch
    with prefix cache, chunked prefill and mixed steps, generate_batch with
@@ -64,7 +67,18 @@ source, all started together; each build's seconds printed), then:
    CoW copy program) and self-drafting must be token-identical with equal
    kernel launches, a repeat wave of the same shapes must build no
    program (the draft engine's too), and a weight swap in place must keep
-   every program (a moved parameter drops them);
+   every program (a moved parameter drops them); (agree:gpt) the tiny
+   GPT (multi-head, learned positions) through the prefix-sharing chunked
+   workload, dense admissions and spec decoding (n-gram and draft model),
+   float and int8 pools: CPU, CUDA graphs and the eager twin must give the
+   same greedy tokens, and the card must launch decode, ragged and flash
+   attention and the int8 twins; (agree:bert) the tiny BERT's three heads
+   with and without a padding mask (and their losses), MultiHeadAttention
+   through a Cache and a StaticCache, a Transformer, the six fused
+   incubate layers, fused_multi_transformer and
+   block_multihead_attention, CPU against the card within 1e-4 of each
+   output's largest value, with the flash kernel launched once a layer
+   where no mask is given and never under one;
 3. flashmask: F.flashmask_attention through autograd at [4, 2048, 16,
    128] bf16 with packed documents (each call must launch the masked
    forward and backward kernels once; out and grads held against the
@@ -86,7 +100,8 @@ source, all started together; each build's seconds printed), then:
 5. serve:dense: the same model serves 8 cold requests of 64-256 tokens,
    which the engine admits through the dense prefill (flash attention and
    fused RoPE), a cold and a warm wave; then the first dense admission of
-   a third wave (a replayed graph) runs under torch.profiler;
+   a third wave (a replayed graph) runs under torch.profiler, and the
+   eager twin must give the warm wave's tokens and launches;
 6. serve:int8 and serve:dense:int8: the two workloads again with
    kv_dtype="int8" (int8 pools, the int8 attention kernels), each beside
    the share of its generated tokens that differ from its bf16 twin's
@@ -108,7 +123,18 @@ source, all started together; each build's seconds printed), then:
    P in float32 and with P rounded as the kernel rounds it (rejections,
    flips against the kernel, and the decisions P's rounding alone
    changes);
-7. train: with the serving model released, the configuration bench.py
+   then serve:gpt, serve:gpt:int8 and serve:gpt:dense: with the Llama
+   released, GPT-3 1.3B (all 24 layers, hidden 2048, 16 heads, FFN 8192,
+   vocab 50304, bf16, random weights from seed 0) serves the serve and
+   serve:dense workloads as the Llama does (cold, warm and profiled waves
+   and the eager twins), launching decode and ragged or flash
+   attention (int8 twins over int8 pools) and no RMSNorm, SwiGLU or RoPE;
+   then bert: BERT-base's BertForMaskedLM in bf16 over 8 x 512 tokens
+   without a mask (the non-causal flash kernel, 12 launches a forward) and
+   with a padding mask (the dense path, none), agreeing on the unpadded
+   row (one unmasked forward profiled), and FusedMultiTransformer at the
+   same widths (12 layers), each with its ms per forward;
+7. train: with the serving models released, the configuration bench.py
    trains on the TPU (0.74B Llama, batch 4 x 2048, bf16 parameters,
    AdamW(1e-4, multi_precision=True)) takes a warm-up step and 5 timed
    steps of compile_train_step on random weights and a fixed batch: the
@@ -116,13 +142,13 @@ source, all started together; each build's seconds printed), then:
    of the path as often as the model has call sites; then (profile:train)
    one more step under torch.profiler.
 
-Each flashmask, fused_ffn, serving and training run's launch counts are
+Each flashmask, fused_ffn, serving, BERT and training run's launch counts are
 set to 0 just before it and read just after it; every kernel of its path
 must have launched, the int8 runs must launch the float paged attention
 kernels 0 times, every flash launch of the training, dense-serving and
 flashmask runs (bfloat16) and every ragged launch of the serving runs must
-take the tensor-core route; every model step of the serving runs must
-launch RoPE once a layer (q and k together, on the vector path), and
+take the tensor-core route; every model step of the Llama serving runs
+must launch RoPE once a layer (q and k together, on the vector path), and
 every training step once a layer each way. Then
 it prints the card's name and power limit, one JSON line with every
 kernel's numbers, and as the last line {"ok": true, "device": {...}}. Any
@@ -696,9 +722,9 @@ def _accuracy_bwd(K, q, k, v, do, got, causal, bounds=None, dense=None,
 
 
 def check_flash(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
-                library=True):
-    """Causal flash attention against its plain version, rounding P where
-    the kernel of this type does. The library call is PyTorch's
+                library=True, causal=True):
+    """Flash attention (causal unless told otherwise) against its plain
+    version, rounding P where the kernel of this type does. The library call is PyTorch's
     scaled_dot_product_attention on [B, H, S, D] views (its causal mask is
     top-left aligned, so it is timed only where S_q = S_k; its accuracy,
     beside the kernel's, against the float32 plain version, is taken with
@@ -709,12 +735,12 @@ def check_flash(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
         (b, s_k, h_kv, d), dtype=np.float32)).to(dev, dtype)
     v = torch.from_numpy(rng.standard_normal(
         (b, s_k, h_kv, d), dtype=np.float32)).to(dev, dtype)
-    got, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    got, lse = K.flash_attention_fwd(q, k, v, causal=causal)
     pd = _p_dtype(dtype)
-    want, want_lse = K.flash_attention_fwd_plain(q, k, v, causal=True,
+    want, want_lse = K.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                  p_dtype=pd)
     torch.cuda.synchronize()
-    blind = max(0, s_q - s_k)              # rows that see no key
+    blind = max(0, s_q - s_k) if causal else 0   # rows that see no key
     if blind and float(got[:, :blind].float().abs().max()) != 0.0:
         raise AssertionError("flash: rows with no visible key are not 0")
     finite = want_lse > -1e29
@@ -722,19 +748,20 @@ def check_flash(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
     if lse_err > 1e-3 or not bool((lse[~finite] <= -1e29).all()):
         raise AssertionError(f"flash: lse disagrees with the plain version "
                              f"(max abs err {lse_err})")
-    acc = None if pd is None else _accuracy_fwd(K, q, k, v, got, True)
+    acc = None if pd is None else _accuracy_fwd(K, q, k, v, got, causal)
     elt = q.element_size()
     lib = None
-    if library and s_q == s_k:
-        lib = _time_ms(lambda: _sdpa(q, k, v, True))
+    if library and (s_q == s_k or not causal):
+        lib = _time_ms(lambda: _sdpa(q, k, v, causal))
+    pairs = _causal_pairs(s_q, s_k) if causal else s_q * s_k
     return {"got": got, "want": want, "err": _max_err(got, want),
             "lse_err": lse_err, "acc": acc,
-            "flops": 4 * b * h * d * _causal_pairs(s_q, s_k),
+            "flops": 4 * b * h * d * pairs,
             "bytes": (2 * q.numel() + 2 * k.numel()) * elt + lse.numel() * 4,
             "ms": _time_ms(lambda: K.flash_attention_fwd(q, k, v,
-                                                         causal=True)),
+                                                         causal=causal)),
             "plain_ms": _time_ms(lambda: K.flash_attention_fwd_plain(
-                q, k, v, causal=True, p_dtype=pd), ITERS // 10),
+                q, k, v, causal=causal, p_dtype=pd), ITERS // 10),
             "library_ms": lib}
 
 
@@ -1291,6 +1318,8 @@ def phase_kernels(K, dev):
     rng_p = np.random.default_rng(4)
     # the speculative verify windows, likewise apart
     rng_v = np.random.default_rng(5)
+    # GPT-3 1.3B's and BERT-base's shapes, likewise apart
+    rng_g = np.random.default_rng(6)
     out = {}
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         if dtype == torch.float16:
@@ -1374,6 +1403,26 @@ def phase_kernels(K, dev):
                                       rows=RAGGED_VERIFY, q_max=8)),
                 ("ragged_paged_attention[c40]", lambda: check_ragged(
                     K, dev, dtype, 8, rng_r, rows=RAGGED_C40, p_max=64)),
+            ]
+            # GPT-3 1.3B serving (16 heads = 16 KV heads of 128, the
+            # engine's table of 128 pages of 16; its dense admission
+            # [4, 256]) and BERT-base's encoder (non-causal, D = 64, batch
+            # 8 x 512)
+            cases += [
+                ("paged_decode_attention[gpt]", lambda: check_decode(
+                    K, dev, dtype, rng_g, h_kv=16, h=16, p_max=128)),
+                ("paged_decode_attention_int8[gpt]", lambda: check_decode(
+                    K, dev, dtype, rng_g, h_kv=16, int8=True, h=16,
+                    p_max=128)),
+                ("ragged_paged_attention[gpt]", lambda: check_ragged(
+                    K, dev, dtype, 16, rng_g, h=16, p_max=128)),
+                ("ragged_paged_attention_int8[gpt]", lambda: check_ragged(
+                    K, dev, dtype, 16, rng_g, int8=True, h=16, p_max=128)),
+                ("flash_attention[gpt,admit]", lambda: check_flash(
+                    K, dev, dtype, rng_g, 4, 256, 256, 16, 16)),
+                ("flash_attention[bert]", lambda: check_flash(
+                    K, dev, dtype, rng_g, 8, 512, 512, 12, 12, d=64,
+                    causal=False)),
             ]
             # the training step's shapes: [train] runs B=4, S=2048, 16
             # heads of 128; GQA at the 7B width
@@ -1768,6 +1817,8 @@ def main():
     phase_agree_spec(dev)
     phase_surface(dev)
     phase_agree_graphs(dev)
+    phase_agree_gpt(dev)
+    phase_agree_bert(dev)
     masked = phase_flashmask(K, dev)
     ffn = phase_fused_ffn(K, dev)
     model = _serving_model(dev)
@@ -1781,14 +1832,22 @@ def main():
                              kv_dtype="int8")
     phase_spec_rescore(model)
     phase_spec_rescore(model, kv_dtype="int8")
-    del model                            # [train] reads its own peak
+    del model                            # the next runs read their own peak
+    _release()
+    gpt = _serving_gpt(dev)
+    gserve, gserve_out, _ = phase_serve(K, gpt, name="serve:gpt")
+    gserve8, _, _ = phase_serve(K, gpt, kv_dtype="int8", twin=gserve_out,
+                                name="serve:gpt")
+    gdense, _ = phase_serve_dense(K, gpt, name="serve:gpt:dense")
+    del gpt
+    bert = phase_bert(K, dev)
     train, model, opt, batch = phase_train(K, dev)
     phase_profile_train(model, opt, batch)
-    launches = {k: serve[k] + dense[k] + serve8[k] + dense8[k] + spec[k] +
-                spec8[k] + train[k] + masked[k] + ffn[k]
-                for k in K.launch_counts()}
-    _require_launched("all serving, training, flashmask and fused_ffn runs",
-                      launches, K.KERNELS)
+    runs = (serve, dense, serve8, dense8, spec, spec8, gserve, gserve8,
+            gdense, bert, train, masked, ffn)
+    launches = {k: sum(r[k] for r in runs) for k in K.launch_counts()}
+    _require_launched("all serving, BERT, training, flashmask and fused_ffn "
+                      "runs", launches, K.KERNELS)
 
     name_power = _nvidia_smi()
     print(name_power)
@@ -3080,7 +3139,7 @@ def _serve_wave(eng, prompts, n_new):
     return gen, st, wall, launches, ttft
 
 
-def phase_serve(K, model, kv_dtype=None, twin=None):
+def phase_serve(K, model, kv_dtype=None, twin=None, name="serve"):
     """8 requests of 300-900 tokens (requests 0 and 5 share a 512-token
     prefix), 32 greedy tokens each, on float pools or (kv_dtype="int8")
     int8 pools, through one engine whose step programs are CUDA graphs: a
@@ -3090,11 +3149,12 @@ def phase_serve(K, model, kv_dtype=None, twin=None):
     steps PROFILE_STEPS under torch.profiler. Then the eager twin
     (``_graphs = False``) on a fresh engine: a timed wave, which must
     give the warm wave's tokens and kernel launches, and a profiled one.
-    Returns the warm wave's kernel launches, generated tokens and stats."""
+    Returns the warm wave's kernel launches, generated tokens and stats.
+    `name` tags the lines ([name], [name:int8], [profile:name...])."""
     from paddle_tpu_torch.inference import GenerationEngine
 
     cfg = model.config
-    tag = "serve" if kv_dtype is None else "serve:int8"
+    tag = name if kv_dtype is None else f"{name}:int8"
     _fresh_pools(model)
     rng = np.random.default_rng(0)
     prompts = _serving_prompts(rng, 8, 300, 900, cfg.vocab_size, 512, (0, 5))
@@ -3128,7 +3188,8 @@ def phase_serve(K, model, kv_dtype=None, twin=None):
           f"{st['prefix_hit_tokens']} preemptions={st['preemptions']}")
     print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
     _print_decode_launches(tag, K, launches, eng, kv_dtype)
-    _check_rope_launches(tag, launches, cfg.num_hidden_layers)
+    if _is_llama(model):
+        _check_rope_launches(tag, launches, cfg.num_hidden_layers)
     _print_twin_diff(tag, gen, twin)
     for g in gen:
         if len(g) != n_new or g.min() < 0 or g.max() >= cfg.vocab_size:
@@ -3138,10 +3199,8 @@ def phase_serve(K, model, kv_dtype=None, twin=None):
         raise AssertionError("degenerate output: one token everywhere")
     if st["prefix_hits"] < 1:
         raise AssertionError("the serving run saw no prefix-cache hit")
-    if kv_dtype is None:
-        _require_launched(tag, launches, SERVE_KERNELS)
-    else:
-        _require_launched(tag, launches, SERVE_INT8_KERNELS)
+    _require_launched(tag, launches, _path_kernels(model, kv_dtype, False))
+    if kv_dtype is not None:
         _require_idle(tag, launches, FLOAT_PAGED_KERNELS)
     _require_sm90_ragged(tag, launches)
     if not frozen:
@@ -3175,16 +3234,23 @@ def phase_serve(K, model, kv_dtype=None, twin=None):
     return launches, gen, st
 
 
-# the kernels each serving run's path launches
-SERVE_KERNELS = ("ragged_paged_attention", "paged_decode_attention",
-                 "rms_norm", "swiglu", "fused_rope")
-DENSE_KERNELS = ("flash_attention", "fused_rope", "paged_decode_attention",
-                 "rms_norm", "swiglu")
-SERVE_INT8_KERNELS = ("ragged_paged_attention_int8",
-                      "paged_decode_attention_int8", "rms_norm", "swiglu",
-                      "fused_rope")
-DENSE_INT8_KERNELS = ("flash_attention", "fused_rope",
-                      "paged_decode_attention_int8", "rms_norm", "swiglu")
+def _is_llama(model):
+    return hasattr(model, "llama")
+
+
+def _path_kernels(model, kv_dtype, dense):
+    """The kernels a serving run's path launches: decode attention, and
+    ragged attention (chunked prefill) or flash (dense admission), their
+    int8 twins over int8 pools; the Llama's layers add RMSNorm, SwiGLU and
+    RoPE (GPT's LayerNorm, GELU and learned positions are plain)."""
+    suffix = "" if kv_dtype is None else "_int8"
+    out = (("flash_attention",) if dense else
+           (f"ragged_paged_attention{suffix}",)) + \
+        (f"paged_decode_attention{suffix}",)
+    if _is_llama(model):
+        out += ("rms_norm", "swiglu", "fused_rope")
+    return out
+
 # what an int8 run must never launch: no float pool behind the flag
 FLOAT_PAGED_KERNELS = ("ragged_paged_attention", "paged_decode_attention")
 RAGGED_KERNELS = ("ragged_paged_attention", "ragged_paged_attention_int8")
@@ -3201,7 +3267,8 @@ def _print_decode_launches(tag, K, launches, eng, kv_dtype):
     layers = cfg.num_hidden_layers
     p_max = eng.blocks.block_tables.shape[1]
     splits, pps = K.split_plan(eng.max_slots, cfg.num_attention_heads,
-                               cfg.num_key_value_heads, p_max, eng.page_size)
+                               eng.model.paged_spec()["n_kv_heads"], p_max,
+                               eng.page_size)
     per_call = 1 + (splits > 1)
     print(f"[{tag}] decode attention: {launches[name]} calls = "
           f"{launches[name] // layers} decode steps x {layers} layers; plan "
@@ -3260,17 +3327,21 @@ def _require_idle(tag, launches, names):
                              f"int8 run: {busy}")
 
 
-def phase_serve_dense(K, model, kv_dtype=None, twin=None):
+def phase_serve_dense(K, model, kv_dtype=None, twin=None,
+                      name="serve:dense"):
     """The same model serves 8 cold requests of 64-256 tokens (no shared
     prefix), 32 greedy tokens each: every prompt fits the chunk of 256, so
     the engine admits them through the dense prefill. A cold wave captures
     the programs; the numbers are the warm wave's (replays, the same
-    shapes). Returns the warm wave's kernel launch counts and generated
-    tokens."""
+    shapes); the first admission of a third wave is profiled. Then the
+    eager twin (``_graphs = False``) on a fresh engine must give the warm
+    wave's tokens and kernel launches. Returns the warm wave's kernel
+    launch counts and generated tokens. `name` tags the lines as in
+    phase_serve."""
     from paddle_tpu_torch.inference import GenerationEngine
 
     cfg = model.config
-    tag = "serve:dense" if kv_dtype is None else "serve:dense:int8"
+    tag = name if kv_dtype is None else f"{name}:int8"
     _fresh_pools(model)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, cfg.vocab_size,
@@ -3316,7 +3387,8 @@ def phase_serve_dense(K, model, kv_dtype=None, twin=None):
           f"preemptions={st['preemptions']}")
     print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
     _print_decode_launches(tag, K, launches, eng, kv_dtype)
-    _check_rope_launches(tag, launches, cfg.num_hidden_layers)
+    if _is_llama(model):
+        _check_rope_launches(tag, launches, cfg.num_hidden_layers)
     _print_twin_diff(tag, gen, twin)
     for g in gen:
         if len(g) != n_new or g.min() < 0 or g.max() >= cfg.vocab_size:
@@ -3328,10 +3400,8 @@ def phase_serve_dense(K, model, kv_dtype=None, twin=None):
                              f"{st['prefill_admits']}, {shapes}")
     if not frozen:
         raise AssertionError(f"[{tag}] the warm wave built programs")
-    if kv_dtype is None:
-        _require_launched(tag, launches, DENSE_KERNELS)
-    else:
-        _require_launched(tag, launches, DENSE_INT8_KERNELS)
+    _require_launched(tag, launches, _path_kernels(model, kv_dtype, True))
+    if kv_dtype is not None:
         _require_idle(tag, launches, FLOAT_PAGED_KERNELS)
     _require_sm90_ragged(tag, launches)
     # one flash forward per layer and admission, on the tensor-core route
@@ -3343,9 +3413,26 @@ def phase_serve_dense(K, model, kv_dtype=None, twin=None):
                              f"route {launches['flash_attention.sm90']}), "
                              f"expected {want}")
     _profile_admission(eng, prompts, n_new,
-                       "profile:dense" if kv_dtype is None
-                       else "profile:dense:int8")
+                       "profile:" + tag[len("serve:"):])
     del eng
+    _fresh_pools(model)
+
+    twin_eng = GenerationEngine(model, **kw)
+    twin_eng._graphs = False
+    e_gen, e_st, e_wall, e_launches, _ = _serve_wave(twin_eng, prompts,
+                                                     n_new)
+    same = all(np.array_equal(a, b) for a, b in zip(gen, e_gen))
+    print(f"[{tag}:eager] the eager twin (_graphs = False): wall_s="
+          f"{e_wall:.3f} prefill_s_per_admit="
+          f"{e_st['prefill_s'] / max(e_st['prefill_admits'], 1):.4f} "
+          f"decode tokens_per_s="
+          f"{e_st['decode_tokens'] / max(e_st['decode_s'], 1e-9):.2f}; "
+          f"tokens == graphs' {same}; kernel launches == graphs' "
+          f"{e_launches == launches}", flush=True)
+    if not same or e_launches != launches:
+        raise AssertionError(f"[{tag}] graphs and the eager twin disagree "
+                             "(tokens or kernel launches)")
+    del twin_eng
     _fresh_pools(model)
     return launches, gen
 
@@ -3738,6 +3825,11 @@ def _print_profile(tag, prof, wall, note, steps=None):
         print(f"[{tag}] RoPE: {sum(r[0] for r in rope) / 1e3:.2f} ms = "
               f"{100 * sum(r[0] for r in rope) / 1e6 / busy:.1f}% of busy "
               f"time, {sum(r[2] for r in rope)} launches")
+    fl = [r for r in rows if "flash_fwd" in r[1]]
+    if fl:
+        print(f"[{tag}] flash attention: {sum(r[0] for r in fl) / 1e3:.2f} "
+              f"ms = {100 * sum(r[0] for r in fl) / 1e6 / busy:.1f}% of "
+              f"busy time, {sum(r[2] for r in fl)} launches")
     rag = [r for r in rows if "ragged_" in r[1]]
     if rag:
         print(f"[{tag}] ragged attention: "
@@ -3926,6 +4018,448 @@ def _profile_serve(eng, prompts, n_new, tag):
                    f"of {n} {json.dumps(window)}",
                    steps=PROFILE_STEPS[1] - PROFILE_STEPS[0])
     _check_device_launches(tag, prof, counted)
+
+
+# ----------------------------------------------------------------------
+# GPT and BERT: the second served model and the encoder
+# ----------------------------------------------------------------------
+
+# what the tiny GPT's agreement runs must launch on the card (decode and
+# ragged attention, their int8 twins, the dense admission's flash)
+GPT_AGREE_KERNELS = ("ragged_paged_attention", "paged_decode_attention",
+                     "flash_attention", "ragged_paged_attention_int8",
+                     "paged_decode_attention_int8")
+
+
+def _tiny_gpt_pair(dev):
+    """A 2-layer tiny GPT in float32 with one set of seeded weights on the
+    CPU (plain versions) and on the card (kernels)."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig.tiny()
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    state = weights.random_state(cpu, seed=0)
+    weights.from_paddle_tpu_state(state, cpu)
+    gpu = weights.from_paddle_tpu_state(state,
+                                        GPTForCausalLM(cfg, device=dev))
+    return cfg, cpu, gpu
+
+
+def phase_agree_gpt(dev):
+    """The tiny GPT (multi-head: 4 KV heads of 16), CPU plain versions
+    against the card's kernels: greedy generate waves through the prefix
+    cache, chunked prefill and mixed steps, through dense admissions, and
+    with spec decoding (the n-gram and the draft-model drafters), each on
+    float and int8 pools. On the card each runs with CUDA graphs and as
+    the eager twin. Tokens must be equal three ways, the twins' kernel
+    launches equal, and the card runs must launch decode, ragged and flash
+    attention and the int8 twins."""
+    from paddle_tpu_torch.inference import DraftModelDrafter, GenerationEngine
+    from paddle_tpu_torch.ops import kernels as K
+
+    cfg, cpu, gpu = _tiny_gpt_pair(dev)
+    base = dict(max_slots=2, page_size=4, max_seq_len=64, prefix_cache=True,
+                prefill_chunk=8, mixed_step=True)
+    spec = dict(max_slots=4, page_size=4, max_seq_len=64, mixed_step=False)
+    workloads = [
+        ("chunked+prefix", _serving_prompts(np.random.default_rng(1), 6, 9,
+                                            20, cfg.vocab_size, 12, (0, 4)),
+         base, None),
+        ("dense admission", _serving_prompts(np.random.default_rng(3), 6, 3,
+                                             9, cfg.vocab_size, 4, (0, 4)),
+         dict(base, max_slots=3), None),
+        ("spec:ngram", SPEC_PROMPTS, spec, "ngram"),
+        ("spec:draft_model", SPEC_PROMPTS, spec, "draft_model"),
+    ]
+    total = dict.fromkeys(K.launch_counts(), 0)
+    bad = []
+    for kv in (None, "int8"):
+        for name, prompts, kw, drafter in workloads:
+            tag = f"{'float' if kv is None else 'int8'} {name}"
+
+            def engine(model, graphs):
+                sd = DraftModelDrafter(model, kv_dtype=kv) \
+                    if drafter == "draft_model" else (drafter or False)
+                eng = GenerationEngine(model, kv_dtype=kv, spec_decode=sd,
+                                       **kw)
+                _set_graphs(eng, graphs)
+                return eng
+
+            want = _wave(engine(cpu, False), prompts, 12)
+            runs = []
+            for on in (True, False):
+                eng = engine(gpu, on)
+                K.reset_launch_counts()
+                toks = _wave(eng, prompts, 12)
+                runs.append((toks, K.launch_counts(), dict(eng.stats)))
+            (g_tok, g_l, st), (e_tok, e_l, _) = runs
+            same = all(np.array_equal(a, b) for a, b in zip(want, g_tok))
+            twin = all(np.array_equal(a, b) for a, b in zip(g_tok, e_tok))
+            drafted = st["spec_draft_tokens"]
+            print(f"[agree:gpt] {tag}: cpu == cuda graphs {same}; graphs "
+                  f"== eager {twin}; launches equal {g_l == e_l}; "
+                  f"prefill_admits={st['prefill_admits']} ragged_steps="
+                  f"{st['ragged_steps']} prefix_hits={st['prefix_hits']} "
+                  f"spec drafted/accepted={drafted}/"
+                  f"{st['spec_accepted_tokens']}; launches "
+                  f"{json.dumps({k: g_l[k] for k in GPT_AGREE_KERNELS})}",
+                  flush=True)
+            if not (same and twin and g_l == e_l) or \
+                    (drafter and drafted < 1):
+                bad.append(tag)
+            for k in total:
+                total[k] += g_l[k]
+    if bad:
+        raise AssertionError(f"[agree:gpt] disagreements (or no draft) in "
+                             f"{bad}")
+    _require_launched("agree:gpt", total, GPT_AGREE_KERNELS)
+
+
+def _serving_gpt(dev):
+    """GPT-3 1.3B (GPTConfig.gpt3_1p3b(): hidden 2048, 16 heads of 128,
+    FFN 8192, vocab 50304, 2048 positions), all 24 layers, bfloat16,
+    random weights from seed 0."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig.gpt3_1p3b()
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    weights.init_random_(model, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve:gpt] gpt3_1p3b, layers={cfg.num_hidden_layers}, "
+          f"params={n_params / 1e9:.3f}B bf16, init_s="
+          f"{time.perf_counter() - t0:.2f}", flush=True)
+    return model
+
+
+def _agree_module(dev, tag, make, call, expect=None):
+    """One module made by make(device) on the CPU and on the card with the
+    same numpy-seeded parameters (N(0, 0.3): norms and biases too, so none
+    is a no-op), called by call(module, device) -> tensor or tuple; every
+    output's largest error must be within 1e-4 of its largest value.
+    expect: {kernel: launches} the card's call must make. Returns the
+    card's launches."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.ops import kernels as K
+
+    cpu = make("cpu").eval()
+    rng = np.random.default_rng(0)
+    state = {n: (0.3 * rng.standard_normal(tuple(p.shape))).astype(
+        np.float32) for n, p in cpu.named_parameters()}
+    weights.from_paddle_tpu_state(state, cpu)
+    gpu = weights.from_paddle_tpu_state(state, make(dev)).eval()
+    with torch.no_grad():
+        want = call(cpu, "cpu")
+        K.reset_launch_counts()
+        got = call(gpu, dev)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+    want = want if isinstance(want, (tuple, list)) else [want]
+    got = got if isinstance(got, (tuple, list)) else [got]
+    errs = [(_max_err(g.cpu(), w), float(w.float().abs().max()))
+            for g, w in zip(got, want)]
+    ok = len(got) == len(want) and all(e <= 1e-4 * m for e, m in errs)
+    counted = {k: launches[k] for k in (expect or {})}
+    print(f"[agree:bert] {tag}: max_abs_err/max|want| " + " ".join(
+        f"{e:.2e}/{m:.2e}" for e, m in errs) + f" (<= 1e-4); launches "
+        f"{json.dumps(counted)}", flush=True)
+    if not ok:
+        raise AssertionError(f"[agree:bert] {tag}: CPU plain path and CUDA "
+                             f"kernel path disagree")
+    if expect and counted != expect:
+        raise AssertionError(f"[agree:bert] {tag}: launches {counted}, "
+                             f"expected {expect}")
+    return launches
+
+
+def phase_agree_bert(dev):
+    """The tiny BERT's three heads (with and without an attention mask, the
+    masked-LM and classification losses), the transformer layers
+    (MultiHeadAttention step by step through a Cache and over a
+    StaticCache, a Transformer with a causal target mask) and the fused
+    layers and functionals (the six incubate layers, fused_multi_transformer,
+    block_multihead_attention), float32, CPU plain versions against the
+    card's kernels. Attention without a mask must launch the flash kernel
+    once a layer, with a mask never; the post-norm fused layers launch
+    bdrln, block_multihead_attention the decode kernel."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.incubate import nn as tinn
+    from paddle_tpu_torch.incubate.nn import functional as TIF
+    from paddle_tpu_torch.models import bert as tbert
+
+    cfg = tbert.BertConfig.tiny()
+    layers = cfg.num_hidden_layers
+    rng = np.random.default_rng(7)
+    ids = rng.integers(1, cfg.vocab_size, (3, 16))
+    types = rng.integers(0, 2, (3, 16))
+    mask = np.ones((3, 16), np.int64)
+    mask[1, 9:] = 0
+    mask[2, 4:] = 0
+    mlm_labels = rng.integers(0, cfg.vocab_size, (3, 16))
+    mlm_labels[:, ::3] = -100
+    cls_labels = rng.integers(0, 2, 3)
+    x = rng.standard_normal((2, 6, 64)).astype(np.float32)
+
+    def t(a, d):
+        return torch.from_numpy(np.asarray(a)).to(d)
+
+    total = {}
+
+    def agree(tag, make, call, expect=None):
+        for k, v in _agree_module(dev, tag, make, call, expect).items():
+            total[k] = total.get(k, 0) + v
+
+    for masked in (False, True):
+        m = mask if masked else None
+        flash = {"flash_attention": 0 if masked else layers}
+        sfx = "masked" if masked else "unmasked"
+        agree(f"BertModel {sfx}",
+              lambda d: tbert.BertModel(cfg, device=d),
+              lambda mod, d: mod(t(ids, d), t(types, d),
+                                 None if m is None else t(m, d)), flash)
+        agree(f"BertForMaskedLM {sfx} logits+loss",
+              lambda d: tbert.BertForMaskedLM(cfg, device=d),
+              lambda mod, d: (mod(t(ids, d), t(types, d),
+                                  None if m is None else t(m, d)),
+                              mod(t(ids, d), t(types, d),
+                                  None if m is None else t(m, d),
+                                  t(mlm_labels, d))))
+        agree(f"BertForSequenceClassification {sfx} logits+loss",
+              lambda d: tbert.BertForSequenceClassification(cfg, device=d),
+              lambda mod, d: (mod(t(ids, d), t(types, d),
+                                  None if m is None else t(m, d)),
+                              mod(t(ids, d), t(types, d),
+                                  None if m is None else t(m, d),
+                                  t(cls_labels, d))))
+
+    def mha_caches(mod, d):
+        xd = t(x, d)
+        cache, outs = mod.gen_cache(xd), []
+        for lo, hi in ((0, 2), (2, 3), (3, 6)):
+            out, cache = mod(xd[:, lo:hi], cache=cache)
+            outs.append(out)
+        static = mod.gen_cache(xd, xd, tnn.MultiHeadAttention.StaticCache)
+        return outs + [cache.k, cache.v, mod(xd, cache=static)]
+    agree("MultiHeadAttention Cache x3 + StaticCache",
+          lambda d: tnn.MultiHeadAttention(64, 4, device=d), mha_caches,
+          {"flash_attention": 4})
+
+    def transformer(mod, d):
+        return mod(t(x, d), t(x[:, :5], d), None,
+                   mod.generate_square_subsequent_mask(5))
+    # encoder self-attention and decoder cross-attention unmasked (flash),
+    # decoder self-attention under the causal mask (dense)
+    agree("Transformer (causal target mask)",
+          lambda d: tnn.Transformer(64, 4, 2, 2, 128, dropout=0.0,
+                                    device=d), transformer,
+          {"flash_attention": 4})
+
+    keep = np.ones((2, 1, 6, 6), bool)
+    keep[0, :, :, 4:] = False
+    agree("FusedLinear", lambda d: tinn.FusedLinear(64, 32, device=d),
+          lambda mod, d: mod(t(x, d)))
+    agree("FusedDropoutAdd (eval)", lambda d: tinn.FusedDropoutAdd(0.5),
+          lambda mod, d: mod(t(x, d), t(x[::-1].copy(), d)))
+    agree("FusedMultiHeadAttention post-norm, unmasked and masked",
+          lambda d: tinn.FusedMultiHeadAttention(64, 4, device=d),
+          lambda mod, d: (mod(t(x, d)), mod(t(x, d), attn_mask=t(keep, d))),
+          {"flash_attention": 1, "bias_dropout_residual_ln": 2})
+    agree("FusedFeedForward post-norm gelu",
+          lambda d: tinn.FusedFeedForward(64, 128, activation="gelu",
+                                          device=d),
+          lambda mod, d: mod(t(x, d)), {"bias_dropout_residual_ln": 1})
+    agree("FusedTransformerEncoderLayer post-norm",
+          lambda d: tinn.FusedTransformerEncoderLayer(64, 4, 128, device=d),
+          lambda mod, d: mod(t(x, d)),
+          {"flash_attention": 1, "bias_dropout_residual_ln": 2})
+    agree("FusedMultiTransformer pre-norm x2",
+          lambda d: tinn.FusedMultiTransformer(64, 4, 128, num_layers=2,
+                                               device=d),
+          lambda mod, d: mod(t(x, d)), {"flash_attention": 2})
+
+    class Stack(torch.nn.Module):
+        """fused_multi_transformer's per-layer weight lists as
+        parameters."""
+
+        def __init__(self, d):
+            super().__init__()
+            shapes = {"ln_scales": [64], "ln_biases": [64],
+                      "qkv_weights": [3, 4, 16, 64],
+                      "qkv_biases": [3, 4, 16], "linear_weights": [64, 64],
+                      "linear_biases": [64], "ffn_ln_scales": [64],
+                      "ffn_ln_biases": [64], "ffn1_weights": [64, 128],
+                      "ffn1_biases": [128], "ffn2_weights": [128, 64],
+                      "ffn2_biases": [64]}
+            self.names = list(shapes)
+            for n, s in shapes.items():
+                setattr(self, n, torch.nn.ParameterList(
+                    [torch.nn.Parameter(torch.empty(s, device=d))
+                     for _ in range(2)]))
+
+        def forward(self, xd):
+            return TIF.fused_multi_transformer(
+                xd, *[list(getattr(self, n)) for n in self.names])
+    agree("fused_multi_transformer", Stack, lambda mod, d: mod(t(x, d)),
+          {"flash_attention": 2})
+
+    class Paged(torch.nn.Module):
+        """block_multihead_attention over a page pool (GQA 4 -> 2)."""
+
+        def __init__(self, d):
+            super().__init__()
+            self.q = torch.nn.Parameter(torch.empty(2, 4, 16, device=d))
+            self.kp = torch.nn.Parameter(torch.empty(8, 4, 2, 16, device=d))
+            self.vp = torch.nn.Parameter(torch.empty(8, 4, 2, 16, device=d))
+
+        def forward(self, d):
+            bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=d)
+            ctx = torch.tensor([7, 5], dtype=torch.int32, device=d)
+            return TIF.block_multihead_attention(self.q, self.kp, self.vp,
+                                                 bt, ctx)
+    agree("block_multihead_attention", Paged, lambda mod, d: mod(d),
+          {"paged_decode_attention": 1})
+    _require_launched("agree:bert", total, ("flash_attention",
+                                            "bias_dropout_residual_ln",
+                                            "paged_decode_attention"))
+
+
+BERT_BATCH = (8, 512)
+BERT_CALLS = 5
+
+
+def _profile_forward(tag, fn):
+    """One more call of fn (warm) under torch.profiler: device time by
+    kernel, the idle share of its wall, and the device kernels against the
+    launches the wrappers counted (as the serving windows are held)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.prepare_trace()
+    torch.cuda.synchronize()
+    before = K.launch_counts()
+    prof.start_trace()
+    time.sleep(TRACE_EDGE_S)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    time.sleep(TRACE_EDGE_S)
+    prof.stop_trace()
+    after = K.launch_counts()
+    _print_profile(tag, prof, wall, "one forward")
+    _check_device_launches(tag, prof, {k: after[k] - before[k]
+                                       for k in after})
+
+
+def _time_calls(fn, n=BERT_CALLS):
+    """(ms per call by CUDA events over n calls after one warm-up, the
+    kernel launches the n calls counted, the last output)."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    fn()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, K.launch_counts(), out
+
+
+def phase_bert(K, dev):
+    """BERT-base (BertConfig.bert_base(): 12 layers, hidden 768, 12 heads
+    of 64, FFN 3072, vocab 30522) in bfloat16, eval, random weights from
+    seed 0: BertForMaskedLM over 8 x 512 tokens unmasked (the flash kernel,
+    non-causal, D = 64: 12 launches a forward on the tensor-core route)
+    and with a padding mask (the dense path: no flash launch); the two
+    must agree on the unpadded row 0 (within 0.1 of the largest logit: 12
+    post-LN layers of bf16 attention computed two ways); one more unmasked
+    forward runs under torch.profiler. Then
+    FusedMultiTransformer at the same widths, 12 layers (pre-norm). Prints
+    ms per forward. Returns the timed calls' kernel launches."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.incubate import nn as tinn
+    from paddle_tpu_torch.models import BertConfig, BertForMaskedLM
+
+    _release()
+    cfg = BertConfig.bert_base()
+    b, s = BERT_BATCH
+    model = BertForMaskedLM(cfg, device=dev, dtype=torch.bfloat16).eval()
+    weights.init_random_(model, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ids = torch.randint(1, cfg.vocab_size, (b, s), generator=gen,
+                        device=dev)
+    lens = torch.tensor([s - 48 * i for i in range(b)], device=dev)
+    mask = (torch.arange(s, device=dev)[None] < lens[:, None]).long()
+    total = dict.fromkeys(K.launch_counts(), 0)
+    outs = {}
+    for tag, m in (("unmasked", None), ("masked", mask)):
+        with torch.inference_mode():
+            ms, launches, out = _time_calls(lambda: model(ids,
+                                                          attention_mask=m))
+        want = 0 if m is not None else cfg.num_hidden_layers * BERT_CALLS
+        flash = (launches["flash_attention"],
+                 launches["flash_attention.sm90"])
+        print(f"[bert] BertForMaskedLM {b}x{s} bf16 {tag}: "
+              f"ms_per_forward={ms:.3f} flash launches (all, sm90) {flash} "
+              f"over {BERT_CALLS} forwards; peak_mem_gb="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+        if flash != (want, want):
+            raise AssertionError(f"[bert] {tag}: flash launches {flash}, "
+                                 f"expected {want} on the tensor-core route")
+        if tuple(out.shape) != (b, s, cfg.vocab_size) or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"[bert] {tag}: logits not finite "
+                                 f"[{b}, {s}, {cfg.vocab_size}]")
+        outs[tag] = out[0].float()
+        for k in total:
+            total[k] += launches[k]
+        if m is None:
+            _profile_forward(f"profile:bert:{tag}",
+                             lambda: model(ids, attention_mask=m))
+    diff = float((outs["unmasked"] - outs["masked"]).abs().max())
+    top = float(outs["unmasked"].abs().max())
+    print(f"[bert] row 0 (no padding): flash vs dense path max_abs_diff="
+          f"{diff:.4f} max|logit|={top:.4f} (<= 0.1 of it)", flush=True)
+    if diff > 0.1 * top:
+        raise AssertionError("[bert] the flash and dense paths disagree on "
+                             "the unpadded row")
+    del model, outs, out
+    _release()
+    fmt = tinn.FusedMultiTransformer(
+        cfg.hidden_size, cfg.num_attention_heads, cfg.intermediate_size,
+        num_layers=cfg.num_hidden_layers, device=dev,
+        dtype=torch.bfloat16).eval()
+    weights.init_random_(fmt, seed=0)
+    x = torch.randn(b, s, cfg.hidden_size, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    with torch.inference_mode():
+        ms, launches, out = _time_calls(lambda: fmt(x))
+    want = cfg.num_hidden_layers * BERT_CALLS
+    flash = (launches["flash_attention"], launches["flash_attention.sm90"])
+    print(f"[bert] FusedMultiTransformer 12 layers {b}x{s}x"
+          f"{cfg.hidden_size} bf16: ms_per_forward={ms:.3f} flash launches "
+          f"(all, sm90) {flash}; peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+    if flash != (want, want) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"[bert] FusedMultiTransformer: flash launches "
+                             f"{flash} (expected {want}) or output not "
+                             f"finite")
+    for k in total:
+        total[k] += launches[k]
+    del fmt, out, x
+    _release()
+    return total
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """paddle_tpu_torch — the PyTorch + CUDA counterpart of ``paddle_tpu``.
 
-This package serves Llama through the paged continuous-batching engine and
-trains it (``model(ids, labels=labels)``, AdamW, ``compile_train_step``)
-on one NVIDIA Hopper card, with flashmask attention and the fused FFN
-epilogue ops beside. The plain tensor code is PyTorch; every kernel that
+This package serves Llama and GPT through the paged continuous-batching
+engine, trains Llama (``model(ids, labels=labels)``, AdamW,
+``compile_train_step``) and runs BERT's forward on one NVIDIA Hopper
+card, with flashmask attention, the transformer layers and the fused
+``incubate.nn`` layers beside. The plain tensor code is PyTorch; every kernel that
 ``paddle_tpu`` writes in Pallas for the TPU is a CUDA C++ kernel written
 for ``sm_90a`` under ``csrc/``, built at first use by
 ``ops.kernels._build`` and launched through ``ctypes``.
@@ -21,11 +22,14 @@ Layout (each module names its ``paddle_tpu`` counterpart):
 - ``quantization.page_quant``: int8 KV page codes and the offset-0 scale
   freeze rule.
 - ``nn``: functional surface (with the losses, masked attention and
-  ``flashmask_attention``) and the layers.
-- ``incubate.nn``: ``fused_bias_dropout_residual_layer_norm``,
-  ``fused_feedforward`` and ``FusedBiasDropoutResidualLayerNorm``.
-- ``models.llama``: the Llama model, its loss and the paged-model
-  contract.
+  ``flashmask_attention``), the layers and containers, and
+  ``nn.transformer`` (multi-head attention with its caches, the encoder
+  and decoder stacks, ``Transformer``).
+- ``incubate.nn``: the fused functionals (the FFN and attention blocks,
+  their epilogues, RoPE, paged and dense-cache decode attention) and the
+  fused layers.
+- ``models.llama``, ``models.gpt``: the decoder LMs, their losses and the
+  paged-model contract; ``models.bert``: the encoder and its heads.
 - ``optimizer``: Adam and AdamW (fp32 masters), regularizers, gradient
   clipping.
 - ``jit``: ``compile_train_step`` (eager).

@@ -1,6 +1,14 @@
 """Fused ops: the counterparts of ``paddle_tpu/ops/impl/fused.py``'s
 ``fused_bias_dropout_residual_layer_norm`` (:117), ``fused_feedforward``
-(:148) and ``fused_rotary_position_embedding`` (:48, on the RoPE kernel).
+(:148), ``fused_rotary_position_embedding`` (:48, on the RoPE kernel),
+``fused_linear`` (:79), ``fused_bias_act`` (:88),
+``block_multihead_attention`` (:215, on the paged decode kernel) and
+``masked_multihead_attention`` (:237, plain, as in JAX), and of
+``paddle_tpu/incubate/nn/functional/__init__.py``'s ``fused_layer_norm``,
+``fused_dropout_add``, ``fused_matmul_bias`` and
+``fused_linear_activation`` (both ``gemm_epilogue``,
+``ops/impl/fused_inference.py:336``), ``fused_multi_head_attention`` and
+``fused_multi_transformer``.
 
 ``fused_bias_dropout_residual_layer_norm`` is the bdrln op
 (``ops.kernels.BiasDropoutResidualLN``: the CUDA kernel for CUDA tensors,
@@ -12,10 +20,16 @@ op draws it. ``fused_feedforward`` keeps its two GEMMs as ``torch.matmul``
 through the SwiGLU kernel and the others in plain PyTorch (the JAX op
 takes any ``jax.nn`` activation by name; ``_ACTIVATIONS`` maps the
 elementwise ones to their ``torch.nn.functional`` counterparts, ``gelu``
-being JAX's default tanh approximation), dropout1 and the pre-norm tail
-in plain PyTorch, and the post-norm tail through the bdrln op. Both take
-the JAX op's parameters in order (``name`` ignored); ``generator=`` is
-keyword-only after them.
+being JAX's default tanh approximation, as in ``fused_bias_act`` and the
+GEMM epilogues), dropout1 and the pre-norm tail in plain PyTorch, and the
+post-norm tail through the bdrln op; so does the post-norm tail of
+``fused_multi_head_attention``. ``fused_multi_transformer`` takes its
+activation from ``nn.functional`` by name (``gelu``: exact), as JAX does.
+Attention goes through ``F.scaled_dot_product_attention`` (the flash
+kernel without a mask or active dropout). Every function takes the JAX
+op's parameters in order (``name``, ``ring_id`` and the cache arguments
+that JAX also ignores are taken and ignored); ``generator=`` is
+keyword-only after them where dropout draws.
 """
 
 from __future__ import annotations
@@ -112,18 +126,32 @@ def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
     p1 = float(dropout1_rate) if training else 0.0
     if p1 > 0.0:
         out = F.dropout(out, p1, training=True, generator=generator)
-    out = torch.matmul(out, linear2_weight)
-    if pre_layer_norm:
-        p2 = float(dropout2_rate) if training else 0.0
-        if linear2_bias is not None:
-            out = out + linear2_bias
-        if p2 > 0.0:
-            out = F.dropout(out, p2, training=True, generator=generator)
-        return residual + out
-    return fused_bias_dropout_residual_layer_norm(
-        out, residual, bias=linear2_bias, ln_scale=ln2_scale,
-        ln_bias=ln2_bias, dropout_rate=dropout2_rate, ln_epsilon=ln_epsilon,
-        training=training, generator=generator)
+    return _residual_tail(torch.matmul(out, linear2_weight), residual,
+                          linear2_bias, dropout2_rate, training,
+                          not pre_layer_norm, ln2_scale, ln2_bias,
+                          ln_epsilon, generator=generator)
+
+
+def _residual_tail(out, residual, bias, p, training, post_norm, ln_scale,
+                   ln_bias, epsilon, mode="upscale_in_train",
+                   generator=None):
+    """residual + dropout(out + bias), then LayerNorm(ln_scale, ln_bias)
+    when post_norm: the post-norm tail is the bdrln op (one kernel), the
+    pre-norm one plain PyTorch. Dropout in "downscale_in_infer" mode while
+    training (which bdrln does not compute) is plain too."""
+    p = float(p) if training else 0.0
+    if post_norm and (p == 0.0 or mode == "upscale_in_train"):
+        return fused_bias_dropout_residual_layer_norm(
+            out, residual, bias=bias, ln_scale=ln_scale, ln_bias=ln_bias,
+            dropout_rate=p, ln_epsilon=epsilon, training=training,
+            generator=generator)
+    if bias is not None:
+        out = out + bias
+    out = residual + F.dropout(out, p, training=training, mode=mode,
+                               generator=generator)
+    if post_norm:
+        out = F.layer_norm(out, out.shape[-1], ln_scale, ln_bias, epsilon)
+    return out
 
 
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
@@ -142,3 +170,184 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
         return F.fused_rope(q.contiguous(), cos, sin), None, v
     q, k = F.fused_rope_qk(q.contiguous(), k.contiguous(), cos, sin)
     return q, k, v
+
+
+def _act(name, table):
+    if name not in table:
+        raise ValueError(f"activation {name!r} is not one of "
+                         f"{sorted(table)}")
+    return table[name]
+
+
+def fused_linear(x, weight, bias=None, transpose_weight=False, name=None):
+    """x @ weight (+ bias); weight [in, out], or [out, in] with
+    transpose_weight."""
+    return F.linear(x, weight.t() if transpose_weight else weight, bias)
+
+
+def fused_bias_act(x, bias=None, act_method="gelu", name=None, **kw):
+    """act(x + bias) with a ``jax.nn`` activation name (``gelu``: the tanh
+    form); "swiglu" and "geglu" split the last dim into (a, b) and return
+    silu(a) * b or gelu(a) * b, in plain PyTorch as JAX computes them in
+    XLA."""
+    if bias is not None:
+        x = x + bias
+    if act_method in ("swiglu", "geglu"):
+        a, b = x.chunk(2, dim=-1)
+        inner = _F.silu if act_method == "swiglu" else _ACTIVATIONS["gelu"]
+        return inner(a) * b
+    return _act(act_method, _ACTIVATIONS)(x)
+
+
+def fused_layer_norm(x, norm_weight, norm_bias, epsilon=1e-5, **kw):
+    """LayerNorm over the last dim (``F.layer_norm``)."""
+    return F.layer_norm(x, x.shape[-1], norm_weight, norm_bias, epsilon)
+
+
+def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
+                      *, generator=None):
+    """dropout(x) + y (``F.dropout``'s modes)."""
+    return F.dropout(x, p, training=training, mode=mode,
+                     generator=generator) + y
+
+
+# the GEMM epilogue's activations (``_ACTS`` of fused_inference.py: gelu
+# is jax.nn.gelu's tanh form), looked up lower-cased, None as identity
+_GEMM_ACTS = {k: _ACTIVATIONS[k] for k in
+              ("relu", "gelu", "sigmoid", "tanh", "silu", "swish",
+               "leaky_relu")}
+_GEMM_ACTS.update(dict.fromkeys(("identity", "none", ""), lambda t: t))
+
+
+def _gemm_epilogue(x, y, bias, trans_x, trans_y, activation):
+    a = x.transpose(-1, -2) if trans_x else x
+    b = y.transpose(-1, -2) if trans_y else y
+    out = torch.matmul(a, b)
+    return _act((activation or "identity").lower(), _GEMM_ACTS)(
+        out if bias is None else out + bias)
+
+
+def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False,
+                      name=None):
+    """x @ y (each transposed over its last two dims when asked) + bias."""
+    return _gemm_epilogue(x, y, bias, transpose_x, transpose_y, "none")
+
+
+def fused_linear_activation(x, y, bias, trans_x=False, trans_y=False,
+                            activation="gelu", name=None):
+    """act(x @ y + bias), activation by the GEMM epilogue's names."""
+    return _gemm_epilogue(x, y, bias, trans_x, trans_y, activation)
+
+
+def fused_multi_head_attention(x, qkv_weight, linear_weight,
+                               pre_layer_norm=False, pre_ln_scale=None,
+                               pre_ln_bias=None, ln_scale=None, ln_bias=None,
+                               pre_ln_epsilon=1e-5, qkv_bias=None,
+                               linear_bias=None, cache_kv=None,
+                               attn_mask=None, dropout_rate=0.5,
+                               attn_dropout_rate=0.5, ln_epsilon=1e-5,
+                               training=True, mode="upscale_in_train",
+                               ring_id=-1, add_residual=True, num_heads=-1,
+                               transpose_qkv_wb=False, name=None, *,
+                               generator=None):
+    """The fused attention block over x [B, S, E]:
+
+        h = LN_pre(x) if pre_layer_norm else x
+        q, k, v = split(h @ W_qkv + b_qkv)      # W_qkv [3, N, Hd, E] as
+        out = attention(q, k, v, attn_mask)     # [3E, E] transposed, or
+        out = dropout(out @ linear_weight + linear_bias)   # [E, 3E] with
+        out = x + out if add_residual else out             # transpose_qkv_wb
+        out = LN(out) unless pre_layer_norm
+
+    num_heads -1 takes N from qkv_weight [3, N, Hd, E]. The post-norm
+    residual tail is the bdrln op. cache_kv is taken and ignored, as in
+    JAX."""
+    residual = x
+    h = x
+    e = x.shape[-1]
+    if pre_layer_norm:
+        h = F.layer_norm(h, [e], pre_ln_scale, pre_ln_bias, pre_ln_epsilon)
+    b, s = h.shape[0], h.shape[1]
+    n = num_heads if num_heads > 0 else qkv_weight.shape[1]
+    w = qkv_weight.reshape(e, 3 * e) if transpose_qkv_wb else \
+        qkv_weight.reshape(3 * e, e).t()
+    qkv = F.linear(h, w, None if qkv_bias is None
+                   else qkv_bias.reshape(3 * e))
+    qkv = qkv.reshape(b, s, 3, n, e // n)
+    q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
+    out = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn_mask,
+        dropout_p=attn_dropout_rate if training else 0.0,
+        training=training, generator=generator)
+    out = torch.matmul(out.reshape(b, s, e), linear_weight)
+    if not add_residual:
+        out = F.dropout(out if linear_bias is None else out + linear_bias,
+                        dropout_rate if training else 0.0,
+                        training=training, mode=mode, generator=generator)
+        return out if pre_layer_norm else F.layer_norm(
+            out, [e], ln_scale, ln_bias, ln_epsilon)
+    return _residual_tail(out, residual, linear_bias, dropout_rate,
+                          training, not pre_layer_norm, ln_scale, ln_bias,
+                          ln_epsilon, mode=mode, generator=generator)
+
+
+def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights,
+                            qkv_biases, linear_weights, linear_biases,
+                            ffn_ln_scales, ffn_ln_biases, ffn1_weights,
+                            ffn1_biases, ffn2_weights, ffn2_biases,
+                            pre_layer_norm=True, epsilon=1e-5,
+                            cache_kvs=None, time_step=None, attn_mask=None,
+                            dropout_rate=0.0, activation="gelu",
+                            training=False, mode=None, trans_qkvw=True,
+                            ring_id=-1, name=None, *, generator=None):
+    """The inference stack: per layer i, ``fused_multi_head_attention``
+    (pre-LN by ln_scales[i], qkv_weights[i] [3, N, Hd, E]), then
+    out + linear2(act(linear1(LN(out)))) with the ffn weights, act from
+    ``nn.functional`` by name (``gelu``: exact). As in JAX the attention's
+    LN takes its default epsilon, the FFN's `epsilon`; cache_kvs,
+    time_step, mode and trans_qkvw are taken and ignored."""
+    out = x
+    act = getattr(F, activation)
+    for i in range(len(qkv_weights)):
+        out = fused_multi_head_attention(
+            out, qkv_weights[i], linear_weights[i],
+            pre_layer_norm=pre_layer_norm, pre_ln_scale=ln_scales[i],
+            pre_ln_bias=ln_biases[i],
+            qkv_bias=qkv_biases[i] if qkv_biases else None,
+            linear_bias=linear_biases[i] if linear_biases else None,
+            attn_mask=attn_mask, dropout_rate=dropout_rate,
+            attn_dropout_rate=dropout_rate, training=training,
+            generator=generator)
+        h = F.layer_norm(out, [out.shape[-1]], ffn_ln_scales[i],
+                         ffn_ln_biases[i], epsilon)
+        h = act(F.linear(h, ffn1_weights[i],
+                         ffn1_biases[i] if ffn1_biases else None))
+        out = out + F.linear(h, ffn2_weights[i],
+                             ffn2_biases[i] if ffn2_biases else None)
+    return out
+
+
+def block_multihead_attention(q, k_pages, v_pages, block_tables,
+                              context_lens, scale=None, name=None):
+    """Decode attention of one query token per sequence over a block-paged
+    KV cache (``F.paged_attention``: the paged decode kernel). q [B, H, D]
+    or [B, 1, H, D]; pages [N, page, H_kv, D]; block_tables [B, P];
+    context_lens [B]."""
+    if q.dim() == 4 and q.shape[1] != 1:
+        raise ValueError(f"block_multihead_attention decodes ONE query "
+                         f"token per sequence; got q seq dim {q.shape[1]}")
+    return F.paged_attention(q, k_pages, v_pages, block_tables,
+                             context_lens, scale=scale)
+
+
+def masked_multihead_attention(x, cache_k, cache_v, seq_len, scale=None,
+                               name=None):
+    """Single-token attention over a dense cache: x [B, 1, H, D] is the
+    query of the token written at position seq_len - 1 of cache_k/cache_v
+    [B, S_max, H_kv, D]; later keys are masked. Plain PyTorch, as the JAX
+    op is plain XLA (the Llama's ``_decode_attention``)."""
+    from ...models.llama import _decode_attention
+    b, _, h, d = x.shape
+    out = _decode_attention(x, cache_k, cache_v, seq_len - 1, h,
+                            cache_k.shape[2], scale=scale)
+    return out.reshape(b, 1, h, d)

@@ -1,5 +1,10 @@
 """Models of the port."""
 
+from .bert import (BertConfig, BertForMaskedLM,
+                   BertForSequenceClassification, BertModel)
+from .gpt import GPTConfig, GPTForCausalLM
 from .llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM"]
+__all__ = ["BertConfig", "BertForMaskedLM", "BertForSequenceClassification",
+           "BertModel", "GPTConfig", "GPTForCausalLM", "LlamaConfig",
+           "LlamaForCausalLM"]

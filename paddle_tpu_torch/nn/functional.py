@@ -2,7 +2,9 @@
 counterparts of ``paddle_tpu.nn.functional.rms_norm``, ``swiglu`` (the
 ``swiglu`` op), ``fused_rope`` (the ``fused_rope`` op; ``fused_rope_qk``
 rotates q and k in one launch), ``linear``,
-``dropout`` (``nn/functional/common.py:18, :28``), ``layer_norm``
+``dropout`` (``nn/functional/common.py:18, :28``), ``gelu``, ``relu``
+(``ops/impl/activation.py:15, :25``), ``tanh`` (``ops/impl/math.py:204``),
+``layer_norm``
 (``nn/functional/norm.py:54``), ``scaled_dot_product_attention``,
 ``flashmask_attention``, ``paged_attention`` and ``ragged_paged_attention``
 (``paddle_tpu/nn/functional/attention.py``), ``cross_entropy``
@@ -36,6 +38,21 @@ def linear(x, weight, bias=None, name=None):
     """y = x @ weight (+ bias); weight [in, out] (paddle's layout)."""
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
+
+
+def gelu(x, approximate=False, name=None):
+    """GELU, exact (erf) by default as JAX's ``F.gelu``; approximate=True
+    takes the tanh form (``jax.nn.gelu``'s own default)."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
+def relu(x, name=None):
+    return torch.relu(x)
+
+
+def tanh(x, name=None):
+    return torch.tanh(x)
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+INIT_STD = 0.02
+
 
 def _to_tensor(arr):
     arr = np.asarray(arr)
@@ -51,11 +53,21 @@ def to_numpy_state(model):
     return out
 
 
-def _init_std(name):
-    """Llama's initializer range for matrices; RMSNorm weights are 1."""
-    if name.endswith("layernorm.weight") or name == "llama.norm.weight":
-        return None
-    return 0.02
+def _init_kinds(model):
+    """{id(parameter): kind} of `model`'s parameters. The kind comes from
+    the module that owns the parameter: "ones" for a norm's scale (the
+    names in the module's ``NORM_SCALES``: a LayerNorm's or RMSNorm's
+    weight, a fused layer's ``ln_scale``...), "zeros" for a bias (``bias``
+    or ``*_bias``), and None for everything else, drawn N(0, 0.02) (the
+    initializer range of the JAX models' configurations)."""
+    kinds = {}
+    for mod in model.modules():
+        ones = getattr(mod, "NORM_SCALES", ())
+        for name, p in mod.named_parameters(recurse=False):
+            kinds.setdefault(id(p), "ones" if name in ones else (
+                "zeros" if name == "bias" or name.endswith("_bias")
+                else None))
+    return kinds
 
 
 def random_state(model, seed):
@@ -64,14 +76,16 @@ def random_state(model, seed):
     a CPU and a CUDA model). For small models; full-size models use
     ``init_random_``."""
     rng = np.random.default_rng(seed)
+    kinds = _init_kinds(model)
     out = {}
     for name, p in model.named_parameters():
-        std = _init_std(name)
-        if std is None:
-            out[name] = np.ones(tuple(p.shape), np.float32)
+        kind = kinds[id(p)]
+        if kind is None:
+            out[name] = INIT_STD * rng.standard_normal(tuple(p.shape),
+                                                       dtype=np.float32)
         else:
-            out[name] = (std * rng.standard_normal(
-                tuple(p.shape), dtype=np.float32))
+            out[name] = (np.ones if kind == "ones" else np.zeros)(
+                tuple(p.shape), np.float32)
     return out
 
 
@@ -79,14 +93,15 @@ def init_random_(model, seed):
     """Fill `model`'s parameters in place on their device from a
     torch.Generator seeded with `seed` (fast at full size; the numbers
     depend on the device type)."""
-    dev = model.device
+    dev = next(model.parameters()).device
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
+    kinds = _init_kinds(model)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            std = _init_std(name)
-            if std is None:
-                p.fill_(1.0)
+        for p in model.parameters():
+            kind = kinds[id(p)]
+            if kind is None:
+                p.normal_(0.0, INIT_STD, generator=gen)
             else:
-                p.normal_(0.0, std, generator=gen)
+                p.fill_(1.0 if kind == "ones" else 0.0)
     return model

@@ -24,8 +24,8 @@ isolation rules.
   the ``kv_dtype`` argument and the ``PADDLE_TPU_KV_INT8`` flag;
 - ``BlockManager`` unit cases, the ones ``tests/test_serving_fastpath.py``
   runs against the JAX package's copy, pointed at the port's copy;
-- entry points raise without ``device="cpu"`` when no CUDA card is
-  present; ``import paddle_tpu_torch`` pulls in neither ``jax`` nor
+- entry points (the models, and every layer that holds parameters)
+  raise without ``device="cpu"`` when no CUDA card is present; ``import paddle_tpu_torch`` pulls in neither ``jax`` nor
   ``paddle_tpu``, and no module of the port (nor ``chip_smoke.py``) has
   an import of either.
 
@@ -518,12 +518,49 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         LlamaForCausalLM(LlamaConfig.tiny(), device="cuda")
     assert LlamaForCausalLM(LlamaConfig.tiny(),
                             device="cpu").device.type == "cpu"
+    # every layer and model that holds parameters resolves its device so
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.incubate import nn as tinn
+    from paddle_tpu_torch.models import (BertConfig, BertForMaskedLM,
+                                         BertForSequenceClassification,
+                                         BertModel, GPTConfig,
+                                         GPTForCausalLM)
+    makers = [
+        lambda **kw: tnn.Linear(4, 8, **kw),
+        lambda **kw: tnn.Embedding(6, 4, **kw),
+        lambda **kw: tnn.RMSNorm(8, **kw),
+        lambda **kw: tnn.RMSNorm(8, weight_attr=False, **kw),
+        lambda **kw: tnn.LayerNorm(8, **kw),
+        lambda **kw: tnn.MultiHeadAttention(8, 2, **kw),
+        lambda **kw: tnn.TransformerEncoderLayer(8, 2, 16, **kw),
+        lambda **kw: tnn.TransformerDecoderLayer(8, 2, 16, **kw),
+        lambda **kw: tnn.Transformer(8, 2, 1, 1, 16, **kw),
+        lambda **kw: tinn.FusedBiasDropoutResidualLayerNorm(8, **kw),
+        lambda **kw: tinn.FusedLinear(4, 8, **kw),
+        lambda **kw: tinn.FusedMultiHeadAttention(8, 2, **kw),
+        lambda **kw: tinn.FusedFeedForward(8, 16, **kw),
+        lambda **kw: tinn.FusedTransformerEncoderLayer(8, 2, 16, **kw),
+        lambda **kw: tinn.FusedMultiTransformer(8, 2, 16, **kw),
+        lambda **kw: GPTForCausalLM(GPTConfig.tiny(), **kw),
+        lambda **kw: BertModel(BertConfig.tiny(), **kw),
+        lambda **kw: BertForMaskedLM(BertConfig.tiny(), **kw),
+        lambda **kw: BertForSequenceClassification(BertConfig.tiny(),
+                                                   **kw),
+    ]
+    for make in makers:
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make(**kw)
+        assert all(p.device.type == "cpu"
+                   for p in make(device="cpu").parameters())
 
 
 def test_import_pulls_in_neither_jax_nor_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
             "paddle_tpu_torch.inference, paddle_tpu_torch.weights, "
-            "paddle_tpu_torch.ops.kernels; "
+            "paddle_tpu_torch.ops.kernels, paddle_tpu_torch.models.gpt, "
+            "paddle_tpu_torch.models.bert, paddle_tpu_torch.nn.transformer, "
+            "paddle_tpu_torch.incubate.nn; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad); "

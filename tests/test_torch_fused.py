@@ -304,10 +304,10 @@ def test_dropout_linear_layer_norm_match_jax():
                       torch.from_numpy(lb).bfloat16())
     assert tb.dtype == torch.bfloat16
     _ulp_close(tb, np.asarray(jb._value).astype(np.float32))
-    ln = tnn.LayerNorm(128)
+    ln = tnn.LayerNorm(128, device="cpu")
     with torch.no_grad():
         ln.weight.copy_(torch.from_numpy(lw))
         ln.bias.copy_(torch.from_numpy(lb))
     np.testing.assert_allclose(ln(torch.from_numpy(x)).detach().numpy(),
                                want.numpy(), rtol=TOL, atol=TOL)
-    assert tnn.LayerNorm(8, weight_attr=False).weight is None
+    assert tnn.LayerNorm(8, weight_attr=False, device="cpu").weight is None

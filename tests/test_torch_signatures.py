@@ -5,7 +5,10 @@ counterpart with ``inspect.signature``: the same parameters in the same
 order with the same defaults, up to and including JAX's last one, and any
 parameter the port adds (``generator``, ``device``, ``dtype``)
 keyword-only after them. Then the features that came with the repaired
-signatures, on numpy-seeded float32 inputs, against the JAX package:
+signatures, on numpy-seeded float32 inputs, against the JAX package
+(the new layers' and functionals' values are in ``test_torch_gpt.py``,
+``test_torch_bert.py``, ``test_torch_transformer.py`` and
+``test_torch_incubate.py``):
 ``rms_norm`` with bias and a leading ``begin_norm_axis``, ``swiglu`` of one
 tensor, ``cross_entropy`` with class weights, soft labels, label smoothing
 and another axis, ``Linear``'s default bias, ``Embedding``'s
@@ -29,8 +32,13 @@ import paddle_tpu.incubate.nn.functional as JIF
 import paddle_tpu.nn as jnn
 import paddle_tpu.nn.functional as JF
 
+from paddle_tpu.models import bert as jbert
+from paddle_tpu.models import gpt as jgpt
+
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.incubate import nn as tinn
+from paddle_tpu_torch.models import bert as tbert
+from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.incubate.nn import functional as TIF
 from paddle_tpu_torch.nn import functional as F
 
@@ -55,15 +63,36 @@ FUNCTIONS = [
     (TIF.fused_feedforward, JIF.fused_feedforward),
     (TIF.fused_rotary_position_embedding,
      JIF.fused_rotary_position_embedding),
-]
+    (F.gelu, JF.gelu),
+    (F.relu, JF.relu),
+    (F.tanh, JF.tanh),
+] + [(getattr(TIF, n), getattr(JIF, n)) for n in (
+    "fused_linear", "fused_bias_act", "fused_layer_norm",
+    "fused_dropout_add", "fused_matmul_bias", "fused_linear_activation",
+    "fused_multi_head_attention", "fused_multi_transformer",
+    "block_multihead_attention", "masked_multihead_attention")]
 LAYERS = [
     (tnn.Linear, jnn.Linear),
     (tnn.Embedding, jnn.Embedding),
     (tnn.RMSNorm, jnn.RMSNorm),
     (tnn.LayerNorm, jnn.LayerNorm),
-    (tinn.FusedBiasDropoutResidualLayerNorm,
-     jinn.FusedBiasDropoutResidualLayerNorm),
-]
+] + [(getattr(tnn, n), getattr(jnn, n)) for n in (
+    "Dropout", "Sequential", "LayerList", "MultiHeadAttention",
+    "TransformerEncoderLayer", "TransformerEncoder",
+    "TransformerDecoderLayer", "TransformerDecoder", "Transformer")] + [
+    (getattr(tinn, n), getattr(jinn, n)) for n in (
+        "FusedBiasDropoutResidualLayerNorm", "FusedLinear",
+        "FusedDropoutAdd", "FusedMultiHeadAttention", "FusedFeedForward",
+        "FusedTransformerEncoderLayer", "FusedMultiTransformer")] + [
+    (getattr(tgpt, n), getattr(jgpt, n)) for n in (
+        "GPTAttention", "GPTBlock", "GPTModel", "GPTForCausalLM")] + [
+    (getattr(tbert, n), getattr(jbert, n)) for n in (
+        "BertEmbeddings", "BertModel", "BertForMaskedLM",
+        "BertForSequenceClassification")]
+# a JAX activation layer takes its functional's parameters after x
+# (``paddle_tpu/nn/layer/activation.py:_make``)
+ACTIVATION_LAYERS = [(tnn.GELU, JF.gelu), (tnn.ReLU, JF.relu),
+                     (tnn.Tanh, JF.tanh)]
 
 
 def _params(fn):
@@ -72,12 +101,12 @@ def _params(fn):
             if p.name != "self"]
 
 
-def _same_surface(port, ref):
-    want = [(p.name, p.default) for p in _params(ref)]
+def _same_surface(port, ref, skip=0):
+    """port's parameters are ref's (after its first `skip`): names,
+    defaults and kinds, then keyword-only EXTRAS."""
+    want = [(p.name, p.default, p.kind) for p in _params(ref)[skip:]]
     got = _params(port)
-    assert [(p.name, p.default) for p in got[:len(want)]] == want
-    assert all(p.kind in (p.POSITIONAL_OR_KEYWORD, p.POSITIONAL_ONLY)
-               for p in got[:len(want)])
+    assert [(p.name, p.default, p.kind) for p in got[:len(want)]] == want
     extra = got[len(want):]
     assert all(p.kind == p.KEYWORD_ONLY and p.name in EXTRAS
                for p in extra), [p.name for p in extra]
@@ -93,6 +122,12 @@ def test_function_signature_matches_jax(port, ref):
                          ids=[c.__name__ for c, _ in LAYERS])
 def test_layer_signature_matches_jax(port, ref):
     _same_surface(port.__init__, ref.__init__)
+
+
+@pytest.mark.parametrize("port,ref", ACTIVATION_LAYERS,
+                         ids=[c.__name__ for c, _ in ACTIVATION_LAYERS])
+def test_activation_layer_signature_matches_jax(port, ref):
+    _same_surface(port.__init__, ref, skip=1)
 
 
 def _f32(rng, shape):
@@ -169,10 +204,10 @@ def test_cross_entropy_matches_jax(case):
 
 def test_linear_has_a_zero_bias_by_default():
     rng = np.random.default_rng(3)
-    lin = tnn.Linear(4, 8)
+    lin = tnn.Linear(4, 8, device="cpu")
     assert lin.bias is not None and lin.bias.shape == (8,)
     assert not bool(lin.bias.detach().any())
-    assert tnn.Linear(4, 8, bias_attr=False).bias is None
+    assert tnn.Linear(4, 8, bias_attr=False, device="cpu").bias is None
     ref = jnn.Linear(4, 8)
     w, b, x = _f32(rng, (4, 8)), _f32(rng, (8,)), _f32(rng, (3, 4))
     ref.weight.set_value(w)
@@ -184,14 +219,14 @@ def test_linear_has_a_zero_bias_by_default():
                                ref(paddle.to_tensor(x)).numpy(), rtol=TOL,
                                atol=TOL)
     with pytest.raises(NotImplementedError, match="ParamAttr"):
-        tnn.Linear(4, 8, bias_attr=object())
+        tnn.Linear(4, 8, bias_attr=object(), device="cpu")
 
 
 def test_embedding_padding_idx():
     """The padding row starts at 0; positions holding padding_idx read
     their row and pass it no gradient, as JAX's F.embedding does."""
     rng = np.random.default_rng(4)
-    emb = tnn.Embedding(6, 3, padding_idx=2)
+    emb = tnn.Embedding(6, 3, padding_idx=2, device="cpu")
     assert not bool(emb.weight[2].detach().any())
     w = _f32(rng, (6, 3))
     ids = np.array([[0, 2, 5], [2, 2, 1]], np.int64)
@@ -204,7 +239,8 @@ def test_embedding_padding_idx():
     grad = emb.weight.grad.numpy()
     assert np.all(grad[2] == 0)
     np.testing.assert_allclose(grad[[0, 1, 5]], np.ones((3, 3)))
-    assert tnn.Embedding(6, 3, padding_idx=-1).padding_idx == 5
+    assert tnn.Embedding(6, 3, padding_idx=-1,
+                         device="cpu").padding_idx == 5
 
 
 @pytest.mark.parametrize("activation", ["silu", "sigmoid", "tanh", "elu",
