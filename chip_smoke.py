@@ -78,7 +78,14 @@ source, all started together; each build's seconds printed), then:
    incubate layers, fused_multi_transformer and
    block_multihead_attention, CPU against the card within 1e-4 of each
    output's largest value, with the flash kernel launched once a layer
-   where no mask is given and never under one;
+   where no mask is given and never under one; (agree:train2) each
+   optimizer of the rest of training over 3 steps and LBFGS on a
+   quadratic, AdamW under a warm-up cosine schedule on the tiny Llama,
+   the tiny Llama with apply_llama_remat against itself without remat on
+   the card (the forward kernels launched twice a layer), the tiny GPT's
+   steps, a tiny BERT under amp O2 + GradScaler on the tensor-core flash
+   route, and a checkpoint written from the card and loaded on the CPU
+   bit for bit;
 3. flashmask: F.flashmask_attention through autograd at [4, 2048, 16,
    128] bf16 with packed documents (each call must launch the masked
    forward and backward kernels once; out and grads held against the
@@ -140,7 +147,16 @@ source, all started together; each build's seconds printed), then:
    steps of compile_train_step on random weights and a fixed batch: the
    losses must be finite and fall, and every step must launch each kernel
    of the path as often as the model has call sites; then (profile:train)
-   one more step under torch.profiler.
+   one more step under torch.profiler; then train:remat (bench.py:147-170
+   exactly: the same model with recompute=True and apply_llama_remat: the
+   losses equal to train's, the forward kernels twice a layer, peak memory
+   below train's, MFU of the model's flops beside the hardware's, one
+   step profiled and its device kernels held to the counted launches),
+   train:gpt (GPT-3 1.3B, all 24 layers, 4 x 2048, AdamW with masters
+   under a warm-up cosine schedule: 24 + 24 flash launches a step, the
+   rate each step the scheduler's) and train:bert (BERT-base MLM 32 x 512
+   under amp O2 + GradScaler with dropout 0.1: the dense attention path,
+   the scale after each step).
 
 Each flashmask, fused_ffn, serving, BERT and training run's launch counts are
 set to 0 just before it and read just after it; every kernel of its path
@@ -1819,6 +1835,7 @@ def main():
     phase_agree_graphs(dev)
     phase_agree_gpt(dev)
     phase_agree_bert(dev)
+    phase_agree_train2(dev)
     masked = phase_flashmask(K, dev)
     ffn = phase_fused_ffn(K, dev)
     model = _serving_model(dev)
@@ -1841,10 +1858,14 @@ def main():
     gdense, _ = phase_serve_dense(K, gpt, name="serve:gpt:dense")
     del gpt
     bert = phase_bert(K, dev)
-    train, model, opt, batch = phase_train(K, dev)
+    train, model, opt, batch, base = phase_train(K, dev)
     phase_profile_train(model, opt, batch)
+    del model, opt, batch
+    remat = phase_train_remat(K, dev, base)
+    gtrain = phase_train_gpt(K, dev)
+    btrain = phase_train_bert(K, dev)
     runs = (serve, dense, serve8, dense8, spec, spec8, gserve, gserve8,
-            gdense, bert, train, masked, ffn)
+            gdense, bert, train, remat, gtrain, btrain, masked, ffn)
     launches = {k: sum(r[k] for r in runs) for k in K.launch_counts()}
     _require_launched("all serving, BERT, training, flashmask and fused_ffn "
                       "runs", launches, K.KERNELS)
@@ -2904,13 +2925,54 @@ def _train_flops(cfg, n_matmul):
     return total, formula
 
 
+def _run_steps(tag, K, step, batch, per_step, n_timed, on_step=None):
+    """One warm-up and n_timed timed calls of step(*batch), each timed on
+    the host clock around a step that ends in float(loss) (a sync), its
+    launches counted and held to per_step ({launch_counts key: launches});
+    on_step(i) runs after each step (a scheduler's step). Returns (losses,
+    ms per step, the timed steps' summed launches)."""
+    losses, ms = [], []
+    totals = dict.fromkeys(K.launch_counts(), 0)
+    for i in range(n_timed + 1):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(*batch))       # float() waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        counts = K.launch_counts()
+        bad = {k: counts[k] for k, n in per_step.items() if counts[k] != n}
+        if bad:
+            raise AssertionError(f"[{tag}] step {i} launched {bad}, "
+                                 f"expected {per_step}")
+        if i:                            # step 0 is the warm-up
+            for k in totals:
+                totals[k] += counts[k]
+        if on_step is not None:
+            on_step(i)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[{tag}] a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] the loss did not fall: {losses}")
+    return losses, ms, totals
+
+
+def _train_batch(vocab, batch, seq, dev):
+    """(ids, labels) [batch, seq] from seed 1: random ids and labels, not
+    shifted, as bench.py draws them."""
+    rng = np.random.default_rng(1)
+    return tuple(torch.from_numpy(rng.integers(0, vocab, (batch, seq))).to(
+        dev) for _ in range(2))
+
+
 def phase_train(K, dev):
     """TRAIN_CFG with random weights from seed 0 and a fixed batch from
     seed 1 (random ids and labels, not shifted, as bench.py draws them):
     one warm-up step and TRAIN_STEPS timed steps of compile_train_step.
     Every loss must be finite and the last below the first; each step must
     launch the kernels TRAIN_PER_STEP times. Returns (launch counts over
-    the timed steps, model, optimizer, batch)."""
+    the timed steps, model, optimizer, batch, {losses, step_ms, peak_gb}
+    for [train:remat] to hold itself against)."""
     from paddle_tpu_torch import weights
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
@@ -2921,31 +2983,13 @@ def phase_train(K, dev):
     n_params = sum(p.numel() for p in model.parameters())
     n_embed = model.llama.embed_tokens.weight.numel()
     step, opt = _train_step(model, 1e-4, multi_precision=True)
-    rng = np.random.default_rng(1)
-    ids, lab = (torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to(dev)
-        for _ in range(2))
-    losses, ms = [], []
-    totals = dict.fromkeys(K.launch_counts(), 0)
-    for i in range(TRAIN_STEPS + 1):
-        K.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = float(step(ids, lab))     # float() waits for the step
-        ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
-        counts = K.launch_counts()
-        bad = {k: counts[k] for k, n in TRAIN_PER_STEP.items()
-               if counts[k] != n}
-        if bad:
-            raise AssertionError(f"[train] step {i} launched {bad}, "
-                                 f"expected {TRAIN_PER_STEP}")
-        if i:                            # step 0 is the warm-up
-            for k in totals:
-                totals[k] += counts[k]
+    ids, lab = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, dev)
+    losses, ms, totals = _run_steps("train", K, step, (ids, lab),
+                                    TRAIN_PER_STEP, TRAIN_STEPS)
     timed = ms[1:]
     step_ms = sum(timed) / len(timed)
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    peak = torch.cuda.max_memory_allocated() / 1e9
     flops, formula = _train_flops(cfg, n_params - n_embed)
     print(f"[train] bench.py:150 config: hidden {cfg.hidden_size}, ffn "
           f"{cfg.intermediate_size}, {cfg.num_hidden_layers} layers, "
@@ -2955,17 +2999,14 @@ def phase_train(K, dev):
     print(f"[train] losses (warm-up first) {losses}")
     print(f"[train] step_ms {[round(x, 2) for x in ms]} mean_timed="
           f"{step_ms:.2f} tokens_per_s={tokens / step_ms * 1e3:.1f} "
-          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+          f"peak_mem_gb={peak:.2f}")
     print(f"[train] flops/step {formula}; MFU={flops / (step_ms / 1e3) / 989e12:.4f}"
           f" (of 989 TFLOP/s bf16 dense)")
     print(f"[train] launches per step {json.dumps(TRAIN_PER_STEP)} (held "
           f"every step)", flush=True)
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"[train] a loss is not finite: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"[train] the loss did not fall: {losses}")
     _time_loss(model, dev)
-    return totals, model, opt, (ids, lab)
+    base = {"losses": losses, "step_ms": step_ms, "peak_gb": peak}
+    return totals, model, opt, (ids, lab), base
 
 
 def _time_loss(model, dev):
@@ -4460,6 +4501,567 @@ def phase_bert(K, dev):
     del fmt, out, x
     _release()
     return total
+
+
+# [agree:train2]: the rest of training on tiny float32 problems, the CPU's
+# plain path against the card
+TRAIN2_SHAPES = ((64, 48), (48,), (33, 17))
+TRAIN2_OPTIMIZERS = {
+    "SGD": lambda o, ps: o.SGD(0.1, parameters=ps, weight_decay=0.01),
+    "Momentum": lambda o, ps: o.Momentum(0.05, 0.9, parameters=ps,
+                                         use_nesterov=True),
+    "Adam(lazy_mode)": lambda o, ps: o.Adam(0.01, parameters=ps,
+                                            lazy_mode=True),
+    "Adamax": lambda o, ps: o.Adamax(0.02, parameters=ps),
+    "Adagrad": lambda o, ps: o.Adagrad(0.1, parameters=ps,
+                                       initial_accumulator_value=0.1),
+    "Adadelta": lambda o, ps: o.Adadelta(1.0, parameters=ps),
+    "RMSProp": lambda o, ps: o.RMSProp(0.01, rho=0.9, momentum=0.5,
+                                       centered=True, parameters=ps),
+    "Lamb": lambda o, ps: o.Lamb(0.01, parameters=ps),
+    "NAdam": lambda o, ps: o.NAdam(0.01, parameters=ps),
+    "RAdam": lambda o, ps: o.RAdam(0.01, beta2=0.9, parameters=ps),
+    "ASGD": lambda o, ps: o.ASGD(0.05, parameters=ps),
+    "Rprop": lambda o, ps: o.Rprop(0.01, parameters=ps),
+}
+
+
+def _warmup_cosine(lr_mod, peak, warmup, t_max, start=0.0):
+    """LinearWarmup(CosineAnnealingDecay(peak, t_max), warmup, start,
+    peak): the schedule the GPT phases train under."""
+    return lr_mod.LinearWarmup(lr_mod.CosineAnnealingDecay(peak, t_max),
+                               warmup, start, peak)
+
+
+def _remat_per_step(layers):
+    """Launches of each kernel in one Llama training step with
+    apply_llama_remat over `layers` layers: every forward kernel of a
+    layer runs twice (the forward and its replay in the backward), the
+    final norm once, the backward kernels once."""
+    return {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+            "rms_norm": 4 * layers + 1, "swiglu": 2 * layers,
+            "fused_rope": 2 * layers, "fused_rope.qk": 2 * layers,
+            "fused_rope_bwd": layers}
+
+
+def _agree_optimizers(dev):
+    """3 steps of each optimizer on the same parameters and gradients on
+    both devices; (worst max|err| / max(1, max|want|) over parameters and
+    state, LBFGS's iterate error)."""
+    from paddle_tpu_torch import optimizer as O
+
+    worst = {}
+    for name, make in TRAIN2_OPTIMIZERS.items():
+        rng = np.random.default_rng(len(name))
+        start = [rng.standard_normal(s).astype(np.float32)
+                 for s in TRAIN2_SHAPES]
+        grads = [[rng.standard_normal(s).astype(np.float32)
+                  for s in TRAIN2_SHAPES] for _ in range(3)]
+        runs = {}
+        for d in ("cpu", dev):
+            # torch.tensor copies: a CPU parameter made by from_numpy
+            # would write its steps into `start`
+            ps = [torch.nn.Parameter(torch.tensor(a, device=d))
+                  for a in start]
+            opt = make(O, ps)
+            for gs in grads:
+                for p, g in zip(ps, gs):
+                    p.grad = torch.tensor(g, device=d)
+                opt.step()
+                opt.clear_grad()
+            runs[str(d)] = [p.detach().cpu() for p in ps] + [
+                v.cpu() for k, v in opt.state_dict().items()
+                if k != "@step"]
+        worst[name] = max(
+            float((b - a).abs().max()) / max(1.0, float(a.abs().max()))
+            for a, b in zip(runs["cpu"], runs[str(dev)]))
+    rng = np.random.default_rng(4)
+    m = rng.standard_normal((6, 6)).astype(np.float32)
+    a = m @ m.T / 6 + np.eye(6, dtype=np.float32)
+    b = rng.standard_normal(6).astype(np.float32)
+    xs = {}
+    for d in ("cpu", dev):
+        x = torch.nn.Parameter(torch.zeros(6, device=d))
+        ta, tb = torch.from_numpy(a).to(d), torch.from_numpy(b).to(d)
+        opt = O.LBFGS(1.0, max_iter=4, history_size=5, parameters=[x])
+
+        def closure(x=x, ta=ta, tb=tb, opt=opt):
+            opt.clear_grad()
+            loss = 0.5 * (x * (ta @ x)).sum() - (tb * x).sum()
+            loss.backward()
+            return loss
+
+        opt.step(closure)
+        xs[str(d)] = x.detach().cpu()
+    worst["LBFGS"] = float((xs["cpu"] - xs[str(dev)]).abs().max())
+    return worst
+
+
+def _bf16_ulp(x):
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def phase_agree_train2(dev):
+    """The rest of training on tiny float32 problems, CPU plain versions
+    against the card: each new optimizer over 3 steps (parameters and
+    state within 1e-5 of max(1, max|value|): the same float32 elementwise
+    operations, one rounding apart where CUDA fuses a multiply-add) and
+    LBFGS on a quadratic (iterates within 1e-4); AdamW under
+    LinearWarmup(CosineAnnealingDecay) driving the tiny Llama (losses
+    within 1e-4, rates equal); on the card the tiny Llama with
+    apply_llama_remat against itself without remat (losses within 1e-6,
+    first gradients within 1e-5 of the largest, the launches of
+    _remat_per_step); the tiny GPT, 3 AdamW steps (losses 1e-4); a tiny
+    BERT (hidden 128, 2 heads of 64: the tensor-core flash route in bf16)
+    under decorate(O2) + GradScaler(1024), dropout 0, 4 steps (first loss
+    within 2 bf16 ulps, then within 5% or 0.0625: AdamW's first steps are
+    ~lr sign(g), and the two devices' bf16 roundings decide the sign of
+    some near-zero gradients apart); a checkpoint of the card's model and
+    AdamW state loaded on the CPU bit for bit."""
+    tag = "agree:train2"
+    worst = _agree_optimizers(dev)
+    print(f"[{tag}] optimizers, 3 steps, max|err| / max(1, max|want|) "
+          f"(<= 1e-5; LBFGS iterate <= 1e-4): "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}",
+          flush=True)
+    bad = [k for k, v in worst.items()
+           if v > (1e-4 if k == "LBFGS" else 1e-5)]
+    if bad:
+        raise AssertionError(f"[{tag}] optimizers disagree: {bad}")
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(0, 128, (2, 16)))
+    lab = torch.from_numpy(rng.integers(0, 128, (2, 16)))
+    batch = {"cpu": (ids, lab), "gpu": (ids.to(dev), lab.to(dev))}
+    _agree_schedule(tag, dev, batch)
+    _agree_remat(tag, dev, batch)
+    _agree_gpt_steps(tag, dev, batch)
+    blab = ids.clone()
+    blab[torch.from_numpy(rng.random(tuple(ids.shape)) >= 0.3)] = -100
+    _agree_bert_o2(tag, dev, {"cpu": (ids, blab),
+                              "gpu": (ids.to(dev), blab.to(dev))})
+    _agree_checkpoint(tag, dev)
+
+
+def _agree_schedule(tag, dev, batch):
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.jit import compile_train_step
+
+    _, cpu, gpu = _tiny_pair(dev)
+    losses, rates = {}, {}
+    for key, model in (("cpu", cpu), ("gpu", gpu)):
+        model.train()
+        sched = _warmup_cosine(O.lr, 1e-3, 2, 10)
+        opt = O.AdamW(sched, parameters=model.parameters())
+        step = compile_train_step(model, lambda m, i, l: m(i, labels=l),
+                                  opt)
+        losses[key], rates[key] = [], []
+        for _ in range(3):
+            rates[key].append(opt.get_lr())
+            losses[key].append(float(step(*batch[key])))
+            sched.step()
+    err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["gpu"]))
+    print(f"[{tag}] tiny Llama, AdamW under LinearWarmup(Cosine): rates "
+          f"{rates['gpu']} losses cpu {losses['cpu']} cuda {losses['gpu']}"
+          f" max_err={err:.3e} (<= 1e-4)", flush=True)
+    if err > 1e-4 or rates["cpu"] != rates["gpu"]:
+        raise AssertionError(f"[{tag}] the scheduled AdamW runs disagree")
+
+
+def _agree_remat(tag, dev, batch):
+    import copy
+
+    from paddle_tpu_torch.models import apply_llama_remat
+    from paddle_tpu_torch.ops import kernels as K
+
+    _, _, plain = _tiny_pair(dev)
+    remat = apply_llama_remat(copy.deepcopy(plain))
+    got = {}
+    for key, model in (("plain", plain), ("remat", remat)):
+        model.train()
+        K.reset_launch_counts()
+        loss = model(batch["gpu"][0], labels=batch["gpu"][1])
+        loss.backward()
+        got[key] = (float(loss.detach()), K.launch_counts(),
+                    [p.grad.detach().clone() for p in model.parameters()])
+    top = max(float(g.abs().max()) for g in got["plain"][2])
+    gerr = max(float((a - b).abs().max())
+               for a, b in zip(got["plain"][2], got["remat"][2]))
+    want = _remat_per_step(len(remat.llama.layers))
+    counts = {k: got["remat"][1][k] for k in want}
+    print(f"[{tag}] tiny Llama on the card, apply_llama_remat against "
+          f"none: loss {got['remat'][0]} vs {got['plain'][0]}, first-step "
+          f"grads max_err={gerr:.3e} (<= 1e-5 x {top:.3e}); remat launches "
+          f"{json.dumps(counts)}", flush=True)
+    if abs(got["remat"][0] - got["plain"][0]) > 1e-6 or gerr > 1e-5 * top:
+        raise AssertionError(f"[{tag}] remat changed the numbers")
+    if counts != want:
+        raise AssertionError(f"[{tag}] remat launched {counts}, expected "
+                             f"{want}")
+
+
+def _agree_gpt_steps(tag, dev, batch):
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.jit import compile_train_step
+
+    _, gcpu, ggpu = _tiny_gpt_pair(dev)
+    losses = {}
+    for key, model in (("cpu", gcpu), ("gpu", ggpu)):
+        model.train()
+        step = compile_train_step(model, lambda m, i, l: m(i, labels=l),
+                                  O.AdamW(1e-3,
+                                          parameters=model.parameters()))
+        losses[key] = [float(step(*batch[key])) for _ in range(3)]
+    err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["gpu"]))
+    print(f"[{tag}] tiny GPT, 3 AdamW steps: losses cpu {losses['cpu']} "
+          f"cuda {losses['gpu']} max_err={err:.3e} (<= 1e-4)", flush=True)
+    if err > 1e-4 or not losses["gpu"][-1] < losses["gpu"][0]:
+        raise AssertionError(f"[{tag}] tiny GPT training disagrees")
+
+
+def _agree_bert_o2(tag, dev, batch):
+    from paddle_tpu_torch import amp, weights
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models import BertConfig, BertForMaskedLM
+    from paddle_tpu_torch.ops import kernels as K
+
+    cfg = BertConfig.tiny(hidden=128, heads=2, ffn=256)
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    cpu = BertForMaskedLM(cfg, device="cpu")
+    state = weights.random_state(cpu, seed=0)
+    weights.from_paddle_tpu_state(state, cpu)
+    gpu = weights.from_paddle_tpu_state(state, BertForMaskedLM(cfg,
+                                                               device=dev))
+    losses, scales = {}, {}
+    K.reset_launch_counts()
+    for key, model in (("cpu", cpu), ("gpu", gpu)):
+        model.train()
+        opt = O.AdamW(3e-3, parameters=model.parameters())
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        scaler = amp.GradScaler(init_loss_scaling=1024.0)
+        losses[key] = []
+        for _ in range(4):
+            with amp.auto_cast(level="O2"):
+                loss = model(batch[key][0], labels=batch[key][1])
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            losses[key].append(float(loss.detach()))
+        scales[key] = scaler._scale
+    n = K.launch_counts()
+    first = abs(losses["cpu"][0] - losses["gpu"][0])
+    ok = first <= 2 * _bf16_ulp(losses["cpu"][0]) and all(
+        abs(a - b) <= max(0.0625, 0.05 * abs(a))
+        for a, b in zip(losses["cpu"], losses["gpu"]))
+    print(f"[{tag}] tiny BERT (h 128, 2 heads of 64) decorate(O2) + "
+          f"GradScaler(1024): losses cpu {losses['cpu']} cuda "
+          f"{losses['gpu']} scale {scales}; flash launches (all, sm90) "
+          f"{(n['flash_attention'], n['flash_attention.sm90'])}, backward "
+          f"sm90 {n['flash_attention_bwd.sm90']}", flush=True)
+    if not ok or scales["cpu"] != scales["gpu"]:
+        raise AssertionError(f"[{tag}] the O2 BERT runs disagree")
+    want = 4 * cfg.num_hidden_layers
+    if n["flash_attention.sm90"] != want or \
+            n["flash_attention_bwd.sm90"] != want:
+        raise AssertionError(f"[{tag}] the O2 BERT did not take the "
+                             f"tensor-core flash route every layer")
+
+
+def _agree_checkpoint(tag, dev):
+    import tempfile
+
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+
+    _, _, gpu = _tiny_pair(dev)
+    sd = {**gpu.state_dict(), **_opt_state_of(gpu)}
+    sd["wte_bf16"] = gpu.llama.embed_tokens.weight.detach().bfloat16()
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save_state_dict(sd, d)
+        back = {k: torch.zeros(v.shape, dtype=v.dtype)
+                for k, v in sd.items() if isinstance(v, torch.Tensor)}
+        missing = ckpt.load_state_dict(back, d)
+    same = all(torch.equal(back[k].reshape(-1).view(torch.uint8),
+                           sd[k].detach().cpu().reshape(-1).view(
+                               torch.uint8)) for k in back)
+    print(f"[{tag}] checkpoint of the card's tiny Llama + AdamW state "
+          f"({len(back)} tensors, bf16 among them) loaded on the CPU: "
+          f"bit-equal={same}, missing={missing}", flush=True)
+    if not same or missing:
+        raise AssertionError(f"[{tag}] the checkpoint did not round-trip "
+                             f"bit for bit")
+
+
+def _opt_state_of(model):
+    """The AdamW state of one more step of `model` (its live tensors, as
+    a checkpoint saves them)."""
+    from paddle_tpu_torch import optimizer as O
+
+    opt = O.AdamW(1e-3, parameters=model.parameters())
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    opt.clear_grad()
+    return opt.state_dict()
+
+
+# [train:remat]: bench.py:147-170 exactly: TRAIN_CFG with recompute=True
+# and apply_llama_remat
+TRAIN_REMAT_PER_STEP = {**_remat_per_step(TRAIN_CFG["num_hidden_layers"]),
+                        "flash_attention.sm90": 24,
+                        "flash_attention_bwd.sm90": 12,
+                        "fused_rope.scalar": 0, "fused_rope_bwd.scalar": 0}
+
+
+def _remat_flops(cfg, n_matmul):
+    """Flops the card does on top of the model's in a remat step: each
+    decoder layer's forward again (2 T per matmul parameter of the layers,
+    lm_head excluded, and attention's 2 forward causal products)."""
+    t = TRAIN_BATCH * TRAIN_SEQ
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    layer_params = n_matmul - cfg.hidden_size * cfg.vocab_size
+    return 2 * layer_params * t + 4 * TRAIN_BATCH * \
+        cfg.num_attention_heads * hd * _causal_pairs(TRAIN_SEQ, TRAIN_SEQ) * \
+        cfg.num_hidden_layers
+
+
+def _profile_step(tag, step, batch):
+    """One more training step under torch.profiler, its device kernels
+    held against the launches the wrappers counted (as the serving
+    windows are held)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.prepare_trace()
+    # device work traced before the window, as _profile_admission does:
+    # prepared just before the step, the trace missed its first layer's
+    # kernels (3 RMSNorms, a RoPE, a flash and a SwiGLU launch)
+    x = torch.zeros(1 << 20, device=batch[0].device)
+    for _ in range(256):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    del x
+    before = K.launch_counts()
+    prof.start_trace()
+    time.sleep(TRACE_EDGE_S)
+    t0 = time.perf_counter()
+    float(step(*batch))
+    wall = time.perf_counter() - t0
+    time.sleep(TRACE_EDGE_S)
+    prof.stop_trace()
+    after = K.launch_counts()
+    _print_profile(tag, prof, wall, "one training step")
+    _check_device_launches(tag, prof, {k: after[k] - before[k]
+                                       for k in after})
+
+
+def phase_train_remat(K, dev, base):
+    """bench.py:147-170: TRAIN_CFG with recompute=True and
+    apply_llama_remat, bf16, AdamW(1e-4, multi_precision=True), the same
+    weights (seed 0) and batch (seed 1) as [train]; a warm-up and
+    TRAIN_STEPS timed steps, each launching TRAIN_REMAT_PER_STEP; every
+    loss within 2 bf16 ulps of [train]'s (remat replays the same kernels
+    on the same inputs: it must not change the numbers); peak memory
+    below [train]'s; then one step profiled, its device kernels held to
+    the counted launches. Returns the timed steps' launches."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         apply_llama_remat)
+
+    tag = "train:remat"
+    _release()
+    cfg = LlamaConfig(**TRAIN_CFG, recompute=True)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    weights.init_random_(model, seed=0)
+    apply_llama_remat(model)
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul = n_params - model.llama.embed_tokens.weight.numel()
+    step, _ = _train_step(model, 1e-4, multi_precision=True)
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, dev)
+    losses, ms, totals = _run_steps(tag, K, step, batch,
+                                    TRAIN_REMAT_PER_STEP, TRAIN_STEPS)
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops, formula = _train_flops(cfg, n_matmul)
+    hw = flops + _remat_flops(cfg, n_matmul)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    diffs = [abs(a - b) for a, b in zip(losses, base["losses"])]
+    print(f"[{tag}] bench.py:147-170: TRAIN_CFG with recompute=True + "
+          f"apply_llama_remat, bf16, AdamW(1e-4, multi_precision=True), "
+          f"batch {TRAIN_BATCH}x{TRAIN_SEQ}")
+    print(f"[{tag}] losses (warm-up first) {losses}; [train]'s "
+          f"{base['losses']}; max |diff| {max(diffs):.4g} (<= 2 bf16 ulps)")
+    print(f"[{tag}] step_ms {[round(x, 2) for x in ms]} mean_timed="
+          f"{step_ms:.2f} (train {base['step_ms']:.2f}) tokens_per_s="
+          f"{tokens / step_ms * 1e3:.1f} peak_mem_gb={peak:.2f} (train "
+          f"{base['peak_gb']:.2f})")
+    print(f"[{tag}] model flops/step {formula}; MFU={flops / (step_ms / 1e3) / 989e12:.4f}"
+          f" (model flops, the replayed forward not counted); hardware "
+          f"flops/step {hw:.4e} = model + the replayed layers' forward "
+          f"{hw - flops:.4e}; hardware flops rate "
+          f"{hw / (step_ms / 1e3) / 989e12:.4f} of 989 TFLOP/s")
+    print(f"[{tag}] launches per step {json.dumps(TRAIN_REMAT_PER_STEP)} "
+          f"(held every step)", flush=True)
+    if any(d > 2 * _bf16_ulp(a) for d, a in zip(diffs, base["losses"])):
+        raise AssertionError(f"[{tag}] remat changed the losses")
+    if not peak < base["peak_gb"]:
+        raise AssertionError(f"[{tag}] peak memory {peak:.2f} GB is not "
+                             f"below [train]'s {base['peak_gb']:.2f}")
+    _profile_step(f"profile:{tag}", step, batch)
+    del model, step
+    _release()
+    return totals
+
+
+GPT_TRAIN_BATCH, GPT_TRAIN_SEQ, GPT_TRAIN_STEPS = 4, 2048, 3
+GPT_TRAIN_PER_STEP = {"flash_attention": 24, "flash_attention_bwd": 24,
+                      "flash_attention.sm90": 24,
+                      "flash_attention_bwd.sm90": 24, "rms_norm": 0,
+                      "swiglu": 0, "fused_rope": 0, "fused_rope_bwd": 0}
+
+
+def phase_train_gpt(K, dev):
+    """GPT-3 1.3B (GPTConfig.gpt3_1p3b(): all 24 layers, hidden 2048, 16
+    heads of 128, FFN 8192, vocab 50304) in bf16 with random weights from
+    seed 0, AdamW(multi_precision=True) under LinearWarmup(
+    CosineAnnealingDecay(1e-4, 100), 1, 1e-5, 1e-4), batch 4 x 2048 from
+    seed 1: a warm-up and GPT_TRAIN_STEPS timed steps of
+    compile_train_step, the scheduler stepped after each; each step
+    launches the flash forward and backward once a layer (tensor-core
+    route) and no Llama kernel; the rate each step equals the
+    scheduler's; the loss falls. Returns the timed steps' launches."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.jit import compile_train_step
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    tag = "train:gpt"
+    _release()
+    cfg = GPTConfig.gpt3_1p3b()
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    weights.init_random_(model, seed=0)
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul = n_params - model.gpt.wpe.weight.numel() - sum(
+        p.numel() for n, p in model.named_parameters()
+        if "ln_" in n or n.endswith("bias"))
+    sched = _warmup_cosine(O.lr, 1e-4, 1, 100, start=1e-5)
+    opt = O.AdamW(sched, parameters=model.parameters(), multi_precision=True)
+    step = compile_train_step(model, lambda m, i, l: m(i, labels=l), opt)
+    batch = _train_batch(cfg.vocab_size, GPT_TRAIN_BATCH, GPT_TRAIN_SEQ, dev)
+    rates = []
+
+    def on_step(i):
+        sched.step()
+        rates.append((opt.get_lr(), sched()))
+
+    rates.append((opt.get_lr(), sched()))       # the warm-up step's rate
+    losses, ms, totals = _run_steps(tag, K, step, batch, GPT_TRAIN_PER_STEP,
+                                    GPT_TRAIN_STEPS, on_step)
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    t = GPT_TRAIN_BATCH * GPT_TRAIN_SEQ
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    pairs = _causal_pairs(GPT_TRAIN_SEQ, GPT_TRAIN_SEQ)
+    attn = 14 * GPT_TRAIN_BATCH * cfg.num_attention_heads * hd * pairs * \
+        cfg.num_hidden_layers
+    flops = 6 * n_matmul * t + attn
+    print(f"[{tag}] GPTConfig.gpt3_1p3b(): {cfg.num_hidden_layers} layers, "
+          f"hidden {cfg.hidden_size}, {cfg.num_attention_heads} heads, FFN "
+          f"{cfg.intermediate_size}, vocab {cfg.vocab_size}; params="
+          f"{n_params} bf16 (matmul N={n_matmul}, the tied head counted "
+          f"once); batch {GPT_TRAIN_BATCH}x{GPT_TRAIN_SEQ}; AdamW("
+          f"multi_precision=True) under LinearWarmup(CosineAnnealingDecay("
+          f"1e-4, 100), 1, 1e-5, 1e-4)")
+    print(f"[{tag}] losses (warm-up first) {losses}; rates (optimizer, "
+          f"scheduler) of each step and after the last {rates}")
+    print(f"[{tag}] step_ms {[round(x, 2) for x in ms]} mean_timed="
+          f"{step_ms:.2f} tokens_per_s={t / step_ms * 1e3:.1f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    print(f"[{tag}] flops/step 6*N*T + 14*B*H*D*pairs*L = 6*{n_matmul}*{t} "
+          f"+ 14*{GPT_TRAIN_BATCH}*{cfg.num_attention_heads}*{hd}*{pairs}*"
+          f"{cfg.num_hidden_layers} = {flops:.4e}; MFU="
+          f"{flops / (step_ms / 1e3) / 989e12:.4f} (of 989 TFLOP/s bf16 "
+          f"dense)")
+    print(f"[{tag}] launches per step {json.dumps(GPT_TRAIN_PER_STEP)} "
+          f"(held every step)", flush=True)
+    if any(a != b for a, b in rates):
+        raise AssertionError(f"[{tag}] the optimizer's rate is not the "
+                             f"scheduler's: {rates}")
+    del model, opt, step
+    _release()
+    return totals
+
+
+BERT_TRAIN_BATCH, BERT_TRAIN_STEPS, BERT_MASKED = (32, 512), 5, 0.15
+
+
+def phase_train_bert(K, dev):
+    """BERT-base MLM (BASELINE config 2): BertForMaskedLM(bert_base()),
+    random weights from seed 0, training mode with the configured dropout
+    0.1, decorate(O2, bfloat16) + GradScaler(init_loss_scaling=1024),
+    AdamW(1e-4), batch 32 x 512 from seed 1 with 15% of the positions
+    labelled: a warm-up and BERT_TRAIN_STEPS timed steps (host clock to a
+    sync), the scale after each. With dropout while training, attention
+    is the dense plain path, as in the JAX package: no flash launch. The
+    loss must fall; the parameters bf16 but LayerNorm's float32, with
+    float32 masters. Returns the timed steps' launches."""
+    from paddle_tpu_torch import amp, weights
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models import BertConfig, BertForMaskedLM
+
+    tag = "train:bert"
+    _release()
+    cfg = BertConfig.bert_base()
+    b, s = BERT_TRAIN_BATCH
+    model = BertForMaskedLM(cfg, device=dev)
+    weights.init_random_(model, seed=0)
+    model.train()
+    opt = O.AdamW(1e-4, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    scaler = amp.GradScaler(init_loss_scaling=1024.0)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    lab = ids.copy()
+    lab[rng.random((b, s)) >= BERT_MASKED] = -100
+    ids, lab = torch.from_numpy(ids).to(dev), torch.from_numpy(lab).to(dev)
+    scales = []
+
+    def step(i, l):
+        with amp.auto_cast(level="O2"):
+            loss = model(i, labels=l)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        scales.append(scaler._scale)
+        return loss.detach()
+
+    per_step = {"flash_attention": 0, "flash_attention_bwd": 0}
+    losses, ms, totals = _run_steps(tag, K, step, (ids, lab), per_step,
+                                    BERT_TRAIN_STEPS)
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    emb = model.bert.embeddings
+    print(f"[{tag}] BertConfig.bert_base() BertForMaskedLM, dropout "
+          f"{cfg.hidden_dropout_prob}/{cfg.attention_probs_dropout_prob}, "
+          f"decorate(O2, bf16) + GradScaler(1024), AdamW(1e-4), batch "
+          f"{b}x{s}, {int(BERT_MASKED * 100)}% labelled")
+    print(f"[{tag}] losses (warm-up first) {losses}; scale after each "
+          f"step {scales}; skipped {scaler.skipped_steps}")
+    print(f"[{tag}] step_ms {[round(x, 2) for x in ms]} mean_timed="
+          f"{step_ms:.2f} tokens_per_s={b * s / step_ms * 1e3:.1f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}; "
+          f"flash launches 0 a step (the dense path under dropout)",
+          flush=True)
+    if emb.word_embeddings.weight.dtype != torch.bfloat16 or \
+            emb.layer_norm.weight.dtype != torch.float32 or \
+            id(emb.word_embeddings.weight) not in opt._master_weights:
+        raise AssertionError(f"[{tag}] O2 did not leave bf16 parameters, "
+                             f"float32 LayerNorm and float32 masters")
+    del model, opt
+    _release()
+    return totals
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """paddle_tpu_torch — the PyTorch + CUDA counterpart of ``paddle_tpu``.
 
 This package serves Llama and GPT through the paged continuous-batching
-engine, trains Llama (``model(ids, labels=labels)``, AdamW,
-``compile_train_step``) and runs BERT's forward on one NVIDIA Hopper
-card, with flashmask attention, the transformer layers and the fused
-``incubate.nn`` layers beside. The plain tensor code is PyTorch; every kernel that
+engine and trains Llama, GPT and BERT (``model(ids, labels=labels)``,
+``compile_train_step``, every optimizer and learning-rate scheduler of
+``paddle_tpu``, mixed precision with loss scaling, activation recompute,
+checkpoints) on one NVIDIA Hopper card, with flashmask attention, the
+transformer layers and the fused ``incubate.nn`` layers beside. The plain tensor code is PyTorch; every kernel that
 ``paddle_tpu`` writes in Pallas for the TPU is a CUDA C++ kernel written
 for ``sm_90a`` under ``csrc/``, built at first use by
 ``ops.kernels._build`` and launched through ``ctypes``.
@@ -29,9 +30,16 @@ Layout (each module names its ``paddle_tpu`` counterpart):
   their epilogues, RoPE, paged and dense-cache decode attention) and the
   fused layers.
 - ``models.llama``, ``models.gpt``: the decoder LMs, their losses and the
-  paged-model contract; ``models.bert``: the encoder and its heads.
-- ``optimizer``: Adam and AdamW (fp32 masters), regularizers, gradient
-  clipping.
+  paged-model contract (``apply_llama_remat``: recompute per layer);
+  ``models.bert``: the encoder and its heads.
+- ``optimizer``: the SGD and Adam families, ASGD, Rprop and LBFGS (fp32
+  masters), the learning-rate schedulers (``optimizer.lr``),
+  regularizers, gradient clipping.
+- ``amp``: ``auto_cast`` (O1/O2 under the JAX op lists), ``decorate``,
+  ``GradScaler``.
+- ``distributed``: ``fleet.utils.recompute`` (activation recompute that
+  replays the port's random draws) and ``checkpoint`` (the JAX package's
+  file format, one process).
 - ``jit``: ``compile_train_step`` (eager).
 - ``weights``: the bridge from ``paddle_tpu`` parameters (as numpy arrays)
   and seeded random weights.

@@ -6,7 +6,9 @@ device, all seeded by ``seed(n)`` (a generator made later starts from the
 last seed). Every functional that draws takes ``generator=`` and falls
 back to the default generator of its tensors' device. ``next_seed`` draws
 one int in [0, 2^31 - 1), as ``ops/impl/fused.py:135`` draws the seed of
-the dropout kernel. The numbers differ from JAX's for the same seed.
+the dropout kernel. ``get_rng_state`` / ``set_rng_state`` save and
+restore them all (``recompute`` replays a forward's draws with them). The
+numbers differ from JAX's for the same seed.
 """
 
 from __future__ import annotations
@@ -49,3 +51,20 @@ def next_seed(generator=None):
     gen = generator if generator is not None else default_generator("cpu")
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
                              device=gen.device).item())
+
+
+def get_rng_state():
+    """{device: state} of every default generator made so far
+    (``paddle.get_rng_state``)."""
+    return {dev: gen.get_state() for dev, gen in _GENERATORS.items()}
+
+
+def set_rng_state(states):
+    """Restore the default generators saved by ``get_rng_state``; one made
+    since then starts again from the last seed, as it did when it was
+    made."""
+    for dev, gen in _GENERATORS.items():
+        if dev in states:
+            gen.set_state(states[dev])
+        else:
+            gen.manual_seed(_SEED[0])

@@ -2,6 +2,7 @@
 ``fused_bias_dropout_residual_layer_norm`` (:117), ``fused_feedforward``
 (:148), ``fused_rotary_position_embedding`` (:48, on the RoPE kernel),
 ``fused_linear`` (:79), ``fused_bias_act`` (:88),
+``fused_linear_param_grad_add`` (:98),
 ``block_multihead_attention`` (:215, on the paged decode kernel) and
 ``masked_multihead_attention`` (:237, plain, as in JAX), and of
 ``paddle_tpu/incubate/nn/functional/__init__.py``'s ``fused_layer_norm``,
@@ -197,6 +198,26 @@ def fused_bias_act(x, bias=None, act_method="gelu", name=None, **kw):
         inner = _F.silu if act_method == "swiglu" else _ACTIVATIONS["gelu"]
         return inner(a) * b
     return _act(act_method, _ACTIVATIONS)(x)
+
+
+def fused_linear_param_grad_add(x, dout, dweight=None, dbias=None,
+                                multi_precision=True, has_bias=True,
+                                name=None):
+    """A Linear layer's weight gradient, added to an accumulated one:
+    dweight + x^T dout over the flattened rows ([in, out]), and with
+    has_bias (dbias + the column sums of dout, [out]). One
+    ``torch.matmul``, as the JAX package leaves it to XLA; the products
+    are in x's type whatever multi_precision says, as in JAX. Returns dw,
+    or (dw, db) with has_bias."""
+    x2 = x.reshape(-1, x.shape[-1])
+    d2 = dout.reshape(-1, dout.shape[-1])
+    dw = torch.matmul(x2.t(), d2)
+    if dweight is not None:
+        dw = dweight + dw
+    if not has_bias:
+        return dw
+    db = d2.sum(0)
+    return dw, (db if dbias is None else dbias + db)
 
 
 def fused_layer_norm(x, norm_weight, norm_bias, epsilon=1e-5, **kw):

@@ -21,15 +21,24 @@ def compile_train_step(model, loss_fn, optimizer, donate=True,
     forward (``loss_fn(model, *batch)``), backward, the optimizer's
     gradient clip and update, and clears the gradients. donate and
     extra_rng have no counterpart in eager PyTorch and are ignored;
-    fuse=True and remat_policy raise."""
+    fuse=True and remat_policy raise: remat a model's layers with
+    ``models.apply_llama_remat`` or ``distributed.fleet.utils.recompute``
+    instead."""
     if fuse:
         raise NotImplementedError(
             "fuse=True (the graph-compiler pass pipeline) comes with the "
             "compiler slice of the port")
+    if remat_policy == "fused":
+        raise NotImplementedError(
+            "remat_policy='fused' (save only the fused ops' outputs) needs "
+            "the compiler's remat tags and comes with the compiler slice "
+            "of the port")
     if remat_policy is not None:
         raise NotImplementedError(
-            "remat_policy (activation rematerialization) comes with the "
-            "remat slice of the port")
+            f"remat_policy={remat_policy!r}: a JAX checkpoint policy over "
+            "the whole traced loss program needs a traced program, which "
+            "the eager step has not; remat the layers with "
+            "models.apply_llama_remat or distributed.fleet.utils.recompute")
 
     def step(*batch):
         loss = loss_fn(model, *batch)

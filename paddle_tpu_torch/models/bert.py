@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..amp import amp_add, amp_cast
 from ..device import resolve_device
 from ..nn import (GELU, Dropout, Embedding, LayerNorm, Linear, Sequential,
                   TransformerEncoder, TransformerEncoderLayer)
@@ -66,10 +67,10 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids, token_type_ids=None):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None]
-        emb = self.word_embeddings(input_ids) + \
-            self.position_embeddings(pos)
+        emb = amp_add(self.word_embeddings(input_ids),
+                      self.position_embeddings(pos))
         if token_type_ids is not None:
-            emb = emb + self.token_type_embeddings(token_type_ids)
+            emb = amp_add(emb, self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(emb))
 
 
@@ -101,7 +102,7 @@ class BertModel(nn.Module):
             am = (1.0 - attention_mask.float()) * -1e4
             am = am.reshape(am.shape[0], 1, 1, am.shape[1])
         seq = self.encoder(x, am)
-        pooled = torch.tanh(self.pooler(seq[:, 0]))
+        pooled = F.tanh(self.pooler(seq[:, 0]))
         return seq, pooled
 
 
@@ -123,8 +124,9 @@ class BertForMaskedLM(nn.Module):
                 labels=None):
         seq, _ = self.bert(input_ids, token_type_ids, attention_mask)
         hidden = self.transform(seq)
-        logits = torch.matmul(
-            hidden, self.bert.embeddings.word_embeddings.weight.t())
+        hidden, w = amp_cast("matmul", hidden,
+                             self.bert.embeddings.word_embeddings.weight)
+        logits = torch.matmul(hidden, w.t())
         if labels is not None:
             return F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
                                    labels.reshape(-1), ignore_index=-100)

@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..amp import amp_add, amp_cast
 from ..device import resolve_device
 from ..inference.engine import PagedGenerationMixin
 from ..nn import GELU, Dropout, Embedding, LayerList, LayerNorm, Linear
@@ -141,13 +142,13 @@ class GPTBlock(nn.Module):
         a = self.attn(self.ln_1(x), return_kv=return_kv)
         if return_kv:
             a, kv = a
-        x = x + self.drop(a)
-        x = x + self.drop(self.mlp(self.ln_2(x)))
+        x = amp_add(x, self.drop(a))
+        x = amp_add(x, self.drop(self.mlp(self.ln_2(x))))
         return (x, kv) if return_kv else x
 
     def _paged(self, step, x, *args, **kw):
-        x = x + step(self.ln_1(x), *args, **kw)
-        return x + self.mlp(self.ln_2(x))
+        x = amp_add(x, step(self.ln_1(x), *args, **kw))
+        return amp_add(x, self.mlp(self.ln_2(x)))
 
     def paged_decode_step(self, x, *args, **kw):
         return self._paged(self.attn.paged_decode_step, x, *args, **kw)
@@ -175,7 +176,7 @@ class GPTModel(nn.Module):
         layer's (k, v)."""
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)[None]
-        x = self.wte(input_ids) + self.wpe(pos)
+        x = amp_add(self.wte(input_ids), self.wpe(pos))
         kvs = []
         for block in self.h:
             x = block(x, return_kv=return_kv)
@@ -200,7 +201,7 @@ class GPTModel(nn.Module):
         """tokens/positions [B] int64 (each slot's token and its own
         position, looked up in wpe unclamped); per-layer pool lists (and
         scale rows of int8 pools). Returns the final hidden [B, 1, h]."""
-        x = self.wte(tokens[:, None]) + self.wpe(positions[:, None])
+        x = amp_add(self.wte(tokens[:, None]), self.wpe(positions[:, None]))
         return self._layers("paged_decode_step", x, k_pages, v_pages,
                             k_scales, v_scales, block_tables, context_lens,
                             write_pids, write_offs)
@@ -217,7 +218,7 @@ class GPTModel(nn.Module):
             torch.arange(qm, device=ids.device)[None, :]
         positions = positions.clamp_max(
             self.config.max_position_embeddings - 1)
-        x = self.wte(ids) + self.wpe(positions)
+        x = amp_add(self.wte(ids), self.wpe(positions))
         context_lens = (start_pos + q_lens).to(torch.int32)
         return self._layers("paged_ragged_step", x, k_pages, v_pages,
                             k_scales, v_scales, block_tables, context_lens,
@@ -247,7 +248,8 @@ class GPTForCausalLM(nn.Module, PagedGenerationMixin):
         return self.gpt.wte.weight.dtype
 
     def _head(self, hidden):
-        return torch.matmul(hidden, self.gpt.wte.weight.t())
+        hidden, w = amp_cast("matmul", hidden, self.gpt.wte.weight)
+        return torch.matmul(hidden, w.t())
 
     def forward(self, input_ids, labels=None):
         """Logits [B, S, V] (the head tied to wte); with labels [B, S] the

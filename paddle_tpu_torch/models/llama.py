@@ -23,7 +23,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..amp import amp_add, amp_cast
 from ..device import resolve_device
+from ..distributed.fleet.utils.recompute import recompute
 from ..inference.engine import PagedGenerationMixin, sample_tokens
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
@@ -218,32 +220,33 @@ class LlamaDecoderLayer(nn.Module):
                                                 config.rms_norm_eps, **kw)
 
     def _mlp_block(self, hidden):
-        return hidden + self.mlp(self.post_attention_layernorm(hidden))
+        return amp_add(hidden,
+                       self.mlp(self.post_attention_layernorm(hidden)))
 
     def forward(self, hidden, rope_cos, rope_sin, attn_mask=None,
                 kv_cache=None):
         x = self.self_attn(self.input_layernorm(hidden), rope_cos, rope_sin,
                            attn_mask, kv_cache)
         if kv_cache is None:
-            return self._mlp_block(hidden + x)
+            return self._mlp_block(amp_add(hidden, x))
         x, new_cache = x
-        return self._mlp_block(hidden + x), new_cache
+        return self._mlp_block(amp_add(hidden, x)), new_cache
 
     def decode_step(self, hidden, rope_cos, rope_sin, cache_k, cache_v, pos):
         x, cache_k, cache_v = self.self_attn.decode_step(
             self.input_layernorm(hidden), rope_cos, rope_sin, cache_k,
             cache_v, pos)
-        return self._mlp_block(hidden + x), cache_k, cache_v
+        return self._mlp_block(amp_add(hidden, x)), cache_k, cache_v
 
     def paged_decode_step(self, hidden, *args, **kw):
         x = self.self_attn.paged_decode_step(self.input_layernorm(hidden),
                                              *args, **kw)
-        return self._mlp_block(hidden + x)
+        return self._mlp_block(amp_add(hidden, x))
 
     def paged_ragged_step(self, hidden, *args, **kw):
         x = self.self_attn.paged_ragged_step(self.input_layernorm(hidden),
                                              *args, **kw)
-        return self._mlp_block(hidden + x)
+        return self._mlp_block(amp_add(hidden, x))
 
 
 class LlamaModel(nn.Module):
@@ -357,11 +360,6 @@ class LlamaForCausalLM(nn.Module, PagedGenerationMixin):
 
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
-        if config.recompute:
-            raise NotImplementedError(
-                "recompute (activation rematerialization, "
-                "apply_llama_remat) comes with the remat slice of the port; "
-                "this slice trains without it")
         self.config = config
         device = resolve_device(device)
         dtype = getattr(torch, config.dtype) if dtype is None else dtype
@@ -458,7 +456,9 @@ class LlamaForCausalLM(nn.Module, PagedGenerationMixin):
 
     def _head(self, hidden):
         if self.lm_head is None:
-            return torch.matmul(hidden, self.llama.embed_tokens.weight.t())
+            hidden, w = amp_cast("matmul", hidden,
+                                 self.llama.embed_tokens.weight)
+            return torch.matmul(hidden, w.t())
         return self.lm_head(hidden)
 
     @torch.inference_mode()
@@ -527,3 +527,22 @@ class LlamaForCausalLM(nn.Module, PagedGenerationMixin):
                                                     pos)
             out.append(pick(hidden))
         return torch.cat([toks, torch.stack(out, dim=1)], dim=1).to(ids.dtype)
+
+
+def apply_llama_remat(model):
+    """Recompute each decoder layer's activations in the backward
+    (``apply_llama_remat``, ``paddle_tpu/models/llama.py:880``): every
+    layer's ``forward`` is wrapped so that a training forward (grad mode,
+    no ``kv_cache``) goes through ``distributed.fleet.utils.recompute``,
+    which replays the layer's dropout draws; calls with a ``kv_cache`` and
+    the paged steps are left alone. ``LlamaConfig.recompute`` changes
+    nothing by itself, as in the JAX package. Returns the model."""
+    for layer in model.llama.layers:
+        def make(fn):
+            def wrapped(hidden, cos, sin, attn_mask=None, kv_cache=None):
+                if kv_cache is not None:
+                    return fn(hidden, cos, sin, attn_mask, kv_cache)
+                return recompute(fn, hidden, cos, sin, attn_mask)
+            return wrapped
+        layer.forward = make(layer.forward)
+    return model

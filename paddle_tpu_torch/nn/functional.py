@@ -13,7 +13,9 @@ rotates q and k in one launch), ``linear``,
 same argument checks. Each function takes the JAX function's parameters in
 its order, with its names and defaults (``name`` is taken and ignored, as
 paddle's is); torch-only extras (``generator=``) are keyword-only after
-them. The kernel ops route to their wrappers in
+them. Under ``amp.auto_cast`` each casts its inputs as the JAX
+dispatcher casts them under its op name (``amp.amp_cast``). The kernel
+ops route to their wrappers in
 ``ops.kernels`` (the CUDA kernel for CUDA tensors, the plain version for
 CPU tensors), the differentiable ones through the kernel's autograd
 function. Attention with a dense mask or with dropout while training is
@@ -29,6 +31,7 @@ import math
 
 import torch
 
+from ..amp import amp_cast
 from ..framework.random import default_generator
 from ..ops import kernels as _k
 from ..ops.kernels.decode_attention import NEG_INF
@@ -36,6 +39,7 @@ from ..ops.kernels.decode_attention import NEG_INF
 
 def linear(x, weight, bias=None, name=None):
     """y = x @ weight (+ bias); weight [in, out] (paddle's layout)."""
+    x, weight, bias = amp_cast("linear", x, weight, bias)
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
@@ -43,16 +47,17 @@ def linear(x, weight, bias=None, name=None):
 def gelu(x, approximate=False, name=None):
     """GELU, exact (erf) by default as JAX's ``F.gelu``; approximate=True
     takes the tanh form (``jax.nn.gelu``'s own default)."""
+    x = amp_cast("gelu", x)
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
 
 
 def relu(x, name=None):
-    return torch.relu(x)
+    return torch.relu(amp_cast("relu", x))
 
 
 def tanh(x, name=None):
-    return torch.tanh(x)
+    return torch.tanh(amp_cast("tanh", x))
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
@@ -61,6 +66,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     draw) with probability p. "upscale_in_train" divides the kept values
     by 1 - p in training; "downscale_in_infer" keeps them as they are and
     multiplies by 1 - p outside training."""
+    x = amp_cast("dropout", x)
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
@@ -85,6 +91,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
     bf16/f16 inputs; the normalized value is cast to x's type BEFORE the
     weight multiply and the bias add (the fused bdrln op multiplies in
     float32 and casts last)."""
+    x, weight, bias = amp_cast("layer_norm", x, weight, bias)
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
     dims = tuple(range(x.dim() - len(normalized_shape), x.dim()))
@@ -108,6 +115,7 @@ def rms_norm(x, weight=None, bias=None, epsilon=1e-6, begin_norm_axis=-1,
     the weight multiply in float32, one cast to x's type (the Pallas
     kernel's order). bias, of the same shape, is added after the cast in
     plain PyTorch, as the JAX op adds it in XLA."""
+    x, weight, bias = amp_cast("rms_norm", x, weight, bias)
     axis = begin_norm_axis % x.dim()
     n = math.prod(x.shape[axis:])
     w = (torch.ones(n, dtype=x.dtype, device=x.device) if weight is None
@@ -120,6 +128,7 @@ def rms_norm(x, weight=None, bias=None, epsilon=1e-6, begin_norm_axis=-1,
 def swiglu(x, y=None, name=None):
     """silu(x) * y in float32, cast to x's type; with y None, x's last dim
     splits in two halves (x, y), as the JAX op splits it."""
+    x, y = amp_cast("swiglu", x, y)
     if y is None:
         x, y = x.chunk(2, dim=-1)
     return _k.SwiGLU.apply(x.contiguous(), y.contiguous())
@@ -128,6 +137,7 @@ def swiglu(x, y=None, name=None):
 def fused_rope(x, cos, sin):
     """Rotate-half RoPE. x: [B, S, H, D]; cos/sin: [S, D], cast to x's
     type first. The tables get no gradient."""
+    x, cos, sin = amp_cast("fused_rope", x, cos, sin)
     return _k.FusedRoPE.apply(x, cos, sin)
 
 
@@ -137,6 +147,7 @@ def fused_rope_qk(q, k, cos, sin):
     port's own, where the JAX model rotates q and k apart. cos/sin: [S, D]
     or the rows at each token's own position ([B, S, D], or [B, D] when
     S = 1; these take no gradient). Returns (q_rot, k_rot)."""
+    q, k, cos, sin = amp_cast("fused_rope", q, k, cos, sin)
     return _k.FusedRoPEQK.apply(q, k, cos, sin)
 
 
@@ -187,6 +198,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     bottom-right alignment when ``is_causal``, and its backward is the
     flash backward kernel. With a mask (bool, True = attend, or additive)
     or dropout while training it is the dense plain path."""
+    query, key, value, attn_mask = amp_cast(
+        "scaled_dot_product_attention", query, key, value, attn_mask)
     if attn_mask is None and (dropout_p == 0.0 or not training):
         return _k.FlashAttention.apply(query, key, value, is_causal, None)
     return _sdpa_dense(query, key, value, attn_mask, dropout_p, is_causal,
@@ -258,6 +271,7 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
     for its value on rows that see no key); seed_offset int64 zeros [2].
     fixed_seed_offset and rng_name are taken and ignored, as in the JAX
     op: dropout draws from `generator`, and there is no seed counter."""
+    query, key, value = amp_cast("flashmask_attention", query, key, value)
     b, s, h, _ = query.shape
     t, h_kv = key.shape[1], key.shape[2]
     if window_size is not None:
@@ -532,6 +546,7 @@ def fused_linear_cross_entropy(hidden, weight, labels,
     transpose_weight, the tied-embedding layout). Labels below 0 add 0 and
     the mean is over the others; the loss has hidden's type. The chunk is
     min(chunk_size, V rounded up to 128), as in the JAX op."""
+    hidden, weight = amp_cast("fused_linear_cross_entropy", hidden, weight)
     h2 = hidden.reshape(-1, hidden.shape[-1])
     l2 = labels.reshape(-1)
     v = weight.shape[0] if transpose_weight else weight.shape[-1]

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..amp import amp_cast
 from ..device import resolve_device
 from . import functional as F
 
@@ -56,8 +57,7 @@ class Linear(nn.Module):
             wants_param(bias_attr, "bias_attr") else None
 
     def forward(self, x):
-        y = torch.matmul(x, self.weight)
-        return y if self.bias is None else y + self.bias
+        return F.linear(x, self.weight, self.bias)
 
 
 class Embedding(nn.Module):
@@ -83,7 +83,7 @@ class Embedding(nn.Module):
                 self.weight[padding_idx] = 0
 
     def forward(self, ids):
-        out = self.weight[ids]
+        out = amp_cast("embedding", self.weight)[ids]
         if self.padding_idx is None:
             return out
         keep = (ids != self.padding_idx)[..., None].to(out.dtype)

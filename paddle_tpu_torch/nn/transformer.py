@@ -21,6 +21,7 @@ import copy
 import torch
 from torch import nn
 
+from ..amp import amp_add
 from ..device import resolve_device
 from . import functional as F
 from .container import LayerList
@@ -138,14 +139,14 @@ class TransformerEncoderLayer(nn.Module):
             src = self.self_attn(src, src, src, src_mask)
         else:
             src, cache = self.self_attn(src, src, src, src_mask, cache)
-        src = residual + self.dropout1(src)
+        src = amp_add(residual, self.dropout1(src))
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
         src = self.linear2(self.dropout(self.activation(self.linear1(src))))
-        src = residual + self.dropout2(src)
+        src = amp_add(residual, self.dropout2(src))
         if not self.normalize_before:
             src = self.norm2(src)
         return src if cache is None else (src, cache)
@@ -232,7 +233,7 @@ class TransformerDecoderLayer(nn.Module):
             tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
         else:
             tgt, incr = self.self_attn(tgt, tgt, tgt, tgt_mask, cache[0])
-        tgt = residual + self.dropout1(tgt)
+        tgt = amp_add(residual, self.dropout1(tgt))
         if not self.normalize_before:
             tgt = self.norm1(tgt)
         residual = tgt
@@ -242,14 +243,14 @@ class TransformerDecoderLayer(nn.Module):
             tgt = self.cross_attn(tgt, memory, memory, memory_mask)
         else:
             tgt = self.cross_attn(tgt, memory, memory, memory_mask, cache[1])
-        tgt = residual + self.dropout2(tgt)
+        tgt = amp_add(residual, self.dropout2(tgt))
         if not self.normalize_before:
             tgt = self.norm2(tgt)
         residual = tgt
         if self.normalize_before:
             tgt = self.norm3(tgt)
         tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
-        tgt = residual + self.dropout3(tgt)
+        tgt = amp_add(residual, self.dropout3(tgt))
         if not self.normalize_before:
             tgt = self.norm3(tgt)
         return tgt if cache is None else (tgt, (incr, cache[1]))

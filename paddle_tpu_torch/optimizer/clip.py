@@ -48,16 +48,15 @@ class ClipGradByNorm(ClipGradBase):
 
 class ClipGradByGlobalNorm(ClipGradBase):
     """All clipped gradients scaled by clip_norm / max(global norm,
-    clip_norm), the global norm taken over them in float32."""
+    clip_norm), the global norm taken over them in float32.
+    auto_skip_clip is taken and changes nothing, as in the JAX package:
+    the gradients are clipped by the global norm either way."""
 
     def __init__(self, clip_norm, group_name="default_group",
                  auto_skip_clip=False):
-        if auto_skip_clip:
-            raise NotImplementedError(
-                "auto_skip_clip=True: the port always clips by the global "
-                "norm; pass auto_skip_clip=False")
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
+        self.auto_skip_clip = auto_skip_clip
 
     def __call__(self, params_grads):
         sq = [g.float().square().sum() for p, g in params_grads

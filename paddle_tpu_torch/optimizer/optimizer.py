@@ -1,9 +1,12 @@
-"""Optimizer base: the counterpart of ``paddle_tpu/optimizer/optimizer.py``
-(``Optimizer``, :25-296) with the same imperative surface — parameter
+"""Optimizer base and the SGD family: the counterparts of
+``paddle_tpu/optimizer/optimizer.py`` (``Optimizer`` :25-296, ``SGD``
+:299, ``Momentum`` :306) with the same imperative surface — parameter
 groups with their own ``learning_rate`` multiplier and ``weight_decay``,
-``step`` / ``clear_grad``, ``state_dict`` /
-``set_state_dict`` under the same key names (``<param name or
-param_i>.<accumulator>``, ``.master_weight``, ``@step``).
+a float learning rate or an ``lr.LRScheduler`` (``get_lr``, ``set_lr``,
+``set_lr_scheduler``), ``step`` / ``clear_grad``,
+``state_dict`` / ``set_state_dict`` under the same key names (``<param
+name or param_i>.<accumulator>``, ``.master_weight``, ``LR_Scheduler``,
+``@step``).
 
 Precision follows the JAX package: a bfloat16 or float16 parameter keeps
 its accumulators in float32 whatever ``multi_precision`` says
@@ -19,9 +22,8 @@ JAX ``Parameter`` carries (``optimize_attr``, ``regularizer``,
 ``requires_grad`` stands for ``trainable``, and the JAX ``name`` is the
 attribute ``param_name`` (a torch tensor's own ``name`` cannot be set):
 ``apply_decay_param_fun`` receives it and ``state_dict`` keys use it.
-
-A learning-rate scheduler comes with a later slice of the port: only a
-float learning rate is taken.
+The scheduler is read once a step (``get_lr``) and stepped by the caller,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from collections import OrderedDict
 
 import torch
 
+from .lr import LRScheduler
 from .regularizer import L1Decay, L2Decay
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
@@ -54,10 +57,6 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
                  name=None):
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "a learning-rate scheduler comes with a later slice of the "
-                "port; pass a float learning_rate")
         if parameters is None:
             raise ValueError(
                 "parameters is required in this framework (dygraph-style)")
@@ -72,7 +71,9 @@ class Optimizer:
                 self._parameter_list.extend(ps)
         else:
             self._param_groups.append({"params": self._parameter_list})
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate
+        self._lr_scheduler = learning_rate if isinstance(
+            learning_rate, LRScheduler) else None
         if isinstance(weight_decay, float) and not self._decoupled_wd:
             weight_decay = L2Decay(weight_decay)
         self._weight_decay = weight_decay
@@ -84,7 +85,18 @@ class Optimizer:
 
     # -- lr ----------------------------------------------------------------
     def get_lr(self):
-        return self._learning_rate
+        if self._lr_scheduler is not None:
+            return float(self._lr_scheduler())
+        return float(self._learning_rate)
+
+    def set_lr(self, value):
+        if self._lr_scheduler is not None:
+            raise RuntimeError("cannot set_lr when using LRScheduler")
+        self._learning_rate = value
+
+    def set_lr_scheduler(self, scheduler):
+        self._lr_scheduler = scheduler
+        self._learning_rate = scheduler
 
     # -- accumulators --------------------------------------------------------
     def _acc_names(self):
@@ -179,7 +191,8 @@ class Optimizer:
 
     # -- state dict ------------------------------------------------------------
     def state_dict(self):
-        """{key: tensor} of the live state (not copies), plus "@step"."""
+        """{key: tensor} of the live state (not copies), the scheduler's
+        state dict under "LR_Scheduler" when there is one, and "@step"."""
         sd = OrderedDict()
         for i, p in enumerate(self._parameter_list):
             key = _name(p, i)
@@ -187,6 +200,8 @@ class Optimizer:
                 sd[f"{key}.{n}"] = v
             if id(p) in self._master_weights:
                 sd[f"{key}.master_weight"] = self._master_weights[id(p)]
+        if self._lr_scheduler is not None:
+            sd["LR_Scheduler"] = self._lr_scheduler.state_dict()
         sd["@step"] = self._step_count
         return sd
 
@@ -211,4 +226,39 @@ class Optimizer:
                 self._master_weights[id(p)] = torch.as_tensor(
                     state_dict[mk]).to(device=p.device, dtype=torch.float32,
                                        copy=True)
+        if "LR_Scheduler" in state_dict and self._lr_scheduler is not None:
+            self._lr_scheduler.set_state_dict(state_dict["LR_Scheduler"])
         self._step_count = int(state_dict.get("@step", self._step_count))
+
+
+class SGD(Optimizer):
+    """p - lr * g."""
+
+    def _update(self, p, g, state, lr, wd_coeff=0.0):
+        return p - _weak(lr, g) * g
+
+
+class Momentum(Optimizer):
+    """velocity = momentum * velocity + g; p - lr * velocity, or with
+    use_nesterov p - lr * (g + momentum * velocity)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _acc_names(self):
+        return ["velocity"]
+
+    def _init_state(self, p):
+        return (self._acc_base(p),)
+
+    def _update(self, p, g, state, lr, wd_coeff=0.0):
+        (v,) = state
+        v.mul_(self._momentum).add_(g)
+        if self._nesterov:
+            return p - lr * (g + self._momentum * v)
+        return p - lr * v

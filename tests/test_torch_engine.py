@@ -546,6 +546,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         lambda **kw: BertForMaskedLM(BertConfig.tiny(), **kw),
         lambda **kw: BertForSequenceClassification(BertConfig.tiny(),
                                                    **kw),
+        lambda **kw: LlamaForCausalLM(
+            LlamaConfig(**{**vars(LlamaConfig.tiny()), "recompute": True}),
+            **kw),
     ]
     for make in makers:
         for kw in ({}, {"device": "cuda"}):
@@ -560,7 +563,12 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.inference, paddle_tpu_torch.weights, "
             "paddle_tpu_torch.ops.kernels, paddle_tpu_torch.models.gpt, "
             "paddle_tpu_torch.models.bert, paddle_tpu_torch.nn.transformer, "
-            "paddle_tpu_torch.incubate.nn; "
+            "paddle_tpu_torch.incubate.nn, paddle_tpu_torch.amp, "
+            "paddle_tpu_torch.amp.lists, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.optimizer.extra, "
+            "paddle_tpu_torch.jit, paddle_tpu_torch.distributed, "
+            "paddle_tpu_torch.distributed.checkpoint, "
+            "paddle_tpu_torch.distributed.fleet.utils.recompute; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad); "

@@ -302,9 +302,20 @@ def test_optimizer_state_dict_round_trip():
 
 
 def test_optimizer_refuses_later_slices():
+    """A scheduler drives the rate as in JAX; parameters are required; the
+    compiler's options still raise, each naming what it needs; and
+    LlamaConfig(recompute=True) builds a model that computes what the
+    recompute=False one does (the flag alone changes nothing in JAX)."""
     p = [torch.nn.Parameter(torch.ones(2))]
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        topt.AdamW(jopt.lr.StepDecay(0.1, step_size=2), parameters=p)
+    to = topt.AdamW(topt.lr.StepDecay(0.1, step_size=2), parameters=p)
+    jo = jopt.AdamW(jopt.lr.StepDecay(0.1, step_size=2),
+                    parameters=[JaxParameter(jnp.ones(2))])
+    for _ in range(5):
+        assert to.get_lr() == jo.get_lr()
+        to._lr_scheduler.step()
+        jo._lr_scheduler.step()
+    with pytest.raises(RuntimeError, match="LRScheduler"):
+        to.set_lr(0.5)
     with pytest.raises(ValueError, match="parameters"):
         topt.AdamW(0.1)
     model = torch.nn.Linear(2, 2)
@@ -312,27 +323,53 @@ def test_optimizer_refuses_later_slices():
         compile_train_step(model, lambda m, x: m(x).sum(),
                            topt.AdamW(0.1, parameters=model.parameters()),
                            fuse=True)
-    with pytest.raises(NotImplementedError, match="remat slice"):
+    with pytest.raises(NotImplementedError, match="compiler slice"):
         compile_train_step(model, lambda m, x: m(x).sum(),
                            topt.AdamW(0.1, parameters=model.parameters()),
                            remat_policy="fused")
+    with pytest.raises(NotImplementedError, match="apply_llama_remat"):
+        compile_train_step(model, lambda m, x: m(x).sum(),
+                           topt.AdamW(0.1, parameters=model.parameters()),
+                           remat_policy=jax.checkpoint_policies.nothing_saveable)
     cfg = LlamaConfig.tiny()
     cfg.recompute = True
-    with pytest.raises(NotImplementedError, match="remat slice"):
-        LlamaForCausalLM(cfg, device="cpu")
+    jcfg = JaxLlamaConfig.tiny()
+    jcfg.recompute = True
+    paddle.seed(0)
+    jm = JaxLlama(jcfg)
+    tm = weights.from_paddle_tpu_state(
+        {n: np.asarray(q._value) for n, q in jm.named_parameters()},
+        LlamaForCausalLM(cfg, device="cpu"))
+    assert tm.config.recompute
+    ids, lab = _batch(cfg.vocab_size)
+    want = float(jm(paddle.to_tensor(ids), labels=paddle.to_tensor(lab)))
+    got = tm(torch.from_numpy(ids), labels=torch.from_numpy(lab)).item()
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 def test_optimizer_options_not_taken_raise():
-    """lazy_mode and auto_skip_clip would change the result, so they raise
-    instead of being dropped; a float weight_decay stays a decoupled
-    coefficient in AdamW and becomes L2Decay in Adam."""
+    """lazy_mode=True (Adam, AdamW) and auto_skip_clip=True are taken and
+    give the JAX package's results: the dense rule, and the global-norm
+    clip. A float weight_decay stays a decoupled coefficient in AdamW and
+    becomes L2Decay in Adam."""
+    cases = {
+        "adam_lazy": lambda m, ps: m.Adam(0.01, parameters=ps,
+                                          lazy_mode=True),
+        "adamw_lazy": lambda m, ps: m.AdamW(0.01, parameters=ps,
+                                            lazy_mode=True),
+        "clip_auto_skip": lambda m, ps: m.AdamW(
+            0.01, parameters=ps,
+            grad_clip=_GLOBAL_NORM[m](0.5, auto_skip_clip=True)),
+    }
+    for name, make in cases.items():
+        jps, tps, jo, to = _run_pair(make, "float32",
+                                     grad_scale=3.0 if "clip" in name
+                                     else 1.0)
+        for jp, tp in zip(jps, tps):
+            np.testing.assert_allclose(tp.detach().numpy(), jp.numpy(),
+                                       rtol=1e-6, atol=1e-9, err_msg=name)
+        _state_close(jo, to, jps, tps)
     p = [torch.nn.Parameter(torch.ones(2))]
-    with pytest.raises(NotImplementedError, match="lazy_mode"):
-        topt.Adam(0.1, parameters=p, lazy_mode=True)
-    with pytest.raises(NotImplementedError, match="lazy_mode"):
-        topt.AdamW(0.1, parameters=p, lazy_mode=True)
-    with pytest.raises(NotImplementedError, match="auto_skip_clip"):
-        topt.ClipGradByGlobalNorm(1.0, auto_skip_clip=True)
     assert topt.AdamW(0.1, parameters=p, weight_decay=0.05)._weight_decay \
         == 0.05
     wd = topt.Adam(0.1, parameters=p, weight_decay=0.05)._weight_decay
