@@ -85,7 +85,13 @@ source, all started together; each build's seconds printed), then:
    the card (the forward kernels launched twice a layer), the tiny GPT's
    steps, a tiny BERT under amp O2 + GradScaler on the tensor-core flash
    route, and a checkpoint written from the card and loaded on the CPU
-   bit for bit;
+   bit for bit; (agree:fleet) float and int8 pools: the card's KV page
+   exports of the prompts equal the CPU's byte for byte (int8: codes and
+   scale rows), the card's exports imported by a CPU engine and the
+   CPU's by a card engine continue with the cold run's tokens, a request
+   exported mid-stream with its KV continues exactly once on the other
+   device, and a card engine whose pool cannot hold the prompts spills
+   into a PrefixStore and refills token-exact;
 3. flashmask: F.flashmask_attention through autograd at [4, 2048, 16,
    128] bf16 with packed documents (each call must launch the masked
    forward and backward kernels once; out and grads held against the
@@ -141,6 +147,30 @@ source, all started together; each build's seconds printed), then:
    with a padding mask (the dense path, none), agreeing on the unpadded
    row (one unmasked forward profiled), and FusedMultiTransformer at the
    same widths (12 layers), each with its ms per forward;
+   fleet and fleet:int8 (after spec:rescore, on the 7B model): two
+   LocalReplicas over that one model, each with its own engine and pools
+   (the [serve] settings), roles prefill and decode behind one Router,
+   serve [serve]'s workload: every request prefills on p0 and hands its
+   KV pages to d0 (kvpages/v1), which decodes; every delivered token
+   must be the dense forward's argmax at its position or within
+   FLEET_TIE_ULPS of it (the prefill replica's GEMMs run at other row
+   counts than [serve]'s, so requests may leave [serve]'s tokens at
+   near-ties; each first departure is printed), every request must cross the handoff with
+   pages, p0 must never decode and d0 must launch the ragged and paged
+   decode kernels (the int8 ones and no float paged kernel over int8
+   pools); one handoff of the 518-token prompt is timed by part (gather,
+   pack, crc32, unpack, upload; host clock) beside the decode replica's
+   re-prefill of it; then a second decode replica joins, d0 is killed
+   mid-stream and the new one drained with transfer: zero failed
+   requests, no duplicate token, tokens held as before; then fleet:proc (the 7B
+   model released): two ProcessReplica workers (python -m
+   paddle_tpu_torch.serving.worker) on the card, each building the 7B
+   width at 2 layers in float32, sharing a FileStore fleet prefix store:
+   a prompt spilled by one is a fleet-tier hit on the other, pages cross
+   the sidecar frame, and under the router one worker is SIGKILLed
+   mid-stream: zero failed requests, exactly-once resume, tokens equal to
+   an in-process engine's; each prints the worker start-up seconds and
+   the sidecar frame's bytes;
 7. train: with the serving models released, the configuration bench.py
    trains on the TPU (0.74B Llama, batch 4 x 2048, bf16 parameters,
    AdamW(1e-4, multi_precision=True)) takes a warm-up step and 5 timed
@@ -188,6 +218,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1836,6 +1867,7 @@ def main():
     phase_agree_gpt(dev)
     phase_agree_bert(dev)
     phase_agree_train2(dev)
+    phase_agree_fleet(dev)
     masked = phase_flashmask(K, dev)
     ffn = phase_fused_ffn(K, dev)
     model = _serving_model(dev)
@@ -1849,8 +1881,11 @@ def main():
                              kv_dtype="int8")
     phase_spec_rescore(model)
     phase_spec_rescore(model, kv_dtype="int8")
+    fleet, _ = phase_fleet(K, model, serve_out)
+    fleet8, _ = phase_fleet(K, model, serve8_out, kv_dtype="int8")
     del model                            # the next runs read their own peak
     _release()
+    phase_fleet_proc(dev)
     gpt = _serving_gpt(dev)
     gserve, gserve_out, _ = phase_serve(K, gpt, name="serve:gpt")
     gserve8, _, _ = phase_serve(K, gpt, kv_dtype="int8", twin=gserve_out,
@@ -1864,11 +1899,11 @@ def main():
     remat = phase_train_remat(K, dev, base)
     gtrain = phase_train_gpt(K, dev)
     btrain = phase_train_bert(K, dev)
-    runs = (serve, dense, serve8, dense8, spec, spec8, gserve, gserve8,
-            gdense, bert, train, remat, gtrain, btrain, masked, ffn)
+    runs = (serve, dense, serve8, dense8, spec, spec8, fleet, fleet8, gserve,
+            gserve8, gdense, bert, train, remat, gtrain, btrain, masked, ffn)
     launches = {k: sum(r[k] for r in runs) for k in K.launch_counts()}
-    _require_launched("all serving, BERT, training, flashmask and fused_ffn "
-                      "runs", launches, K.KERNELS)
+    _require_launched("all serving, fleet, BERT, training, flashmask and "
+                      "fused_ffn runs", launches, K.KERNELS)
 
     name_power = _nvidia_smi()
     print(name_power)
@@ -3498,8 +3533,9 @@ def _model_steps(st):
             + st["spec_dispatches"])
 
 
-def _first_divergences(tag, model, prompts, gen, twin, kv_dtype):
-    """Each request's tokens against its spec-off twin: at a first
+def _first_divergences(tag, model, prompts, gen, twin, kv_dtype,
+                       what="the spec-off twin"):
+    """Each request's tokens against its twin (`what`): at a first
     divergence, the dense forward over the common prefix scores both
     candidates, which must lie within SPEC_TIE_ULPS bf16 ulps."""
     found = []
@@ -3518,7 +3554,7 @@ def _first_divergences(tag, model, prompts, gen, twin, kv_dtype):
         found.append((i, t, la, lb, abs(la - lb) / ulp,
                       float(logits.max())))
     worst = max((f[4] for f in found), default=0.0)
-    print(f"[{tag}] first divergences from the spec-off twin: {len(found)} "
+    print(f"[{tag}] first divergences from {what}: {len(found)} "
           f"of {len(prompts)} requests, (request, position) "
           f"{[(f[0], f[1]) for f in found]}; dense-forward logits of the "
           f"two candidates (spec-on, spec-off, gap in bf16 ulps, row max) "
@@ -3526,7 +3562,7 @@ def _first_divergences(tag, model, prompts, gen, twin, kv_dtype):
           f"worst gap {worst:.2f} ulps (allowed "
           f"{SPEC_TIE_ULPS[kv_dtype]:g})", flush=True)
     if worst > SPEC_TIE_ULPS[kv_dtype]:
-        raise AssertionError(f"[{tag}] a divergence from the spec-off twin "
+        raise AssertionError(f"[{tag}] a divergence from {what} "
                              f"is no near-tie: {worst:.2f} ulps")
     return found
 
@@ -5062,6 +5098,657 @@ def phase_train_bert(K, dev):
     del model, opt
     _release()
     return totals
+
+
+
+# ----------------------------------------------------------------------
+# the fleet plane: KV pages on the wire, the router and its replicas
+# ----------------------------------------------------------------------
+
+FLEET_TINY_KW = dict(max_slots=2, page_size=4, max_seq_len=64, n_pages=65,
+                     prefix_cache=True, prefill_chunk=8, mixed_step=True)
+
+
+# the card's and the CPU's float32 K/V differ where their GEMMs sum in
+# other orders: a page value is held within F32_PAGE_TOL of the export's
+# largest |value|; int8 codes may then differ by one at a half-code
+# boundary, at most one code in INT8_CODE_SHARE (the tests' rule), and
+# scale rows within F32_PAGE_TOL relative
+F32_PAGE_TOL = 1e-5
+INT8_CODE_SHARE = 500
+
+
+def _f32_pages_close(a, b):
+    """Two float32 exports of the same pages: (crc32 equal, payload equal,
+    max |a - b|, allowed, ok)."""
+    from paddle_tpu_torch.serving import unpack_pages
+    (am, ap), (bm, bp) = a, b
+    fa = torch.cat([t.flatten() for t in unpack_pages(am, ap)])
+    fb = torch.cat([t.flatten() for t in unpack_pages(bm, bp)])
+    err = float((fa - fb).abs().max())
+    allowed = F32_PAGE_TOL * float(fa.abs().max())
+    return (am["crc32"] == bm["crc32"], ap == bp, err, allowed,
+            am["tokens"] == bm["tokens"] and err <= allowed)
+
+
+def _int8_pages_equal(a, b):
+    """Two int8 exports' codes and scale rows, compared value for value:
+    (codes equal, scales equal, differing codes, largest code gap, max
+    relative scale difference, ok)."""
+    from paddle_tpu_torch.serving import unpack_pages, unpack_scales
+    (am, ap), (bm, bp) = a, b
+    ka, va = unpack_pages(am, ap)
+    kb, vb = unpack_pages(bm, bp)
+    diff = torch.cat([(ka.int() - kb.int()).flatten(),
+                      (va.int() - vb.int()).flatten()]).abs()
+    sa, sb = unpack_scales(am), unpack_scales(bm)
+    rel = max(float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-30)))
+              for x, y in zip(sa, sb))
+    n_diff = int(np.count_nonzero(diff.numpy()))
+    ok = (am["tokens"] == bm["tokens"] and int(diff.max()) <= 1
+          and n_diff * INT8_CODE_SHARE <= diff.numel()
+          and rel <= F32_PAGE_TOL)
+    return (int(diff.max()) == 0,
+            all(np.array_equal(x, y) for x, y in zip(sa, sb)),
+            n_diff, int(diff.max()), rel, ok)
+
+
+def phase_agree_fleet(dev):
+    """The KV transfer plane on the tiny f32 pair, float and int8 pools:
+    the card and the CPU serve the same prompts and export each prompt's
+    pages (``export_kv_pages``); the card's exports import into a CPU
+    engine and the CPU's into a card engine, and both continue with the
+    cold run's tokens (the prefix hits served by the imported pages, the
+    card's paged kernels reading them); a request exported mid-stream
+    with its KV (``export_request(with_kv=True)``) continues exactly once
+    on the other device; a card engine whose pool cannot hold the prompts
+    spills into a PrefixStore and refills token-exact. The card's and the
+    CPU's exports of the same prompt are compared byte for byte (float)
+    and code for code with their scale rows (int8)."""
+    import zlib
+
+    from paddle_tpu_torch.inference import GenerationEngine
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import PrefixStore
+
+    cfg, cpu, gpu = _tiny_pair(dev)
+    prompts = _serving_prompts(np.random.default_rng(5), 4, 9, 22,
+                               cfg.vocab_size, 8, (0, 2))
+    n_new = 12
+    for kv in (None, "int8"):
+        tag = "agree:fleet" if kv is None else "agree:fleet:int8"
+        kw = dict(FLEET_TINY_KW, kv_dtype=kv)
+        want = [w[len(p):].tolist() for w, p in
+                zip(_serve_tiny(cpu, prompts, n_new, **kw)[1], prompts)]
+        exports = {}
+        for name, model in (("cpu", cpu), ("cuda", gpu)):
+            eng, got = _serve_tiny(model, prompts, n_new, **kw)
+            if [g[len(p):].tolist() for g, p in zip(got, prompts)] != want:
+                raise AssertionError(f"[{tag}] {name} cold run != the CPU's")
+            exports[name] = [eng.export_kv_pages(p) for p in prompts]
+        if any(e is None for e in exports["cuda"] + exports["cpu"]):
+            raise AssertionError(f"[{tag}] a prompt exported no page")
+        if kv is None:
+            same = [_f32_pages_close(c, g)
+                    for c, g in zip(exports["cpu"], exports["cuda"])]
+            bytes_ok = all(ok for *_, ok in same)
+            detail = (f"(crc32 equal, payload equal, max |card - cpu|, "
+                      f"allowed) per prompt {same}")
+        else:
+            same = [_int8_pages_equal(c, g)
+                    for c, g in zip(exports["cpu"], exports["cuda"])]
+            bytes_ok = all(ok for *_, ok in same)
+            detail = (f"(codes equal, scales equal, differing codes, "
+                      f"largest gap, max scale rel diff, ok) per prompt "
+                      f"{same}")
+        n_pages = sum(m["n_pages"] for m, _ in exports["cuda"])
+        n_bytes = sum(len(pl) for _, pl in exports["cuda"])
+        crc = zlib.crc32(b"".join(pl for _, pl in exports["cuda"]))
+        print(f"[{tag}] card vs CPU exports of the same prompts "
+              f"({n_pages} pages, {n_bytes} bytes, crc32 of the card's "
+              f"{crc:#010x}): {detail}", flush=True)
+        if not bytes_ok:
+            raise AssertionError(f"[{tag}] the card's and the CPU's exports "
+                                 "of the same prompts differ")
+
+        K.reset_launch_counts()
+        crossed = {}
+        for src, model in (("cuda", cpu), ("cpu", gpu)):
+            eng = GenerationEngine(model, **kw)
+            mapped = sum(eng.import_kv_pages(m, pl) for m, pl in exports[src])
+            rids = [eng.add_request(p, max_new_tokens=n_new)
+                    for p in prompts]
+            with torch.inference_mode():
+                out = eng.run()
+            got = [out[r][len(p):].tolist() for r, p in zip(rids, prompts)]
+            crossed[src] = (got == want, mapped,
+                            eng.stats["prefix_hit_tokens"],
+                            eng.upload_trace_count)
+        launches = K.launch_counts()
+
+        # mid-stream with KV: card -> CPU, then CPU -> card
+        moved = []
+        for a, b in ((gpu, cpu), (cpu, gpu)):
+            src = GenerationEngine(a, **kw)
+            rid = src.add_request(prompts[2], max_new_tokens=n_new)
+            with torch.inference_mode():
+                while len(src._reqs[rid].out) < 3:
+                    src.step()
+            snap = src.export_request(rid, with_kv=True)
+            dst = GenerationEngine(b, **kw)
+            drid = dst.import_request(snap)
+            start = len(snap["tokens"]) - len(prompts[2])
+            rest = [t for _, t in dst.stream_request(drid, start)]
+            moved.append((snap["tokens"][len(prompts[2]):] + rest
+                           == want[2], "kv" in snap,
+                           dst.stats["prefix_hit_tokens"]))
+
+        # a pool too small for the prompts: spill, then refill
+        ps = PrefixStore()
+        eng = GenerationEngine(gpu, **dict(kw, n_pages=14,
+                                           prefix_store=ps))
+        rng = np.random.default_rng(6)
+        churn = [rng.integers(1, cfg.vocab_size, 30) for _ in range(4)]
+        first = _serve_via(eng, [prompts[3]], n_new)
+        for c in churn:
+            _serve_via(eng, [c], 4)
+        spilled = len(ps)
+        again = _serve_via(eng, [prompts[3]], n_new)
+        st = eng.stats
+        refilled = eng.upload_trace_count
+        print(f"[{tag}] imports: card exports -> CPU engine (tokens ok, "
+              f"pages mapped, prefix hit tokens, upload programs) "
+              f"{crossed['cuda']}; CPU exports -> card engine "
+              f"{crossed['cpu']}; mid-stream export_request(with_kv=True) "
+              f"(tokens ok, kv rode, hit tokens) card -> CPU {moved[0]}, "
+              f"CPU -> card {moved[1]}; small pool (n_pages 14): "
+              f"{spilled} pages spilled, refill upload programs "
+              f"{refilled}, tokens ok {first == [want[3]]} / "
+              f"{again == [want[3]]}, prefix hits {st['prefix_hits']}",
+              flush=True)
+        print(f"[{tag}] launches on the card while importing "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}",
+              flush=True)
+        ok = (all(c[0] and c[1] > 0 and c[2] > 0 for c in crossed.values())
+              and all(m[0] and m[1] and m[2] > 0 for m in moved)
+              and spilled > 0 and refilled > 0
+              and first == [want[3]] and again == [want[3]])
+        if not ok:
+            raise AssertionError(f"[{tag}] the transfer plane disagrees "
+                                 "with the cold run")
+        suffix = "" if kv is None else "_int8"
+        _require_launched(tag, launches, (f"ragged_paged_attention{suffix}",
+                                          f"paged_decode_attention{suffix}"))
+        if kv is not None:
+            _require_idle(tag, launches, FLOAT_PAGED_KERNELS)
+
+
+def _serve_via(eng, prompts, n_new):
+    rids = [eng.add_request(np.asarray(p), max_new_tokens=n_new)
+            for p in prompts]
+    with torch.inference_mode():
+        out = eng.run()
+    return [out[r][len(p):].tolist() for r, p in zip(rids, prompts)]
+
+
+def _fleet_counters():
+    from paddle_tpu_torch.observability.metrics import REGISTRY
+    return dict(REGISTRY.snapshot()["counters"])
+
+
+def _stream_fleet(router, prompts, n_new, on_token=None, timeout=900):
+    """Every prompt streamed through the router from its own thread.
+    Returns (tokens per prompt, errors)."""
+    import threading
+
+    results, errors = [None] * len(prompts), []
+
+    def client(i):
+        try:
+            toks = []
+            for t in router.stream(prompts[i], max_new_tokens=n_new):
+                toks.append(int(t))
+                if on_token is not None:
+                    on_token()
+            results[i] = toks
+        except Exception as e:  # noqa: BLE001 — graded by the caller
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("fleet streams did not finish in time")
+    return results, errors
+
+
+def _delta(c1, c0, name):
+    return c1.get(name, 0) - c0.get(name, 0)
+
+
+# a fleet run's token is held within this many bf16 ulps (at the larger
+# logit) of the dense forward's argmax at its position: the prefill
+# replica's buckets hold other rows than one engine's, so its GEMMs round
+# bf16 otherwise, and a failover re-prefills delivered tokens whose KV
+# the decode steps wrote; int8 pages also carry their rounding, which the
+# dense forward does not. Twice the worst gap the H100 showed over every
+# position of the fleet waves (bf16 8 ulps, int8 19); a lost or misplaced
+# token or a corrupted page leaves tokens far from the argmax
+FLEET_TIE_ULPS = {None: 16.0, "int8": 38.0}
+
+
+def _fleet_ties(tag, model, prompts, got, want, kv_dtype):
+    """The fleet's tokens against [serve]'s (`want`) and against greedy
+    decoding itself: at every position the dense forward over the prompt
+    and the tokens before it must score the delivered token within
+    FLEET_TIE_ULPS of its argmax. A lost, repeated or misplaced token, or
+    a page the handoff corrupted, would leave the argmax by far more."""
+    rows = []
+    for p, g, w in zip(prompts, got, want):
+        ids = torch.as_tensor(np.concatenate([p, g[:-1]])[None],
+                              dtype=torch.long, device=model.device)
+        with torch.inference_mode():
+            logits = model(ids)[0, len(p) - 1:].float()
+        top = logits.max(dim=-1).values
+        chosen = logits[torch.arange(len(g)), torch.as_tensor(g)]
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(top.abs(), chosen.abs()).clamp_min(1e-30))) - 7)
+        gaps = ((top - chosen) / ulp).cpu().numpy()
+        neq = np.flatnonzero(np.asarray(g) != np.asarray(w))
+        rows.append((int(neq[0]) if neq.size else None,
+                     int(np.count_nonzero(gaps > 0)),
+                     round(float(gaps.max()), 2)))
+    worst = max(r[2] for r in rows)
+    print(f"[{tag}] per request: (first position leaving [serve]'s tokens, "
+          f"positions whose token is not the dense forward's argmax, "
+          f"largest gap to the argmax in bf16 ulps) {rows}; worst "
+          f"{worst:.2f} ulps (allowed {FLEET_TIE_ULPS[kv_dtype]:g})",
+          flush=True)
+    if worst > FLEET_TIE_ULPS[kv_dtype]:
+        raise AssertionError(f"[{tag}] a delivered token is no near-tie of "
+                             f"greedy decoding: {worst:.2f} ulps")
+
+
+def _check_ragged_steps(tag, ragged, stats, layers):
+    """The ragged kernel launched once a layer for every ragged step of
+    the fleet's engines (the decode replica's among them)."""
+    steps = sum(st["ragged_steps"] for st in stats)
+    if ragged != steps * layers:
+        raise AssertionError(f"[{tag}] ragged launches {ragged} != the "
+                             f"engines' ragged steps {steps} x {layers}")
+
+
+def _handoff_parts(tag, src, dst, prompt):
+    """One prefill -> decode handoff of `prompt`'s pages timed by part on
+    the host clock (export: gather, pack without the crc, the crc;
+    import: unpack without the crc, the crc, the upload program), then
+    the decode replica's TTFT after that handoff beside a re-prefill of
+    the same prompt on it (each the second of two runs: the first
+    captures the step programs of its shapes)."""
+    import zlib
+
+    rows = []
+    for _ in range(2):
+        _serve_via(src, [prompt], 1)    # its pages indexed on the source
+        dst.blocks.invalidate_index()
+        s0, d0 = dict(src.stats), dict(dst.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta, payload = src.export_kv_pages(prompt)
+        t1 = time.perf_counter()
+        mapped = dst.import_kv_pages(meta, payload)
+        t2 = time.perf_counter()
+        same = _same_pages(src, dst, prompt)
+        _serve_via(dst, [prompt], 1)
+        t3 = time.perf_counter()
+        c0 = time.perf_counter()
+        zlib.crc32(payload)
+        crc = time.perf_counter() - c0
+        dst.blocks.invalidate_index()
+        torch.cuda.synchronize()
+        r0 = time.perf_counter()
+        _serve_via(dst, [prompt], 1)
+        reprefill = time.perf_counter() - r0
+        rows.append(dict(
+            pages=meta["n_pages"], mapped=mapped, bytes=len(payload),
+            pages_bit_equal=same,
+            gather_ms=(src.stats["kv_gather_s"] - s0["kv_gather_s"]) * 1e3,
+            pack_ms=(src.stats["kv_pack_s"] - s0["kv_pack_s"] - crc) * 1e3,
+            export_crc_ms=crc * 1e3,
+            unpack_ms=(dst.stats["kv_unpack_s"] - d0["kv_unpack_s"] - crc)
+            * 1e3,
+            import_crc_ms=crc * 1e3,
+            upload_ms=(dst.stats["kv_upload_s"] - d0["kv_upload_s"]) * 1e3,
+            export_ms=(t1 - t0) * 1e3, import_ms=(t2 - t1) * 1e3,
+            first_token_ms=(t3 - t2) * 1e3,
+            handoff_ttft_ms=(t3 - t0) * 1e3,
+            reprefill_ttft_ms=reprefill * 1e3))
+    row = {k: (round(v, 3) if isinstance(v, float) else v)
+           for k, v in rows[-1].items()}
+    print(f"[{tag}] handoff of a {len(prompt)}-token prompt, by part (ms, "
+          f"host clock; crc32 timed alone on the payload): "
+          f"{json.dumps(row)}", flush=True)
+    if not all(r["pages_bit_equal"] and r["mapped"] == r["pages"]
+               for r in rows):
+        raise AssertionError(f"[{tag}] the decode replica's pages (and "
+                             "scale rows) are not the prefill replica's, "
+                             "bit for bit")
+    return row
+
+
+def _same_pages(src, dst, tokens):
+    """The pages (and int8 scale rows) that two engines index for the
+    prefix chain of `tokens`, gathered from their pools: bit-equal?"""
+    from paddle_tpu_torch.inference.engine import _prefix_chain
+
+    def pids(eng):
+        out = []
+        for h, _, _ in _prefix_chain(tokens, eng.page_size):
+            entry = eng.blocks._index.get(h)
+            if entry is None:
+                break
+            out.append(entry[0])
+        return out
+
+    a, b = pids(src), pids(dst)
+    if not a or len(a) != len(b):
+        return False
+    ga, gb = src._gather_pages(a), dst._gather_pages(b)
+    return all((x is None and y is None) or
+               torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for x, y in zip(ga, gb))
+
+
+def phase_fleet(K, model, want, kv_dtype=None):
+    """Two LocalReplicas over the one 7B model, each with its own engine
+    and pools, roles prefill and decode behind one Router, serve
+    [serve]'s workload: every request prefills on p0, hands its pages to
+    d0 and decodes there. The tokens are held to greedy decoding and
+    against [serve]'s (`want`) by ``_fleet_ties``, every
+    request must cross the handoff with pages, p0 must never decode and
+    d0 must run the ragged (suffix over imported pages) and the paged
+    decode kernels. Then the handoff by part for the 512-token shared
+    prefix's prompt, and a second wave on a fleet grown by a second
+    decode replica d1: d0 is killed mid-stream, then d1 drained with
+    transfer; zero failed requests, no duplicate token, the tokens held
+    again. int8 pools (kv_dtype="int8") launch the int8 attention
+    kernels and never the float paged ones."""
+    from paddle_tpu_torch.inference import GenerationEngine
+    from paddle_tpu_torch.serving import LocalReplica, Router
+
+    cfg = model.config
+    tag = "fleet" if kv_dtype is None else "fleet:int8"
+    _fresh_pools(model)
+    rng = np.random.default_rng(0)
+    prompts = _serving_prompts(rng, 8, 300, 900, cfg.vocab_size, 512, (0, 5))
+    want = [np.asarray(w).tolist() for w in want]
+    n_new = 32
+    kw = dict(max_slots=4, page_size=16, prefill_chunk=256, mixed_step=True,
+              prefix_cache=True, kv_dtype=kv_dtype)
+    reps = {"p0": LocalReplica("p0", model,
+                               engine=GenerationEngine(model, **kw),
+                               role="prefill"),
+            "d0": LocalReplica("d0", model,
+                               engine=GenerationEngine(model, **kw),
+                               role="decode")}
+    router = Router(reps, page_size=16)
+    c0 = _fleet_counters()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, errors = _stream_fleet(router, prompts, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    c1 = _fleet_counters()
+    p_st, d_st = reps["p0"].engine.stats, reps["d0"].engine.stats
+    moved = {k: _delta(c1, c0, f"fleet_{k}_total") for k in (
+        "prefill_handoffs", "kv_transfers", "kv_transfer_pages",
+        "kv_transfer_fallbacks", "requests_failed", "dup_tokens_suppressed")}
+    same = [g == w for g, w in zip(got, want)]
+    print(f"[{tag}] roles p0=prefill d0=decode, 8 requests x {n_new} "
+          f"tokens: wall_s={wall:.3f}; tokens == [serve{'' if kv_dtype is None else ':int8'}]'s "
+          f"{sum(same)}/{len(same)} {same}; errors {errors}; fleet counters "
+          f"{json.dumps(moved)}", flush=True)
+    print(f"[{tag}] pages/bytes moved: exported by p0 {p_st['kv_pages_out']} "
+          f"pages {p_st['kv_bytes_out']} bytes (gather_s="
+          f"{p_st['kv_gather_s']:.4f} pack_s={p_st['kv_pack_s']:.4f}), "
+          f"imported by d0 {d_st['kv_pages_in']} pages "
+          f"{d_st['kv_bytes_in']} bytes (unpack_s="
+          f"{d_st['kv_unpack_s']:.4f} upload_s={d_st['kv_upload_s']:.4f}); "
+          f"p0 ragged steps {p_st['ragged_steps']} decode steps "
+          f"{p_st['decode_steps']}; d0 ragged steps {d_st['ragged_steps']} "
+          f"decode steps {d_st['decode_steps']} prefix hit tokens "
+          f"{d_st['prefix_hit_tokens']}; upload programs "
+          f"{reps['d0'].engine.upload_trace_count}", flush=True)
+    print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+    suffix = "" if kv_dtype is None else "_int8"
+    layers = cfg.num_hidden_layers
+    if errors or any(g is None or len(g) != n_new for g in got):
+        raise AssertionError(f"[{tag}] a request failed or came back short")
+    _fleet_ties(tag, model, prompts, got, want, kv_dtype)
+    if moved["prefill_handoffs"] != len(prompts) or \
+            moved["kv_transfer_pages"] <= 0 or moved["requests_failed"]:
+        raise AssertionError(f"[{tag}] not every request crossed the "
+                             f"handoff with pages: {moved}")
+    if p_st["decode_steps"] or not d_st["ragged_steps"] or \
+            not d_st["decode_steps"] or not d_st["kv_pages_in"]:
+        raise AssertionError(f"[{tag}] the roles did not split: p0 decoded "
+                             "or d0 ran no ragged or decode step")
+    _require_launched(tag, launches, (f"paged_decode_attention{suffix}",
+                                      f"ragged_paged_attention{suffix}"))
+    _check_ragged_steps(tag, launches[f"ragged_paged_attention{suffix}"],
+                        (p_st, d_st), layers)
+    if kv_dtype is not None:
+        _require_idle(tag, launches, FLOAT_PAGED_KERNELS)
+    totals = dict(launches)
+
+    parts = _handoff_parts(tag, reps["p0"].engine, reps["d0"].engine,
+                           prompts[0])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # the second wave: a second decode replica; d0 killed mid-stream,
+    # then d1 drained with transfer (its sequences move to p0)
+    reps["d1"] = router.spawn(
+        "d1", LocalReplica("d1", model, engine=GenerationEngine(model, **kw),
+                           role="decode"), role="decode")
+    for r in reps.values():
+        r.engine.blocks.invalidate_index()
+    c0 = _fleet_counters()
+    K.reset_launch_counts()
+    delivered, fired = [0], []
+
+    def on_token():
+        delivered[0] += 1
+        if delivered[0] >= 3 * len(prompts) and "kill" not in fired:
+            fired.append("kill")
+            reps["d0"].kill()
+        if delivered[0] >= 12 * len(prompts) and "drain" not in fired:
+            fired.append("drain")
+            router.drain("d1")
+
+    t0 = time.perf_counter()
+    got2, errors2 = _stream_fleet(router, prompts, n_new, on_token)
+    wall2 = time.perf_counter() - t0
+    c1 = _fleet_counters()
+    for k, v in K.launch_counts().items():
+        totals[k] = totals.get(k, 0) + v
+    moved2 = {k: _delta(c1, c0, f"fleet_{k}_total") for k in (
+        "prefill_handoffs", "requests_rerouted", "failovers",
+        "drain_exports", "kv_transfers", "kv_transfer_pages",
+        "kv_transfer_fallbacks", "requests_failed", "dup_tokens_suppressed")}
+    same2 = [g == w for g, w in zip(got2, want)]
+    print(f"[{tag}] second wave (d1 spawned; d0 killed after "
+          f"{3 * len(prompts)} tokens, d1 drained with transfer after "
+          f"{12 * len(prompts)}; fired {fired}): wall_s={wall2:.3f}; tokens "
+          f"== [serve]'s {sum(same2)}/{len(same2)}; errors {errors2}; "
+          f"fleet counters {json.dumps(moved2)}; peak_mem_gb={peak:.2f}",
+          flush=True)
+    router.stop()
+    if errors2 or moved2["requests_failed"] or \
+            moved2["dup_tokens_suppressed"] or \
+            any(g is None or len(g) != n_new for g in got2):
+        raise AssertionError(f"[{tag}] the second wave failed a request or "
+                             "delivered a token twice")
+    _fleet_ties(f"{tag}:wave2", model, prompts, got2, want, kv_dtype)
+    if fired != ["kill", "drain"] or moved2["requests_rerouted"] <= 0 or \
+            moved2["drain_exports"] <= 0:
+        raise AssertionError(f"[{tag}] the kill or the drain did not land "
+                             f"mid-stream: {fired} {moved2}")
+    for r in reps.values():
+        r.shutdown()
+    del reps, router
+    _fresh_pools(model)
+    return totals, dict(parts, wall_s=wall, peak_gb=peak)
+
+
+PROC_CONFIG = dict(num_hidden_layers=2, dtype="float32", seed=0)
+
+
+def phase_fleet_proc(dev):
+    """Two ProcessReplica workers (``python -m
+    paddle_tpu_torch.serving.worker``) on the card, each building the
+    Llama-2-7B width (hidden 4096, 32 heads, FFN 11008, vocab 32000) at 2
+    layers in float32, sharing one FileStore fleet prefix store. A
+    512-token prompt served by w0 and spilled there under pressure is a
+    fleet-tier prefix hit on w1; w1's pages cross the sidecar frame back
+    to w0; then the router streams 4 requests over both and w0 is
+    SIGKILLed mid-stream: zero failed requests, exactly-once resume, and
+    every token equal to an in-process engine's over the same model."""
+    import shutil
+    import tempfile
+    import threading
+
+    from paddle_tpu_torch.inference import (GenerationEngine,
+                                            make_sequence_snapshot)
+    from paddle_tpu_torch.inference.engine import prefix_chain_hashes
+    from paddle_tpu_torch.serving import (FileStore, PrefixStore,
+                                          ProcessReplica, Router)
+    from paddle_tpu_torch.serving.worker import random_llama
+
+    tag = "fleet:proc"
+    _release()
+    engine_kw = dict(max_slots=2, page_size=16, prefill_chunk=256,
+                     mixed_step=True, prefix_cache=True, n_pages=97)
+    spec = {"kind": "import",
+            "path": "paddle_tpu_torch.serving.worker:random_llama",
+            "config": PROC_CONFIG, "engine": engine_kw, "device": dev.type}
+    rng = np.random.default_rng(9)
+    vocab = 32000
+    shared = rng.integers(1, vocab, 512)
+    x = np.concatenate([shared, rng.integers(1, vocab, 37)])
+    # three churn prompts: the third evicts the head of x's chain too
+    churn = [rng.integers(1, vocab, 700) for _ in range(3)]
+    prompts = [np.concatenate([shared, rng.integers(1, vocab, n)])
+               for n in (20, 90)] + [rng.integers(1, vocab, n)
+                                     for n in (300, 450)]
+    n_new = 24
+
+    model = random_llama(device=dev, **PROC_CONFIG)
+    ref = GenerationEngine(model, **engine_kw)
+    want_x = _serve_via(ref, [x], 8)[0]
+    want = _serve_via(ref, prompts, n_new)
+    del ref, model
+    _release()
+
+    root = tempfile.mkdtemp(prefix="fleet_proc_")
+    reps, started = {}, {}
+    try:
+        kv_root = os.path.join(root, "kv")
+
+        def start(name):
+            t0 = time.perf_counter()
+            reps[name] = ProcessReplica(name, spec, kv_store_root=kv_root,
+                                        startup_timeout=300.0,
+                                        read_timeout=300.0)
+            started[name] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=start, args=(n,))
+                   for n in ("w0", "w1")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(330)
+        if set(reps) != {"w0", "w1"}:
+            raise AssertionError(f"[{tag}] workers did not start: {started}")
+
+        def submit(name, prompt, n):
+            snap = make_sequence_snapshot(prompt, remaining=n)
+            return [t for _, t in reps[name].submit(snap)]
+
+        got_x0 = submit("w0", x, 8)
+        for c in churn:                  # evicts x's pages: they spill
+            submit("w0", c, 4)
+        # every full page of x in the fleet tier (the spills are written
+        # by each worker's background writer)
+        fs = FileStore(kv_root)
+        keys = {PrefixStore(store=fs)._key(h, "init") for h in
+                prefix_chain_hashes(x[:len(x) - 1], 16)}
+        deadline = time.monotonic() + 120
+        while not keys <= set(fs.keys("serve/kv/")) and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        spilled = len(keys & set(fs.keys("serve/kv/")))
+        got_x1 = submit("w1", x, 8)
+        series = reps["w1"].metrics()["series"]
+        fleet_hits = sum(s["value"] for s in series
+                         if s["name"] == "kv_store_fleet_hits_total")
+        refilled = sum(s["value"] for s in series
+                       if s["name"] == "engine_kv_pages_refilled_total")
+        t0 = time.perf_counter()
+        meta, payload = reps["w1"].export_kv(x)
+        t1 = time.perf_counter()
+        mapped = reps["w0"].import_kv(meta, payload)
+        t2 = time.perf_counter()
+        print(f"[{tag}] workers started in (s) "
+              f"{json.dumps({k: round(v, 2) for k, v in started.items()})};"
+              f" fleet tier: w0 served the {len(x)}-token prompt (== the "
+              f"in-process engine: {got_x0 == want_x}), spilled all "
+              f"{spilled}/{len(keys)} of its pages under churn; w1 served it with "
+              f"{fleet_hits} fleet-tier hits, {refilled} pages refilled "
+              f"(tokens == in-process: {got_x1 == want_x}); sidecar frames:"
+              f" export_kv {len(payload)} bytes ({meta['n_pages']} pages) "
+              f"in {(t1 - t0) * 1e3:.1f} ms, import_kv {mapped} pages "
+              f"mapped in {(t2 - t1) * 1e3:.1f} ms", flush=True)
+        if not (got_x0 == want_x == got_x1 and spilled == len(keys)
+                and fleet_hits > 0 and refilled > 0 and mapped > 0):
+            raise AssertionError(f"[{tag}] the fleet prefix tier or the "
+                                 "sidecar frames failed")
+
+        router = Router(reps, page_size=16)
+        c0 = _fleet_counters()
+        delivered, killed = [0], []
+
+        def on_token():
+            delivered[0] += 1
+            if delivered[0] >= 2 * len(prompts) and not killed:
+                killed.append(time.perf_counter())
+                reps["w0"].kill()         # a real SIGKILL
+
+        got, errors = _stream_fleet(router, prompts, n_new, on_token)
+        c1 = _fleet_counters()
+        moved = {k: _delta(c1, c0, f"fleet_{k}_total") for k in (
+            "requests_completed", "requests_rerouted", "failovers",
+            "requests_failed", "dup_tokens_suppressed")}
+        same = [g == w for g, w in zip(got, want)]
+        print(f"[{tag}] router over w0, w1; w0 SIGKILLed after "
+              f"{2 * len(prompts)} tokens (alive after: "
+              f"{reps['w0'].alive()}): tokens == in-process "
+              f"{sum(same)}/{len(same)}; errors {errors}; fleet counters "
+              f"{json.dumps(moved)}", flush=True)
+        router.stop()
+        if errors or not all(same) or not killed or reps["w0"].alive() or \
+                moved["requests_failed"] or moved["dup_tokens_suppressed"] \
+                or moved["requests_rerouted"] <= 0:
+            raise AssertionError(f"[{tag}] the SIGKILL drill failed")
+        return {"startup_s": started, "sidecar_bytes": len(payload)}
+    finally:
+        for r in reps.values():
+            r.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 if __name__ == "__main__":

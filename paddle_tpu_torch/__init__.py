@@ -1,7 +1,7 @@
 """paddle_tpu_torch — the PyTorch + CUDA counterpart of ``paddle_tpu``.
 
 This package serves Llama and GPT through the paged continuous-batching
-engine and trains Llama, GPT and BERT (``model(ids, labels=labels)``,
+engine (one engine, or a fleet of replicas behind a router) and trains Llama, GPT and BERT (``model(ids, labels=labels)``,
 ``compile_train_step``, every optimizer and learning-rate scheduler of
 ``paddle_tpu``, mixed precision with loss scaling, activation recompute,
 checkpoints) on one NVIDIA Hopper card, with flashmask attention, the
@@ -43,7 +43,15 @@ Layout (each module names its ``paddle_tpu`` counterpart):
 - ``jit``: ``compile_train_step`` (eager).
 - ``weights``: the bridge from ``paddle_tpu`` parameters (as numpy arrays)
   and seeded random weights.
-- ``inference.engine``: ``GenerationEngine`` and ``BlockManager``.
+- ``inference.engine``: ``GenerationEngine`` and ``BlockManager``, with
+  the KV-page surface (export, import, spill and refill);
+  ``inference.programs``: its step programs (CUDA graphs on the card).
+- ``serving``: the fleet: ``Router``, ``LocalReplica``, ``ProcessReplica``
+  and its worker, ``Supervisor``, ``FileStore``, and ``kv_transfer``
+  (the kvpages/v1 codec, byte-compatible with ``paddle_tpu``'s, and
+  ``PrefixStore``).
+- ``observability``: the metrics registry, events, tracing, costs,
+  exporters and the doctor (stdlib only; the port's own registry).
 
 Nothing here imports JAX or ``paddle_tpu``.
 """

@@ -58,28 +58,42 @@ What it keeps from the JAX engine:
   JAX engine's) and ``swap_weights`` (prefix index, draft state and the
   weight epoch reset under the step lock).
 
-What differs in this slice:
+- **the KV transfer plane**: ``export_kv_pages`` serializes the
+  prefix-indexed pages covering a token chain, ``export_request(rid,
+  with_kv=True)`` / ``remove_request(rid, with_kv=True)`` a live
+  request's written pages, and ``import_kv_pages`` (or a snapshot's
+  ``kv``) adopts transferred pages into the prefix index, refusing KV of
+  another weights tag, another kv dtype or another shard count; the wire
+  is ``serving.kv_transfer``'s ``kvpages/v1``, byte for byte the JAX
+  package's. int8 pages travel with their scale rows and keep the
+  exporter's frozen scales. With ``prefix_store=`` (a
+  ``serving.kv_transfer.PrefixStore``) evicted prefix pages spill into
+  the store and admissions refill missing chain pages from it.
+- **metrics**: the JAX engine's ``engine_*`` and ``spec_*`` series in
+  the port's registry (``observability.metrics.REGISTRY``), under the
+  same names and fed at the same points; ``engine.stats`` holds the
+  per-engine view chip_smoke.py reads.
+
+What differs:
 
 - no JIT: the JAX engine's compiled programs are the step programs of
   ``programs.py`` — CUDA graphs on the card, captured once per bucket
   (decode (steps, sampling), dense admission (c, s_pad, sampling), ragged
-  (c, s_pad, sampling), verify (c, s_pad), CoW copy (n)) and replayed
-  over static buffers, counted in the JAX engine's trace counters
-  (``decode_trace_count``, ``prefill_trace_count``,
-  ``ragged_trace_count``, ``spec_trace_count``, ``copy_trace_count``);
-  on the CPU the same programs run eagerly. The dense and ragged batches
-  are padded to power-of-two (rows, tokens) buckets and decode chunks to
-  power-of-two lengths, as in JAX, so the programs stay few. Pools are
-  updated in place under ``torch.inference_mode()`` (``step``,
-  ``fork_request`` and every program): the model's parameters are
-  trainable, and a pool written inside an autograd graph would hold that
-  graph across steps. The engine has no KV page upload program (the
-  JAX ``_build_upload``): KV import comes with the fleet plane.
-- the JAX engine's prefix store, KV-page export/import (``with_kv=``, a
-  snapshot's ``kv``) and metrics registry are not served yet: asking for
-  one raises NotImplementedError naming the slice that brings it.
-  ``engine.stats`` holds what the registry's counters hold in JAX for the
-  parts served here (the spec counters among them).
+  (c, s_pad, sampling), verify (c, s_pad), CoW copy (n), KV page upload
+  (n)) and replayed over static buffers, counted in the JAX engine's
+  trace counters (``decode_trace_count``, ``prefill_trace_count``,
+  ``ragged_trace_count``, ``spec_trace_count``, ``copy_trace_count``,
+  ``upload_trace_count``); on the CPU the same programs run eagerly. The
+  dense and ragged batches are padded to power-of-two (rows, tokens)
+  buckets and decode chunks to power-of-two lengths, as in JAX, so the
+  programs stay few. Pools are updated in place under
+  ``torch.inference_mode()`` (``step``, ``fork_request`` and every
+  program): the model's parameters are trainable, and a pool written
+  inside an autograd graph would hold that graph across steps.
+- no cost ledger attribution of dispatches and no request spans: the
+  engine books KV bytes in ``observability.costs.LEDGER`` (as the JAX
+  engine's transfer paths do) and records its KV events, but not the
+  per-dispatch device seconds.
 
 Model contract: ``paged_spec()``, ``paged_prefill(ids, lengths)`` ->
 (last-real-token logits [C, V], ks, vs [L, C, S_pad, H_kv, hd]),
@@ -99,14 +113,148 @@ import contextlib
 import os
 import threading
 import time
+import weakref
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..observability import tracing as _TR
+from ..observability.costs import LEDGER as _LEDGER
+from ..observability.events import EVENTS as _EVENTS
+from ..observability.metrics import REGISTRY as _REG, _ENABLED as _OBS_ON
 from ..quantization import page_quant
 from .programs import StepPrograms
+
+# the JAX engine's serving series (paddle_tpu/inference/engine.py), same
+# names, fed at the same points; process-wide (all engines aggregate)
+_C_ADMIT = _REG.counter("engine_admissions_total",
+                        "requests admitted into a decode slot")
+_C_REQUEUE = _REG.counter("engine_requeues_total",
+                          "admissions rolled back to the queue (no pages)")
+_C_PREEMPT = _REG.counter("engine_preemptions_total",
+                          "mid-decode recompute-style preemptions")
+_C_RETIRE = _REG.counter("engine_retired_total", "sequences finished")
+_C_TOKENS = _REG.counter("engine_tokens_total", "decode tokens produced")
+_C_RECOMP = _REG.counter(
+    "engine_recompiles_total",
+    "decode/prefill program re-traces after their first compile")
+_G_SLOTS = _REG.gauge("engine_slots_total", "slot-pool capacity")
+_G_ACTIVE = _REG.gauge("engine_slots_active", "slots decoding right now")
+_G_PAGES_TOTAL = _REG.gauge("engine_pages_total",
+                            "usable KV pages (excl. trash page)")
+_G_PAGES_FREE = _REG.gauge("engine_pages_free", "unallocated KV pages")
+_G_TPS = _REG.gauge("engine_decode_tokens_per_sec",
+                    "instantaneous decode throughput (last chunk)")
+# the waiting-queue depth, process-wide: each engine publishes its depth
+# into _QUEUE_DEPTHS and the gauge carries the total over live engines
+_G_QUEUE = _REG.gauge("engine_queue_waiting",
+                      "requests queued awaiting admission "
+                      "(process-wide total over live engines)")
+_QUEUE_LOCK = threading.RLock()  # reentrant: a collection inside the
+#                                  locked region may run _drop_queue_depth
+_QUEUE_DEPTHS = {}               # id(engine) -> depth
+
+
+def _drop_queue_depth(key):
+    with _QUEUE_LOCK:
+        _QUEUE_DEPTHS.pop(key, None)
+        _G_QUEUE.set(sum(_QUEUE_DEPTHS.values()))
+
+
+def _set_queue_depth(engine, depth):
+    key = id(engine)
+    with _QUEUE_LOCK:
+        if key not in _QUEUE_DEPTHS:
+            weakref.finalize(engine, _drop_queue_depth, key)
+        _QUEUE_DEPTHS[key] = depth
+        _G_QUEUE.set(sum(_QUEUE_DEPTHS.values()))
+
+
+_H_OCC = _REG.histogram(
+    "engine_batch_occupancy",
+    "active slots / max_slots per decode dispatch",
+    buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+_H_PREFILL = _REG.histogram("engine_prefill_seconds",
+                            "admission batch prefill wall time")
+_H_DECODE = _REG.histogram("engine_decode_chunk_seconds",
+                           "decode chunk wall time (host-synced)")
+_C_PFX_HIT = _REG.counter("engine_prefix_cache_hits_total",
+                          "admissions that mapped >=1 cached prefix page")
+_C_PFX_MISS = _REG.counter("engine_prefix_cache_misses_total",
+                           "admissions with no cached prefix")
+_C_PFX_TOK = _REG.counter(
+    "engine_prefix_cache_hit_tokens_total",
+    "prompt tokens served from cached KV pages (prefill work avoided)")
+_C_COW = _REG.counter("engine_cow_copies_total",
+                      "copy-on-write page copies (shared page diverged)")
+_C_PFX_EVICT = _REG.counter(
+    "engine_prefix_evictions_total",
+    "cached prefix pages evicted to refill the free list")
+_C_CHUNK = _REG.counter("engine_prefill_chunks_total",
+                        "chunked-prefill dispatches (ragged program)")
+_C_MIXED = _REG.counter(
+    "engine_mixed_steps_total",
+    "single-launch mixed prefill+decode dispatches (ragged op)")
+_H_TTFT = _REG.histogram(
+    "engine_ttft_seconds",
+    "per-request time-to-first-token (submit -> first sampled token)",
+    buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0))
+_H_ILV = _REG.histogram(
+    "engine_interleave_occupancy",
+    "decode rows / total rows per step that carried prefill work",
+    buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+_H_RAGGED = _REG.histogram("engine_ragged_seconds",
+                           "ragged (chunk/suffix/mixed) dispatch wall time")
+# KV pages on the wire and the spill tier
+_C_KV_EXP = _REG.counter(
+    "engine_kv_pages_exported_total",
+    "KV pages serialized off this engine (transfer out)")
+_C_KV_IMP = _REG.counter(
+    "engine_kv_pages_imported_total",
+    "transferred KV pages mapped into this engine's pools (prefill "
+    "work avoided without recompute)")
+_C_KV_SPILL = _REG.counter(
+    "engine_kv_pages_spilled_total",
+    "LRU-evicted prefix pages spilled to the prefix store")
+_C_KV_REFILL = _REG.counter(
+    "engine_kv_pages_refilled_total",
+    "prefix pages refilled from the prefix store at admission")
+_C_KV_OUT_B = _REG.counter(
+    "engine_kv_bytes_total", "KV page bytes serialized/deserialized",
+    labels={"dir": "out"})
+_C_KV_IN_B = _REG.counter(
+    "engine_kv_bytes_total", "KV page bytes serialized/deserialized",
+    labels={"dir": "in"})
+_C_BUSY = _REG.counter(
+    "engine_busy_seconds_total",
+    "wall-seconds spent inside compiled dispatches (prefill/ragged/"
+    "decode/spec-verify), unsplit")
+# speculative decoding: drafted vs accepted
+_C_SPEC_DRAFT = _REG.counter(
+    "spec_draft_tokens_total",
+    "draft tokens offered to the verify dispatch")
+_C_SPEC_ACC = _REG.counter(
+    "spec_accepted_tokens_total",
+    "draft tokens the target model's greedy argmax confirmed")
+_C_SPEC_RB = _REG.counter(
+    "spec_rollbacks_total",
+    "per-slot draft rejections (rejected KV positions/pages rolled "
+    "back to the verified prefix)")
+_G_SPEC_ACC = _REG.gauge(
+    "engine_spec_acceptance_rate",
+    "lifetime accepted/drafted draft-token ratio")
+_H_SPEC = _REG.histogram(
+    "engine_spec_verify_seconds",
+    "draft-and-verify dispatch wall time (host-synced)")
+# requests that left early: a blown deadline or a cancel verb
+_C_DEADLINE = _REG.counter(
+    "engine_deadline_exceeded_total",
+    "requests expired at a step boundary after blowing deadline_ms")
+_C_CANCEL = _REG.counter(
+    "engine_cancelled_total",
+    "requests torn down by an explicit cancel verb mid-flight")
 
 
 class PagedGenerationMixin:
@@ -205,22 +353,16 @@ def _prefix_chain(tokens, page_size):
         yield h, parent, toks
 
 
-def new_trace_id():
-    """16-hex-character opaque request trace id, unique across processes
-    (the JAX package's ``observability.tracing.new_trace_id`` with
-    telemetry on)."""
-    return os.urandom(8).hex()
+def prefix_chain_hashes(tokens, page_size):
+    """Chain hashes of every FULL page of `tokens`: the chain the prefix
+    index is keyed on. Tuples of ints hash the same in every process
+    (no string hashing), so a router in another process (or the JAX
+    package's) computes the chain a replica's BlockManager indexed."""
+    return [h for h, _, _ in _prefix_chain(tokens, page_size)]
 
 
-def sanitize_tenant(tenant):
-    """Canonical tenant label: characters other than alphanumerics and
-    ``._-`` become ``_``, at most 64 of them; None stays None (the JAX
-    package's ``observability.tracing.sanitize_tenant``)."""
-    if tenant is None:
-        return None
-    out = "".join(c if (c.isalnum() or c in "._-") else "_"
-                  for c in str(tenant))
-    return out[:64] or "_"
+new_trace_id = _TR.new_trace_id
+sanitize_tenant = _TR.sanitize_tenant
 
 
 class DeadlineExceededError(RuntimeError):
@@ -303,6 +445,10 @@ class BlockManager:
         self._pending_copies = []      # (src, dst) CoW device copies due
         self.cow_copies = 0
         self.evictions = 0
+        # spill hook: called as (pid, chain_hash, parent, toks) when an
+        # LRU cached page is evicted, BEFORE the page id is reused, so the
+        # engine can still gather its content into the prefix store
+        self.on_evict = None
 
     @property
     def free_pages(self):
@@ -313,9 +459,17 @@ class BlockManager:
             pid = self._free.pop()
         elif self._cached:
             pid, h = self._cached.popitem(last=False)   # evict LRU
-            self._index.pop(h, None)
+            entry = self._index.pop(h, None)
             self._hash_of.pop(pid, None)
             self.evictions += 1
+            _C_PFX_EVICT.inc()
+            if entry is not None and entry[0] == pid \
+                    and self.on_evict is not None:
+                try:      # the content is still in the pools: the pid is
+                    #       reused only after this returns
+                    self.on_evict(pid, h, entry[1], entry[2])
+                except Exception:  # noqa: BLE001 — the spill is
+                    pass           # best-effort; allocation never fails
         else:
             raise RuntimeError(
                 "paged KV cache exhausted: all "
@@ -339,6 +493,7 @@ class BlockManager:
         dst = self._take_page()
         self._pending_copies.append((src, dst))
         self.cow_copies += 1
+        _C_COW.inc()
         self.refcount[src] -= 1        # was > 1: still >= 1
         self.block_tables[slot, blk] = dst
 
@@ -454,6 +609,24 @@ class BlockManager:
             pid, _ = self._cached.popitem(last=False)
             self._free.append(pid)
 
+    def adopt_page(self, h, parent, toks):
+        """Take one page for KV produced elsewhere (a transferred page or
+        a prefix-store refill), indexed under the given chain entry and
+        parked refcount-0 in the cached pool: matchable by
+        ``match_prefix`` and reclaimable, like a page whose owner retired.
+        Returns the pid (the caller writes the content into the pools
+        before the next program reads it), or None when the hash is
+        already indexed. Raises RuntimeError when the pool is exhausted."""
+        if not self.prefix_cache or h in self._index:
+            return None
+        pid = self._take_page()
+        self.refcount[pid] = 0
+        self._index[h] = (pid, parent, toks)
+        self._hash_of[pid] = h
+        self._cached[pid] = h
+        self._cached.move_to_end(pid)
+        return pid
+
     def register_prefix(self, slot, tokens):
         """Index every FULL page of `slot` whose KV for `tokens` is fully
         written, so later sequences sharing the prefix can map it."""
@@ -540,15 +713,14 @@ class GenRequest:
         return self.priority
 
 
-def _unsupported(what, slice_name):
-    return NotImplementedError(
-        f"{what} is not served by this slice of paddle_tpu_torch; it comes "
-        f"with the {slice_name} slice")
-
-
 class GenerationEngine:
     """Fixed-capacity continuous-batching engine for one model, on the
     model's device."""
+
+    # the shard count KV exports are framed with (kvpages/v1 ``shards``
+    # block); imports refuse another count. A single-device engine owns
+    # every KV head: one stream.
+    kv_shards = 1
 
     def __init__(self, model, max_slots=4, page_size=16, max_seq_len=None,
                  n_pages=None, cache_dtype=None, kv_dtype=None, seed=None,
@@ -564,6 +736,10 @@ class GenerationEngine:
         stores the pools as int8 codes with one float32 scale per (layer,
         page) beside them; None consults PADDLE_TPU_KV_INT8 and otherwise
         keeps float pools. seed: seeds the sampling generator.
+        prefix_store: a ``serving.kv_transfer.PrefixStore``: LRU-evicted
+        prefix pages spill into it, and admissions refill missing chain
+        pages from it (with a FileStore-backed store, a prompt prefilled
+        on any replica is a prefix hit on every other).
         spec_decode: a ``speculative.Drafter``, "ngram"/"ngram:<n>", False
         (off), or None to consult PADDLE_TPU_SPEC_DECODE (a bad or unusable
         ambient value serves plain; an explicit one raises). spec_k: drafts
@@ -577,8 +753,6 @@ class GenerationEngine:
             raise ValueError(
                 f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
         self.kv_dtype = kv_dtype
-        if prefix_store is not None:
-            raise _unsupported("prefix_store", "fleet plane")
         if not all(hasattr(model, m) for m in
                    ("paged_prefill", "paged_prefill_ragged", "paged_decode")):
             raise TypeError("the model must implement the paged contract "
@@ -622,10 +796,21 @@ class GenerationEngine:
                          for t in (*self.k_pages, *self.v_pages,
                                    *(self.k_scales or ()),
                                    *(self.v_scales or ())))
+        _REG.gauge(
+            "engine_kv_pool_bytes",
+            "device bytes held by the paged KV pools (incl. scale rows)",
+            labels={"dtype": str(dtype).replace("torch.", "")}).set(
+                pool_bytes)
         self.blocks = BlockManager(n_pages, self.page_size,
                                    self._pages_per_slot, self.max_slots,
                                    prefix_cache=prefix_cache)
         self.prefix_cache = bool(prefix_cache)
+        self.prefix_store = prefix_store if self.prefix_cache else None
+        if self.prefix_store is not None:
+            self.blocks.on_evict = self._spill_page
+        _G_SLOTS.set(self.max_slots)
+        _G_PAGES_TOTAL.set(n_pages - 1)
+        _G_PAGES_FREE.set(self.blocks.free_pages)
         self.prefill_chunk = max(1, int(prefill_chunk)) \
             if prefill_chunk else None
         self.mixed_step = True if mixed_step is None else bool(mixed_step)
@@ -652,7 +837,12 @@ class GenerationEngine:
         self._urgent_mu = threading.Lock()
         self._step_urgent = 0
         self._weight_epoch = 0         # bumped by swap_weights
+        # the prefix store's consistency key: a spilled page is refilled
+        # only by an engine holding the same tag (swap_weights moves it)
         self._weights_tag = "init"
+        # a per-step host delay (the fault injectors' brownout hook): the
+        # engine stays alive and slow; 0.0 is off
+        self.step_delay_s = 0.0
         self._gen = torch.Generator(device=self.device)
         if seed is None:
             self._gen.seed()
@@ -673,6 +863,10 @@ class GenerationEngine:
                       "spec_accepted_tokens": 0, "spec_tokens": 0,
                       "spec_rollbacks": 0, "spec_fallbacks": {},
                       "spec_verify_s": 0.0, "spec_draft_s": 0.0,
+                      "kv_pages_out": 0, "kv_bytes_out": 0,
+                      "kv_gather_s": 0.0, "kv_pack_s": 0.0,
+                      "kv_pages_in": 0, "kv_bytes_in": 0,
+                      "kv_unpack_s": 0.0, "kv_upload_s": 0.0,
                       "kv_pool_bytes": pool_bytes}
         self.ttft_s = deque(maxlen=4096)   # first-token latency per request
         model.eval()
@@ -687,6 +881,7 @@ class GenerationEngine:
         self.ragged_trace_count = 0    # freeze after warm-up)
         self.copy_trace_count = 0
         self.spec_trace_count = 0      # verify programs
+        self.upload_trace_count = 0    # KV page-upload programs
 
         self.spec_k = max(1, int(spec_k))
         self.spec_min_accept = float(spec_min_accept)
@@ -708,6 +903,9 @@ class GenerationEngine:
                         "the model (paged_verify + paged_prefill_ragged)")
                 self.spec_env_ignored = (str(spec_decode)[:40],
                                          "model_contract")
+                _EVENTS.record("engine_spec_env_ignored",
+                               value=str(spec_decode)[:40],
+                               reason="model_contract")
             else:
                 try:
                     self._spec = make_drafter(spec_decode)
@@ -717,8 +915,17 @@ class GenerationEngine:
                     # an ambient typo serves plain, never fails startup
                     self.spec_env_ignored = (str(spec_decode)[:40],
                                              "unknown_value")
+                    _EVENTS.record("engine_spec_env_ignored",
+                                   value=str(spec_decode)[:40],
+                                   reason="unknown_value")
+        self._c_spec_disp = None
+        self._c_spec_fb = {}           # reason -> fallback counter
         if self._spec is not None:
             self._spec.bind(self)
+            self._c_spec_disp = _REG.counter(
+                "engine_spec_dispatches_total",
+                "draft-and-verify dispatches routed, by drafter",
+                labels={"drafter": self._spec.name})
 
     def reseed(self, seed):
         self._gen.manual_seed(int(seed))
@@ -761,6 +968,81 @@ class GenerationEngine:
                      *(self.v_scales or ())):
             pool[dst] = pool[src]
 
+    def _upload_pages(self, pids, k_rows, v_rows, k_sc=None, v_sc=None):
+        """Write adopted pages' content into the pools in ONE upload
+        program (a power-of-two bucket of pages; the padding goes to trash
+        page 0).
+        `k_rows`/`v_rows`: CPU tensors ``[L, n, page, H, D]`` in the wire
+        dtype, cast to the pools'; `pids` the adopted page ids, in order;
+        `k_sc`/`v_sc`: ``[L, n]`` scale rows, required on int8 pools (an
+        adopted page keeps the exporter's frozen scale bit for bit). The
+        caller has flushed queued CoW copies."""
+        n = len(pids)
+        if n == 0:
+            return
+        int8 = self.k_scales is not None
+        if int8 and (k_sc is None or v_sc is None):
+            raise ValueError(
+                "int8 KV pool upload requires per-page scale rows")
+        m = _next_pow2(n, floor=1)
+        dst = np.zeros(m, np.int64)
+        dst[:n] = np.asarray(pids, np.int64)
+        # the staged rows fill the bucket's first n pages; the padding rows
+        # keep what the staging buffer held (zeros, or an earlier upload's
+        # pages) and land in trash page 0, never read as context
+        full = (k_rows.shape[0], m) + tuple(k_rows.shape[2:])
+        host = {"k_rows": k_rows, "v_rows": v_rows, "dst": dst}
+        if int8:
+            for name, sc in (("k_srow", k_sc), ("v_srow", v_sc)):
+                row = np.ones((len(self.k_pages), m), np.float32)
+                row[:, :n] = np.asarray(sc, np.float32)
+                host[name] = row
+        self._programs.run("upload", (m, k_rows.dtype), host,
+                           self._upload_program,
+                           shapes={"k_rows": full, "v_rows": full})
+
+    def _upload_program(self, inputs):
+        """The KV page upload: the staged pages (and, int8, their scale
+        rows) scattered into every pool at the adopted page ids."""
+        dst = inputs["dst"]
+        for rows, pools in ((inputs["k_rows"], self.k_pages),
+                            (inputs["v_rows"], self.v_pages)):
+            for li, pool in enumerate(pools):
+                pool.index_copy_(0, dst, rows[li].to(pool.dtype))
+        if self.k_scales is not None:
+            for rows, scales in ((inputs["k_srow"], self.k_scales),
+                                 (inputs["v_srow"], self.v_scales)):
+                for li, sc in enumerate(scales):
+                    sc.index_copy_(0, dst, rows[li])
+
+    def _gather_pages(self, pids):
+        """Host copies of the listed pages: CPU tensors ``[L, n, page, H,
+        D]`` for K and V (the pools' dtype) and ``[L, n]`` float32 scale
+        rows (None on float pools): the serialization source. On the card
+        the pages are gathered on the device and come over in one copy
+        into one pinned buffer."""
+        idx = torch.as_tensor(np.asarray(pids, np.int64), device=self.device)
+        pool = self.k_pages[0]
+        shape = (2, len(self.k_pages), len(pids)) + tuple(pool.shape[1:])
+        on_card = self.device.type == "cuda"
+        with torch.no_grad():
+            host = torch.empty(shape, dtype=pool.dtype, pin_memory=on_card)
+            dev = torch.empty(shape, dtype=pool.dtype,
+                              device=self.device) if on_card else host
+            for side, pools in enumerate((self.k_pages, self.v_pages)):
+                for li, p in enumerate(pools):
+                    torch.index_select(p, 0, idx, out=dev[side, li])
+            sc = None
+            if self.k_scales is not None:
+                sc = torch.stack([torch.stack([s[idx] for s in scales])
+                                  for scales in (self.k_scales,
+                                                 self.v_scales)]).cpu()
+            if on_card:
+                host.copy_(dev)        # one copy; it syncs
+        if sc is None:
+            return host[0], host[1], None, None
+        return host[0], host[1], sc[0], sc[1]
+
     def _admit(self, admissions):
         """Prefill a batch of (req, slot) pairs — cold prompts that fit one
         chunk, their slots already claimed by step() — in ONE dense causal
@@ -784,6 +1066,8 @@ class GenerationEngine:
                     self._active[s] = False
                     r.slot = -1
                 self._waiting[:0] = [r for r, _ in admissions[idx:]]
+                _set_queue_depth(self, len(self._waiting))
+                _C_REQUEUE.inc(len(admissions) - idx)
                 self.stats["requeues"] += len(admissions) - idx
                 if not admitted and not any(r is not None
                                             for r in self._slots):
@@ -817,6 +1101,9 @@ class GenerationEngine:
         toks_np = self._programs.run("prefill", (c, s_pad, sampling), host,
                                      self._prefill_program).cpu().numpy()
         now = time.perf_counter()
+        _H_PREFILL.observe(now - t0)
+        _C_BUSY.inc(now - t0)
+        _C_ADMIT.inc(len(admitted))
         self.stats["prefill_admits"] += 1
         self.stats["prefill_s"] += now - t0
         self.stats["prefill_tokens"] += int(lens[:len(admitted)].sum())
@@ -829,9 +1116,9 @@ class GenerationEngine:
             self._n_ctx[slot] = len(req.prompt)
             self._active[slot] = True
             if req.t_first_token is None:
-                req.t_first_token = now
-                self.ttft_s.append(now - req.t_submit)
-            self.blocks.register_prefix(slot, req.prompt)
+                self._note_first_token(req, now)
+            if req.weight_epoch == self._weight_epoch:
+                self.blocks.register_prefix(slot, req.prompt)
             self._retire_if_done(req)
 
     def _prefill_program(self, inputs):
@@ -928,9 +1215,19 @@ class GenerationEngine:
         for i, w in enumerate(work):
             temps[i] = self._slots[w[0]].temperature
         self._flush_cow()   # CoW copies land before this dispatch writes
+        t0 = time.perf_counter()
         toks_np = self._ragged_launch(*arrays, temps)
         now = time.perf_counter()
+        _H_RAGGED.observe(now - t0)
+        _C_BUSY.inc(now - t0)
+        n_pf = sum(1 for w in work if w[1] == "prefill")
+        n_dec = len(work) - n_pf
+        _C_CHUNK.inc(n_pf)
+        if n_dec:
+            _C_MIXED.inc()
+        _H_ILV.observe(n_dec / len(work))
 
+        produced = 0
         for i, (slot, kind, toks, start, _p, _o) in enumerate(work):
             req = self._slots[slot]
             tok = int(toks_np[i])
@@ -944,16 +1241,24 @@ class GenerationEngine:
                     self._n_ctx[slot] = len(req.prompt)
                     req.out.append(tok)
                     if req.t_first_token is None:
-                        req.t_first_token = now
-                        self.ttft_s.append(now - req.t_submit)
-                    self.blocks.register_prefix(slot, req.prompt)
+                        self._note_first_token(req, now)
+                    if req.weight_epoch == self._weight_epoch:
+                        # a chunked prefill that straddled a weight swap
+                        # holds mixed-epoch KV: never index it
+                        self.blocks.register_prefix(slot, req.prompt)
+                    _C_ADMIT.inc()
                     self._retire_if_done(req)
             else:
                 req.out.append(tok)
+                produced += 1
                 self.stats["mixed_decode_tokens"] += 1
                 self._last_tok[slot] = tok
                 self._n_ctx[slot] += 1
                 self._retire_if_done(req)
+        if produced:
+            _C_TOKENS.inc(produced)
+        _G_ACTIVE.set(sum(r is not None for r in self._slots))
+        _G_PAGES_FREE.set(self.blocks.free_pages)
 
     def _ragged_arrays(self, rows):
         """Host arrays of one ragged dispatch over rows (slot, tokens,
@@ -1071,20 +1376,32 @@ class GenerationEngine:
         temps = None
         if np.any(self._temps[np.asarray(active)] > 0):
             temps = self._temps
+        t0 = time.perf_counter()
         toks_np = self._decode_launch(self._last_tok, self._n_ctx,
                                       self._active, k, temps)
+        elapsed = time.perf_counter() - t0
+        _H_DECODE.observe(elapsed)
+        _C_BUSY.inc(elapsed)
+        _H_OCC.observe(len(active) / self.max_slots)
 
+        produced = 0
         for i in active:
             req = self._slots[i]
             self._n_ctx[i] += k
             self._last_tok[i] = int(toks_np[k - 1, i])
             for t in range(k):
                 req.out.append(int(toks_np[t, i]))
-                self.stats["decode_tokens"] += 1
+                produced += 1
                 if (req.eos_token_id is not None
                         and req.out[-1] == req.eos_token_id):
                     break              # tail of the chunk is discarded
             self._retire_if_done(req)
+        self.stats["decode_tokens"] += produced
+        _C_TOKENS.inc(produced)
+        _G_ACTIVE.set(sum(r is not None for r in self._slots))
+        _G_PAGES_FREE.set(self.blocks.free_pages)
+        if elapsed > 0:
+            _G_TPS.set(produced / elapsed)
 
     def _decode_launch(self, tokens, positions, active, steps, temps=None):
         """`steps` decode steps of the whole slot pool on explicit host
@@ -1140,6 +1457,13 @@ class GenerationEngine:
     def _spec_fallback(self, reason):
         fb = self.stats["spec_fallbacks"]
         fb[reason] = fb.get(reason, 0) + 1
+        c = self._c_spec_fb.get(reason)
+        if c is None:
+            c = self._c_spec_fb[reason] = _REG.counter(
+                "engine_spec_fallbacks_total",
+                "spec steps that fell back to the plain fused decode "
+                "chunk, by reason", labels={"reason": reason})
+        c.inc()
 
     def _spec_drop(self, slot):
         """Forget a slot's draft state (retire, preempt, cancel, remove):
@@ -1226,10 +1550,17 @@ class GenerationEngine:
             [(slot, [self._last_tok[slot]] + d, int(self._n_ctx[slot]),
               pids, offs) for slot, d, pids, offs in work])
         self._flush_cow()   # CoW copies land before this dispatch writes
+        t0 = time.perf_counter()
         toks_np = self._verify_launch(*arrays)
+        now = time.perf_counter()
+        _H_SPEC.observe(now - t0)
+        _C_BUSY.inc(now - t0)
+        if self._c_spec_disp is not None:
+            self._c_spec_disp.inc()
         self.stats["spec_rows"] += len(work)
 
         st_all = self.stats
+        produced = drafted = accepted = 0
         for i, (slot, d, _pids, _offs) in enumerate(work):
             req = self._slots[slot]
             if req is None:
@@ -1243,6 +1574,7 @@ class GenerationEngine:
             # stopping mid-bundle at EOS or at the budget
             for t in g[:a + 1]:
                 req.out.append(int(t))
+                produced += 1
                 st_all["spec_tokens"] += 1
                 if (req.eos_token_id is not None
                         and req.out[-1] == req.eos_token_id):
@@ -1252,6 +1584,8 @@ class GenerationEngine:
             self._last_tok[slot] = req.out[-1]
             self._n_ctx[slot] = len(req.prompt) + len(req.out) - 1
             if m:
+                drafted += m
+                accepted += a
                 st_all["spec_draft_tokens"] += m
                 st_all["spec_accepted_tokens"] += a
                 st = self._spec_state.setdefault(
@@ -1259,14 +1593,36 @@ class GenerationEngine:
                 st["ewma"] = 0.7 * st["ewma"] + 0.3 * (a / m)
                 if a < m:
                     st_all["spec_rollbacks"] += 1
+                    _C_SPEC_RB.inc()
                     # rejected positions' pages go back now; stale KV in
                     # kept pages sits past the context and is masked by
                     # position, then overwritten by the next write
                     self.blocks.trim(slot, int(self._n_ctx[slot]) + 1)
                 if st["ewma"] < self.spec_min_accept:
                     st["cool"] = self.spec_cooldown
+                if req.tenant and _TR.tenant_tracked(req.tenant):
+                    _REG.counter(
+                        "spec_draft_tokens_total",
+                        "draft tokens offered to the verify dispatch",
+                        labels={"tenant": req.tenant}).inc(m)
+                    _REG.counter(
+                        "spec_accepted_tokens_total",
+                        "draft tokens the target model's greedy argmax "
+                        "confirmed",
+                        labels={"tenant": req.tenant}).inc(a)
                 self._spec.observe(slot, a, m)
             self._retire_if_done(req)
+        if drafted:
+            _C_SPEC_DRAFT.inc(drafted)
+            _C_SPEC_ACC.inc(accepted)
+        if _C_SPEC_DRAFT.value:
+            _G_SPEC_ACC.set(_C_SPEC_ACC.value / _C_SPEC_DRAFT.value)
+        _C_TOKENS.inc(produced)
+        _G_ACTIVE.set(sum(r is not None for r in self._slots))
+        _G_PAGES_FREE.set(self.blocks.free_pages)
+        _H_OCC.observe(len(work) / self.max_slots)
+        if now > t0:
+            _G_TPS.set(produced / (now - t0))
         return True
 
     # ------------------------------------------------------------------
@@ -1316,6 +1672,7 @@ class GenerationEngine:
                 self._finished[rid] = req
             else:
                 self._waiting.append(req)
+            _set_queue_depth(self, len(self._waiting))
             if streaming:
                 self._streaming.add(rid)
         return req
@@ -1327,10 +1684,37 @@ class GenerationEngine:
                                           r.order))
         return self._waiting
 
+    def _note_first_token(self, req, now):
+        """A request's first sampled token: TTFT in ``ttft_s``, the
+        histogram, the quantile sketch and the SLO budget check."""
+        req.t_first_token = now
+        ttft = now - req.t_submit
+        self.ttft_s.append(ttft)
+        _H_TTFT.observe(ttft)
+        _TR.observe("ttft", ttft, tenant=req.tenant)
+        _TR.check_slo("ttft", ttft, trace=req.trace, rid=req.rid,
+                      target_ms=req.slo_ms, tenant=req.tenant)
+
     def _retire_if_done(self, req):
         if (len(req.out) >= req.max_new_tokens
                 or (req.eos_token_id is not None
                     and req.out and req.out[-1] == req.eos_token_id)):
+            if not req.done:
+                _C_RETIRE.inc()
+                if _OBS_ON[0]:
+                    now = time.perf_counter()
+                    if req.t_first_token is not None \
+                            and req.n_generated > 1:
+                        tpot = (now - req.t_first_token) \
+                            / (req.n_generated - 1)
+                        _TR.observe("tpot", tpot, tenant=req.tenant)
+                        _TR.check_slo("tpot", tpot, trace=req.trace,
+                                      rid=req.rid, tenant=req.tenant)
+                    _TR.observe("e2e", now - req.t_submit,
+                                tenant=req.tenant)
+                    _TR.check_slo("e2e", now - req.t_submit,
+                                  trace=req.trace, rid=req.rid,
+                                  tenant=req.tenant)
             req.done = True
             self._finished[req.rid] = req
             if req.slot >= 0:
@@ -1364,6 +1748,7 @@ class GenerationEngine:
         maps back whatever survived."""
         req = self._slots[slot]
         self.stats["preemptions"] += 1
+        _C_PREEMPT.inc()
         self._spec_drop(slot)
         self._register_live(req)
         self.blocks.release(slot)
@@ -1378,6 +1763,7 @@ class GenerationEngine:
         req.prompt = np.concatenate([req.prompt, np.asarray(out, np.int32)])
         req.n_prefilled = req.n_cached = 0
         self._waiting.insert(0, req)
+        _set_queue_depth(self, len(self._waiting))
 
     def _pick_victim(self):
         """Evict the LEAST urgent running sequence: highest effective
@@ -1465,9 +1851,12 @@ class GenerationEngine:
             req.slot = -1
         if req in self._waiting:
             self._waiting.remove(req)
+            _set_queue_depth(self, len(self._waiting))
         req.done = True
         self._finished[req.rid] = req
         self._deadline_rids.discard(req.rid)
+        _G_ACTIVE.set(sum(r is not None for r in self._slots))
+        _G_PAGES_FREE.set(self.blocks.free_pages)
 
     def _expire_deadlines(self):
         """Expire every request past its ``deadline_ms`` (the caller holds
@@ -1484,6 +1873,7 @@ class GenerationEngine:
             req.deadline_exceeded = True
             self._teardown_locked(req)
             self.stats["deadline_exceeded"] += 1
+            _C_DEADLINE.inc()
 
     def cancel_request(self, rid, reason=None):
         """Tear down a live request within one step. Returns True if it
@@ -1498,6 +1888,7 @@ class GenerationEngine:
             req.cancel_reason = reason
             self._teardown_locked(req)
             self.stats["cancels"] += 1
+            _C_CANCEL.inc()
             return True
 
     def cancel_by_trace(self, trace, reason=None):
@@ -1512,6 +1903,7 @@ class GenerationEngine:
                     req.cancel_reason = reason
                     self._teardown_locked(req)
                     self.stats["cancels"] += 1
+                    _C_CANCEL.inc()
                     return True
         return False
 
@@ -1650,27 +2042,28 @@ class GenerationEngine:
         return self._follow(req, rid, int(start), pairs=True)
 
     # ------------------------------------------------------------------
-    # sequence checkpoint/restore (no KV: a restored sequence re-prefills,
-    # through the prefix cache where its pages survive)
+    # sequence checkpoint/restore: a snapshot re-prefills, through the
+    # prefix cache where its pages survive, or maps the KV pages that ride
+    # it (``with_kv``)
     # ------------------------------------------------------------------
 
     def export_request(self, rid, with_kv=False):
         """The snapshot (``make_sequence_snapshot``) of a resident
         request, taken under the step lock: verified tokens only, never
-        drafts. Raises KeyError for an unknown rid."""
-        if with_kv:
-            raise _unsupported("export_request(with_kv=True) (KV pages on "
-                               "the kvpages/v1 wire)", "fleet plane")
+        drafts. ``with_kv=True`` adds the request's written KV pages under
+        ``snap["kv"]`` (``{"meta", "payload"}``, kvpages/v1), which an
+        importer maps instead of re-prefilling. Raises KeyError for an
+        unknown rid."""
         with self._step_lock:
             req = self._reqs.get(rid) or self._finished.get(rid)
             if req is None:
                 raise KeyError(f"request {rid} is not resident "
                                "(already drained?)")
-            return self._export_locked(req)
+            return self._export_locked(req, with_kv=with_kv)
 
-    def _export_locked(self, req):
+    def _export_locked(self, req, with_kv=False):
         now = time.perf_counter()
-        return make_sequence_snapshot(
+        snap = make_sequence_snapshot(
             [int(t) for t in req.prompt] + [int(t) for t in req.out],
             prompt0=int(req.prompt0),
             remaining=int(req.max_new_tokens) - len(req.out),
@@ -1684,6 +2077,262 @@ class GenerationEngine:
                     else max(0.0, req.t_first_token - req.t_submit)),
             trace=req.trace, tenant=req.tenant,
             deadline_ms=req.deadline_ms)
+        if with_kv:
+            kv = self._export_kv_of(req)
+            if kv is not None:
+                snap["kv"] = kv
+        return snap
+
+    def _export_kv_of(self, req):
+        """Serialize a live request's written KV pages straight off its
+        block table: the FULL pages of the tokens guaranteed written (the
+        last sampled token's KV lands only at the next dispatch, and a
+        chunk's post-EOS positions hold discarded rows: the cap of
+        ``_register_live``). Returns ``{"meta", "payload"}``, or None
+        when nothing is page-complete or the request was admitted under
+        an older weight epoch (its KV predates the swap; stamping it with
+        the current tag would pass it off as the new weights')."""
+        if req.slot < 0 or req.weight_epoch != self._weight_epoch:
+            return None
+        n_written = req.n_prefilled if req.slot in self._prefilling \
+            else int(self._n_ctx[req.slot])
+        n_ok = min(n_written, len(req.prompt) + len(req.out) - 1)
+        n_full = n_ok // self.page_size
+        if n_full <= 0:
+            return None
+        self._flush_cow()     # a queued CoW dst must hold its content
+        pids = [int(p) for p in self.blocks.block_tables[req.slot, :n_full]]
+        toks = ([int(t) for t in req.prompt]
+                + [int(t) for t in req.out])[:n_full * self.page_size]
+        meta, payload = self._pack(pids, toks, req.trace, req.tenant)
+        _EVENTS.record("engine_kv_export", rid=req.rid, trace=req.trace,
+                       pages=n_full, nbytes=len(payload))
+        return {"meta": meta, "payload": payload}
+
+    def _pack(self, pids, toks, trace, tenant):
+        """Gather and serialize pages for export, timing each part into
+        ``stats`` (``kv_gather_s``, ``kv_pack_s``) and booking the
+        counters."""
+        from ..serving.kv_transfer import pack_pages
+        t0 = time.perf_counter()
+        k_rows, v_rows, k_sc, v_sc = self._gather_pages(pids)
+        t1 = time.perf_counter()
+        meta, payload = pack_pages(k_rows, v_rows, toks, self.page_size,
+                                   weights_tag=self._weights_tag,
+                                   k_scales=k_sc, v_scales=v_sc,
+                                   shards=self.kv_shards)
+        st = self.stats
+        st["kv_gather_s"] += t1 - t0
+        st["kv_pack_s"] += time.perf_counter() - t1
+        st["kv_pages_out"] += len(pids)
+        st["kv_bytes_out"] += len(payload)
+        _C_KV_EXP.inc(len(pids))
+        _C_KV_OUT_B.inc(len(payload))
+        _LEDGER.on_bytes(len(payload), trace, tenant, "out")
+        return meta, payload
+
+    def export_kv_pages(self, tokens, trace=None):
+        """Serialize the cached KV pages covering the longest INDEXED
+        prefix of `tokens` (the prefill -> decode handoff: a prefill
+        replica's finished sequence leaves its pages in the prefix index).
+        Non-destructive. Returns ``(meta, payload)`` or None when no full
+        page is indexed."""
+        if not self.prefix_cache:
+            return None
+        toks = [int(t) for t in np.asarray(
+            tokens.cpu() if torch.is_tensor(tokens) else tokens).reshape(-1)]
+        with self._step_lock:
+            self._flush_cow()
+            pids = []
+            for h, parent, ptoks in _prefix_chain(toks, self.page_size):
+                entry = self.blocks._index.get(h)
+                if entry is None or entry[1] != parent \
+                        or entry[2] != ptoks:
+                    break
+                pids.append(entry[0])
+            if not pids:
+                return None
+            meta, payload = self._pack(
+                pids, toks[:len(pids) * self.page_size], trace, None)
+            _EVENTS.record("engine_kv_export", trace=trace,
+                           pages=len(pids), nbytes=len(payload))
+            return meta, payload
+
+    def import_kv_pages(self, meta, payload, trace=None):
+        """Map a transferred page batch into this engine's pools: every
+        page whose chain hash is not indexed yet is adopted (refcount 0,
+        cached: matchable and reclaimable) and its content uploaded in one
+        program, so the next ``match_prefix`` over the same tokens maps
+        them instead of prefilling. Returns the pages newly mapped: 0 when
+        the batch comes from other weights (``weights_tag``), another kv
+        dtype (int8 against float: KV is never transcoded) or another
+        shard count, each recorded as ``engine_kv_import_skipped``.
+        Raises ValueError when the geometry does not fit the pools."""
+        with self._step_lock:
+            return self._import_kv_locked(meta, payload, trace=trace)
+
+    def _check_kv_meta(self, meta):
+        shards = (meta.get("shards") or {}).get("count", 1)
+        shape = self.k_pages[0].shape       # (n_pages, page, H, D)
+        return (meta.get("page_size") == self.page_size
+                and meta.get("n_layers") == len(self.k_pages)
+                and meta.get("n_kv_heads") == shape[2]
+                and meta.get("head_dim") == shape[3]
+                and (meta.get("dtype") == "int8")
+                == (self.kv_dtype == "int8")
+                and int(shards) == self.kv_shards)
+
+    def _import_kv_locked(self, meta, payload, trace=None):
+        if not self.prefix_cache:
+            return 0
+        int8 = self.kv_dtype == "int8"
+        refusal = None
+        if meta.get("weights_tag", "init") != self._weights_tag:
+            refusal = ("weights_tag", meta.get("weights_tag"),
+                       self._weights_tag)
+        elif (meta.get("dtype") == "int8") != int8:
+            refusal = ("kv_dtype", meta.get("dtype"),
+                       "int8" if int8 else "float")
+        elif int((meta.get("shards") or {}).get("count", 1)) \
+                != self.kv_shards:
+            refusal = ("kv_shards",
+                       int((meta.get("shards") or {}).get("count", 1)),
+                       self.kv_shards)
+        if refusal is not None:
+            # the importer re-prefills, which is always right
+            _EVENTS.record("engine_kv_import_skipped", trace=trace,
+                           reason=refusal[0], theirs=refusal[1],
+                           ours=refusal[2])
+            return 0
+        if not self._check_kv_meta(meta):
+            raise ValueError(
+                "KV page batch does not fit this engine: "
+                f"meta={{page_size: {meta.get('page_size')}, layers: "
+                f"{meta.get('n_layers')}, kv_heads: "
+                f"{meta.get('n_kv_heads')}, head_dim: "
+                f"{meta.get('head_dim')}}} vs pool "
+                f"page_size={self.page_size} shape="
+                f"{tuple(self.k_pages[0].shape)} x{len(self.k_pages)}")
+        from ..serving.kv_transfer import unpack_pages, unpack_scales
+        t0 = time.perf_counter()
+        k_rows, v_rows = unpack_pages(meta, payload,
+                                      expect_shards=self.kv_shards)
+        k_sc, v_sc = unpack_scales(meta) if int8 else (None, None)
+        t1 = time.perf_counter()
+        pids, cols = [], []
+        for i, (h, parent, ptoks) in enumerate(
+                _prefix_chain(meta["tokens"], self.page_size)):
+            try:
+                pid = self.blocks.adopt_page(h, parent, ptoks)
+            except RuntimeError:
+                break       # pool exhausted: the adopted prefix stands
+            if pid is None:
+                continue    # already resident here
+            pids.append(pid)
+            cols.append(i)
+        if pids:
+            self._flush_cow()
+            if len(cols) < k_rows.shape[1]:   # some pages were resident
+                idx = torch.as_tensor(cols)
+                k_rows = k_rows.index_select(1, idx)
+                v_rows = v_rows.index_select(1, idx)
+                if k_sc is not None:
+                    k_sc, v_sc = k_sc[:, cols], v_sc[:, cols]
+            self._upload_pages(pids, k_rows, v_rows, k_sc, v_sc)
+            _C_KV_IMP.inc(len(pids))
+            _C_KV_IN_B.inc(len(payload))
+            _LEDGER.on_bytes(len(payload), trace, None, "in")
+            _G_PAGES_FREE.set(self.blocks.free_pages)
+        st = self.stats
+        st["kv_unpack_s"] += t1 - t0
+        st["kv_upload_s"] += time.perf_counter() - t1
+        st["kv_pages_in"] += len(pids)
+        st["kv_bytes_in"] += len(payload)
+        _EVENTS.record("engine_kv_import", trace=trace,
+                       pages=len(pids), offered=meta["n_pages"],
+                       nbytes=len(payload))
+        return len(pids)
+
+    def _spill_page(self, pid, h, parent, toks):
+        """BlockManager eviction hook: serialize ONE evicted refcount-0
+        page into the prefix store (keyed by its chain hash and this
+        engine's weights tag) before its page id is reused."""
+        from ..serving.kv_transfer import pack_pages
+        k_rows, v_rows, k_sc, v_sc = self._gather_pages([pid])
+        meta, payload = pack_pages(k_rows, v_rows, list(toks),
+                                   self.page_size,
+                                   weights_tag=self._weights_tag,
+                                   k_scales=k_sc, v_scales=v_sc,
+                                   shards=self.kv_shards)
+        meta["parent"] = parent     # refill checks the whole chain link
+        self.prefix_store.put(h, meta, payload)
+        _C_KV_SPILL.inc()
+        _LEDGER.on_bytes(len(payload), None, None, "spill")
+        _EVENTS.record("engine_kv_spill", pages=1, nbytes=len(payload))
+
+    def _refill_prefix(self, req):
+        """Admission-time prefix-store refill: walk the prompt's chain and,
+        where the index misses, take the page from the prefix store (RAM
+        tier, then the fleet tier), so the ``match_prefix`` that follows
+        hits it as if it had never been evicted (or as if this replica had
+        prefilled it). Stops at the first miss; returns pages refilled."""
+        from ..serving.kv_transfer import unpack_pages, unpack_scales
+        int8 = self.kv_dtype == "int8"
+        fetched, rows_k, rows_v, rows_ks, rows_vs = [], [], [], [], []
+        for h, parent, ptoks in _prefix_chain(req.prompt[:len(req.prompt)
+                                                         - 1],
+                                              self.page_size):
+            entry = self.blocks._index.get(h)
+            if entry is not None and entry[1] == parent \
+                    and entry[2] == ptoks:
+                continue                # resident: nothing to refill
+            if entry is not None:
+                break                   # hash collision: chain unusable
+            got = self.prefix_store.get(h, self._weights_tag)
+            if got is None:
+                break
+            meta, payload = got
+            if meta.get("tokens") != list(ptoks) \
+                    or meta.get("parent", parent) != parent \
+                    or not self._check_kv_meta(meta) \
+                    or meta.get("n_pages") != 1:
+                break                   # stale or foreign entry: a miss
+            try:
+                k1, v1 = unpack_pages(meta, payload,
+                                      expect_shards=self.kv_shards)
+                ks1, vs1 = unpack_scales(meta) if int8 else (None, None)
+            except ValueError as e:
+                # a corrupted spilled page (crc32, byte count): the chain
+                # walk stops and the prefill recomputes from here
+                _EVENTS.record("engine_kv_refill_rejected", rid=req.rid,
+                               trace=req.trace, chain_hash=int(h),
+                               error=str(e)[:160])
+                break
+            try:
+                pid = self.blocks.adopt_page(h, parent, ptoks)
+            except RuntimeError:
+                break
+            if pid is None:
+                break
+            _LEDGER.on_bytes(len(payload), req.trace, req.tenant, "upload")
+            fetched.append(pid)
+            rows_k.append(k1[:, 0])
+            rows_v.append(v1[:, 0])
+            if int8:
+                rows_ks.append(ks1[:, 0])
+                rows_vs.append(vs1[:, 0])
+        if not fetched:
+            return 0
+        self._flush_cow()
+        self._upload_pages(
+            fetched, torch.stack(rows_k, dim=1), torch.stack(rows_v, dim=1),
+            np.stack(rows_ks, axis=1) if int8 else None,
+            np.stack(rows_vs, axis=1) if int8 else None)
+        _C_KV_REFILL.inc(len(fetched))
+        _G_PAGES_FREE.set(self.blocks.free_pages)
+        _EVENTS.record("engine_kv_refill", rid=req.rid, trace=req.trace,
+                       pages=len(fetched))
+        return len(fetched)
 
     def find_rid_by_trace(self, trace):
         """The resident request carrying `trace`. Raises KeyError when
@@ -1700,15 +2349,14 @@ class GenerationEngine:
     def remove_request(self, rid, with_kv=False):
         """Export a request's snapshot AND evict it (a planned migration):
         pages released, slot freed, queues cleaned. Returns the snapshot;
-        a lingering stream of it ends."""
-        if with_kv:
-            raise _unsupported("remove_request(with_kv=True) (KV pages on "
-                               "the kvpages/v1 wire)", "fleet plane")
+        a lingering stream of it ends. ``with_kv=True`` carries the
+        computed KV pages along (the drain handoff that moves the bytes
+        instead of recomputing them on the destination)."""
         with self._step_lock:
             req = self._reqs.get(rid)
             if req is None:
                 raise KeyError(f"request {rid} is not resident")
-            snap = self._export_locked(req)
+            snap = self._export_locked(req, with_kv=with_kv)
             if req.slot >= 0:
                 self._spec_drop(req.slot)
                 self._register_live(req)    # surviving pages stay
@@ -1721,6 +2369,7 @@ class GenerationEngine:
                 req.slot = -1
             if req in self._waiting:
                 self._waiting.remove(req)
+                _set_queue_depth(self, len(self._waiting))
             req.done = True
             self._reqs.pop(rid, None)
             self._finished.pop(rid, None)
@@ -1733,10 +2382,11 @@ class GenerationEngine:
         engine's ``export_request``). The generated sequence (prompt0 and
         the delivered tokens) is kept, so ``stream_request(rid,
         start=cursor)`` resumes exactly once; clocks and the deadline
-        continue from the original submission. Returns the new rid."""
-        if snap.get("kv"):
-            raise _unsupported("a snapshot's KV pages (kvpages/v1)",
-                               "fleet plane")
+        continue from the original submission. KV pages riding the
+        snapshot (``snap["kv"]``) are mapped before the request queues, so
+        its admission maps them instead of prefilling; a transfer that
+        fails to map degrades to the re-prefill (recorded as
+        ``engine_kv_import_failed``). Returns the new rid."""
         toks = np.asarray(snap["tokens"], np.int64).reshape(-1)
         if toks.size == 0:
             raise ValueError("empty sequence snapshot")
@@ -1746,6 +2396,18 @@ class GenerationEngine:
                 f"snapshot ({toks.size} tokens + {remaining} remaining) "
                 f"exceeds engine max_seq_len={self.max_seq_len}")
         with self._urgent_lock():
+            kv = snap.get("kv")
+            if kv:
+                try:
+                    self._import_kv_locked(kv["meta"], kv["payload"],
+                                           trace=snap.get("trace"))
+                except Exception as e:  # noqa: BLE001 — a malformed
+                    #                     transfer must never fail a
+                    #                     request a re-prefill serves
+                    _EVENTS.record("engine_kv_import_failed",
+                                   trace=snap.get("trace"),
+                                   error=f"{type(e).__name__}: "
+                                         f"{str(e)[:160]}")
             rid = self._next_rid
             self._next_rid += 1
             now = time.perf_counter()
@@ -1775,6 +2437,7 @@ class GenerationEngine:
                 self._waiting.append(req)
                 if req.deadline_ms is not None:
                     self._deadline_rids.add(rid)
+            _set_queue_depth(self, len(self._waiting))
             if streaming:
                 self._streaming.add(rid)
         return rid
@@ -1799,6 +2462,7 @@ class GenerationEngine:
             # an in-place load keeps every address the programs captured;
             # a moved parameter drops them (rebuilt at their next use)
             self._programs.revalidate()
+            old_tag = self._weights_tag
             self.blocks.invalidate_index()
             if self._spec is not None:
                 self._spec.invalidate()
@@ -1806,6 +2470,15 @@ class GenerationEngine:
             self._weight_epoch += 1
             self._weights_tag = str(tag) if tag is not None \
                 else f"epoch{self._weight_epoch}"
+            if self.prefix_store is not None:
+                # the old weights' spilled pages are dead to this engine
+                # (the tag refuses them): drop the RAM tier now, the
+                # fleet tier's TTL sweep takes the rest
+                self.prefix_store.invalidate(old_tag)
+            _G_PAGES_FREE.set(self.blocks.free_pages)
+            _EVENTS.record("engine_weight_swap",
+                           live=sum(r is not None for r in self._slots),
+                           waiting=len(self._waiting))
         return out
 
     @torch.inference_mode()
@@ -1818,6 +2491,8 @@ class GenerationEngine:
         Returns the requests that finished.
 
         Callers hold ``_step_lock`` (``run``, the streams)."""
+        if self.step_delay_s:
+            time.sleep(self.step_delay_s)   # the brownout hook
         if self._deadline_rids:
             # before admitting or dispatching: a blown deadline must not
             # claim a slot or ride one dispatch further
@@ -1830,14 +2505,21 @@ class GenerationEngine:
             if not self._waiting:
                 break
             req = self._waiting.pop(0)
+            if self.prefix_store is not None:
+                # re-adopt spilled or peer-prefilled pages before the match
+                # walks the chain, so they read as a plain prefix hit
+                self._refill_prefix(req)
             pids, n_cached = self.blocks.match_prefix(
                 req.prompt, max_tokens=len(req.prompt) - 1)
             if self.prefix_cache:
                 if n_cached:
                     self.stats["prefix_hits"] += 1
                     self.stats["prefix_hit_tokens"] += n_cached
+                    _C_PFX_HIT.inc()
+                    _C_PFX_TOK.inc(n_cached)
                 else:
                     self.stats["prefix_misses"] += 1
+                    _C_PFX_MISS.inc()
             req.n_cached = req.n_prefilled = n_cached
             req.slot = slot
             req.weight_epoch = self._weight_epoch
@@ -1850,6 +2532,7 @@ class GenerationEngine:
                 dense.append((req, slot))     # batched dense prefill
             else:
                 self._prefilling.add(slot)    # ragged suffix/chunk path
+        _set_queue_depth(self, len(self._waiting))
         if dense:
             self._admit(dense)
 

@@ -2,12 +2,14 @@
 programs compiled once per shape bucket and then reused
 (``paddle_tpu/inference/engine.py``: ``_build_decode`` keyed (steps,
 sampling), ``_build_prefill`` (c, s_pad, sampling), ``_build_ragged`` (c,
-s_pad, sampling), ``_build_spec_verify`` (c, s_pad) and ``_build_copy``
-(n)).
+s_pad, sampling), ``_build_spec_verify`` (c, s_pad), ``_build_copy`` (n)
+and ``_build_upload`` (n; here also the staged pages' dtype, on which
+``jax.jit`` retraces)).
 
 A program is one engine step over static device input buffers. The
-engine's host arrays are written into pinned staging tensors and copied to
-the static buffers with ``non_blocking=True``; the step reads only those
+engine's host arrays (numpy arrays; CPU tensors for an upload's staged KV
+pages, since numpy has no bfloat16) are written into pinned staging
+tensors and copied to the static buffers with ``non_blocking=True``; the step reads only those
 buffers, the engine's pools and the model, and returns its output
 tensors, which the caller copies to the host. That copy is the step's one
 host sync; it always follows the program and is never inside it.
@@ -41,12 +43,25 @@ replay draws from the generator's offset at that moment, as the eager
 step does: the same seed gives the same tokens with and without graphs.
 Programs hold the parameters' addresses; ``revalidate`` (run after a
 weight swap) drops them all when one has moved.
+
+Several engines in one process (a fleet's replicas, each stepped by its
+own thread) share the device's capture stream. One engine's warm-up or
+capture must never meet another engine's work on that stream (the work
+would land inside the capture), and two captures cannot share a stream.
+So every program run on the card, warm-up, capture or replay, holds one
+process-wide lock (``CAPTURE_LOCK``) while it enqueues; the host copy that
+follows a program, and an engine's eager work outside programs, run
+unlocked on the caller's stream, which never synchronizes implicitly
+with the capture stream (a non-blocking stream) and which a thread-local
+capture mode lets other threads use meanwhile.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
+import threading
 
 import numpy as np
 import torch
@@ -59,30 +74,54 @@ TRACE_COUNTERS = {"decode": "decode_trace_count",
                   "prefill": "prefill_trace_count",
                   "ragged": "ragged_trace_count",
                   "verify": "spec_trace_count",
-                  "copy": "copy_trace_count"}
+                  "copy": "copy_trace_count",
+                  "upload": "upload_trace_count"}
 
 _STREAMS = {}           # device -> the capture stream
+
+# held by every program run on the card (see the module docstring);
+# reentrant, so a program may run another engine's program inside it
+CAPTURE_LOCK = threading.RLock()
 
 _DTYPES = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
            np.dtype(np.float32): torch.float32,
            np.dtype(np.bool_): torch.bool}
 
 
+def _leading(src, dst):
+    """The index of `dst` that `src` fills: all of it for equal shapes;
+    for a tensor short of `dst` in its second dimension only (an upload's
+    staged pages, padded to a power of two), its leading part, the rest
+    of the buffer keeping what it held. None when the shapes disagree
+    otherwise."""
+    if tuple(src.shape) == tuple(dst.shape):
+        return (slice(None),)
+    if torch.is_tensor(src) and src.dim() == dst.dim() >= 2 \
+            and src.shape[1] < dst.shape[1] \
+            and src.shape[:1] + src.shape[2:] == dst.shape[:1] + dst.shape[2:]:
+        return (slice(None), slice(0, src.shape[1]))
+    return None
+
+
 class Program:
     """One step over static device inputs, named as the host arrays of
-    its first use; `fn(inputs)` computes the step from them. On the card
-    the inputs are filled from pinned staging tensors."""
+    its first use (of their shapes, or of `shapes` where it names one);
+    `fn(inputs)` computes the step from them. On the card the inputs are
+    filled from pinned staging tensors."""
 
-    def __init__(self, fn, host, device):
+    def __init__(self, fn, host, device, shapes=None):
         self.fn = fn
         self.inputs, self.staging = {}, {}
         pinned = device.type == "cuda"
         for name, arr in host.items():
-            dtype = _DTYPES[np.asarray(arr).dtype]
-            self.inputs[name] = torch.empty(arr.shape, dtype=dtype,
+            dtype = arr.dtype if torch.is_tensor(arr) \
+                else _DTYPES[np.asarray(arr).dtype]
+            shape = (shapes or {}).get(name, arr.shape)
+            # zeros: a part that no load fills is defined
+            self.inputs[name] = torch.zeros(shape, dtype=dtype,
                                             device=device)
             if pinned:
-                self.staging[name] = torch.empty(arr.shape, dtype=dtype,
+                self.staging[name] = torch.zeros(shape, dtype=dtype,
                                                  pin_memory=True)
         # recorded after each upload's copies, waited for before the next
         # upload rewrites the staging tensors
@@ -100,14 +139,17 @@ class Program:
             self._staged.synchronize()
         for name, arr in host.items():
             dst = self.inputs[name]
-            if tuple(arr.shape) != tuple(dst.shape):
+            src = arr if torch.is_tensor(arr) \
+                else torch.from_numpy(np.ascontiguousarray(arr))
+            buf = self.staging.get(name)
+            part = _leading(src, dst)
+            if part is None:
                 raise ValueError(f"program input {name}: shape "
                                  f"{tuple(arr.shape)} != {tuple(dst.shape)}")
-            buf = self.staging.get(name)
             if buf is None:
-                dst.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+                dst[part].copy_(src)
             else:
-                buf.numpy()[...] = arr
+                buf[part].copy_(src)
                 dst.copy_(buf, non_blocking=True)
         if self._staged is not None:
             self._staged.record()
@@ -134,14 +176,19 @@ class StepPrograms:
             out[kind] += prog.graph is not None
         return out
 
-    def run(self, kind, key, host, fn):
+    def run(self, kind, key, host, fn, shapes=None):
         """Run program (kind, key) on `host` ({name: np.ndarray}, the
         same shapes at every call of one key; a "temps" array marks a
-        sampling program); `fn(inputs)` computes the step from the static
+        sampling program; `shapes` may give an input a larger static
+        shape that later loads fill in part, see ``_leading``);
+        `fn(inputs)` computes the step from the static
         inputs (a dict of device tensors) and returns its outputs. Returns
         the outputs (static ones after a replay: read them before the next
         program runs)."""
-        with torch.inference_mode():
+        eng = self.engine
+        locked = eng._graphs and eng.device.type == "cuda"
+        with torch.inference_mode(), \
+                (CAPTURE_LOCK if locked else contextlib.nullcontext()):
             prog = self._progs.get((kind, key))
             if prog is not None:
                 prog.load(host)
@@ -150,8 +197,7 @@ class StepPrograms:
                 prog.graph.replay()
                 K.add_launch_counts(prog.launches)
                 return prog.outputs
-            eng = self.engine
-            prog = Program(fn, host, eng.device)
+            prog = Program(fn, host, eng.device, shapes)
             prog.load(host)
             if eng._graphs and eng.device.type == "cuda":
                 out = self._warm_and_capture(prog, "temps" in host)

@@ -227,22 +227,31 @@ def test_preemption_under_a_small_pool_keeps_tokens(pair):
                                 dict(prefix_store=object()),
                                 dict(with_kv=True)])
 def test_options_of_later_slices_raise(pair, kw):
-    """Options of later slices raise NotImplementedError naming the slice
-    (the prefix store; KV pages on export, which come with the fleet
-    plane); a kv_dtype other than None or "int8" and an unknown
-    spec_decode value are refused as the JAX engine refuses them."""
+    """A kv_dtype other than None or "int8" and an unknown spec_decode
+    value are refused as the JAX engine refuses them. The options that
+    later slices brought are served now: a prefix store wires the
+    eviction spill hook, and ``export_request(with_kv=True)`` of a request
+    with no written page gives the plain snapshot (no ``kv``), as the JAX
+    engine's does."""
     if "kv_dtype" in kw or "spec_decode" in kw:
         with pytest.raises(ValueError, match="kv_dtype|spec_decode"):
             GenerationEngine(pair[1], **kw)
         return
     if "with_kv" in kw:
-        eng = GenerationEngine(pair[1], **ENGINE_KW)
-        rid = eng.add_request([1, 2, 3], max_new_tokens=2)
-        with pytest.raises(NotImplementedError, match="slice"):
-            eng.export_request(rid, **kw)
+        from paddle_tpu.inference.engine import GenerationEngine as JaxEngine
+        snaps = []
+        for eng in (GenerationEngine(pair[1], **ENGINE_KW),
+                    JaxEngine(pair[0], **ENGINE_KW)):
+            rid = eng.add_request([1, 2, 3], max_new_tokens=2)
+            snaps.append(eng.export_request(rid, **kw))
+        for snap in snaps:
+            snap.pop("age_s")
+            snap.pop("trace")
+        assert "kv" not in snaps[0] and snaps[0] == snaps[1]
         return
-    with pytest.raises(NotImplementedError, match="slice"):
-        GenerationEngine(pair[1], **kw)
+    eng = GenerationEngine(pair[1], **ENGINE_KW, **kw)
+    assert eng.prefix_store is kw["prefix_store"]
+    assert eng.blocks.on_evict == eng._spill_page
 
 
 # ----------------------------------------------------------------------
