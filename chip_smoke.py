@@ -186,10 +186,29 @@ source, all started together; each build's seconds printed), then:
    under a warm-up cosine schedule: 24 + 24 flash launches a step, the
    rate each step the scheduler's) and train:bert (BERT-base MLM 32 x 512
    under amp O2 + GradScaler with dropout 0.1: the dense attention path,
-   the scale after each step).
+   the scale after each step);
+8. the training run's telemetry and recovery: programs:serve and
+   programs:serve:int8 (after each warm wave: the introspection registry,
+   one entry per step program under the JAX engine's labels, with flops
+   and HBM bytes, as many as the programs built); after profile:train,
+   profiler (profiler.Profiler with make_scheduler(closed=1, ready=1,
+   record=2) over 5 more [train] steps: the window's chrome trace must
+   name the flash forward, dQ, dK/dV, RMSNorm, SwiGLU and RoPE kernels
+   and hold the RecordEvent spans) and amp:debug (operator stats of one
+   O1 forward; an Inf injected into a weight under check_numerics_guard
+   must raise, naming the op); last, train:resilient ([train]'s model at
+   RES_LAYERS layers under ResilientTrainer, fed by an io.DataLoader with
+   two shared-memory workers and pinned batches, timed by a StepTimer:
+   a checkpoint every 4 steps, a NaN loss rolled back, a hung wait
+   raising CommTimeoutError and recovered from the last checkpoint; the
+   events, goodput, the phases' seconds, perf_mfu beside the analytic
+   MFU over a fault-free window (within 10%), the counted train-step
+   flops beside _train_flops (within 5%), the save, restore and snapshot
+   seconds; then an uninterrupted run of the surviving steps must give
+   the same losses and final parameters, each within 2 bf16 ulps).
 
-Each flashmask, fused_ffn, serving, BERT and training run's launch counts are
-set to 0 just before it and read just after it; every kernel of its path
+Each flashmask, fused_ffn, serving, BERT and training run's (the
+resilient one's too) launch counts are set to 0 just before it and read just after it; every kernel of its path
 must have launched, the int8 runs must launch the float paged attention
 kernels 0 times, every flash launch of the training, dense-serving and
 flashmask runs (bfloat16) and every ragged launch of the serving runs must
@@ -1871,10 +1890,11 @@ def main():
     masked = phase_flashmask(K, dev)
     ffn = phase_fused_ffn(K, dev)
     model = _serving_model(dev)
-    serve, serve_out, serve_st = phase_serve(K, model)
+    serve, serve_out, serve_st = phase_serve(K, model, programs=True)
     dense, dense_out = phase_serve_dense(K, model)
     serve8, serve8_out, serve8_st = phase_serve(K, model, kv_dtype="int8",
-                                                twin=serve_out)
+                                                twin=serve_out,
+                                                programs=True)
     dense8, _ = phase_serve_dense(K, model, kv_dtype="int8", twin=dense_out)
     spec = phase_serve_spec(K, model, serve_out, serve_st)
     spec8 = phase_serve_spec(K, model, serve8_out, serve8_st,
@@ -1895,12 +1915,16 @@ def main():
     bert = phase_bert(K, dev)
     train, model, opt, batch, base = phase_train(K, dev)
     phase_profile_train(model, opt, batch)
+    phase_profiler(model, opt, batch)
+    phase_amp_debug(model, batch)
     del model, opt, batch
     remat = phase_train_remat(K, dev, base)
     gtrain = phase_train_gpt(K, dev)
     btrain = phase_train_bert(K, dev)
+    rtrain = phase_train_resilient(K, dev)
     runs = (serve, dense, serve8, dense8, spec, spec8, fleet, fleet8, gserve,
-            gserve8, gdense, bert, train, remat, gtrain, btrain, masked, ffn)
+            gserve8, gdense, bert, train, remat, gtrain, btrain, rtrain,
+            masked, ffn)
     launches = {k: sum(r[k] for r in runs) for k in K.launch_counts()}
     _require_launched("all serving, fleet, BERT, training, flashmask and "
                       "fused_ffn runs", launches, K.KERNELS)
@@ -1924,6 +1948,418 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ----------------------------------------------------------------------
+# slice 15: the training run's telemetry and recovery
+# ----------------------------------------------------------------------
+
+# [train:resilient]: TRAIN_CFG's widths (bench.py:150-154) at RES_LAYERS
+# layers (cut from 12: at full depth the phase took 89-109 s, most of it
+# writing, verifying and reading three 10.3 GB checkpoints on the host,
+# and the whole smoke 784.0 s on a slow host, past the ~780 s it must
+# keep under) under ResilientTrainer: RES_STEPS steps, a checkpoint every
+# RES_CKPT_EVERY steps, a host snapshot every RES_SNAPSHOT_EVERY, one
+# non-finite loss (step RES_NAN_STEP's loss times NaN: the NaN reaches
+# the gradients and the parameters, as a divergence does) that the guard
+# rolls back at once (max_consecutive_bad=1), and one hang of the wait
+# after step RES_HANG_STEP (the watchdog's wait seam sleeps past its
+# timeout) that the trainer recovers from the last checkpoint
+RES_LAYERS = 6
+RES_STEPS, RES_CKPT_EVERY, RES_SNAPSHOT_EVERY = 12, 4, 4
+RES_NAN_STEP, RES_HANG_STEP = 5, 9
+RES_TIMEOUT_S = 20.0            # the watchdog's deadline on a step
+RES_HANG_TIMEOUT_S = 2.0        # ... on the hung step
+# the steps whose updates the final state holds: 0-3; the rollback to the
+# snapshot taken before step 4 drops 4 and 5; the restore of the
+# checkpoint saved after step 7 drops the first run of 8 and 9, which
+# are replayed
+RES_LINEAGE = [0, 1, 2, 3, 6, 7, 8, 9, 10, 11]
+RES_EVENTS = ["restored_initial", "checkpoint", "bad_step", "rollback",
+              "checkpoint", "fault", "backoff", "restored",
+              "recovery_complete", "budget_reset", "checkpoint"]
+RES_MFU_WINDOW = (1, 4)         # steps [1, 4): no fault, no save, counted
+
+
+def _res_model(dev):
+    """TRAIN_CFG at RES_LAYERS layers, bf16, seed 0; AdamW(1e-4) with
+    masters; compile_train_step over the loss times a poison factor (1.0,
+    or NaN on the step that diverges)."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.jit import compile_train_step
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig(**{**TRAIN_CFG, "num_hidden_layers": RES_LAYERS})
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    weights.init_random_(model, seed=0)
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True)
+    step = compile_train_step(model, lambda m, i, l, z: m(i, labels=l) * z,
+                              opt)
+    return cfg, model, opt, step
+
+
+def _res_data(cfg):
+    """Seeded random ids and labels: RES_STEPS batches of TRAIN_BATCH x
+    TRAIN_SEQ, as [RES_STEPS * TRAIN_BATCH, TRAIN_SEQ] arrays."""
+    rng = np.random.default_rng(2)
+    n = RES_STEPS * TRAIN_BATCH
+    return (rng.integers(0, cfg.vocab_size, (n, TRAIN_SEQ)),
+            rng.integers(0, cfg.vocab_size, (n, TRAIN_SEQ)))
+
+
+def phase_train_resilient(K, dev):
+    """The training loop's telemetry and recovery at [train]'s widths:
+    the DataLoader feeding compile_train_step under ResilientTrainer and a
+    StepTimer (each step: dispatch, then compute timed at the watchdog's
+    wait on an event recorded after the step), with the injected faults
+    of RES_*. Prints the events, goodput and the phases' seconds, the
+    timer's perf_mfu beside the analytic MFU (_train_flops) over a window
+    with no fault, the counted train-step flops beside _train_flops, the
+    checkpoint, restore, snapshot and recovery seconds and the peak of
+    memory; then an uninterrupted run of the surviving steps on a fresh
+    model (the same seed) must give the same losses and final parameters
+    by [train:remat]'s rule (each within 2 bf16 ulps). The checkpoints
+    are deleted at the end."""
+    import shutil
+    from paddle_tpu_torch.distributed import resilient, watchdog
+    from paddle_tpu_torch.observability import perf, xla_introspect
+    import paddle_tpu_torch.observability as obs
+
+    tag = "train:resilient"
+    _release()
+    obs.reset()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "resilient_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    from paddle_tpu_torch import io
+
+    cfg, model, opt, step = _res_model(dev)
+    loader = io.DataLoader(io.TensorDataset(list(_res_data(cfg))),
+                           batch_size=TRAIN_BATCH, num_workers=2,
+                           use_shared_memory=True, pin_memory=True,
+                           device=dev)
+    it = iter(loader)
+    batches = {}
+    timer = perf.StepTimer(program=step.program)
+    totals = {}                  # step call -> timer totals after it
+    calls, losses, lineage = [], [], []
+    events = []
+    snap_lineage = {}
+    one, nan = (torch.tensor(v, device=dev, dtype=torch.float32)
+                for v in (1.0, float("nan")))
+
+    def on_event(kind, **info):
+        events.append((kind, info))
+        print(f"[{tag}] event {kind} {json.dumps(info, default=str)}",
+              flush=True)
+
+    def step_fn(s):
+        while s not in batches:          # the loader's next batch
+            batches[len(batches)] = next(it)
+        ids, lab = batches[s]
+        n = len(calls)
+        first = s not in calls
+        calls.append(s)
+        hang = s == RES_HANG_STEP and first
+        with timer.step():
+            with timer.phase("dispatch"):
+                loss = step(ids, lab,
+                            nan if s == RES_NAN_STEP and first else one)
+            with timer.phase("compute"):
+                done = torch.cuda.Event()
+                done.record()
+                if hang:
+                    seam = watchdog._block
+                    watchdog._block = lambda v: time.sleep(
+                        3 * RES_HANG_TIMEOUT_S)
+                try:
+                    watchdog.watched_wait(
+                        done, what="train_step",
+                        timeout=RES_HANG_TIMEOUT_S if hang
+                        else RES_TIMEOUT_S)
+                finally:
+                    if hang:
+                        watchdog._block = seam
+        totals[n] = timer.totals()
+        losses.append((s, loss))
+        lineage.append(s)
+        if n == 0:
+            timer.resolve_flops()        # counted in step 0, outside
+        return loss
+
+    tr = resilient.ResilientTrainer(
+        model, opt, ckpt_root=root, ckpt_every=RES_CKPT_EVERY,
+        keep_last_n=2, snapshot_every=RES_SNAPSHOT_EVERY,
+        max_consecutive_bad=1, backoff_base=0.05, backoff_cap=0.1,
+        backoff_seed=0, on_event=on_event)
+    # the lineage of the state: what a snapshot, a save, a rollback and a
+    # restore keep of the steps applied so far
+    secs = {"snapshot": [], "save": [], "restore": []}
+    g_snap, t_save, t_restore = tr.guard.snapshot, tr.save, tr.restore
+
+    def snapshot(s):
+        t0 = time.perf_counter()
+        g_snap(s)
+        secs["snapshot"].append(time.perf_counter() - t0)
+        snap_lineage["guard"] = list(lineage)
+
+    def save(s):
+        t0 = time.perf_counter()
+        out = t_save(s)
+        secs["save"].append(time.perf_counter() - t0)
+        snap_lineage[f"ckpt{s}"] = list(lineage)
+        return out
+
+    def restore():
+        t0 = time.perf_counter()
+        nxt = t_restore()
+        secs["restore"].append(time.perf_counter() - t0)
+        lineage[:] = snap_lineage[f"ckpt{nxt - 1}"] if nxt else []
+        snap_lineage["guard"] = list(lineage)   # restore's own snapshot
+        return nxt
+
+    g_rollback = tr.guard.rollback
+
+    def rollback():
+        g_rollback()
+        lineage[:] = snap_lineage["guard"]
+
+    tr.guard.snapshot, tr.save, tr.restore = snapshot, save, restore
+    tr.guard.rollback = rollback
+    K.reset_launch_counts()
+    completed = tr.run(step_fn, RES_STEPS)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    timer.detach()
+    wall = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    kinds = [k for k, _ in events if k in set(RES_EVENTS)]
+    tot = timer.totals()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul = n_params - model.llama.embed_tokens.weight.numel()
+    flops, formula = _train_flops(cfg, n_matmul)
+    counted = xla_introspect.flops_of(step.program)
+    a, b = RES_MFU_WINDOW
+    win = perf.window_stats(totals[a - 1], totals[b - 1],
+                            flops_per_step=counted, peak=timer.peak)
+    analytic = flops * win["steps"] / win["wall"] / timer.peak
+    snap = obs.snapshot()
+    print(f"[{tag}] TRAIN_CFG widths at {RES_LAYERS} layers (hidden "
+          f"{cfg.hidden_size}, ffn {cfg.intermediate_size}, "
+          f"{cfg.num_attention_heads} heads, vocab {cfg.vocab_size}), "
+          f"bf16, AdamW(1e-4, multi_precision=True), batch {TRAIN_BATCH}x"
+          f"{TRAIN_SEQ}; DataLoader(num_workers=2, shared memory, pinned); "
+          f"{RES_STEPS} steps, {len(calls)} step calls, completed "
+          f"{completed}; program {step.program}")
+    print(f"[{tag}] events {json.dumps([k for k, _ in events])}")
+    print(f"[{tag}] step calls {calls}; surviving steps {lineage}")
+    print(f"[{tag}] losses {[(s, float(v)) for s, v in losses]}")
+    print(f"[{tag}] goodput={tot['goodput']:.4f} steps={tot['steps']} "
+          f"wall_s={tot['wall']:.3f} phases_s "
+          f"{json.dumps({k: round(v, 4) for k, v in tot['phases'].items()})}")
+    print(f"[{tag}] window steps [{a}, {b}): wall_s={win['wall']:.4f} "
+          f"phases_s {json.dumps({k: round(v, 4) for k, v in win['phases'].items()})}; "
+          f"perf_mfu={win['mfu']:.4f} analytic MFU={analytic:.4f} "
+          f"(ratio {win['mfu'] / analytic:.4f}); gauge perf_mfu="
+          f"{snap['gauges'].get('perf_mfu')} over the whole run "
+          f"(faults included); peak {timer.peak:.4g}")
+    print(f"[{tag}] counted xla_program_flops{{program={step.program}}}="
+          f"{counted:.6e} analytic {formula} (ratio "
+          f"{counted / flops:.4f}); counted kernels "
+          f"{json.dumps(xla_introspect.programs()[step.program].get('kernels'))}")
+    print(f"[{tag}] seconds: snapshot {[round(x, 3) for x in secs['snapshot']]}"
+          f" save {[round(x, 3) for x in secs['save']]} restore "
+          f"{[round(x, 3) for x in secs['restore']]}; recovery_s "
+          f"{[i.get('duration_s') for k, i in events if k == 'recovery_complete']}; "
+          f"phase wall_s={wall:.2f} peak_mem_gb={peak:.2f}")
+    print(f"[{tag}] counters {json.dumps({k: v for k, v in snap['counters'].items() if k.startswith(('resilient_', 'dataloader_', 'perf_'))})}")
+    print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+    _require_launched(tag, launches, TRAIN_KERNELS)
+    if kinds != RES_EVENTS:
+        raise AssertionError(f"[{tag}] events {kinds} != {RES_EVENTS}")
+    # every step call completes but the hung one
+    if lineage != RES_LINEAGE or completed != len(calls) - 1:
+        raise AssertionError(f"[{tag}] surviving steps {lineage} != "
+                             f"{RES_LINEAGE}")
+    faults = [i for k, i in events if k == "fault"]
+    if faults[0]["type"] != "CommTimeoutError":
+        raise AssertionError(f"[{tag}] the fault was {faults[0]}")
+    if not 0.95 <= counted / flops <= 1.05:
+        raise AssertionError(f"[{tag}] counted flops {counted:.4e} are not "
+                             f"within 5% of {flops:.4e}")
+    if not 0.9 <= win["mfu"] / analytic <= 1.1:
+        raise AssertionError(f"[{tag}] perf_mfu {win['mfu']:.4f} is not "
+                             f"within 10% of the analytic {analytic:.4f}")
+    # the surviving steps' losses: the replayed ones equal their first run
+    final = {}
+    for s, v in losses:
+        final.setdefault(s, []).append(float(v))
+    for s, vs in final.items():
+        if len(vs) > 1 and s != RES_NAN_STEP and len(set(vs)) != 1:
+            raise AssertionError(f"[{tag}] step {s} replayed to other "
+                                 f"losses {vs}")
+    got_losses = [final[s][-1] for s in RES_LINEAGE]
+    got_params = [p.detach().clone() for p in model.parameters()]
+    del tr, model, opt, step, loader, it, batches, losses
+    _release()
+
+    # the uninterrupted run of the surviving steps
+    cfg, model, opt, step = _res_model(dev)
+    ids, lab = (torch.from_numpy(a).to(dev) for a in _res_data(cfg))
+    rows = [slice(s * TRAIN_BATCH, (s + 1) * TRAIN_BATCH)
+            for s in RES_LINEAGE]
+    want_losses = [float(step(ids[r], lab[r], one)) for r in rows]
+    diffs = [abs(x - y) for x, y in zip(got_losses, want_losses)]
+    p_ok = all(bool(((g.float() - w.float()).abs()
+                     <= 2 * _ulp_bf16(w.float())).all())
+               for g, w in zip(got_params, model.parameters()))
+    p_same = all(torch.equal(g, w) for g, w in
+                 zip(got_params, model.parameters()))
+    print(f"[{tag}] uninterrupted run of the surviving steps: losses "
+          f"{want_losses}; max |diff| {max(diffs):.4g}; final parameters "
+          f"within 2 bf16 ulps {p_ok}, bit-equal {p_same}", flush=True)
+    if any(d > 2 * _bf16_ulp(w) for d, w in zip(diffs, want_losses)) \
+            or not p_ok:
+        raise AssertionError(f"[{tag}] the recovery path changed the "
+                             "results")
+    del model, opt, step, ids, lab, got_params
+    shutil.rmtree(root, ignore_errors=True)
+    _release()
+    return launches
+
+
+PROFILER_TRAIN_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
+                          "flash_dkv_sm90_kernel", "rms_norm_vec_kernel",
+                          "swiglu_vec", "rope_vec_kernel")
+
+
+def phase_profiler(model, opt, batch):
+    """The port's profiler.Profiler with make_scheduler(closed=1, ready=1,
+    record=2) over 5 more [train] steps, each a RecordEvent span: the
+    window (steps 2-3) exported as a chrome trace when it closes; its
+    device events must name the hand-written training kernels and the
+    spans must be there; then the summary table."""
+    from paddle_tpu_torch import profiler
+
+    tag = "profiler"
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "profiler_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    ids, lab = batch
+    out = {}
+
+    def ready(prof):
+        out["doc"] = prof.export(path)
+        out["step"] = prof._step
+        out["summary"] = prof.summary()     # printed; the window's spans
+
+    prof = profiler.Profiler(
+        scheduler=profiler.make_scheduler(closed=1, ready=1, record=2,
+                                          repeat=1),
+        on_trace_ready=ready)
+    states = []
+    torch.cuda.synchronize()
+    prof.start()
+    for i in range(5):
+        states.append(prof._state)
+        with profiler.RecordEvent(f"train_step_{i}"):
+            loss = model(ids, labels=lab)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            float(loss.detach())
+        prof.step()
+    prof.stop()
+    names = {e.get("name", "") for e in out.get("doc", {}).get(
+        "traceEvents", [])}
+    found = {k: any(k in n for n in names) for k in PROFILER_TRAIN_KERNELS}
+    spans = sorted(n for n in names if n.startswith("train_step_"))
+    print(f"[{tag}] states {states}; window closed at step "
+          f"{out.get('step')}; trace {path}: {len(names)} event names, "
+          f"training kernels named {json.dumps(found)}; RecordEvent spans "
+          f"{spans}")
+    print(f"[{tag}] summary: {len(out.get('summary', '').splitlines())} "
+          f"lines (above)", flush=True)
+    if not all(found.values()):
+        raise AssertionError(f"[{tag}] the trace does not name every "
+                             f"training kernel: {found}")
+    if spans != ["train_step_2", "train_step_3"]:
+        raise AssertionError(f"[{tag}] the window's spans are {spans}")
+
+
+def phase_amp_debug(model, batch):
+    """amp.debugging on the card with the [train] model: operator stats of
+    one O1 forward; then an Inf injected into a weight under
+    check_numerics_guard must raise, naming the op that reads it."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp import debugging
+
+    tag = "amp:debug"
+    ids, lab = batch
+    with torch.no_grad():
+        with debugging.collect_operator_stats():
+            with amp.auto_cast(level="O1"):
+                model(ids[:1, :256])
+            stats = debugging.get_operator_stats()
+    print(f"[{tag}] operator stats of one O1 forward "
+          f"{json.dumps(dict(sorted(stats.items())))}")
+    n_layers = model.config.num_hidden_layers
+    if stats.get("linear") != 7 * n_layers + 1 or \
+            stats.get("rms_norm") != 2 * n_layers + 1:
+        raise AssertionError(f"[{tag}] the counts are not the model's op "
+                             "sites")
+    w = model.llama.layers[0].mlp.gate_proj.weight
+    keep = w[3].clone()
+    with torch.no_grad():
+        w[3] = float("inf")
+    raised = None
+    try:
+        with debugging.check_numerics_guard():
+            with torch.no_grad():
+                model(ids[:1, :256])
+    except FloatingPointError as e:
+        raised = str(e)
+    finally:
+        with torch.no_grad():
+            w[3] = keep
+    print(f"[{tag}] an Inf in llama.layers.0.mlp.gate_proj.weight under "
+          f"check_numerics_guard raised: {raised}", flush=True)
+    if raised is None or "op 'linear'" not in raised:
+        raise AssertionError(f"[{tag}] the injected Inf was not named "
+                             f"({raised})")
+
+
+def _print_programs(tag, eng):
+    """[programs]: the introspection registry after the warm wave: one
+    entry per program the engine built (decode, prefill, ragged, verify;
+    the copy and upload programs, which the JAX engine does not register,
+    apart), under the JAX engine's labels, each with flops and HBM bytes;
+    the count must equal the engine's trace counters of those kinds."""
+    from paddle_tpu_torch.observability import xla_introspect
+
+    progs = {n: e for n, e in xla_introspect.programs().items()
+             if n.startswith("engine:")}
+    tc = _trace_counts(eng)
+    kinds = ("decode_trace_count", "prefill_trace_count",
+             "ragged_trace_count", "spec_trace_count")
+    built = sum(tc[k] for k in kinds)
+    for n, e in sorted(progs.items()):
+        print(f"[programs:{tag}] {n} flops={e['flops']:.4e} "
+              f"bytes_accessed={e.get('bytes_accessed', 0):.4e} "
+              f"hbm_total={e['hbm_total']:.4e} kernels "
+              f"{json.dumps({k: v['calls'] for k, v in (e.get('kernels') or {}).items()})}")
+    print(f"[programs:{tag}] {len(progs)} entries; the engine built "
+          f"{built} programs of the registered kinds "
+          f"{json.dumps({k: tc[k] for k in kinds})}; watermark "
+          f"{xla_introspect.hbm_high_watermark_bytes():.4e} B", flush=True)
+    bad = [n for n, e in progs.items()
+           if not e["flops"] or not e["hbm_total"]]
+    if len(progs) != built or bad:
+        raise AssertionError(f"[programs:{tag}] {len(progs)} entries for "
+                             f"{built} programs; without flops or HBM "
+                             f"bytes: {bad}")
 
 
 def _serving_prompts(rng, n, lo, hi, vocab, shared_len, sharers):
@@ -3215,7 +3651,8 @@ def _serve_wave(eng, prompts, n_new):
     return gen, st, wall, launches, ttft
 
 
-def phase_serve(K, model, kv_dtype=None, twin=None, name="serve"):
+def phase_serve(K, model, kv_dtype=None, twin=None, name="serve",
+                programs=False):
     """8 requests of 300-900 tokens (requests 0 and 5 share a 512-token
     prefix), 32 greedy tokens each, on float pools or (kv_dtype="int8")
     int8 pools, through one engine whose step programs are CUDA graphs: a
@@ -3226,7 +3663,9 @@ def phase_serve(K, model, kv_dtype=None, twin=None, name="serve"):
     (``_graphs = False``) on a fresh engine: a timed wave, which must
     give the warm wave's tokens and kernel launches, and a profiled one.
     Returns the warm wave's kernel launches, generated tokens and stats.
-    `name` tags the lines ([name], [name:int8], [profile:name...])."""
+    `name` tags the lines ([name], [name:int8], [profile:name...]). With
+    `programs`, the introspection registry is emptied before the engine
+    is made and printed after the warm wave ([programs], _print_programs)."""
     from paddle_tpu_torch.inference import GenerationEngine
 
     cfg = model.config
@@ -3237,6 +3676,9 @@ def phase_serve(K, model, kv_dtype=None, twin=None, name="serve"):
     kw = dict(max_slots=4, page_size=16, prefill_chunk=256, mixed_step=True,
               prefix_cache=True, kv_dtype=kv_dtype)
     n_new = 32
+    if programs:
+        from paddle_tpu_torch.observability import xla_introspect
+        xla_introspect.reset()
     eng = GenerationEngine(model, **kw)
     _, cold, cold_wall, _, _ = _serve_wave(eng, prompts, n_new)
     marks = _trace_counts(eng)
@@ -3281,6 +3723,8 @@ def phase_serve(K, model, kv_dtype=None, twin=None, name="serve"):
     _require_sm90_ragged(tag, launches)
     if not frozen:
         raise AssertionError(f"[{tag}] the warm wave built programs")
+    if programs:
+        _print_programs(tag, eng)
     steps = st["engine_steps"]
     _profile_serve(eng, prompts, n_new, f"profile:{tag}")
     del eng

@@ -36,10 +36,17 @@ Layout (each module names its ``paddle_tpu`` counterpart):
   masters), the learning-rate schedulers (``optimizer.lr``),
   regularizers, gradient clipping.
 - ``amp``: ``auto_cast`` (O1/O2 under the JAX op lists), ``decorate``,
-  ``GradScaler``.
+  ``GradScaler``; ``amp.debugging`` (the NaN/Inf checker and operator
+  stats at the named op sites, ``compare_accuracy``).
 - ``distributed``: ``fleet.utils.recompute`` (activation recompute that
-  replays the port's random draws) and ``checkpoint`` (the JAX package's
-  file format, one process).
+  replays the port's random draws), ``checkpoint`` (the JAX package's
+  file format, one process), ``watchdog`` (``watched_wait``,
+  ``CommTimeoutError``), ``fleet.elastic`` (heartbeats over a store) and
+  ``resilient`` (``ResilientTrainer``, ``BadStepGuard``).
+- ``io``: datasets, samplers and ``DataLoader`` (thread prefetch,
+  shared-memory workers); ``profiler``: ``Profiler`` on
+  ``torch.profiler`` with the JAX scheduler, ``RecordEvent``.
+- ``framework``: the random generators and the runtime flags.
 - ``jit``: ``compile_train_step`` (eager).
 - ``weights``: the bridge from ``paddle_tpu`` parameters (as numpy arrays)
   and seeded random weights.
@@ -51,7 +58,9 @@ Layout (each module names its ``paddle_tpu`` counterpart):
   (the kvpages/v1 codec, byte-compatible with ``paddle_tpu``'s, and
   ``PrefixStore``).
 - ``observability``: the metrics registry, events, tracing, costs,
-  exporters and the doctor (stdlib only; the port's own registry).
+  exporters and the doctor (stdlib only; the port's own registry), the
+  step-scope ledger ``perf`` (goodput, MFU) and ``xla_introspect``
+  (program flops, bytes and the HBM ledger).
 
 Nothing here imports JAX or ``paddle_tpu``.
 """

@@ -21,6 +21,11 @@ in the amp type or is cast by the op that reads it next. ``.to()`` is
 differentiable, so gradients come back in the parameters' own type.
 ``torch.autocast`` is not this: its lists differ (it runs softmax and
 layer_norm in float32, for one).
+
+The same named sites are where ``amp.debugging`` counts operators
+(``OP_STATS``, published as ``dispatch_op_calls{op=}`` as the JAX
+dispatcher publishes its counts) and, under ``FLAGS_check_nan_inf``,
+scans the op's tensors for NaN/Inf.
 """
 
 from __future__ import annotations
@@ -29,7 +34,37 @@ import threading
 
 import torch
 
+from ..framework.flags import _FLAGS
+from ..observability.metrics import REGISTRY as _REG
 from .lists import BLACK_LIST, WHITE_LIST
+
+# amp.debugging's operator-stats sink, written at the named op sites
+# (amp_cast); amp.debugging flips "enabled" and reads "counts", and a
+# registry collector folds the counts into snapshots as
+# dispatch_op_calls{op=}, the JAX dispatcher's series
+OP_STATS = {"enabled": False, "counts": {}}
+
+
+def _op_stats_series():
+    return [{"name": "dispatch_op_calls", "type": "counter",
+             "labels": {"op": op}, "description":
+             "per-op dispatch counts (amp.debugging operator stats)",
+             "value": n} for op, n in list(OP_STATS["counts"].items())]
+
+
+_REG.register_collector(_op_stats_series,
+                        reset=lambda: OP_STATS["counts"].clear())
+
+
+def _check_nan_inf(name, tensors):
+    """FLAGS_check_nan_inf at a named op site: raise naming the op when a
+    floating tensor it reads holds a NaN or an Inf."""
+    for i, t in enumerate(tensors):
+        if isinstance(t, torch.Tensor) and t.is_floating_point() and \
+                not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(
+                f"op '{name}' input {i} contains NaN/Inf "
+                "(FLAGS_check_nan_inf=1)")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
@@ -66,7 +101,13 @@ def amp_cast(name, *tensors):
     """`tensors` as the JAX dispatcher hands them to op `name` under the
     current amp state: float32 tensors cast to the amp type when the op
     is cast, everything else (None, integers, other types) as given. One
-    tensor in, one out; several in, a tuple out."""
+    tensor in, one out; several in, a tuple out. Counts the op when
+    operator stats are on, and checks its tensors under
+    FLAGS_check_nan_inf."""
+    if OP_STATS["enabled"]:
+        OP_STATS["counts"][name] = OP_STATS["counts"].get(name, 0) + 1
+    if _FLAGS["check_nan_inf"]:
+        _check_nan_inf(name, tensors)
     if _STATE.level != "O0":
         dt = _target_dtype(name)
         if dt is not None:

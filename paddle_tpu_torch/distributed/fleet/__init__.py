@@ -1,6 +1,6 @@
-"""``fleet``: only its ``utils.recompute`` so far."""
+"""``fleet``: ``utils.recompute`` and the ``elastic`` manager."""
 
-from . import utils
+from . import elastic, utils
 from .utils import recompute
 
-__all__ = ["recompute", "utils"]
+__all__ = ["elastic", "recompute", "utils"]

@@ -1,5 +1,7 @@
-"""Framework state of the port: the random generators."""
+"""Framework state of the port: the random generators and the runtime
+flags."""
 
-from . import random
+from . import flags, random
+from .flags import get_flag, set_flags
 
-__all__ = ["random"]
+__all__ = ["flags", "get_flag", "random", "set_flags"]

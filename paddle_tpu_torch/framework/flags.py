@@ -1,0 +1,53 @@
+"""Runtime flags: the counterpart of ``paddle_tpu/framework/flags.py``
+for the flags the port reads.
+
+Each flag is defined with a default, overridable through its
+``FLAGS_<name>`` environment variable (Paddle's convention) and at run time
+through ``set_flags`` / ``get_flag``, under the JAX
+package's names. The port defines only what it reads:
+``FLAGS_comm_timeout_s`` (``distributed.watchdog``) and
+``FLAGS_check_nan_inf`` (``amp.debugging``'s checker).
+"""
+
+from __future__ import annotations
+
+import os
+
+_FLAGS = {}
+
+
+def define_flag(name, default, help=""):  # noqa: A002
+    """Define flag `name` (`help` documents it at the call site)."""
+    env = os.environ.get(f"FLAGS_{name}")
+    value = default
+    if env is not None:
+        if isinstance(default, bool):
+            value = env.lower() in ("1", "true", "yes")
+        elif isinstance(default, int):
+            value = int(env)
+        elif isinstance(default, float):
+            value = float(env)
+        else:
+            value = env
+    _FLAGS[name] = value
+    return value
+
+
+def set_flags(flags: dict):
+    for k, v in flags.items():
+        k = k.removeprefix("FLAGS_")
+        if k not in _FLAGS:
+            raise ValueError(f"unknown flag {k}")
+        _FLAGS[k] = v
+
+
+def get_flag(name):
+    return _FLAGS[name.removeprefix("FLAGS_")]
+
+
+define_flag("check_nan_inf", False,
+            "scan the named ops' tensors for nan/inf (ref: "
+            "FLAGS_check_nan_inf; see amp.debugging)")
+define_flag("comm_timeout_s", 0.0,
+            "If > 0, distributed waits raise CommTimeoutError after this "
+            "many seconds instead of hanging (ref comm_task_manager).")

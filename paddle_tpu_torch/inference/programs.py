@@ -44,6 +44,15 @@ step does: the same seed gives the same tokens with and without graphs.
 Programs hold the parameters' addresses; ``revalidate`` (run after a
 weight swap) drops them all when one has moved.
 
+Each step program of the kinds the JAX engine registers with its XLA
+introspection (decode, prefill, ragged, verify; not the CoW copy or the
+upload) is counted at its first use, during the eager warm-up that runs
+anyway, under the JAX engine's label (``program_label``:
+``engine:ragged:{c}x{s_pad}:greedy``, ``engine:decode:{steps}:sample``,
+``engine:spec_verify:{c}x{s_pad}``, ...): ``observability.xla_introspect``
+publishes its flops, bytes and memory. Labels are process-wide, as in
+JAX: the first program of a label is the one counted.
+
 Several engines in one process (a fleet's replicas, each stepped by its
 own thread) share the device's capture stream. One engine's warm-up or
 capture must never meet another engine's work on that stream (the work
@@ -86,6 +95,22 @@ CAPTURE_LOCK = threading.RLock()
 _DTYPES = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
            np.dtype(np.float32): torch.float32,
            np.dtype(np.bool_): torch.bool}
+
+
+def program_label(kind, key):
+    """The JAX engine's xla_introspect label of program (kind, key), or
+    None for the kinds it does not register (copy, upload)."""
+    if kind == "decode":
+        steps, sampling = key
+        return f"engine:decode:{steps}:{'sample' if sampling else 'greedy'}"
+    if kind in ("prefill", "ragged"):
+        c, s_pad, sampling = key
+        return (f"engine:{kind}:{c}x{s_pad}:"
+                f"{'sample' if sampling else 'greedy'}")
+    if kind == "verify":
+        c, s_pad = key
+        return f"engine:spec_verify:{c}x{s_pad}"
+    return None
 
 
 def _leading(src, dst):
@@ -199,10 +224,11 @@ class StepPrograms:
                 return prog.outputs
             prog = Program(fn, host, eng.device, shapes)
             prog.load(host)
+            counter = self._counter(kind, key, prog)
             if eng._graphs and eng.device.type == "cuda":
-                out = self._warm_and_capture(prog, "temps" in host)
+                out = self._warm_and_capture(prog, "temps" in host, counter)
             else:
-                out = fn(prog.inputs)
+                out = self._warm(prog, counter)
             if self._weights is None:
                 self._weights = self._addresses()
             self._progs[(kind, key)] = prog
@@ -210,11 +236,38 @@ class StepPrograms:
             setattr(eng, name, getattr(eng, name) + 1)
             return out
 
-    def _warm_and_capture(self, prog, sampling):
+    def _counter(self, kind, key, prog):
+        """An xla_introspect counter for the first use of program (kind,
+        key), or None (a kind JAX does not register, a label already
+        counted, telemetry off)."""
+        from ..observability import metrics, xla_introspect
+        label = program_label(kind, key)
+        if label is None or not metrics.enabled() or \
+                xla_introspect.registered(label):
+            return None
+        eng = self.engine
+        pools = [eng.k_pages, eng.v_pages, eng.k_scales, eng.v_scales]
+        return xla_introspect.count(label, args=(
+            prog.inputs, list(eng.model.parameters()),
+            list(eng.model.buffers()), [p for p in pools if p is not None]),
+            device=eng.device)
+
+    @staticmethod
+    def _warm(prog, counter):
+        """`prog`'s step eagerly, under `counter` when there is one."""
+        if counter is None:
+            return prog.fn(prog.inputs)
+        with counter:
+            out = prog.fn(prog.inputs)
+            counter.outputs = out
+        return out
+
+    def _warm_and_capture(self, prog, sampling, counter=None):
         """The first use on the card: `prog`'s step eagerly on the capture
-        stream (its result is returned), then captured there into a CUDA
-        graph in the engine's pool. The wrappers' launch counts the
-        capture added are taken back and kept for the replays."""
+        stream (its result is returned; counted by `counter`), then
+        captured there into a CUDA graph in the engine's pool. The
+        wrappers' launch counts the capture added are taken back and kept
+        for the replays."""
         dev = self.engine.device
         stream = _STREAMS.get(dev)
         if stream is None:
@@ -224,7 +277,7 @@ class StepPrograms:
         cur = torch.cuda.current_stream(dev)
         stream.wait_stream(cur)
         with torch.cuda.stream(stream):
-            out = prog.fn(prog.inputs)
+            out = self._warm(prog, counter)
         graph = torch.cuda.CUDAGraph()
         if sampling:
             graph.register_generator_state(self.engine._gen)

@@ -10,9 +10,22 @@ optimizer.clear_grad()``. The name stays so that a reader finds the
 counterpart. (Unlike the JAX program, the eager step honours AdamW's
 ``lr_ratio`` and ``apply_decay_param_fun``, and the optimizer's
 ``state_dict`` stays live across steps.)
+
+As the JAX package's fused program folds the update into its one
+program, the step runs the optimizer's update without the "optimizer"
+phase that an eager ``Optimizer.step`` reports to an active
+``perf.StepTimer``: the whole step is the caller's (dispatch, compute).
+The first step made while telemetry is enabled runs under an
+``observability.xla_introspect`` counter and registers the program as
+"train_step" (the first train step of the process; later ones
+"train_step#<n>", the JAX labels): its flops, bytes and memory. Counting
+slows that one step; a telemetry error never blocks it.
 """
 
 from __future__ import annotations
+
+# ordinal labels for xla_introspect registration, as in the JAX package
+_TRAIN_STEP_IDS = [0]
 
 
 def compile_train_step(model, loss_fn, optimizer, donate=True,
@@ -40,13 +53,43 @@ def compile_train_step(model, loss_fn, optimizer, donate=True,
             "the eager step has not; remat the layers with "
             "models.apply_llama_remat or distributed.fleet.utils.recompute")
 
-    def step(*batch):
+    _TRAIN_STEP_IDS[0] += 1
+    prog_name = ("train_step" if _TRAIN_STEP_IDS[0] == 1
+                 else f"train_step#{_TRAIN_STEP_IDS[0] - 1}")
+    registered = [False]
+    update = getattr(optimizer, "_step_impl", optimizer.step)
+
+    def run(*batch):
         loss = loss_fn(model, *batch)
         loss.backward()
-        optimizer.step()
+        update()
         optimizer.clear_grad()
         return loss.detach()
 
+    def step(*batch):
+        if registered[0]:
+            return run(*batch)
+        from ..observability import metrics, xla_introspect
+        if not metrics.enabled():       # retried at the next step
+            return run(*batch)
+        registered[0] = True
+        try:
+            counter = xla_introspect.count(prog_name, args=(
+                batch, list(model.parameters()), list(model.buffers()),
+                optimizer._accumulators, optimizer._master_weights))
+            counter.__enter__()
+        except Exception:  # noqa: BLE001 — telemetry never blocks a step
+            return run(*batch)
+        try:
+            loss = run(*batch)
+            counter.outputs = loss
+        except BaseException as e:
+            counter.__exit__(type(e), e, e.__traceback__)
+            raise
+        counter.__exit__(None, None, None)
+        return loss
+
+    step.program = prog_name
     return step
 
 

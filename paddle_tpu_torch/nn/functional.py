@@ -146,8 +146,10 @@ def fused_rope_qk(q, k, cos, sin):
     dividing Hq) by the same tables, in one kernel launch each way: the
     port's own, where the JAX model rotates q and k apart. cos/sin: [S, D]
     or the rows at each token's own position ([B, S, D], or [B, D] when
-    S = 1; these take no gradient). Returns (q_rot, k_rot)."""
-    q, k, cos, sin = amp_cast("fused_rope", q, k, cos, sin)
+    S = 1; these take no gradient). Returns (q_rot, k_rot). Counted as
+    the JAX model's two ``fused_rope`` ops (amp.debugging)."""
+    q, cos, sin = amp_cast("fused_rope", q, cos, sin)
+    k, cos, sin = amp_cast("fused_rope", k, cos, sin)
     return _k.FusedRoPEQK.apply(q, k, cos, sin)
 
 

@@ -4,14 +4,17 @@ Stdlib-only copies of ``paddle_tpu/observability``'s metrics registry
 (counters, gauges, fixed-bucket histograms), structured event log,
 request tracing (spans, quantile sketches, SLO attainment), flight
 recorder, per-request cost ledger, exporters (Prometheus text, JSONL,
-chrome trace) and the doctor's detectors. Every series keeps the JAX
-package's name, so one dashboard reads both; the port holds its own
-``REGISTRY`` and ``EVENTS`` (a process that imports both packages has
-two registries).
+chrome trace, with the profiler's host ``RecordEvent`` spans merged in)
+and the doctor's detectors, with the step-scope performance ledger
+(``perf``: phases, goodput, MFU) and program introspection
+(``xla_introspect``: per-program flops, bytes and the HBM ledger, rebuilt
+for eager PyTorch on CUDA). Every series keeps the JAX package's name, so
+one dashboard reads both; the port holds its own ``REGISTRY`` and
+``EVENTS`` (a process that imports both packages has two registries).
 
-The JAX package's XLA introspection, MFU and sharding observatory
-(``xla_introspect``, ``perf``, ``sharding``) have no counterpart here
-yet: they are rebuilt for CUDA in a later slice.
+The JAX package's sharding observatory (``sharding``) has no counterpart
+here yet: it reads the collectives of sharded programs, which come with
+tensor-parallel serving.
 """
 
 from __future__ import annotations
@@ -36,11 +39,12 @@ __all__ = [
     "prometheus_text", "dump_metrics_json", "dump_events_jsonl",
     "chrome_trace", "serve_prometheus", "snapshot", "reset", "dump_run",
     # lazy submodules (PEP 562), as in the JAX package
-    "flight_recorder", "tracing", "detectors", "doctor", "costs",
+    "perf", "xla_introspect", "flight_recorder", "tracing", "detectors",
+    "doctor", "costs",
 ]
 
-_LAZY_SUBMODULES = ("flight_recorder", "tracing", "detectors", "doctor",
-                    "costs")
+_LAZY_SUBMODULES = ("perf", "xla_introspect", "flight_recorder", "tracing",
+                    "detectors", "doctor", "costs")
 
 
 def __getattr__(name):
@@ -63,6 +67,12 @@ def reset():
     import sys as _sys
     REGISTRY.reset()
     EVENTS.clear()
+    xi = _sys.modules.get(__name__ + ".xla_introspect")
+    if xi is not None:
+        xi.reset()
+    pf = _sys.modules.get(__name__ + ".perf")
+    if pf is not None:
+        pf._ACTIVE[0] = None      # detach any lingering StepTimer
     co = _sys.modules.get(__name__ + ".costs")
     if co is not None:
         co.LEDGER.reset()         # drop open per-trace cost entries

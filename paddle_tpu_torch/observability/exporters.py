@@ -8,12 +8,10 @@ Three consumers, three formats:
   series plus ``_sum``/``_count``.
 - ``dump_metrics_json`` / ``dump_events_jsonl`` — file artifacts for
   tools/obs_report.py and for embedding in BENCH records.
-- ``chrome_trace()`` — one chrome://tracing JSON of the observability
-  events as instant marks (ph="i") and the request spans (ph="X"), one
-  lane per trace id. The JAX package merges its profiler's host
-  RecordEvent spans in as well; the port has no such profiler
-  (``torch.profiler`` writes its own traces), so ``include_host_spans``
-  merges nothing here.
+- ``chrome_trace()`` — one chrome://tracing JSON interleaving the
+  profiler's host ``RecordEvent`` spans (``paddle_tpu_torch.profiler``)
+  with the observability events as instant marks (ph="i") and the
+  request spans (ph="X"), one lane per trace id.
 """
 
 from __future__ import annotations
@@ -188,16 +186,28 @@ def dump_events_jsonl(path, events=EVENTS):
     return events.export_jsonl(path)
 
 
+def _host_spans():
+    """The profiler's buffered RecordEvent spans (already chrome-trace
+    shaped). Lazy import: the exporters must not force the profiler into
+    every import graph."""
+    try:
+        from ..profiler import _host
+        return _host.all_events()
+    except Exception:  # noqa: BLE001 — spans are optional garnish
+        return []
+
+
 def chrome_trace(path=None, events=EVENTS, include_host_spans=True,
                  include_metric_marks=True):
     """Merged chrome://tracing dict; written to `path` when given.
 
-    Observability events become instant events on a synthetic
-    'observability' thread, with their fields in args, and spans one lane
-    per trace id. `include_host_spans` is the JAX package's signature:
-    there are no host RecordEvent spans to merge in the port."""
+    Host RecordEvent spans keep their (pid, tid, ts, dur); observability
+    events become instant events on a synthetic 'observability' thread,
+    with their fields in args, and spans one lane per trace id."""
     trace = []
     meta = []
+    if include_host_spans:
+        trace.extend(_host_spans())
     if include_metric_marks:
         pid = os.getpid()
         # Trace Event Format wants integer tids: park the marks on a

@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 _M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -121,6 +121,7 @@ _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_void_p]
 
 
+@_cost.costed("bias_dropout_residual_ln", _cost.bdrln)
 def bias_dropout_residual_ln(x, residual, ln_w, ln_b, bias=None, eps=1e-5,
                              p=0.0, seed=0):
     """(out, y, keep) of the plain version. CPU tensors take the plain

@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 NEG_INF = -1e30
 L_EPS = 1e-30      # the finalize's clamp of the normalizer (common.cuh)
@@ -208,6 +208,7 @@ def _check(q, k_pages, v_pages, block_tables, context_lens):
         raise ValueError("paged_decode_attention: batch sizes disagree")
 
 
+@_cost.costed("paged_decode_attention", _cost.decode)
 def paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
                            scale=None):
     """q: [B, H, D]; k_pages/v_pages: [N, page, H_kv, D]; block_tables:

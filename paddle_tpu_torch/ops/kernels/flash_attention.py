@@ -54,7 +54,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _cost
 from .decode_attention import NEG_INF
 
 L_EPS = 1e-30          # the finalize's clamp of the normalizer
@@ -250,6 +250,7 @@ def _fwd(q, k, v, causal, scale, bounds, what):
     return out, lse, rt
 
 
+@_cost.costed("flash_attention", _cost.flash_fwd)
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """q: [B, S_q, H, D]; k/v: [B, S_k, H_kv, D] -> (out, lse [B, H, S_q]).
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
@@ -276,6 +277,7 @@ def flashmask_attention_fwd_plain(q, k, v, start, end, start2=None,
                                      p_dtype=p_dtype)
 
 
+@_cost.costed("flashmask_attention", _cost.flashmask_fwd)
 def flashmask_attention_fwd(q, k, v, start, end, start2=None, end2=None,
                             causal=True, scale=None):
     """q: [B, S_q, H, D]; k/v: [B, S_k, H_kv, D]; bounds int32 [B, kh,
@@ -380,6 +382,7 @@ def _bwd(q, k, v, out, lse, dout, causal, scale, bounds, what):
     return dq, dk, dv, rt
 
 
+@_cost.costed("flash_attention_bwd", _cost.flash_bwd)
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None):
     """(dq, dk, dv) of ``flash_attention_fwd``. CPU tensors take the plain
     version; CUDA tensors launch the two backward kernels (or raise)."""
@@ -406,6 +409,7 @@ def flashmask_attention_bwd_plain(q, k, v, out, lse, dout, start, end,
                                      p_dtype=p_dtype)
 
 
+@_cost.costed("flashmask_attention_bwd", _cost.flashmask_bwd)
 def flashmask_attention_bwd(q, k, v, out, lse, dout, start, end,
                             start2=None, end2=None, causal=True, scale=None):
     """(dq, dk, dv) of ``flashmask_attention_fwd``. CPU tensors take the

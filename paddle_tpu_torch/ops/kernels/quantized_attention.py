@@ -36,7 +36,7 @@ import math
 import torch
 
 from ...quantization.page_quant import INV_QMAX
-from . import _build
+from . import _build, _cost
 from .decode_attention import (checked_plan, decode_over_context,
                                decode_split_over_context, split_plan,
                                workspace)
@@ -179,6 +179,7 @@ _RAGGED_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
+@_cost.costed("paged_decode_attention_int8", _cost.decode_int8)
 def paged_decode_attention_int8(q, k_pages, v_pages, k_scales, v_scales,
                                 block_tables, context_lens, scale=None):
     """q: [B, H, D] float; k_pages/v_pages: [N, page, H_kv, D] int8;
@@ -217,6 +218,7 @@ def paged_decode_attention_int8(q, k_pages, v_pages, k_scales, v_scales,
 paged_decode_attention_int8.launches = 0
 
 
+@_cost.costed("ragged_paged_attention_int8", _cost.ragged_int8)
 def ragged_paged_attention_int8(q, k_pages, v_pages, k_scales, v_scales,
                                 block_tables, context_lens, q_lens,
                                 scale=None):

@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _cost
 from .decode_attention import NEG_INF, gather_pages
 from .flash_attention import L_EPS, _aligned, _count
 
@@ -224,6 +224,7 @@ def _check(q, k_pages, v_pages, block_tables, context_lens, q_lens):
         raise ValueError("ragged_paged_attention: row counts disagree")
 
 
+@_cost.costed("ragged_paged_attention", _cost.ragged)
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                            q_lens, scale=None):
     """q: [C, Q_max, H, D]; k_pages/v_pages: [N, page, H_kv, D];

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 
 def rms_norm_plain(x, w, eps=1e-6):
@@ -36,6 +36,7 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p]
 
 
+@_cost.costed("rms_norm", _cost.rms_norm)
 def rms_norm(x, w, eps=1e-6):
     """x: [..., H]; w: [H]. CPU tensors take the plain version; CUDA
     tensors launch the kernel (or raise)."""

@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 
 def fused_rope_plain(x, cos, sin):
@@ -137,6 +137,7 @@ def _launch(what, q, k, cos, sin, row_stride, transpose):
     return oq, ok
 
 
+@_cost.costed("fused_rope", _cost.rope)
 def fused_rope(x, cos, sin):
     """x: [B, S, H, D]; cos/sin: [S, D]. CPU tensors take the plain
     version; CUDA tensors launch the kernel (or raise)."""
@@ -147,6 +148,7 @@ def fused_rope(x, cos, sin):
     return _launch("fused_rope", x, None, cos, sin, row_stride, False)[0]
 
 
+@_cost.costed("fused_rope", _cost.rope_qk)
 def fused_rope_qk(q, k, cos, sin):
     """q [B, S, Hq, D] and k [B, S, Hk, D] (Hk dividing Hq) rotated by the
     same tables in one launch -> (q_rot, k_rot). Tables: [S, D], broadcast
@@ -163,6 +165,7 @@ def fused_rope_qk(q, k, cos, sin):
     return out
 
 
+@_cost.costed("fused_rope_bwd", _cost.rope_bwd)
 def fused_rope_bwd(g, cos, sin, g_k=None):
     """The vjp of ``fused_rope`` with respect to x: g [B, S, H, D] (and,
     for the q + k form, g_k [B, S, Hk, D] in the same launch); cos/sin

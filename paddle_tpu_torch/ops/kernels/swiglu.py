@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 
 def swiglu_plain(gate, up):
@@ -32,6 +32,7 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
+@_cost.costed("swiglu", _cost.swiglu)
 def swiglu(gate, up):
     """gate/up: [..., F], same shape and type. CPU tensors take the plain
     version; CUDA tensors launch the kernel (or raise)."""

@@ -138,8 +138,15 @@ class Optimizer:
         raise NotImplementedError
 
     # -- step ------------------------------------------------------------------
-    @torch.no_grad()
     def step(self):
+        """One update, attributed to the active ``perf.StepTimer``'s
+        "optimizer" phase (as the JAX package's eager step is)."""
+        from ..observability.perf import phase_scope
+        with phase_scope("optimizer"):
+            return self._step_impl()
+
+    @torch.no_grad()
+    def _step_impl(self):
         self._step_count += 1
         params_grads = [(p, p.grad) for p in self._parameter_list
                         if p.grad is not None

@@ -577,7 +577,15 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.optimizer.extra, "
             "paddle_tpu_torch.jit, paddle_tpu_torch.distributed, "
             "paddle_tpu_torch.distributed.checkpoint, "
-            "paddle_tpu_torch.distributed.fleet.utils.recompute; "
+            "paddle_tpu_torch.distributed.fleet.utils.recompute, "
+            "paddle_tpu_torch.observability.perf, "
+            "paddle_tpu_torch.observability.xla_introspect, "
+            "paddle_tpu_torch.io, paddle_tpu_torch.io._shm_worker, "
+            "paddle_tpu_torch.profiler, paddle_tpu_torch.amp.debugging, "
+            "paddle_tpu_torch.framework.flags, "
+            "paddle_tpu_torch.distributed.watchdog, "
+            "paddle_tpu_torch.distributed.fleet.elastic, "
+            "paddle_tpu_torch.distributed.resilient; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad); "
