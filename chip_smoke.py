@@ -206,9 +206,31 @@ source, all started together; each build's seconds printed), then:
    flops beside _train_flops (within 5%), the save, restore and snapshot
    seconds; then an uninterrupted run of the surviving steps must give
    the same losses and final parameters, each within 2 bf16 ulps).
+9. tensor parallelism (slice 16): collectives (after agree:fleet): every
+   collective of paddle_tpu_torch.distributed on co-located 2- and
+   4-rank worlds on the card (stacked and per-rank layouts, every reduce
+   op, the object collectives, the step programs' all-reduce and
+   all-gather) against the host's result: integers exact, float32 within
+   COLL_RTOL; agree:mesh: a narrow Llama (2 KV heads) and GPT in bf16
+   through MeshGenerationEngine at tp2, tp4 (the Llama's pools
+   replicated) and tp2 x fsdp2, float and int8 pools, against the
+   single-device engine on the card: every first divergence a near-tie
+   (MESH_TIE_ULPS), the largest teacher-forced logit difference printed,
+   programs built per kind equal, and a tp2 export's shards block
+   refused by a single-device importer that then re-prefills; then
+   serve:mesh (after fleet:int8): the 7B model at tp=2 co-located on the
+   card (16 heads and 16 KV heads a shard) through serve's workload, a
+   cold and a warm wave with graphs and a profiled window: decode
+   tokens/s, TTFT and peak memory beside serve's from the same call, the
+   pool bytes per shard, programs and graphs, decode attention 64 calls a
+   decode step, RoPE once a layer a shard, the harvest's all-reduces and
+   bytes a decode step, every token within MESH_TIE_ULPS of the dense
+   argmax; sharding: the harvest and partition audit of that engine
+   (green), and the narrow Llama with q_proj.weight overridden to
+   replicated (red, naming the parameter).
 
-Each flashmask, fused_ffn, serving, BERT and training run's (the
-resilient one's too) launch counts are set to 0 just before it and read just after it; every kernel of its path
+Each flashmask, fused_ffn, serving (serve:mesh too), BERT and training
+run's (the resilient one's too) launch counts are set to 0 just before it and read just after it; every kernel of its path
 must have launched, the int8 runs must launch the float paged attention
 kernels 0 times, every flash launch of the training, dense-serving and
 flashmask runs (bfloat16) and every ragged launch of the serving runs must
@@ -1887,6 +1909,8 @@ def main():
     phase_agree_bert(dev)
     phase_agree_train2(dev)
     phase_agree_fleet(dev)
+    phase_collectives(dev)
+    phase_agree_mesh(dev)
     masked = phase_flashmask(K, dev)
     ffn = phase_fused_ffn(K, dev)
     model = _serving_model(dev)
@@ -1903,6 +1927,9 @@ def main():
     phase_spec_rescore(model, kv_dtype="int8")
     fleet, _ = phase_fleet(K, model, serve_out)
     fleet8, _ = phase_fleet(K, model, serve8_out, kv_dtype="int8")
+    mesh, mesh_eng = phase_serve_mesh(K, model, serve_out, serve_st)
+    phase_sharding(mesh_eng, dev)
+    del mesh_eng
     del model                            # the next runs read their own peak
     _release()
     phase_fleet_proc(dev)
@@ -1922,12 +1949,12 @@ def main():
     gtrain = phase_train_gpt(K, dev)
     btrain = phase_train_bert(K, dev)
     rtrain = phase_train_resilient(K, dev)
-    runs = (serve, dense, serve8, dense8, spec, spec8, fleet, fleet8, gserve,
-            gserve8, gdense, bert, train, remat, gtrain, btrain, rtrain,
-            masked, ffn)
+    runs = (serve, dense, serve8, dense8, spec, spec8, fleet, fleet8, mesh,
+            gserve, gserve8, gdense, bert, train, remat, gtrain, btrain,
+            rtrain, masked, ffn)
     launches = {k: sum(r[k] for r in runs) for k in K.launch_counts()}
-    _require_launched("all serving, fleet, BERT, training, flashmask and "
-                      "fused_ffn runs", launches, K.KERNELS)
+    _require_launched("all serving, fleet, mesh, BERT, training, flashmask "
+                      "and fused_ffn runs", launches, K.KERNELS)
 
     name_power = _nvidia_smi()
     print(name_power)
@@ -3697,6 +3724,8 @@ def phase_serve(K, model, kv_dtype=None, twin=None, name="serve",
           f"kv_pool_bytes={st['kv_pool_bytes']} (warm wave, graphs)")
     print(f"[{tag}] ttft_s p50={ttft[len(ttft) // 2]:.4f} "
           f"max={ttft[-1]:.4f} (host clock, from submission)")
+    st.update(ttft_p50=ttft[len(ttft) // 2], ttft_max=ttft[-1],
+              peak_mem_gb=peak)
     print(f"[{tag}] decode chunks={st['decode_chunks']} tokens="
           f"{st['decode_tokens']} tokens_per_s="
           f"{st['decode_tokens'] / max(st['decode_s'], 1e-9):.2f}; "
@@ -3978,10 +4007,10 @@ def _model_steps(st):
 
 
 def _first_divergences(tag, model, prompts, gen, twin, kv_dtype,
-                       what="the spec-off twin"):
+                       what="the spec-off twin", allowed=SPEC_TIE_ULPS):
     """Each request's tokens against its twin (`what`): at a first
     divergence, the dense forward over the common prefix scores both
-    candidates, which must lie within SPEC_TIE_ULPS bf16 ulps."""
+    candidates, which must lie within `allowed[kv_dtype]` bf16 ulps."""
     found = []
     for i, (p, a, b) in enumerate(zip(prompts, gen, twin)):
         neq = np.flatnonzero(np.asarray(a) != np.asarray(b))
@@ -4001,11 +4030,12 @@ def _first_divergences(tag, model, prompts, gen, twin, kv_dtype,
     print(f"[{tag}] first divergences from {what}: {len(found)} "
           f"of {len(prompts)} requests, (request, position) "
           f"{[(f[0], f[1]) for f in found]}; dense-forward logits of the "
-          f"two candidates (spec-on, spec-off, gap in bf16 ulps, row max) "
+          f"two candidates (this run's, {what}'s, gap in bf16 ulps, row "
+          f"max) "
           f"{[(round(f[2], 4), round(f[3], 4), round(f[4], 2), round(f[5], 3)) for f in found]}; "
           f"worst gap {worst:.2f} ulps (allowed "
-          f"{SPEC_TIE_ULPS[kv_dtype]:g})", flush=True)
-    if worst > SPEC_TIE_ULPS[kv_dtype]:
+          f"{allowed[kv_dtype]:g})", flush=True)
+    if worst > allowed[kv_dtype]:
         raise AssertionError(f"[{tag}] a divergence from {what} "
                              f"is no near-tie: {worst:.2f} ulps")
     return found
@@ -5784,12 +5814,14 @@ def _delta(c1, c0, name):
 FLEET_TIE_ULPS = {None: 16.0, "int8": 38.0}
 
 
-def _fleet_ties(tag, model, prompts, got, want, kv_dtype):
+def _fleet_ties(tag, model, prompts, got, want, kv_dtype,
+                allowed=FLEET_TIE_ULPS):
     """The fleet's tokens against [serve]'s (`want`) and against greedy
     decoding itself: at every position the dense forward over the prompt
     and the tokens before it must score the delivered token within
-    FLEET_TIE_ULPS of its argmax. A lost, repeated or misplaced token, or
-    a page the handoff corrupted, would leave the argmax by far more."""
+    `allowed[kv_dtype]` bf16 ulps of its argmax. A lost, repeated or
+    misplaced token, or a page the handoff corrupted, would leave the
+    argmax by far more."""
     rows = []
     for p, g, w in zip(prompts, got, want):
         ids = torch.as_tensor(np.concatenate([p, g[:-1]])[None],
@@ -5809,9 +5841,9 @@ def _fleet_ties(tag, model, prompts, got, want, kv_dtype):
     print(f"[{tag}] per request: (first position leaving [serve]'s tokens, "
           f"positions whose token is not the dense forward's argmax, "
           f"largest gap to the argmax in bf16 ulps) {rows}; worst "
-          f"{worst:.2f} ulps (allowed {FLEET_TIE_ULPS[kv_dtype]:g})",
+          f"{worst:.2f} ulps (allowed {allowed[kv_dtype]:g})",
           flush=True)
-    if worst > FLEET_TIE_ULPS[kv_dtype]:
+    if worst > allowed[kv_dtype]:
         raise AssertionError(f"[{tag}] a delivered token is no near-tie of "
                              f"greedy decoding: {worst:.2f} ulps")
 
@@ -6193,6 +6225,396 @@ def phase_fleet_proc(dev):
         for r in reps.values():
             r.shutdown()
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
+# slice 16: tensor parallelism
+# ----------------------------------------------------------------------
+
+# a float32 collective against the host's float64 result over the same
+# stacked values (rank-order sums of <= 4 values: a few float32 roundings)
+COLL_RTOL = 1e-6
+# [agree:mesh] and [serve:mesh]: where the mesh's tokens leave the single
+# engine's, both candidates (or the delivered token and the argmax) within
+# this many bf16 ulps under the single-device dense forward (the shards'
+# bf16 partial products are summed after their own rounding, not inside
+# one GEMM's accumulation)
+MESH_TIE_ULPS = {None: 16.0, "int8": 38.0}
+# the narrow models of [agree:mesh]: 4 heads of 64 (2 KV heads for the
+# Llama, so tp 4 replicates its pools), 2 layers, bf16
+MESH_NARROW = dict(vocab=512, hidden=256, layers=2, heads=4, ffn=512,
+                   seq=256)
+MESH_KW = dict(max_slots=4, page_size=16, max_seq_len=256, prefill_chunk=32,
+               mixed_step=True, prefix_cache=True)
+MESH_CASES = (("tp2", 2, 1), ("tp4", 4, 1), ("tp2fsdp2", 2, 2))
+
+
+def phase_collectives(dev):
+    """[collectives]: every collective of ``distributed`` on co-located 2-
+    and 4-rank worlds on `dev`, each against the stacked result the host
+    computes from the same values: integers exact, float32 within
+    COLL_RTOL of the float64 result."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import parallel_base as PB
+    from paddle_tpu_torch.distributed.communication import stream
+
+    rng = np.random.default_rng(16)
+    worst = {}
+
+    def held(name, got, want, exact=False):
+        got = got.detach().cpu().numpy() if torch.is_tensor(got) \
+            else np.asarray(got)
+        want = np.broadcast_to(np.asarray(want), got.shape)
+        if exact:
+            err = 0.0 if np.array_equal(got, want) else float("inf")
+        else:
+            err = float(np.max(np.abs(got - want) /
+                               np.maximum(np.abs(want), 1e-30)))
+        worst[name] = max(worst.get(name, 0.0), err)
+        if err > (0.0 if exact else COLL_RTOL):
+            raise AssertionError(f"[collectives] {name}: relative error "
+                                 f"{err} (allowed {COLL_RTOL})")
+
+    def on(a):
+        return torch.tensor(a, device=dev)      # a copy of the host values
+
+    try:
+        for n in (2, 4):
+            dist.destroy_process_group()
+            dist.init_parallel_env(devices=[dev] * n)
+            x = rng.uniform(0.5, 1.5, (n, 64, 257)).astype(np.float32)
+            x64 = x.astype(np.float64)
+            xi = rng.integers(-1000, 1000, (n, 4099)).astype(np.int32)
+            ref = {"sum": x64.sum(0), "max": x64.max(0), "min": x64.min(0),
+                   "avg": x64.mean(0), "prod": x64.prod(0)}
+            for op, want in ref.items():
+                t = on(x)
+                dist.all_reduce(t, op=op)
+                held(f"all_reduce.{op}", t, want)
+                parts = [on(x[i]) for i in range(n)]
+                dist.all_reduce(parts, op=op)
+                for p_ in parts:
+                    held(f"all_reduce.{op}.ranks", p_, want)
+            for op, fn in (("sum", np.sum), ("max", np.max),
+                           ("min", np.min)):
+                t = on(xi)
+                dist.all_reduce(t, op=op)
+                held(f"all_reduce.{op}.int32", t, fn(xi, 0), exact=True)
+            t = on(x[0])
+            dist.all_reduce(t)                      # replicated: n * x
+            held("all_reduce.replicated", t, x64[0] * n)
+            t = on(x)
+            stream.all_reduce(t)
+            held("stream.all_reduce", t, ref["sum"])
+            t = on(x)
+            dist.reduce(t, dst=0)
+            held("reduce", t, ref["sum"])
+            got = dist.all_gather([], on(x))
+            for i in range(n):
+                held("all_gather", got[i], x[i], exact=True)
+            got = dist.gather(on(xi), [])
+            for i in range(n):
+                held("gather", got[i], xi[i], exact=True)
+            t = on(xi)
+            dist.broadcast(t, src=1)
+            held("broadcast", t, xi[1], exact=True)
+            t = on(np.zeros_like(x[0]))
+            dist.scatter(t, [on(x[i]) for i in range(n)])
+            held("scatter", t, x[0], exact=True)
+            t = on(np.zeros_like(x[0]))
+            dist.reduce_scatter(t, [on(x[i]) for i in range(n)])
+            held("reduce_scatter", t, ref["sum"])
+            out = []
+            dist.alltoall(out, [on(xi[i]) for i in range(n)])
+            for i in range(n):
+                held("alltoall", out[i], xi[i], exact=True)
+            t = on(np.zeros_like(xi))
+            dist.alltoall_single(t, on(xi))
+            held("alltoall_single", t, xi, exact=True)
+            dist.send(on(xi[1]), dst=0, tag=n)
+            t = on(np.zeros_like(xi[1]))
+            dist.recv(t, src=1, tag=n)
+            held("send_recv", t, xi[1], exact=True)
+            dist.isend(on(xi[0]), dst=0, tag=n + 10)
+            t = on(np.zeros_like(xi[0]))
+            dist.irecv(t, src=1, tag=n + 10).wait()
+            held("isend_irecv", t, xi[0], exact=True)
+            dist.barrier()
+            objs = []
+            dist.all_gather_object(objs, {"n": n})
+            lst = [{"n": n}, "x"]
+            dist.broadcast_object_list(lst, src=0)
+            if objs != [{"n": n}] * n or lst != [{"n": n}, "x"]:
+                raise AssertionError("[collectives] object collectives")
+            parts = [on(x[i]) for i in range(n)]
+            with PB.record_collectives() as found:
+                PB.program_all_reduce(parts)
+                full = PB.program_all_gather([on(x[i]) for i in range(n)],
+                                             -1)[0]
+            held("program_all_reduce", parts[-1], ref["sum"])
+            held("program_all_gather", full,
+                 np.concatenate(list(x), -1), exact=True)
+            if found["all-reduce"] != {"count": 1, "bytes": x[0].nbytes,
+                                       "max_group": n}:
+                raise AssertionError(f"[collectives] harvest record {found}")
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            print(f"[collectives] {n} ranks co-located on {dev}: all held "
+                  f"(all_reduce sum/max/min/avg/prod float32 [{n}, 64, 257] "
+                  f"stacked and per-rank, int32 sum/max/min exact, "
+                  f"replicated, stream, reduce, all_gather, gather, "
+                  f"broadcast, scatter, reduce_scatter, alltoall, "
+                  f"alltoall_single, send/recv, isend/irecv, barrier, "
+                  f"object collectives, the program all-reduce and "
+                  f"all-gather with their harvest record)", flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"[collectives] worst relative error by collective (float32 "
+          f"allowed {COLL_RTOL:g}; int32 exact) "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}",
+          flush=True)
+
+
+def _narrow_models(dev):
+    """The narrow Llama and GPT of [agree:mesh] in bf16, random weights
+    from seed 0."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         LlamaConfig, LlamaForCausalLM)
+    llama = LlamaForCausalLM(LlamaConfig.tiny(kv_heads=2, **MESH_NARROW),
+                             device=dev, dtype=torch.bfloat16)
+    weights.init_random_(llama, seed=0)
+    gpt = GPTForCausalLM(GPTConfig.tiny(**MESH_NARROW), device=dev,
+                         dtype=torch.bfloat16)
+    weights.init_random_(gpt, seed=0)
+    return {"llama": llama, "gpt": gpt}
+
+
+def _teacher_forced_diff(eng, model, prompts, want):
+    """The largest |logit| difference between the mesh's sharded dense
+    forward and the model's own over each prompt + the single engine's
+    tokens."""
+    worst = 0.0
+    with torch.inference_mode():
+        for p, w in zip(prompts, want):
+            ids = torch.as_tensor(np.concatenate([p, w])[None],
+                                  dtype=torch.long, device=model.device)
+            d = (eng._fwd(ids).float() - model(ids).float()).abs().max()
+            worst = max(worst, float(d))
+    return worst
+
+
+def phase_agree_mesh(dev):
+    """[agree:mesh]: the narrow Llama and GPT in bf16 through the mesh
+    engine (tp2, tp4 (the Llama's 2 KV heads: replicated pools),
+    tp2 x fsdp2; float and int8 pools, CUDA graphs) against the
+    single-device engine on the card, two waves each: greedy tokens equal
+    wherever the single engine's choice is no near-tie (MESH_TIE_ULPS),
+    the largest teacher-forced logit difference printed, programs built
+    per kind equal to the single engine's, and at tp2 an export framed as
+    2 shard streams that a single-device importer refuses (then serving
+    the prompt by re-prefill, with a fresh engine's tokens)."""
+    from paddle_tpu_torch.inference import GenerationEngine
+    from paddle_tpu_torch.serving import MeshGenerationEngine
+
+    models = _narrow_models(dev)
+    rng = np.random.default_rng(161)
+    prompts = _serving_prompts(rng, 6, 8, 120, MESH_NARROW["vocab"], 40,
+                               (1, 4))
+    n_new = 16
+    for name, model in models.items():
+        for kv in (None, "int8"):
+            single = GenerationEngine(model, kv_dtype=kv, **MESH_KW)
+            _wave(single, prompts, n_new)
+            want = [np.asarray(o[len(p):]) for o, p in
+                    zip(_wave(single, prompts, n_new), prompts)]
+            for case, tp, fsdp in MESH_CASES:
+                tag = f"agree:mesh:{name}{':int8' if kv else ''}:{case}"
+                eng = MeshGenerationEngine(model, mesh_devices=tp,
+                                           fsdp_devices=fsdp, kv_dtype=kv,
+                                           **MESH_KW)
+                _wave(eng, prompts, n_new)
+                got = [np.asarray(o[len(p):]) for o, p in
+                       zip(_wave(eng, prompts, n_new), prompts)]
+                same = _trace_counts(eng) == _trace_counts(single)
+                div = _first_divergences(tag, model, prompts, got, want, kv,
+                                         "the single engine",
+                                         MESH_TIE_ULPS)
+                diff = _teacher_forced_diff(eng, model, prompts, want)
+                print(f"[{tag}] kv_shards={eng.kv_shards} "
+                      f"mesh_devices={eng.mesh_devices}: tokens == the "
+                      f"single engine's on {len(prompts) - len(div)}/"
+                      f"{len(prompts)} requests; teacher-forced max |logit "
+                      f"diff| {diff:.4g}; programs built per kind == the "
+                      f"single engine's: {same} "
+                      f"{json.dumps(_trace_counts(eng))}; graphs "
+                      f"{json.dumps(_captures(eng))}", flush=True)
+                if not same:
+                    raise AssertionError(f"[{tag}] programs built differ: "
+                                         f"{_trace_counts(eng)} vs "
+                                         f"{_trace_counts(single)}")
+                if case == "tp2":
+                    _agree_mesh_export(tag, eng, model, prompts[1], kv)
+                del eng
+            del single
+            gc.collect()
+    del models
+    _release()
+
+
+def _agree_mesh_export(tag, eng, model, prompt, kv):
+    """A tp2 export carries the shards block; a single-device importer
+    refuses it (an engine_kv_import_skipped event, reason kv_shards) and
+    serves the prompt by re-prefill with a fresh engine's tokens."""
+    from paddle_tpu_torch.inference import GenerationEngine
+    from paddle_tpu_torch.observability.events import EVENTS
+
+    meta, payload = eng.export_kv_pages(prompt)
+    if (meta.get("shards") or {}).get("count") != 2:
+        raise AssertionError(f"[{tag}] the export carries no 2-shard block")
+    importer = GenerationEngine(model, kv_dtype=kv, **MESH_KW)
+    n0 = len(EVENTS.events("engine_kv_import_skipped"))
+    took = importer.import_kv_pages(meta, payload)
+    skips = EVENTS.events("engine_kv_import_skipped")[n0:]
+    fresh = GenerationEngine(model, kv_dtype=kv, **MESH_KW)
+    a = _wave(importer, [prompt], 8)[0]
+    b = _wave(fresh, [prompt], 8)[0]
+    print(f"[{tag}] export: {meta['n_pages']} pages in "
+          f"{len(meta['shards']['streams'])} shard streams, {len(payload)} "
+          f"bytes; a single-device importer took {took} pages "
+          f"({[e.get('reason') for e in skips]}) and re-prefilled: tokens "
+          f"== a fresh engine's {np.array_equal(a, b)}", flush=True)
+    if took != 0 or not skips or skips[-1].get("reason") != "kv_shards" \
+            or not np.array_equal(a, b):
+        raise AssertionError(f"[{tag}] the shard refusal failed")
+
+
+def phase_serve_mesh(K, model, want, serve_st):
+    """[serve:mesh]: [serve]'s workload (8 prompts of 300-900 tokens,
+    max_slots 4, pages of 16, chunks of 256, mixed steps, bf16 pools,
+    CUDA graphs) through the mesh engine at tp=2 co-located on the card
+    (16 heads and 16 KV heads a shard, FFN 5504 a shard): a cold wave
+    captures the programs, a warm wave (it must build none) gives the
+    numbers beside [serve]'s from this call, then engine steps 2-7 run
+    under the profiler. Every kernel of the path must launch, decode
+    attention 64 times a decode step (32 layers x 2 shards) and RoPE
+    once a layer a shard a model step; every delivered token must be the
+    single-device dense forward's argmax or within MESH_TIE_ULPS of it
+    (teacher-forced greedy agreement). Returns the warm wave's launches
+    and the engine (for [sharding])."""
+    from paddle_tpu_torch.observability import sharding, xla_introspect
+    from paddle_tpu_torch.serving import MeshGenerationEngine
+
+    tag = "serve:mesh"
+    cfg = model.config
+    _fresh_pools(model)
+    xla_introspect.reset()
+    sharding.reset()
+    rng = np.random.default_rng(0)
+    prompts = _serving_prompts(rng, 8, 300, 900, cfg.vocab_size, 512, (0, 5))
+    kw = dict(max_slots=4, page_size=16, prefill_chunk=256, mixed_step=True,
+              prefix_cache=True)
+    n_new = 32
+    eng = MeshGenerationEngine(model, mesh_devices=2, **kw)
+    _, cold, cold_wall, _, _ = _serve_wave(eng, prompts, n_new)
+    marks = _trace_counts(eng)
+    gen, st, wall, launches, ttft = _serve_wave(eng, prompts, n_new)
+    frozen = _trace_counts(eng) == marks
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    layers, tp = cfg.num_hidden_layers, eng._tp
+    shard_bytes = eng._pool_bytes_by_position()
+    print(f"[{tag}] tp=2 co-located on {model.device}: kv_shards="
+          f"{eng.kv_shards} mesh_devices={eng.mesh_devices}; "
+          f"engine_kv_pool_shard_bytes by mesh position "
+          f"{json.dumps(shard_bytes)} (the single engine's pool "
+          f"{serve_st['kv_pool_bytes']}); CUDA graphs: cold wave wall_s="
+          f"{cold_wall:.3f}, programs built {json.dumps(_trace_counts(eng))}"
+          f", graphs captured {json.dumps(_captures(eng))}; warm wave "
+          f"builds none: {frozen}")
+    tps = st["decode_tokens"] / max(st["decode_s"], 1e-9)
+    s_tps = serve_st["decode_tokens"] / max(serve_st["decode_s"], 1e-9)
+    print(f"[{tag}] requests={len(prompts)} new_tokens="
+          f"{sum(map(len, gen))} wall_s={wall:.3f} peak_mem_gb={peak:.2f} "
+          f"decode tokens_per_s={tps:.2f} ttft_s p50="
+          f"{ttft[len(ttft) // 2]:.4f} max={ttft[-1]:.4f} (warm wave, "
+          f"graphs); [serve] in this call: decode tokens_per_s="
+          f"{s_tps:.2f} ttft_s p50={serve_st['ttft_p50']:.4f} max="
+          f"{serve_st['ttft_max']:.4f} peak_mem_gb="
+          f"{serve_st['peak_mem_gb']:.2f}", flush=True)
+    print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+    dec = launches["paged_decode_attention"]
+    per_step = dec / max(st["decode_steps"], 1)
+    print(f"[{tag}] decode attention: {dec} calls over "
+          f"{st['decode_steps']} decode steps = {per_step:g} per decode "
+          f"step ({layers} layers x {tp} shards, {cfg.num_attention_heads
+          // tp} query and "
+          f"{model.paged_spec()['n_kv_heads'] // tp} KV heads a shard)",
+          flush=True)
+    if dec != st["decode_steps"] * layers * tp:
+        raise AssertionError(f"[{tag}] decode attention {dec} calls for "
+                             f"{st['decode_steps']} decode steps")
+    steps = sum(launches[n] for n in STEP_KERNELS) // (layers * tp)
+    if launches["fused_rope"] != layers * tp * steps:
+        raise AssertionError(f"[{tag}] RoPE launches "
+                             f"{launches['fused_rope']}, expected "
+                             f"{layers * tp} a model step x {steps}")
+    summ = sharding.collective_summary()
+    for label in sorted(n for n in summ if n.startswith("engine:decode:")):
+        k = int(label.split(":")[2])
+        ar = summ[label]["ops"].get("all-reduce", {})
+        print(f"[{tag}] {label}: {ar.get('count', 0) / k:g} all-reduces and "
+              f"{ar.get('bytes', 0) / k:.0f} bytes a decode step (per "
+              f"shard payload; harvest), comm fraction "
+              f"{summ[label]['comm_fraction']}", flush=True)
+        if ar.get("count") != 2 * layers * k:
+            raise AssertionError(f"[{tag}] {label}: {ar} all-reduces")
+    _require_launched(tag, launches, _path_kernels(model, None, False))
+    _require_sm90_ragged(tag, launches)
+    if not frozen:
+        raise AssertionError(f"[{tag}] the warm wave built programs")
+    _fleet_ties(tag, model, prompts, gen, want, None, MESH_TIE_ULPS)
+    _profile_serve(eng, prompts, n_new, f"profile:{tag}")
+    return launches, eng
+
+
+def phase_sharding(eng, dev):
+    """[sharding]: the harvest of [serve:mesh]'s programs and the partition
+    audit of its canonical tp2 engine, which must be green; then the
+    narrow Llama at tp2 with q_proj.weight overridden to replicated,
+    whose audit must be red and name the parameter."""
+    from paddle_tpu_torch.observability import sharding, xla_introspect
+    from paddle_tpu_torch.serving import MeshGenerationEngine
+
+    xla_introspect.harvest()
+    summ = sharding.collective_summary()
+    for label, e in sorted(summ.items()):
+        print(f"[sharding] {label}: {json.dumps(e['ops'])} comm_fraction="
+              f"{e['comm_fraction']} flops={e['flops']}", flush=True)
+    audit = sharding.partition_audit(eng)
+    print(f"[sharding] partition audit of [serve:mesh]'s engine: ok="
+          f"{audit['ok']} checked={audit['checked']} sharded="
+          f"{audit['sharded']} replicated={audit['replicated']} "
+          f"col_parallel_ok={audit['col_parallel_ok']} row_parallel_ok="
+          f"{audit['row_parallel_ok']} hlo_params={audit['hlo_params']}",
+          flush=True)
+    if not audit["ok"] or not audit["col_parallel_ok"] \
+            or not audit["row_parallel_ok"] or not summ:
+        raise AssertionError("[sharding] the canonical engine's audit is "
+                             f"not green: {audit['violations'][:4]}")
+    model = _narrow_models(dev)["llama"]
+    bad = MeshGenerationEngine(model, mesh_devices=2,
+                               param_spec_overrides={"q_proj.weight": None},
+                               **MESH_KW)
+    red = sharding.partition_audit(bad)
+    names = [v["param"] for v in red["violations"]]
+    print(f"[sharding] q_proj.weight overridden to replicated: ok="
+          f"{red['ok']} violations {red['violations']}", flush=True)
+    if red["ok"] or "llama.layers.0.self_attn.q_proj.weight" not in names:
+        raise AssertionError("[sharding] the misspecified engine's audit "
+                             "did not name q_proj.weight")
+    del bad, model
+    sharding.reset()
+    _release()
 
 
 if __name__ == "__main__":

@@ -90,10 +90,17 @@ What differs:
   ``torch.inference_mode()`` (``step``, ``fork_request`` and every
   program): the model's parameters are trainable, and a pool written
   inside an autograd graph would hold that graph across steps.
-- no cost ledger attribution of dispatches and no request spans: the
-  engine books KV bytes in ``observability.costs.LEDGER`` (as the JAX
-  engine's transfer paths do) and records its KV events, but not the
-  per-dispatch device seconds.
+- no request spans and no waste shares: the engine books each dispatch's
+  device seconds (``observability.costs.LEDGER.on_dispatch``, split over
+  its riders, as the JAX engine does), its KV bytes and its KV events,
+  but not the re-prefill waste after a preemption.
+- the tensor-parallel hooks (``mesh_devices``, ``kv_shards``,
+  ``_prog_suffix``, ``_make_pools`` / ``_pool_shards``, ``_fwd``,
+  ``_param_vals`` / ``_buffer_vals`` / ``_param_tensors``, ``_put``,
+  ``_note_mesh_dispatch``) are the single-device defaults that
+  ``serving.mesh_engine.MeshGenerationEngine`` overrides: one pool
+  shard holding every KV head, the model's own forward and parameters,
+  and device seconds equal to wall seconds.
 
 Model contract: ``paged_spec()``, ``paged_prefill(ids, lengths)`` ->
 (last-real-token logits [C, V], ks, vs [L, C, S_pad, H_kv, hd]),
@@ -262,7 +269,9 @@ class PagedGenerationMixin:
 
     def get_engine(self, max_slots=4, page_size=16, **kw):
         """Cached GenerationEngine for this model, one per pool shape; a
-        small LRU, since each engine owns a full KV pool on the device."""
+        small LRU, since each engine owns a full KV pool on the device.
+        ``mesh_devices`` / ``fsdp_devices`` above 1 give a tensor-parallel
+        ``serving.mesh_engine.MeshGenerationEngine``."""
         cache = self.__dict__.setdefault("_engines", OrderedDict())
         sig = (max_slots, page_size, tuple(sorted(kw.items())))
         eng = cache.pop(sig, None)
@@ -272,8 +281,16 @@ class PagedGenerationMixin:
                     if not cache[key].has_work():   # pool
                         del cache[key]
                         break
-            eng = GenerationEngine(self, max_slots=max_slots,
-                                   page_size=page_size, **kw)
+            if int(kw.get("mesh_devices", 1) or 1) > 1 \
+                    or int(kw.get("fsdp_devices", 1) or 1) > 1:
+                from ..serving.mesh_engine import MeshGenerationEngine
+                eng = MeshGenerationEngine(
+                    self, max_slots=max_slots, page_size=page_size, **kw)
+            else:
+                kw = {k: v for k, v in kw.items()
+                      if k not in ("mesh_devices", "fsdp_devices")}
+                eng = GenerationEngine(self, max_slots=max_slots,
+                                       page_size=page_size, **kw)
         cache[sig] = eng
         return eng
 
@@ -717,10 +734,17 @@ class GenerationEngine:
     """Fixed-capacity continuous-batching engine for one model, on the
     model's device."""
 
-    # the shard count KV exports are framed with (kvpages/v1 ``shards``
-    # block); imports refuse another count. A single-device engine owns
-    # every KV head: one stream.
+    # the tensor-parallel hooks (serving.mesh_engine overrides them):
+    # mesh_devices, the devices behind every dispatch, scales wall time
+    # into the DEVICE-seconds the busy counter and the cost ledger book
+    # (latency histograms stay wall time); kv_shards, the shard count KV
+    # exports are framed with (kvpages/v1 ``shards`` block; imports refuse
+    # another count: a single-device engine owns every KV head, one
+    # stream); _prog_suffix, appended to every program's introspection
+    # label, so that a mesh engine's programs register as their own
+    mesh_devices = 1
     kv_shards = 1
+    _prog_suffix = ""
 
     def __init__(self, model, max_slots=4, page_size=16, max_seq_len=None,
                  n_pages=None, cache_dtype=None, kv_dtype=None, seed=None,
@@ -775,27 +799,11 @@ class GenerationEngine:
                              "(int8 pools: kv_dtype='int8')")
         if self.kv_dtype == "int8":
             dtype = torch.int8
-        shape = (n_pages, self.page_size, spec["n_kv_heads"],
-                 spec["head_dim"])
-        self.k_pages = [torch.zeros(shape, dtype=dtype, device=self.device)
-                        for _ in range(spec["n_layers"])]
-        self.v_pages = [torch.zeros(shape, dtype=dtype, device=self.device)
-                        for _ in range(spec["n_layers"])]
-        # int8 pools: per-(layer, page) scale rows. Ones, not zeros: a page
-        # is attendable before its opening write lands (masked by position,
-        # but the dequant still runs)
-        self.k_scales = self.v_scales = None
-        if self.kv_dtype == "int8":
-            self.k_scales = [torch.ones(n_pages, dtype=torch.float32,
-                                        device=self.device)
-                             for _ in range(spec["n_layers"])]
-            self.v_scales = [torch.ones(n_pages, dtype=torch.float32,
-                                        device=self.device)
-                             for _ in range(spec["n_layers"])]
-        pool_bytes = sum(t.numel() * t.element_size()
-                         for t in (*self.k_pages, *self.v_pages,
-                                   *(self.k_scales or ()),
-                                   *(self.v_scales or ())))
+        self._pool_shape = (n_pages, self.page_size, spec["n_kv_heads"],
+                            spec["head_dim"])
+        self._n_layers = int(spec["n_layers"])
+        self._make_pools(dtype)
+        pool_bytes = self._pool_bytes()
         _REG.gauge(
             "engine_kv_pool_bytes",
             "device bytes held by the paged KV pools (incl. scale rows)",
@@ -871,6 +879,9 @@ class GenerationEngine:
         self.ttft_s = deque(maxlen=4096)   # first-token latency per request
         model.eval()
 
+        # the forward the step programs call (the model's own; a mesh
+        # engine's runs it shard by shard)
+        self._fwd = model
         # compiled step programs (programs.py): CUDA graphs on the card;
         # False (private: the eager twin chip_smoke.py measures) runs every
         # program eagerly through its static buffers, as on the CPU
@@ -931,6 +942,84 @@ class GenerationEngine:
         self._gen.manual_seed(int(seed))
 
     # ------------------------------------------------------------------
+    # tensor-parallel hooks (serving.mesh_engine overrides them)
+    # ------------------------------------------------------------------
+
+    def _make_pools(self, dtype):
+        """The KV pools: one ``[n_pages, page, H_kv, D]`` tensor per layer
+        for K and V, and for int8 pools the per-(layer, page) scale rows
+        (ones, not zeros: a page is attendable before its opening write
+        lands; masked by position, but the dequant still runs)."""
+        n_pages = self._pool_shape[0]
+        self.k_pages = [torch.zeros(self._pool_shape, dtype=dtype,
+                                    device=self.device)
+                        for _ in range(self._n_layers)]
+        self.v_pages = [torch.zeros(self._pool_shape, dtype=dtype,
+                                    device=self.device)
+                        for _ in range(self._n_layers)]
+        self.k_scales = self.v_scales = None
+        if self.kv_dtype == "int8":
+            self.k_scales = [torch.ones(n_pages, dtype=torch.float32,
+                                        device=self.device)
+                             for _ in range(self._n_layers)]
+            self.v_scales = [torch.ones(n_pages, dtype=torch.float32,
+                                        device=self.device)
+                             for _ in range(self._n_layers)]
+
+    def _pool_shards(self):
+        """(k pools, v pools, k scale rows, v scale rows, head slice) of
+        each KV shard, each a per-layer list (the rows None on float
+        pools): one shard holding every head on a single device."""
+        return [(self.k_pages, self.v_pages, self.k_scales, self.v_scales,
+                 slice(None))]
+
+    def _pool_tensors(self):
+        """Every pool and scale-row tensor, each once."""
+        seen, out = set(), []
+        for shard in self._pool_shards():
+            for group in shard[:4]:
+                for t in group or ():
+                    if id(t) not in seen:
+                        seen.add(id(t))
+                        out.append(t)
+        return out
+
+    def _pool_bytes(self):
+        return sum(t.numel() * t.element_size() for t in self._pool_tensors())
+
+    def _put(self, x):
+        """Host array -> a tensor on the engine's device."""
+        return torch.as_tensor(x, device=self.device)
+
+    def _param_vals(self):
+        """The parameters the step programs read, in
+        ``model.named_parameters()`` order."""
+        return [p for _, p in self.model.named_parameters()]
+
+    def _buffer_vals(self):
+        return list(self.model.buffers())
+
+    def _param_tensors(self):
+        """Every weight tensor the step programs read (parameters and
+        buffers): the addresses a CUDA graph holds."""
+        return self._param_vals() + self._buffer_vals()
+
+    def _note_mesh_dispatch(self, program, t0, now):
+        """Per-dispatch hook of a mesh engine (the collective traffic of
+        `program`, a (kind, key) pair); a single device moves none."""
+        return None
+
+    def _weights_loaded(self):
+        """After swap_weights' loader ran: a mesh engine re-places its
+        weights from the model's."""
+        return None
+
+    def _program_scope(self, kind, key):
+        """A context around the first (eager) run of program (kind, key):
+        a mesh engine records the program's collectives in it."""
+        return contextlib.nullcontext()
+
+    # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
 
@@ -959,13 +1048,23 @@ class GenerationEngine:
                            self._copy_program)
         self.stats["cow_flushes"] += 1
 
+    def _book_dispatch(self, kind, program, t0, now, riders):
+        """Book one dispatch's window: busy device seconds (wall x
+        mesh_devices), the cost ledger's split over `riders` ((trace,
+        tenant, weight[, kind]) tuples, the JAX engine's), and the mesh
+        engine's per-dispatch hook."""
+        _C_BUSY.inc((now - t0) * self.mesh_devices)
+        if _OBS_ON[0]:
+            _LEDGER.on_dispatch(kind, now - t0, riders,
+                                n_devices=self.mesh_devices)
+        self._note_mesh_dispatch(program, t0, now)
+
     def _copy_program(self, inputs):
         """The CoW copy step: dst pages take the src pages' content in
         every pool; int8 scale rows ride along (a copied page keeps its
         frozen scale)."""
         src, dst = inputs["src"], inputs["dst"]
-        for pool in (*self.k_pages, *self.v_pages, *(self.k_scales or ()),
-                     *(self.v_scales or ())):
+        for pool in self._pool_tensors():
             pool[dst] = pool[src]
 
     def _upload_pages(self, pids, k_rows, v_rows, k_sc=None, v_sc=None):
@@ -994,7 +1093,7 @@ class GenerationEngine:
         host = {"k_rows": k_rows, "v_rows": v_rows, "dst": dst}
         if int8:
             for name, sc in (("k_srow", k_sc), ("v_srow", v_sc)):
-                row = np.ones((len(self.k_pages), m), np.float32)
+                row = np.ones((self._n_layers, m), np.float32)
                 row[:, :n] = np.asarray(sc, np.float32)
                 host[name] = row
         self._programs.run("upload", (m, k_rows.dtype), host,
@@ -1005,15 +1104,21 @@ class GenerationEngine:
         """The KV page upload: the staged pages (and, int8, their scale
         rows) scattered into every pool at the adopted page ids."""
         dst = inputs["dst"]
-        for rows, pools in ((inputs["k_rows"], self.k_pages),
-                            (inputs["v_rows"], self.v_pages)):
-            for li, pool in enumerate(pools):
-                pool.index_copy_(0, dst, rows[li].to(pool.dtype))
-        if self.k_scales is not None:
-            for rows, scales in ((inputs["k_srow"], self.k_scales),
-                                 (inputs["v_srow"], self.v_scales)):
+        seen = set()
+        for kp, vp, ks, vs, heads in self._pool_shards():
+            for rows, pools in ((inputs["k_rows"], kp),
+                                (inputs["v_rows"], vp)):
+                for li, pool in enumerate(pools):
+                    pool.index_copy_(0, dst, rows[li][:, :, heads]
+                                     .to(pool.dtype))
+            if ks is None:
+                continue
+            for rows, scales in ((inputs["k_srow"], ks),
+                                 (inputs["v_srow"], vs)):
                 for li, sc in enumerate(scales):
-                    sc.index_copy_(0, dst, rows[li])
+                    if id(sc) not in seen:     # rows shared by shards
+                        seen.add(id(sc))
+                        sc.index_copy_(0, dst, rows[li])
 
     def _gather_pages(self, pids):
         """Host copies of the listed pages: CPU tensors ``[L, n, page, H,
@@ -1021,22 +1126,28 @@ class GenerationEngine:
         rows (None on float pools): the serialization source. On the card
         the pages are gathered on the device and come over in one copy
         into one pinned buffer."""
-        idx = torch.as_tensor(np.asarray(pids, np.int64), device=self.device)
-        pool = self.k_pages[0]
-        shape = (2, len(self.k_pages), len(pids)) + tuple(pool.shape[1:])
+        idx = self._put(np.asarray(pids, np.int64))
+        shards = self._pool_shards()
+        dtype = shards[0][0][0].dtype
+        shape = (2, self._n_layers, len(pids)) + self._pool_shape[1:]
         on_card = self.device.type == "cuda"
         with torch.no_grad():
-            host = torch.empty(shape, dtype=pool.dtype, pin_memory=on_card)
-            dev = torch.empty(shape, dtype=pool.dtype,
+            host = torch.empty(shape, dtype=dtype, pin_memory=on_card)
+            dev = torch.empty(shape, dtype=dtype,
                               device=self.device) if on_card else host
-            for side, pools in enumerate((self.k_pages, self.v_pages)):
-                for li, p in enumerate(pools):
-                    torch.index_select(p, 0, idx, out=dev[side, li])
+            for kp, vp, _ks, _vs, heads in shards:
+                for side, pools in enumerate((kp, vp)):
+                    for li, p in enumerate(pools):
+                        if heads == slice(None):
+                            torch.index_select(p, 0, idx, out=dev[side, li])
+                        else:      # this shard's heads of every page
+                            dev[side, li][:, :, heads] = torch.index_select(
+                                p, 0, idx.to(p.device)).to(self.device)
             sc = None
-            if self.k_scales is not None:
+            _kp, _vp, k_sc, v_sc, _h = shards[0]    # rows shared by shards
+            if k_sc is not None:
                 sc = torch.stack([torch.stack([s[idx] for s in scales])
-                                  for scales in (self.k_scales,
-                                                 self.v_scales)]).cpu()
+                                  for scales in (k_sc, v_sc)]).cpu()
             if on_card:
                 host.copy_(dev)        # one copy; it syncs
         if sc is None:
@@ -1102,7 +1213,9 @@ class GenerationEngine:
                                      self._prefill_program).cpu().numpy()
         now = time.perf_counter()
         _H_PREFILL.observe(now - t0)
-        _C_BUSY.inc(now - t0)
+        self._book_dispatch(
+            "prefill", ("prefill", (c, s_pad, sampling)), t0, now,
+            [(r.trace, r.tenant, len(r.prompt)) for r, _ in admitted])
         _C_ADMIT.inc(len(admitted))
         self.stats["prefill_admits"] += 1
         self.stats["prefill_s"] += now - t0
@@ -1124,8 +1237,8 @@ class GenerationEngine:
     def _prefill_program(self, inputs):
         """The dense admission step: ``paged_prefill``, the pool write
         (``_write_prefill``) and each row's first token."""
-        logits, ks, vs = self.model.paged_prefill(inputs["ids"],
-                                                  inputs["lens"])
+        logits, ks, vs = self._fwd.paged_prefill(inputs["ids"],
+                                                 inputs["lens"])
         self._write_prefill(ks, vs, inputs["page_ids"])
         return sample_tokens(logits, inputs.get("temps"), self._gen)
 
@@ -1142,22 +1255,25 @@ class GenerationEngine:
         including the rows between a prompt's length and S_pad (K/V of pad
         token 0, not zeros), as the JAX program's does; only the tail
         padding up to whole pages is zeros."""
-        n_layers, c, s_pad = ks.shape[:3]
-        n_pg = page_ids.shape[1]
-        pad = n_pg * self.page_size - s_pad
-        flat = page_ids.reshape(-1)
         for kv, pools, scales in ((ks, self.k_pages, self.k_scales),
                                   (vs, self.v_pages, self.v_scales)):
-            if pad:
-                kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, pad))
-            pages = kv.reshape(n_layers, c * n_pg, self.page_size,
-                               *kv.shape[3:])
+            pages = self._prefill_pages(kv, page_ids.shape[1])
             if scales is not None:
                 pages, page_scales = page_quant.quantize_pages(pages)
+            flat = page_ids.reshape(-1)
             for li, pool in enumerate(pools):
                 pool[flat] = pages[li].to(pool.dtype)
                 if scales is not None:
                     scales[li][flat] = page_scales[li]
+
+    def _prefill_pages(self, kv, n_pg):
+        """A dense prefill's kv [L, C, S_pad, H, hd] as whole pages [L,
+        C * n_pg, page, H, hd] (the tail padded with zeros)."""
+        n_layers, c, s_pad = kv.shape[:3]
+        pad = n_pg * self.page_size - s_pad
+        if pad:
+            kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, pad))
+        return kv.reshape(n_layers, c * n_pg, self.page_size, *kv.shape[3:])
 
     def _assign_or_preempt(self, work, slot, start, n):
         """Assign pages for one row of the ragged dispatch, preempting the
@@ -1219,7 +1335,13 @@ class GenerationEngine:
         toks_np = self._ragged_launch(*arrays, temps)
         now = time.perf_counter()
         _H_RAGGED.observe(now - t0)
-        _C_BUSY.inc(now - t0)
+        # each rider's slice of the fused window by its row's tokens,
+        # booked under its own kind
+        self._book_dispatch(
+            "decode", ("ragged", (*arrays[0].shape, bool(np.any(temps > 0)))),
+            t0, now, [(self._slots[w[0]].trace, self._slots[w[0]].tenant,
+                       max(1, len(w[2])), w[1]) for w in work
+                      if self._slots[w[0]] is not None])
         n_pf = sum(1 for w in work if w[1] == "prefill")
         n_dec = len(work) - n_pf
         _C_CHUNK.inc(n_pf)
@@ -1314,14 +1436,14 @@ class GenerationEngine:
     def _ragged_program(self, inputs):
         """The ragged step: ``paged_prefill_ragged`` and each row's next
         token from its last real position."""
-        logits = self.model.paged_prefill_ragged(
+        logits = self._fwd.paged_prefill_ragged(
             *self._ragged_model_args(inputs), **self._scales())[0]
         return sample_tokens(logits, inputs.get("temps"), self._gen)
 
     def _verify_program(self, inputs):
         """The verify step: ``paged_verify`` and the greedy argmax at every
         position."""
-        logits = self.model.paged_verify(
+        logits = self._fwd.paged_verify(
             *self._ragged_model_args(inputs), **self._scales())[0]
         return torch.argmax(logits.float(), dim=-1)
 
@@ -1379,9 +1501,14 @@ class GenerationEngine:
         t0 = time.perf_counter()
         toks_np = self._decode_launch(self._last_tok, self._n_ctx,
                                       self._active, k, temps)
-        elapsed = time.perf_counter() - t0
+        now = time.perf_counter()
+        elapsed = now - t0
         _H_DECODE.observe(elapsed)
-        _C_BUSY.inc(elapsed)
+        # every rider rode the same k fused steps: equal shares
+        self._book_dispatch(
+            "decode", ("decode", (k, temps is not None)), t0, now,
+            [(self._slots[i].trace, self._slots[i].tenant, k)
+             for i in active])
         _H_OCC.observe(len(active) / self.max_slots)
 
         produced = 0
@@ -1441,7 +1568,7 @@ class GenerationEngine:
             ctx = torch.where(active, positions + 1, zero).to(torch.int32)
             wp = torch.where(active, bt[rows, positions // page].long(), zero)
             wo = torch.where(active, positions % page, zero)
-            logits = self.model.paged_decode(
+            logits = self._fwd.paged_decode(
                 tokens, positions, self.k_pages, self.v_pages, bt, ctx, wp,
                 wo, **self._scales())[0]
             tokens = torch.where(
@@ -1554,7 +1681,11 @@ class GenerationEngine:
         toks_np = self._verify_launch(*arrays)
         now = time.perf_counter()
         _H_SPEC.observe(now - t0)
-        _C_BUSY.inc(now - t0)
+        self._book_dispatch(
+            "spec_verify", ("verify", arrays[0].shape), t0, now,
+            [(self._slots[w[0]].trace, self._slots[w[0]].tenant,
+              1 + len(w[1])) for w in work
+             if self._slots[w[0]] is not None])
         if self._c_spec_disp is not None:
             self._c_spec_disp.inc()
         self.stats["spec_rows"] += len(work)
@@ -2173,9 +2304,9 @@ class GenerationEngine:
 
     def _check_kv_meta(self, meta):
         shards = (meta.get("shards") or {}).get("count", 1)
-        shape = self.k_pages[0].shape       # (n_pages, page, H, D)
+        shape = self._pool_shape            # (n_pages, page, H, D)
         return (meta.get("page_size") == self.page_size
-                and meta.get("n_layers") == len(self.k_pages)
+                and meta.get("n_layers") == self._n_layers
                 and meta.get("n_kv_heads") == shape[2]
                 and meta.get("head_dim") == shape[3]
                 and (meta.get("dtype") == "int8")
@@ -2212,7 +2343,7 @@ class GenerationEngine:
                 f"{meta.get('n_kv_heads')}, head_dim: "
                 f"{meta.get('head_dim')}}} vs pool "
                 f"page_size={self.page_size} shape="
-                f"{tuple(self.k_pages[0].shape)} x{len(self.k_pages)}")
+                f"{self._pool_shape} x{self._n_layers}")
         from ..serving.kv_transfer import unpack_pages, unpack_scales
         t0 = time.perf_counter()
         k_rows, v_rows = unpack_pages(meta, payload,
@@ -2459,6 +2590,7 @@ class GenerationEngine:
         with self._step_lock:
             with torch.no_grad():
                 out = loader()
+                self._weights_loaded()
             # an in-place load keeps every address the programs captured;
             # a moved parameter drops them (rebuilt at their next use)
             self._programs.revalidate()

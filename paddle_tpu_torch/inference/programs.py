@@ -51,7 +51,10 @@ anyway, under the JAX engine's label (``program_label``:
 ``engine:ragged:{c}x{s_pad}:greedy``, ``engine:decode:{steps}:sample``,
 ``engine:spec_verify:{c}x{s_pad}``, ...): ``observability.xla_introspect``
 publishes its flops, bytes and memory. Labels are process-wide, as in
-JAX: the first program of a label is the one counted.
+JAX: the first program of a label is the one counted. A mesh engine's
+labels carry its suffix (``:tp2``, ``:tp2fsdp2``), and the same first run
+happens inside the engine's ``_program_scope``, where the mesh engine
+records the program's collectives for the sharding observatory.
 
 Several engines in one process (a fleet's replicas, each stepped by its
 own thread) share the device's capture stream. One engine's warm-up or
@@ -69,7 +72,6 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import itertools
 import threading
 
 import numpy as np
@@ -225,10 +227,13 @@ class StepPrograms:
             prog = Program(fn, host, eng.device, shapes)
             prog.load(host)
             counter = self._counter(kind, key, prog)
+            scope = eng._program_scope(kind, key)
             if eng._graphs and eng.device.type == "cuda":
-                out = self._warm_and_capture(prog, "temps" in host, counter)
+                out = self._warm_and_capture(prog, "temps" in host, counter,
+                                             scope)
             else:
-                out = self._warm(prog, counter)
+                with scope:
+                    out = self._warm(prog, counter)
             if self._weights is None:
                 self._weights = self._addresses()
             self._progs[(kind, key)] = prog
@@ -242,14 +247,14 @@ class StepPrograms:
         counted, telemetry off)."""
         from ..observability import metrics, xla_introspect
         label = program_label(kind, key)
-        if label is None or not metrics.enabled() or \
-                xla_introspect.registered(label):
-            return None
         eng = self.engine
-        pools = [eng.k_pages, eng.v_pages, eng.k_scales, eng.v_scales]
+        if label is None or not metrics.enabled():
+            return None
+        label += eng._prog_suffix
+        if xla_introspect.registered(label):
+            return None
         return xla_introspect.count(label, args=(
-            prog.inputs, list(eng.model.parameters()),
-            list(eng.model.buffers()), [p for p in pools if p is not None]),
+            prog.inputs, eng._param_tensors(), eng._pool_tensors()),
             device=eng.device)
 
     @staticmethod
@@ -262,7 +267,8 @@ class StepPrograms:
             counter.outputs = out
         return out
 
-    def _warm_and_capture(self, prog, sampling, counter=None):
+    def _warm_and_capture(self, prog, sampling, counter=None,
+                          scope=contextlib.nullcontext()):
         """The first use on the card: `prog`'s step eagerly on the capture
         stream (its result is returned; counted by `counter`), then
         captured there into a CUDA graph in the engine's pool. The
@@ -276,7 +282,7 @@ class StepPrograms:
             self._pool = torch.cuda.graph_pool_handle()
         cur = torch.cuda.current_stream(dev)
         stream.wait_stream(cur)
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), scope:
             out = self._warm(prog, counter)
         graph = torch.cuda.CUDAGraph()
         if sampling:
@@ -318,9 +324,7 @@ class StepPrograms:
         prog.outputs = outputs
 
     def _addresses(self):
-        model = self.engine.model
-        return tuple(t.data_ptr() for t in
-                     itertools.chain(model.parameters(), model.buffers()))
+        return tuple(t.data_ptr() for t in self.engine._param_tensors())
 
     def revalidate(self):
         """After the model's weights changed: keep the programs when every

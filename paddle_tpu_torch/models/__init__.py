@@ -2,9 +2,11 @@
 
 from .bert import (BertConfig, BertForMaskedLM,
                    BertForSequenceClassification, BertModel)
-from .gpt import GPTConfig, GPTForCausalLM
-from .llama import LlamaConfig, LlamaForCausalLM, apply_llama_remat
+from .gpt import GPTConfig, GPTForCausalLM, apply_gpt_tp
+from .llama import (LlamaConfig, LlamaForCausalLM, apply_llama_remat,
+                    apply_llama_tp)
 
 __all__ = ["BertConfig", "BertForMaskedLM", "BertForSequenceClassification",
            "BertModel", "GPTConfig", "GPTForCausalLM", "LlamaConfig",
-           "LlamaForCausalLM", "apply_llama_remat"]
+           "LlamaForCausalLM", "apply_gpt_tp", "apply_llama_remat",
+           "apply_llama_tp"]

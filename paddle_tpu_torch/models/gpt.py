@@ -13,8 +13,8 @@ Parameter names and layouts are the JAX model's (``gpt.h.0.attn.qkv_proj
 multi-head (as many KV heads as query heads). As in the port's Llama, the
 paged steps write the batch's KV into the pools IN PLACE before attention
 reads them. Not ported: ``paged_decode_dense`` (the JAX engine's off-TPU
-decode, which the port's engine never calls) and ``apply_gpt_tp`` (tensor
-parallelism).
+decode, which the port's engine never calls). ``apply_gpt_tp`` marks the
+Megatron placements (``gpt.py:466``).
 """
 
 from __future__ import annotations
@@ -334,3 +334,26 @@ class GPTForCausalLM(nn.Module, PagedGenerationMixin):
                                          seed=seed,
                                          eos_token_id=eos_token_id)
         return torch.as_tensor(out, device=self.device).to(ids.dtype)
+
+
+def apply_gpt_tp(model, mesh, mp_axis="mp"):
+    """Megatron tensor-parallel placements for the qkv/out/mlp weights and
+    biases and the vocab-parallel wte (``paddle_tpu/models/gpt.py:466``):
+    placements only, the values stay the unsharded model's. Returns the
+    model."""
+    from .. import distributed as dist
+
+    def put(w, dim):
+        dist.shard_tensor(w, mesh, [dist.Shard(dim) if n == mp_axis
+                                    else dist.Replicate()
+                                    for n in mesh.dim_names])
+
+    for block in model.gpt.h:
+        put(block.attn.qkv_proj.weight, 1)
+        put(block.attn.qkv_proj.bias, 0)
+        put(block.attn.out_proj.weight, 0)
+        put(block.mlp[0].weight, 1)
+        put(block.mlp[0].bias, 0)
+        put(block.mlp[2].weight, 0)
+    put(model.gpt.wte.weight, 0)
+    return model

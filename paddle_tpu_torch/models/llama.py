@@ -546,3 +546,38 @@ def apply_llama_remat(model):
             return wrapped
         layer.forward = make(layer.forward)
     return model
+
+
+def apply_llama_tp(model, mesh, mp_axis="mp"):
+    """Megatron tensor-parallel placements over mesh axis `mp_axis`
+    (``paddle_tpu/models/llama.py:845``): column-parallel q/k/v/gate/up
+    (the output dim of the ``[in, out]`` weights), row-parallel o/down,
+    the vocab-parallel embedding and a column-parallel lm_head. Placements
+    only (``distributed.shard_tensor`` on each parameter); the values, and
+    so the forward and its gradients, stay those of the unsharded model.
+    Returns the model."""
+    from .. import distributed as dist
+
+    def put(w, dim):
+        dist.shard_tensor(w, mesh, _axes(mesh, mp_axis, dim))
+
+    for layer in model.llama.layers:
+        put(layer.self_attn.q_proj.weight, 1)
+        put(layer.self_attn.k_proj.weight, 1)
+        put(layer.self_attn.v_proj.weight, 1)
+        put(layer.self_attn.o_proj.weight, 0)
+        put(layer.mlp.gate_proj.weight, 1)
+        put(layer.mlp.up_proj.weight, 1)
+        put(layer.mlp.down_proj.weight, 0)
+    put(model.llama.embed_tokens.weight, 0)
+    if model.lm_head is not None:
+        put(model.lm_head.weight, 1)
+    return model
+
+
+def _axes(mesh, axis_name, dim):
+    """Shard(dim) on `axis_name`, Replicate on the mesh's other dims
+    (``llama.py:874``)."""
+    from .. import distributed as dist
+    return [dist.Shard(dim) if n == axis_name else dist.Replicate()
+            for n in mesh.dim_names]

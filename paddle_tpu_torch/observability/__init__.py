@@ -12,9 +12,9 @@ for eager PyTorch on CUDA). Every series keeps the JAX package's name, so
 one dashboard reads both; the port holds its own ``REGISTRY`` and
 ``EVENTS`` (a process that imports both packages has two registries).
 
-The JAX package's sharding observatory (``sharding``) has no counterpart
-here yet: it reads the collectives of sharded programs, which come with
-tensor-parallel serving.
+``sharding`` is the sharding observatory: the collectives of the
+tensor-parallel engine's step programs (harvested at each program's first
+run) and the partition audit of its placed weights.
 """
 
 from __future__ import annotations
@@ -40,11 +40,11 @@ __all__ = [
     "chrome_trace", "serve_prometheus", "snapshot", "reset", "dump_run",
     # lazy submodules (PEP 562), as in the JAX package
     "perf", "xla_introspect", "flight_recorder", "tracing", "detectors",
-    "doctor", "costs",
+    "doctor", "costs", "sharding",
 ]
 
 _LAZY_SUBMODULES = ("perf", "xla_introspect", "flight_recorder", "tracing",
-                    "detectors", "doctor", "costs")
+                    "detectors", "doctor", "costs", "sharding")
 
 
 def __getattr__(name):
@@ -76,6 +76,9 @@ def reset():
     co = _sys.modules.get(__name__ + ".costs")
     if co is not None:
         co.LEDGER.reset()         # drop open per-trace cost entries
+    sh = _sys.modules.get(__name__ + ".sharding")
+    if sh is not None:
+        sh.reset()                # forget harvested programs and audits
 
 
 def dump_run(prefix):

@@ -66,13 +66,17 @@ def dequantize_pages(pages, scales):
                             / QMAX)
 
 
-def write_rows(pages, scales, pids, offs, rows):
+def write_rows(pages, scales, pids, offs, rows, row_max=None):
     """Quantizing scatter of KV rows into a page pool under the offset-0
     freeze rule, in place.
 
     pages: [N, page, H, D]; scales: [N] float32, or None for a float pool
     (then the rows are cast to the pool's dtype and written); pids/offs:
     integer tensors of any one shape [..]; rows: float [.., H, D].
+    row_max: each row's absmax (float32 [..]); default the absmax over the
+    rows' own heads. A pool holding a shard of the heads passes the
+    absmax over every shard's heads, so that the page scales are the
+    unsharded pool's.
     Returns (pages, scales), the tensors given. Duplicate (pid, offset)
     targets are only ever the trash page 0's."""
     pids = pids.reshape(-1).long()
@@ -83,7 +87,8 @@ def write_rows(pages, scales, pids, offs, rows):
         return pages, None
     n = pages.shape[0]
     rows = rows.float()
-    row_max = rows.abs().amax(dim=(1, 2))                        # [M]
+    row_max = rows.abs().amax(dim=(1, 2)) if row_max is None \
+        else row_max.reshape(-1).float()                         # [M]
     # pages opened by this dispatch (a row lands at offset 0) take the
     # dispatch absmax over every row landing in them; the scatter-max
     # combines duplicate pids deterministically

@@ -32,10 +32,9 @@ Entry points:
                              attainment -> bounded remediation (replace /
                              quarantine / scale) through the router's
                              spawn/drain/remove verbs
-
-The JAX package's ``MeshGenerationEngine`` (tensor-parallel serving, one
-device mesh behind one replica) has no counterpart yet: asking for it
-raises, naming the slice that brings it.
+- ``MeshGenerationEngine`` — tensor-parallel serving: one device mesh
+                             behind one replica (``make_mesh``,
+                             ``param_spec``; mesh_engine.py)
 """
 
 from .store import FileStore  # noqa: F401
@@ -52,6 +51,9 @@ from .router import (  # noqa: F401
 from .supervisor import (  # noqa: F401
     Supervisor, SupervisorPolicy,
 )
+from .mesh_engine import (  # noqa: F401
+    MeshGenerationEngine, make_mesh, param_spec,
+)
 
 __all__ = [
     "Router", "NoLiveReplicaError", "RequestShedError", "HedgePolicy",
@@ -61,13 +63,5 @@ __all__ = [
     "PrefixStore", "pack_pages", "unpack_pages", "unpack_scales",
     "KV_SCHEMA",
     "Supervisor", "SupervisorPolicy",
+    "MeshGenerationEngine", "make_mesh", "param_spec",
 ]
-
-
-def __getattr__(name):
-    if name in ("MeshGenerationEngine", "make_mesh"):
-        raise NotImplementedError(
-            f"{name} (tensor-parallel serving) is not served by this "
-            "slice of paddle_tpu_torch; it comes with the tensor-parallel "
-            "serving slice")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -18,7 +18,9 @@ finds none fails at start-up: it never serves from the CPU instead.
 
 The ``engine`` dict passes straight through to ``get_engine`` —
 ``"engine": {"spec_decode": "ngram"}`` arms speculative decoding
-on the replica. Spec decode is failover-transparent: the
+on the replica, and ``"engine": {"mesh_devices": 2}`` serves it
+tensor-parallel (``mesh_engine.MeshGenerationEngine``): the worker
+wire is topology-blind. Spec decode is failover-transparent: the
 wire format (sequence snapshots) carries only verified-committed
 tokens, draft state is replica-local, so a spec-on replica's exports
 import into spec-off replicas (and vice versa) token-for-token.

@@ -585,7 +585,23 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.framework.flags, "
             "paddle_tpu_torch.distributed.watchdog, "
             "paddle_tpu_torch.distributed.fleet.elastic, "
-            "paddle_tpu_torch.distributed.resilient; "
+            "paddle_tpu_torch.distributed.resilient, "
+            "paddle_tpu_torch.distributed.parallel_base, "
+            "paddle_tpu_torch.distributed.communication, "
+            "paddle_tpu_torch.distributed.communication.stream, "
+            "paddle_tpu_torch.distributed.auto_parallel, "
+            "paddle_tpu_torch.distributed.auto_parallel.api, "
+            "paddle_tpu_torch.distributed.auto_parallel.placement, "
+            "paddle_tpu_torch.distributed.auto_parallel.process_mesh, "
+            "paddle_tpu_torch.distributed.fleet, "
+            "paddle_tpu_torch.distributed.fleet.base.topology, "
+            "paddle_tpu_torch.distributed.fleet.meta_parallel, "
+            "paddle_tpu_torch.distributed.fleet.layers.mpu, "
+            "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops, "
+            "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers, "
+            "paddle_tpu_torch.distributed.fleet.layers.mpu.random, "
+            "paddle_tpu_torch.serving, paddle_tpu_torch.serving.mesh_engine, "
+            "paddle_tpu_torch.observability.sharding; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad); "

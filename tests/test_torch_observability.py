@@ -7,8 +7,9 @@ against the JAX package's.
   preemption in an oversubscribed pool, a cancel, KV export and import,
   spill and refill through a PrefixStore, and n-gram speculative
   decoding. Each package's registry then holds the same ``engine_*`` and
-  ``spec_*`` series names (the JAX tensor-parallel engine's two aside:
-  that engine is not ported), and every counter and histogram count
+  ``spec_*`` series names (the tensor-parallel engine's two aside: they
+  appear when another test of the process built a mesh engine), and
+  every counter and histogram count
   moved by the same amount in both (wall-clock sums aside);
 - the registry, the event ring, the Prometheus text and the tracing
   sketches of the port behave as the JAX package's on the same calls, and
@@ -60,9 +61,9 @@ KW = dict(max_slots=2, page_size=8, max_seq_len=128, prefill_chunk=16,
 PREFIXES = ("engine_", "spec_")
 # wall-clock series: their values are times, not counts
 TIMED = ("engine_busy_seconds_total",)
-# series only the JAX package's tensor-parallel engine registers
-# (serving/mesh_engine.py, not ported yet): present in the JAX registry
-# when another test of the process built a mesh engine
+# series only the tensor-parallel engine registers (serving/
+# mesh_engine.py; not built by this workload): present in the JAX
+# registry when another test of the process built a mesh engine
 MESH_ONLY = {"engine_mesh_devices", "engine_kv_pool_shard_bytes"}
 
 
