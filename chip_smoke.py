@@ -5,7 +5,8 @@
 Builds the port's CUDA kernels from paddle_tpu_torch/csrc (one nvcc per
 source, all started together; each build's seconds printed), then:
 
-1. kernels: each kernel against its plain PyTorch version on the card, at
+1. kernels: each kernel against its plain PyTorch version on the card
+   (each kernel with a custom op called through it, `torch.ops.ptt`), at
    the shapes the serving and training paths give it, in bfloat16 and
    float32, with the kernel's, the plain version's and (where one PyTorch
    call computes the same function) the library call's time; the int8
@@ -137,7 +138,8 @@ source, all started together; each build's seconds printed), then:
    flips against the kernel, and the decisions P's rounding alone
    changes);
    then serve:gpt, serve:gpt:int8 and serve:gpt:dense: with the Llama
-   released, GPT-3 1.3B (all 24 layers, hidden 2048, 16 heads, FFN 8192,
+   released, GPT-3 1.3B (6 of its 24 layers, hidden 2048,
+   16 heads, FFN 8192,
    vocab 50304, bf16, random weights from seed 0) serves the serve and
    serve:dense workloads as the Llama does (cold, warm and profiled waves
    and the eager twins), launching decode and ragged or flash
@@ -222,12 +224,29 @@ source, all started together; each build's seconds printed), then:
    card (16 heads and 16 KV heads a shard) through serve's workload, a
    cold and a warm wave with graphs and a profiled window: decode
    tokens/s, TTFT and peak memory beside serve's from the same call, the
-   pool bytes per shard, programs and graphs, decode attention 64 calls a
-   decode step, RoPE once a layer a shard, the harvest's all-reduces and
-   bytes a decode step, every token within MESH_TIE_ULPS of the dense
-   argmax; sharding: the harvest and partition audit of that engine
+   pool bytes per shard, programs and graphs, decode attention twice a
+   layer a decode step, RoPE once a layer a shard, the harvest's
+   all-reduces and bytes a decode step, every token within MESH_TIE_ULPS
+   of the dense argmax; sharding: the harvest and partition audit of that engine
    (green), and the narrow Llama with q_proj.weight overridden to
-   replicated (red, naming the parameter).
+   replicated (red, naming the parameter); serve:mesh runs the 7B
+   model's first MESH_SERVE_LAYERS (8) layers.
+10. the graph compiler (slice 17): dispatch (after kernels): the host
+   us per call of a kernel through its custom op beside the bare
+   wrapper; agree:fuse (after agree:mesh): the plain-op tiny Llama
+   (fusion_audit_torch.PlainLlama) under compile_train_step(fuse=True)
+   on the CPU and the card (the architecture's rewrites on both, losses
+   within 1e-4), and the port's tiny Llama fused (its capture holds its
+   kernels as nodes, 0 rewrites, launches and losses equal to eager's);
+   train:fuse (after train:remat): PlainLlama at [train]'s configuration
+   and weights, eager, fused and fused with remat_policy="fused" (a
+   warm-up and 5 timed steps each: rewrites attention 12, rms_norm 25,
+   swiglu 12, rope 24, 0 fallbacks, 1 program; launches a step; median
+   ms and peak memory beside [train]'s; the three loss curves held
+   against each other); to_static: to_static(fuse=True) on PlainLlama's
+   forward at full width, one capture, its logits and the eager ones
+   against the float32 forward's and each other. [time] prints each
+   phase's seconds.
 
 Each flashmask, fused_ffn, serving (serve:mesh too), BERT and training
 run's (the resilient one's too) launch counts are set to 0 just before it and read just after it; every kernel of its path
@@ -1394,9 +1413,78 @@ def _within(name, res, dtype):
     return res["err"] <= TOL[dtype], f"<= {TOL[dtype]}"
 
 
+class _ViaOp:
+    """A kernel wrapper called through its custom op (``torch.ops.ptt``,
+    ``ops.kernels._ops``), the route every model takes; its counters and
+    other attributes are the wrapper's."""
+
+    def __init__(self, wrapper, call):
+        self.__dict__["_wrapper"] = wrapper
+        self.__dict__["_call"] = call
+
+    def __call__(self, *args, **kwargs):
+        return self._call(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._wrapper, name)
+
+
+class _KernelsViaOps:
+    """``ops.kernels`` with each kernel that has a custom op reached
+    through it (the wrappers' signatures kept); everything else is the
+    module's."""
+
+    def __init__(self, K):
+        from paddle_tpu_torch.ops.kernels import _ops as O
+        self._K = K
+
+        def bdrln(x, residual, ln_w, ln_b, bias=None, eps=1e-5, p=0.0,
+                  seed=0):
+            out, y, keep = O.bias_dropout_residual_ln_op(
+                x, residual, ln_w, ln_b, bias, float(eps), float(p),
+                int(seed))
+            return out, y, keep if keep.numel() else None
+
+        def rope_bwd(g, cos, sin, g_k=None):
+            if g_k is None:
+                return O.fused_rope_bwd_op(g, cos, sin)
+            return O.fused_rope_qk_bwd_op(g, g_k, cos, sin)
+
+        calls = {
+            "rms_norm": lambda x, w, eps=1e-6: O.rms_norm_op(
+                x, w, float(eps)),
+            "swiglu": O.swiglu_op,
+            "fused_rope": O.fused_rope_op,
+            "fused_rope_qk": O.fused_rope_qk_op,
+            "fused_rope_bwd": rope_bwd,
+            "flash_attention_fwd": lambda q, k, v, causal=False, scale=None:
+                O.flash_attention_fwd_op(q, k, v, bool(causal), scale),
+            "flash_attention_bwd": lambda q, k, v, out, lse, dout,
+                causal=False, scale=None: O.flash_attention_bwd_op(
+                    q, k, v, out, lse, dout, bool(causal), scale),
+            "flashmask_attention_fwd": lambda q, k, v, start, end,
+                start2=None, end2=None, causal=True, scale=None:
+                O.flashmask_attention_fwd_op(q, k, v, start, end, start2,
+                                             end2, bool(causal), scale),
+            "flashmask_attention_bwd": lambda q, k, v, out, lse, dout,
+                start, end, start2=None, end2=None, causal=True,
+                scale=None: O.flashmask_attention_bwd_op(
+                    q, k, v, out, lse, dout, start, end, start2, end2,
+                    bool(causal), scale),
+            "bias_dropout_residual_ln": bdrln,
+        }
+        self._ops = {n: _ViaOp(getattr(K, n), c) for n, c in calls.items()}
+
+    def __getattr__(self, name):
+        ops = self.__dict__.get("_ops", {})
+        return ops[name] if name in ops else getattr(self._K, name)
+
+
 def phase_kernels(K, dev):
     """Every kernel against its plain version at the serving shapes, in
-    bf16 and f32. Returns {name: bf16 record} for the JSON line."""
+    bf16 and f32, each kernel with a custom op called through it. Returns
+    {name: bf16 record} for the JSON line."""
+    K = _KernelsViaOps(K)
     rng = np.random.default_rng(0)
     rng8 = np.random.default_rng(1)      # the int8 cases' own inputs
     # the ragged rows added with the tensor-core ragged kernel, drawing
@@ -1897,61 +1985,83 @@ def main():
             print(f"[ptxas] {name}: {kernel}: {used}")
     check_sass(_build)
 
-    records = phase_kernels(K, dev)
-    phase_agree(dev)
-    phase_agree_int8(dev)
-    phase_agree_train(dev)
-    phase_agree_masked(dev)
-    phase_agree_spec(dev)
-    phase_surface(dev)
-    phase_agree_graphs(dev)
-    phase_agree_gpt(dev)
-    phase_agree_bert(dev)
-    phase_agree_train2(dev)
-    phase_agree_fleet(dev)
-    phase_collectives(dev)
-    phase_agree_mesh(dev)
-    masked = phase_flashmask(K, dev)
-    ffn = phase_fused_ffn(K, dev)
-    model = _serving_model(dev)
-    serve, serve_out, serve_st = phase_serve(K, model, programs=True)
-    dense, dense_out = phase_serve_dense(K, model)
-    serve8, serve8_out, serve8_st = phase_serve(K, model, kv_dtype="int8",
-                                                twin=serve_out,
-                                                programs=True)
-    dense8, _ = phase_serve_dense(K, model, kv_dtype="int8", twin=dense_out)
-    spec = phase_serve_spec(K, model, serve_out, serve_st)
-    spec8 = phase_serve_spec(K, model, serve8_out, serve8_st,
-                             kv_dtype="int8")
-    phase_spec_rescore(model)
-    phase_spec_rescore(model, kv_dtype="int8")
-    fleet, _ = phase_fleet(K, model, serve_out)
-    fleet8, _ = phase_fleet(K, model, serve8_out, kv_dtype="int8")
-    mesh, mesh_eng = phase_serve_mesh(K, model, serve_out, serve_st)
-    phase_sharding(mesh_eng, dev)
+    times = {}
+
+    def run(tag, fn, /, *args, **kwargs):
+        """fn(*args, **kwargs), its seconds kept under `tag`."""
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        times[tag] = round(time.perf_counter() - t, 1)
+        return out
+
+    records = run("kernels", phase_kernels, K, dev)
+    run("dispatch", phase_dispatch, K, dev)
+    run("agree", phase_agree, dev)
+    run("agree:int8", phase_agree_int8, dev)
+    run("agree:train", phase_agree_train, dev)
+    run("agree:masked", phase_agree_masked, dev)
+    run("agree:spec", phase_agree_spec, dev)
+    run("surface", phase_surface, dev)
+    run("agree:graphs", phase_agree_graphs, dev)
+    run("agree:gpt", phase_agree_gpt, dev)
+    run("agree:bert", phase_agree_bert, dev)
+    run("agree:train2", phase_agree_train2, dev)
+    run("agree:fleet", phase_agree_fleet, dev)
+    run("collectives", phase_collectives, dev)
+    run("agree:mesh", phase_agree_mesh, dev)
+    run("agree:fuse", phase_agree_fuse, dev)
+    masked = run("flashmask", phase_flashmask, K, dev)
+    ffn = run("fused_ffn", phase_fused_ffn, K, dev)
+    model = run("serve:model", _serving_model, dev)
+    serve, serve_out, serve_st = run("serve", phase_serve, K, model,
+                                     programs=True)
+    dense, dense_out = run("serve:dense", phase_serve_dense, K, model)
+    serve8, serve8_out, serve8_st = run("serve:int8", phase_serve, K, model,
+                                        kv_dtype="int8", twin=serve_out,
+                                        programs=True)
+    dense8, _ = run("serve:dense:int8", phase_serve_dense, K, model,
+                    kv_dtype="int8", twin=dense_out)
+    spec = run("serve:spec", phase_serve_spec, K, model, serve_out,
+               serve_st)
+    spec8 = run("serve:spec:int8", phase_serve_spec, K, model, serve8_out,
+                serve8_st, kv_dtype="int8")
+    run("spec:rescore", phase_spec_rescore, model)
+    run("spec:rescore:int8", phase_spec_rescore, model, kv_dtype="int8")
+    fleet, _ = run("fleet", phase_fleet, K, model, serve_out)
+    fleet8, _ = run("fleet:int8", phase_fleet, K, model, serve8_out,
+                    kv_dtype="int8")
+    mesh, mesh_eng = run("serve:mesh", phase_serve_mesh, K, model, serve_out,
+                         serve_st)
+    run("sharding", phase_sharding, mesh_eng, dev)
     del mesh_eng
     del model                            # the next runs read their own peak
     _release()
-    phase_fleet_proc(dev)
+    run("fleet:proc", phase_fleet_proc, dev)
     gpt = _serving_gpt(dev)
-    gserve, gserve_out, _ = phase_serve(K, gpt, name="serve:gpt")
-    gserve8, _, _ = phase_serve(K, gpt, kv_dtype="int8", twin=gserve_out,
+    gserve, gserve_out, _ = run("serve:gpt", phase_serve, K, gpt,
                                 name="serve:gpt")
-    gdense, _ = phase_serve_dense(K, gpt, name="serve:gpt:dense")
+    gserve8, _, _ = run("serve:gpt:int8", phase_serve, K, gpt,
+                        kv_dtype="int8", twin=gserve_out, name="serve:gpt")
+    gdense, _ = run("serve:gpt:dense", phase_serve_dense, K, gpt,
+                    name="serve:gpt:dense")
     del gpt
-    bert = phase_bert(K, dev)
-    train, model, opt, batch, base = phase_train(K, dev)
-    phase_profile_train(model, opt, batch)
-    phase_profiler(model, opt, batch)
-    phase_amp_debug(model, batch)
+    bert = run("bert", phase_bert, K, dev)
+    train, model, opt, batch, base = run("train", phase_train, K, dev)
+    run("profile:train", phase_profile_train, model, opt, batch)
+    run("profiler", phase_profiler, model, opt, batch)
+    run("amp:debug", phase_amp_debug, model, batch)
     del model, opt, batch
-    remat = phase_train_remat(K, dev, base)
-    gtrain = phase_train_gpt(K, dev)
-    btrain = phase_train_bert(K, dev)
-    rtrain = phase_train_resilient(K, dev)
+    remat = run("train:remat", phase_train_remat, K, dev, base)
+    fuse = run("train:fuse", phase_train_fuse, K, dev, base)
+    static = run("to_static", phase_to_static, K, dev)
+    gtrain = run("train:gpt", phase_train_gpt, K, dev)
+    btrain = run("train:bert", phase_train_bert, K, dev)
+    rtrain = run("train:resilient", phase_train_resilient, K, dev)
+    print(f"[time] seconds per phase {json.dumps(times)}; total since the "
+          f"build {sum(times.values()):.1f}", flush=True)
     runs = (serve, dense, serve8, dense8, spec, spec8, fleet, fleet8, mesh,
-            gserve, gserve8, gdense, bert, train, remat, gtrain, btrain,
-            rtrain, masked, ffn)
+            gserve, gserve8, gdense, bert, train, remat, fuse, static,
+            gtrain, btrain, rtrain, masked, ffn)
     launches = {k: sum(r[k] for r in runs) for k in K.launch_counts()}
     _require_launched("all serving, fleet, mesh, BERT, training, flashmask "
                       "and fused_ffn runs", launches, K.KERNELS)
@@ -1982,17 +2092,18 @@ def main():
 # ----------------------------------------------------------------------
 
 # [train:resilient]: TRAIN_CFG's widths (bench.py:150-154) at RES_LAYERS
-# layers (cut from 12: at full depth the phase took 89-109 s, most of it
-# writing, verifying and reading three 10.3 GB checkpoints on the host,
-# and the whole smoke 784.0 s on a slow host, past the ~780 s it must
-# keep under) under ResilientTrainer: RES_STEPS steps, a checkpoint every
+# layers (cut from 12: at full depth the phase took 89-109 s on an H100
+# host, most of it writing, verifying and reading three 10.3 GB
+# checkpoints on the host; at 6 layers 83.1 s of an 823.0 s smoke that
+# must keep under 760 s, at 3 58.5 s of a 767.5 s one) under
+# ResilientTrainer: RES_STEPS steps, a checkpoint every
 # RES_CKPT_EVERY steps, a host snapshot every RES_SNAPSHOT_EVERY, one
 # non-finite loss (step RES_NAN_STEP's loss times NaN: the NaN reaches
 # the gradients and the parameters, as a divergence does) that the guard
 # rolls back at once (max_consecutive_bad=1), and one hang of the wait
 # after step RES_HANG_STEP (the watchdog's wait seam sleeps past its
 # timeout) that the trainer recovers from the last checkpoint
-RES_LAYERS = 6
+RES_LAYERS = 2
 RES_STEPS, RES_CKPT_EVERY, RES_SNAPSHOT_EVERY = 12, 4, 4
 RES_NAN_STEP, RES_HANG_STEP = 5, 9
 RES_TIMEOUT_S = 20.0            # the watchdog's deadline on a step
@@ -4667,14 +4778,22 @@ def phase_agree_gpt(dev):
     _require_launched("agree:gpt", total, GPT_AGREE_KERNELS)
 
 
+# the serving runs of GPT-3 1.3B take its first SERVE_GPT_LAYERS of 24
+# layers (cut: at 24 the three took 135.4 s of an 823.0 s smoke on an
+# H100 host, at 12 71.8 s of a 767.5 s one, which must keep under 760 s;
+# every per-layer fact is held as at 24)
+SERVE_GPT_LAYERS = 6
+
+
 def _serving_gpt(dev):
-    """GPT-3 1.3B (GPTConfig.gpt3_1p3b(): hidden 2048, 16 heads of 128,
-    FFN 8192, vocab 50304, 2048 positions), all 24 layers, bfloat16,
-    random weights from seed 0."""
+    """GPT-3 1.3B's widths (GPTConfig.gpt3_1p3b(): hidden 2048, 16 heads
+    of 128, FFN 8192, vocab 50304, 2048 positions) at SERVE_GPT_LAYERS of
+    its 24 layers, bfloat16, random weights from seed 0."""
     from paddle_tpu_torch import weights
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 
     cfg = GPTConfig.gpt3_1p3b()
+    cfg.num_hidden_layers = SERVE_GPT_LAYERS
     t0 = time.perf_counter()
     model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
     weights.init_random_(model, seed=0)
@@ -6489,23 +6608,51 @@ def _agree_mesh_export(tag, eng, model, prompt, kv):
         raise AssertionError(f"[{tag}] the shard refusal failed")
 
 
+# [serve:mesh] runs the first MESH_SERVE_LAYERS of the 7B model's 32
+# layers (cut to keep the smoke under 760 s with the compiler's phases;
+# every per-layer fact is held as at 32)
+MESH_SERVE_LAYERS = 8
+
+
+def _first_layers(model, n):
+    """A Llama that shares `model`'s embedding, norm, head and first n
+    decoder layers (no weight is copied)."""
+    import copy
+    import dataclasses
+
+    llama = copy.copy(model.llama)
+    llama._modules = dict(model.llama._modules)
+    llama.layers = torch.nn.ModuleList(list(model.llama.layers)[:n])
+    llama.config = dataclasses.replace(model.config, num_hidden_layers=n)
+    small = copy.copy(model)
+    small._modules = dict(model._modules)
+    small._modules["llama"] = llama
+    small.config = llama.config
+    small.__dict__.pop("_engines", None)
+    return small
+
+
 def phase_serve_mesh(K, model, want, serve_st):
     """[serve:mesh]: [serve]'s workload (8 prompts of 300-900 tokens,
     max_slots 4, pages of 16, chunks of 256, mixed steps, bf16 pools,
     CUDA graphs) through the mesh engine at tp=2 co-located on the card
-    (16 heads and 16 KV heads a shard, FFN 5504 a shard): a cold wave
-    captures the programs, a warm wave (it must build none) gives the
-    numbers beside [serve]'s from this call, then engine steps 2-7 run
-    under the profiler. Every kernel of the path must launch, decode
-    attention 64 times a decode step (32 layers x 2 shards) and RoPE
-    once a layer a shard a model step; every delivered token must be the
-    single-device dense forward's argmax or within MESH_TIE_ULPS of it
-    (teacher-forced greedy agreement). Returns the warm wave's launches
-    and the engine (for [sharding])."""
+    (16 heads and 16 KV heads a shard, FFN 5504 a shard) over the 7B
+    model's first MESH_SERVE_LAYERS layers: a cold wave captures the
+    programs, a warm wave (it must build none) gives the numbers, printed
+    beside [serve]'s (32 layers) from this call, then engine steps 2-7
+    run under the profiler. Every kernel of the path must launch, decode
+    attention twice a layer a decode step (2 shards) and RoPE once a
+    layer a shard a model step; every delivered token must be the
+    single-device dense forward's argmax (of the same layers) or within
+    MESH_TIE_ULPS of it (teacher-forced greedy agreement; `want`,
+    [serve]'s tokens, are of the whole model and are not compared).
+    Returns the warm wave's launches and the engine (for [sharding])."""
     from paddle_tpu_torch.observability import sharding, xla_introspect
     from paddle_tpu_torch.serving import MeshGenerationEngine
 
     tag = "serve:mesh"
+    _fresh_pools(model)
+    model = _first_layers(model, MESH_SERVE_LAYERS)
     cfg = model.config
     _fresh_pools(model)
     xla_introspect.reset()
@@ -6523,7 +6670,8 @@ def phase_serve_mesh(K, model, want, serve_st):
     peak = torch.cuda.max_memory_allocated() / 1e9
     layers, tp = cfg.num_hidden_layers, eng._tp
     shard_bytes = eng._pool_bytes_by_position()
-    print(f"[{tag}] tp=2 co-located on {model.device}: kv_shards="
+    print(f"[{tag}] tp=2 co-located on {model.device}, the 7B model's "
+          f"first {cfg.num_hidden_layers} layers: kv_shards="
           f"{eng.kv_shards} mesh_devices={eng.mesh_devices}; "
           f"engine_kv_pool_shard_bytes by mesh position "
           f"{json.dumps(shard_bytes)} (the single engine's pool "
@@ -6572,7 +6720,7 @@ def phase_serve_mesh(K, model, want, serve_st):
     _require_sm90_ragged(tag, launches)
     if not frozen:
         raise AssertionError(f"[{tag}] the warm wave built programs")
-    _fleet_ties(tag, model, prompts, gen, want, None, MESH_TIE_ULPS)
+    _fleet_ties(tag, model, prompts, gen, gen, None, MESH_TIE_ULPS)
     _profile_serve(eng, prompts, n_new, f"profile:{tag}")
     return launches, eng
 
@@ -6616,6 +6764,388 @@ def phase_sharding(eng, dev):
     sharding.reset()
     _release()
 
+
+
+# ----------------------------------------------------------------------
+# slice 17: the graph compiler
+# ----------------------------------------------------------------------
+
+FUSE_PATTERNS = ("attention", "rms_norm", "swiglu", "rope")
+
+
+def _fuse_floors(layers):
+    """Rewrites the architecture gives a Llama of `layers` layers."""
+    return {"attention": layers, "rms_norm": 2 * layers + 1,
+            "swiglu": layers, "rope": 2 * layers}
+
+
+# launches of each kernel in one fused training step of the plain-op
+# Llama at TRAIN_CFG: flash, RMSNorm and SwiGLU as [train]'s; RoPE twice
+# a layer each way (q and k are rewritten apart, where the port's Llama
+# rotates both in one launch)
+FUSE_PER_STEP = {"flash_attention": 12, "flash_attention_bwd": 12,
+                 "flash_attention.sm90": 12, "flash_attention_bwd.sm90": 12,
+                 "rms_norm": 25, "swiglu": 12, "fused_rope": 24,
+                 "fused_rope.qk": 0, "fused_rope_bwd": 24,
+                 "fused_rope.scalar": 0, "fused_rope_bwd.scalar": 0}
+# [train:fuse]'s loss tolerances (bf16, AdamW(1e-4)): the fused and the
+# eager plain-op steps round at other places (the kernels compute in
+# float32 and round once), so the first losses agree within
+# FUSE_FIRST_RTOL and AdamW's ~lr sign(g) first steps amplify the
+# near-zero gradients' signs: later losses within FUSE_LOSS_ATOL or
+# FUSE_LOSS_RTOL (the [agree:train2] rule); the fused remat step recomputes
+# the same products: within FUSE_REMAT_ULPS bf16 ulps of the fused step's
+FUSE_FIRST_RTOL = 1e-2
+FUSE_LOSS_ATOL, FUSE_LOSS_RTOL = 0.0625, 0.05
+FUSE_REMAT_ULPS = 2
+
+
+def _compiler_counts():
+    """{counter: value} of the compiler's counters (by pattern)."""
+    from paddle_tpu_torch.observability.metrics import REGISTRY
+
+    def c(name, pattern=None):
+        m = REGISTRY.get(name, {"pattern": pattern} if pattern else None)
+        return m.value if m is not None else 0
+    out = {"programs": c("compiler_programs_total"),
+           "breaks": c("compiler_graph_breaks_total")}
+    for p in FUSE_PATTERNS:
+        out[f"rewrites.{p}"] = c("compiler_rewrites_total", p)
+        out[f"fallbacks.{p}"] = c("compiler_fallbacks_total", p)
+    return out
+
+
+def _compiler_delta(before):
+    after = _compiler_counts()
+    d = {k: after[k] - before[k] for k in after}
+    return ({p: d[f"rewrites.{p}"] for p in FUSE_PATTERNS},
+            sum(d[f"fallbacks.{p}"] for p in FUSE_PATTERNS),
+            d["programs"], d["breaks"])
+
+
+def _ptt_nodes(gm):
+    """{op name: nodes} of the kernels' custom ops in a captured graph."""
+    out = {}
+    for n in gm.graph.nodes:
+        t = n.target
+        if isinstance(t, torch._ops.OpOverload) and t.namespace == "ptt":
+            name = t.name().split("::")[1]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _plain_llama(cfg, dev, dtype):
+    """fusion_audit_torch.PlainLlama with the port Llama's seed-0 weights
+    (weights.init_random_ on the port Llama, then loaded by name)."""
+    import fusion_audit_torch as fa
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    ref = weights.init_random_(LlamaForCausalLM(cfg, device=dev,
+                                                dtype=dtype), seed=0)
+    plain = fa.PlainLlama(cfg, device=dev, dtype=dtype)
+    plain.load_state_dict(ref.state_dict())
+    del ref
+    return plain
+
+
+def phase_dispatch(K, dev):
+    """[dispatch]: the host cost of a kernel called through its custom op
+    (``K.RMSNorm.apply``, the route every model takes) beside the bare
+    ctypes wrapper (``K.rms_norm``), at the decode shape [4, 4096] bf16,
+    under inference_mode and with grad, N calls each, host clock over
+    the enqueue (the kernel is ~6 us, so the host sets the pace)."""
+    n = 2000
+    x = torch.randn(4, 4096, device=dev, dtype=torch.bfloat16)
+    w = torch.randn(4096, device=dev, dtype=torch.bfloat16)
+    out = {}
+    for label, call in (("wrapper", lambda: K.rms_norm(x, w, 1e-6)),
+                        ("op", lambda: K.RMSNorm.apply(x, w, 1e-6))):
+        for mode in ("inference", "grad"):
+            ctx = torch.inference_mode() if mode == "inference" \
+                else torch.enable_grad()
+            with ctx:
+                for _ in range(50):
+                    call()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    call()
+                torch.cuda.synchronize()
+            out[f"{label}.{mode}"] = (time.perf_counter() - t0) / n * 1e6
+    print(f"[dispatch] host us per call at [4, 4096] bf16 RMSNorm "
+          f"({n} calls): {json.dumps({k: round(v, 2) for k, v in out.items()})}"
+          f"; the op's dispatch adds {out['op.inference'] - out['wrapper.inference']:.2f}"
+          f" us (inference_mode) and "
+          f"{out['op.grad'] - out['wrapper.grad']:.2f} us (grad) a call",
+          flush=True)
+    return out
+
+
+def phase_agree_fuse(dev):
+    """[agree:fuse]: (a) the plain-op tiny Llama (fusion_audit_torch
+    .PlainLlama, float32, 2 layers) through compile_train_step(fuse=True)
+    on the CPU (the kernels' plain versions) and on the card (the
+    kernels): the architecture's rewrites on both, 3 losses within
+    1e-4 (relative) of each other, every kernel of the path launched on
+    the card; (b) the port's own tiny Llama under fuse=True on the card:
+    its capture holds its kernels as nodes, 0 rewrites, the kernels'
+    launches a step equal to the eager step's, its losses equal to its
+    eager losses (relative 1e-6: the replay runs the same ops)."""
+    import fusion_audit_torch as fa
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.jit import compile_train_step
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+
+    tag = "agree:fuse"
+    cfg = LlamaConfig.tiny(vocab=64, hidden=32, layers=2, heads=4,
+                           kv_heads=2, ffn=64, seq=32)
+    base = weights.init_random_(fa.PlainLlama(cfg), 0).state_dict()
+    rng = np.random.default_rng(5)
+    ids, lab = (torch.from_numpy(rng.integers(0, 64, (2, 16)))
+                for _ in range(2))
+    loss_fn = lambda m, i, l: m(i, labels=l)  # noqa: E731
+    losses, launches = {}, {}
+    for where in ("cpu", dev):
+        m = fa.PlainLlama(cfg, device=where)
+        m.load_state_dict(base)
+        m.train()
+        step = compile_train_step(m, loss_fn, AdamW(1e-3, parameters=list(
+            m.parameters())), fuse=True)
+        before = _compiler_counts()
+        K.reset_launch_counts()
+        losses[str(where)] = [float(step(ids.to(where), lab.to(where)))
+                              for _ in range(3)]
+        launches[str(where)] = K.launch_counts()
+        rw, fb, progs, breaks = _compiler_delta(before)
+        if rw != _fuse_floors(2) or fb or progs != 1 or breaks:
+            raise AssertionError(f"[{tag}] {where}: rewrites {rw}, "
+                                 f"fallbacks {fb}, programs {progs}, "
+                                 f"breaks {breaks}")
+    a, b = losses["cpu"], losses[str(dev)]
+    rel = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    card = launches[str(dev)]
+    print(f"[{tag}] plain-op tiny Llama, fuse=True, 3 steps: losses CPU "
+          f"{a} card {b} (max rel diff {rel:.2e} <= 1e-4); rewrites "
+          f"{json.dumps(_fuse_floors(2))} on both; card launches "
+          f"{json.dumps({k: card[k] for k in FUSE_PER_STEP})}", flush=True)
+    if rel > 1e-4:
+        raise AssertionError(f"[{tag}] the card's fused losses leave the "
+                             f"CPU's: {rel:.3e}")
+    _require_launched(tag, card, ("flash_attention", "flash_attention_bwd",
+                                  "rms_norm", "swiglu", "fused_rope",
+                                  "fused_rope_bwd"))
+    # (b) the port's Llama: kernels already nodes, nothing to rewrite
+    base = weights.init_random_(LlamaForCausalLM(cfg, device="cpu"),
+                                1).state_dict()
+    ids, lab = ids.to(dev), lab.to(dev)
+    runs = {}
+    for fuse in (False, True):
+        m = LlamaForCausalLM(cfg, device=dev)
+        m.load_state_dict(base)
+        m.train()
+        step = compile_train_step(m, loss_fn, AdamW(1e-3, parameters=list(
+            m.parameters())), fuse=fuse)
+        before = _compiler_counts()
+        got, per = [], []
+        for _ in range(3):
+            K.reset_launch_counts()
+            got.append(float(step(ids, lab)))
+            per.append(K.launch_counts())
+        rw, fb, progs, breaks = _compiler_delta(before)
+        nodes = _ptt_nodes(step.programs.values()[0]) if fuse else None
+        runs[fuse] = (got, per, rw, nodes)
+    (e_loss, e_per, _, _), (f_loss, f_per, f_rw, nodes) = runs[False], \
+        runs[True]
+    rel = max(abs(x - y) / abs(x) for x, y in zip(e_loss, f_loss))
+    print(f"[{tag}] port Llama (tiny, float32), fuse=True: capture nodes "
+          f"{json.dumps(nodes)}, rewrites {json.dumps(f_rw)}, launches a "
+          f"step == eager's: {f_per == e_per}; losses eager {e_loss} fused "
+          f"{f_loss} (max rel diff {rel:.2e} <= 1e-6)", flush=True)
+    want_nodes = {"flash_attention_fwd": 2, "rms_norm": 5, "swiglu": 2,
+                  "fused_rope_qk": 2, "fused_linear_cross_entropy": 1}
+    if nodes != want_nodes or any(f_rw.values()) or f_per != e_per or \
+            rel > 1e-6:
+        raise AssertionError(f"[{tag}] the port Llama's fused program "
+                             f"differs from its eager step")
+
+
+def phase_train_fuse(K, dev, base):
+    """[train:fuse]: fusion_audit_torch.PlainLlama (the port Llama written
+    from plain torch ops) at [train]'s full configuration (TRAIN_CFG, 4 x
+    2048, bf16, AdamW(1e-4, multi_precision=True)) with [train]'s seed-0
+    weights and batch, three ways, each one warm-up and TRAIN_STEPS timed
+    steps: the eager unfused step (no kernel launches), compile_train_step
+    (fuse=True) and fuse=True with remat_policy="fused". Held: rewrites
+    by pattern equal to the architecture's with 0 fallbacks and 1 program
+    built per fused step; each kernel's launches a step (FUSE_PER_STEP:
+    flash, RMSNorm and SwiGLU as [train]'s); the loss curves against each
+    other within the FUSE_* tolerances. Printed: median ms per step and
+    peak memory of each beside [train]'s from this call. Returns the
+    fused runs' summed launches."""
+    from paddle_tpu_torch.jit import compile_train_step
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.optimizer import AdamW
+
+    _release()
+    cfg = LlamaConfig(**TRAIN_CFG)
+    plain = _plain_llama(cfg, dev, torch.bfloat16)
+    plain.train()
+    init = {k: v.detach().clone() for k, v in plain.state_dict().items()}
+    ids, lab = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, dev)
+    floors = _fuse_floors(cfg.num_hidden_layers)
+    unfused = {k: 0 for k in FUSE_PER_STEP}
+    res, totals = {}, {k: 0 for k in K.launch_counts()}
+    for tag, kw, per_step in (
+            ("train:fuse:eager", {"fuse": False}, unfused),
+            ("train:fuse", {"fuse": True}, FUSE_PER_STEP),
+            ("train:fuse:remat", {"fuse": True, "remat_policy": "fused"},
+             FUSE_PER_STEP)):
+        with torch.no_grad():
+            for k, v in plain.state_dict().items():
+                v.copy_(init[k])
+        _release()
+        opt = AdamW(1e-4, parameters=plain.parameters(),
+                    multi_precision=True)
+        step = compile_train_step(plain, lambda m, i, l: m(i, labels=l),
+                                  opt, **kw)
+        before = _compiler_counts()
+        losses, ms, launched = _run_steps(tag, K, step, (ids, lab),
+                                          per_step, TRAIN_STEPS)
+        rw, fb, progs, breaks = _compiler_delta(before)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        med = float(np.median(ms[1:]))
+        res[tag] = {"losses": losses, "ms": med, "peak": peak}
+        print(f"[{tag}] {json.dumps(kw)}: losses (warm-up first) {losses}; "
+              f"step_ms {[round(x, 2) for x in ms]} median_timed={med:.2f} "
+              f"peak_mem_gb={peak:.2f}; [train] in this call: "
+              f"mean_timed={base['step_ms']:.2f} peak_mem_gb="
+              f"{base['peak_gb']:.2f}; rewrites {json.dumps(rw)} "
+              f"fallbacks={fb} programs_built={progs} graph_breaks="
+              f"{breaks}", flush=True)
+        if kw["fuse"]:
+            if rw != floors or fb or progs != 1 or breaks:
+                raise AssertionError(
+                    f"[{tag}] rewrites {rw} (want {floors}), fallbacks "
+                    f"{fb}, programs {progs}, breaks {breaks}")
+            for k in totals:
+                totals[k] += launched[k]
+            print(f"[{tag}] launches a step {json.dumps(per_step)} (held "
+                  f"every step); [train]'s {json.dumps(TRAIN_PER_STEP)}",
+                  flush=True)
+        del step, opt
+    eager, fused, remat = (res[t]["losses"] for t in (
+        "train:fuse:eager", "train:fuse", "train:fuse:remat"))
+    first = abs(fused[0] - eager[0]) / abs(eager[0])
+    worst = max(abs(a - b) - max(FUSE_LOSS_ATOL, FUSE_LOSS_RTOL * abs(b))
+                for a, b in zip(fused, eager))
+    ulps = max(abs(a - b) / _bf16_ulp(b) for a, b in zip(remat, fused))
+    print(f"[train:fuse] losses: eager {eager}, fused {fused}, fused remat "
+          f"{remat}; fused vs eager first step rel {first:.2e} (<= "
+          f"{FUSE_FIRST_RTOL}), every step within max({FUSE_LOSS_ATOL}, "
+          f"{FUSE_LOSS_RTOL}|eager|): {worst <= 0}; fused remat vs fused "
+          f"{ulps:.2f} bf16 ulps (<= {FUSE_REMAT_ULPS}); median ms eager "
+          f"{res['train:fuse:eager']['ms']:.2f} fused "
+          f"{res['train:fuse']['ms']:.2f} remat "
+          f"{res['train:fuse:remat']['ms']:.2f} ([train] "
+          f"{base['step_ms']:.2f}); peak GB eager "
+          f"{res['train:fuse:eager']['peak']:.2f} fused "
+          f"{res['train:fuse']['peak']:.2f} remat "
+          f"{res['train:fuse:remat']['peak']:.2f} ([train] "
+          f"{base['peak_gb']:.2f})", flush=True)
+    if first > FUSE_FIRST_RTOL or worst > 0 or ulps > FUSE_REMAT_ULPS:
+        raise AssertionError("[train:fuse] the loss curves disagree")
+    del plain, init
+    _release()
+    return totals
+
+
+# [to_static]'s rule on bf16 logits: held against the float32 forward of
+# the same weights, the fused forward (kernels: float32 inside, one
+# rounding) must be no further off than STATIC_FACTOR times the eager
+# plain-op bf16 forward (bf16 at every op), in the largest and in the
+# mean |difference|; the fused and eager bf16 logits differ from each
+# other by 2-3% of their scale after 12 layers (on an H100, 700 W), held
+# directly within STATIC_DIRECT of the eager logits' scale
+STATIC_FACTOR = 1.5
+STATIC_DIRECT = 5e-2
+
+
+def _logit_err(got, want):
+    """(max |diff| / max |want|, mean |diff| / mean |want|)."""
+    d = (got.float() - want).abs()
+    return (float(d.max()) / float(want.abs().max()),
+            float(d.mean()) / float(want.abs().mean()))
+
+
+def phase_to_static(K, dev):
+    """[to_static]: to_static(fuse=True) on PlainLlama's forward at
+    TRAIN_CFG (bf16, seed-0 weights, [train]'s batch of 4 x 2048 ids):
+    two calls, one capture; the fused forward's kernel launches (flash 12,
+    RMSNorm 25, SwiGLU 12, RoPE 24); its logits and the eager plain-op
+    forward's against the float32 forward's (STATIC_FACTOR), and the two
+    against each other (STATIC_DIRECT); ms of the eager and the fused
+    forward."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.compiler import BuildStrategy
+    from paddle_tpu_torch.models import LlamaConfig
+
+    tag = "to_static"
+    _release()
+    cfg = LlamaConfig(**TRAIN_CFG)
+    plain = _plain_llama(cfg, dev, torch.bfloat16).eval()
+    ids, _ = _train_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, dev)
+    st = jit.to_static(plain.forward,
+                       build_strategy=BuildStrategy(fuse=True))
+    before = _compiler_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain(ids)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        st(ids)                          # the capture
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = st(ids)
+        torch.cuda.synchronize()
+        fused_ms = (time.perf_counter() - t0) * 1e3
+        launches = K.launch_counts()
+        plain32 = _plain_llama(cfg, dev, torch.float32).eval()
+        ref = plain32(ids)
+        del plain32
+    rw, fb, progs, breaks = _compiler_delta(before)
+    e_max, e_mean = _logit_err(want, ref)
+    f_max, f_mean = _logit_err(got, ref)
+    d_max, d_mean = _logit_err(got, want.float())
+    per = {k: launches[k] for k in ("flash_attention", "rms_norm", "swiglu",
+                                     "fused_rope")}
+    print(f"[{tag}] PlainLlama.forward at TRAIN_CFG, bf16, [4, 2048]: "
+          f"captures {len(st.programs())}, programs built {progs}, "
+          f"rewrites {json.dumps(rw)} fallbacks {fb}; launches a forward "
+          f"{json.dumps(per)}; against the float32 forward (max|diff|/"
+          f"max|ref|, mean|diff|/mean|ref|): fused {f_max:.3e}, "
+          f"{f_mean:.3e}, eager bf16 {e_max:.3e}, {e_mean:.3e} (fused <= "
+          f"{STATIC_FACTOR}x eager's); fused vs eager {d_max:.3e}, "
+          f"{d_mean:.3e} (<= {STATIC_DIRECT}); ms eager {eager_ms:.2f} "
+          f"fused (replay) "
+          f"{fused_ms:.2f}", flush=True)
+    floors = _fuse_floors(cfg.num_hidden_layers)
+    if len(st.programs()) != 1 or progs != 1 or rw != floors or fb or \
+            breaks or per != {"flash_attention": floors["attention"],
+                              "rms_norm": floors["rms_norm"],
+                              "swiglu": floors["swiglu"],
+                              "fused_rope": floors["rope"]} or \
+            f_max > STATIC_FACTOR * e_max or \
+            f_mean > STATIC_FACTOR * e_mean or \
+            max(d_max, d_mean) > STATIC_DIRECT:
+        raise AssertionError(f"[{tag}] the fused forward differs")
+    del st, plain, want, got, ref
+    _release()
+    return launches
 
 if __name__ == "__main__":
     sys.exit(main())

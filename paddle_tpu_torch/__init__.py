@@ -17,8 +17,10 @@ Layout (each module names its ``paddle_tpu`` counterpart):
   decode attention and their int8 twins, RMSNorm, SwiGLU, flash attention
   forward and backward with and without a flashmask range mask, fused
   RoPE, bias + dropout + residual + LayerNorm), each beside its plain
-  PyTorch version and a launch counter, and the autograd functions over
-  them.
+  PyTorch version and a launch counter, and the custom ops over them
+  (``torch.ops.ptt.*``, ``ops.kernels._ops``).
+- ``compiler``: the graph compiler (fx capture, the pass pipeline,
+  pattern fusion onto the kernels' ops).
 - ``framework.random``: a default generator per device and ``seed``.
 - ``quantization.page_quant``: int8 KV page codes and the offset-0 scale
   freeze rule.
@@ -47,7 +49,8 @@ Layout (each module names its ``paddle_tpu`` counterpart):
   shared-memory workers); ``profiler``: ``Profiler`` on
   ``torch.profiler`` with the JAX scheduler, ``RecordEvent``.
 - ``framework``: the random generators and the runtime flags.
-- ``jit``: ``compile_train_step`` (eager).
+- ``jit``: ``compile_train_step`` (eager, or its fused program) and
+  ``to_static``.
 - ``weights``: the bridge from ``paddle_tpu`` parameters (as numpy arrays)
   and seeded random weights.
 - ``inference.engine``: ``GenerationEngine`` and ``BlockManager``, with

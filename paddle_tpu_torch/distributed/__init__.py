@@ -27,7 +27,7 @@ import pickle
 import numpy as np
 import torch
 
-from . import checkpoint, fleet, resilient, watchdog  # noqa: F401
+from . import checkpoint, fleet, passes, resilient, watchdog  # noqa: F401
 from . import communication  # noqa: F401
 from .auto_parallel import (  # noqa: F401
     DeviceMesh, ProcessMesh, Shard, Replicate, Partial, PartitionSpec,

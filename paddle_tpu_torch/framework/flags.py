@@ -5,8 +5,15 @@ Each flag is defined with a default, overridable through its
 ``FLAGS_<name>`` environment variable (Paddle's convention) and at run time
 through ``set_flags`` / ``get_flag``, under the JAX
 package's names. The port defines only what it reads:
-``FLAGS_comm_timeout_s`` (``distributed.watchdog``) and
-``FLAGS_check_nan_inf`` (``amp.debugging``'s checker).
+``FLAGS_comm_timeout_s`` (``distributed.watchdog``),
+``FLAGS_check_nan_inf`` (``amp.debugging``'s checker) and
+``FLAGS_jaxpr_fusion`` (the graph compiler's default, ``compiler``; its
+default comes from the ``PADDLE_TPU_FUSION`` environment variable, as in
+the JAX package).
+
+``FLAGS_EPOCH`` counts the ``set_flags`` calls: a cache of captured
+programs that may have read a flag while capturing keys on it, so that a
+flag flip captures again (``compiler.optimize``).
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ from __future__ import annotations
 import os
 
 _FLAGS = {}
+# bumped on every set_flags (see the module docstring)
+FLAGS_EPOCH = [0]
 
 
 def define_flag(name, default, help=""):  # noqa: A002
@@ -39,6 +48,7 @@ def set_flags(flags: dict):
         if k not in _FLAGS:
             raise ValueError(f"unknown flag {k}")
         _FLAGS[k] = v
+    FLAGS_EPOCH[0] += 1
 
 
 def get_flag(name):
@@ -51,3 +61,10 @@ define_flag("check_nan_inf", False,
 define_flag("comm_timeout_s", 0.0,
             "If > 0, distributed waits raise CommTimeoutError after this "
             "many seconds instead of hanging (ref comm_task_manager).")
+define_flag("jaxpr_fusion",
+            os.environ.get("PADDLE_TPU_FUSION", "0").lower()
+            in ("1", "true", "yes"),
+            "graph-compiler pattern fusion (compiler): captured programs "
+            "of jit.to_static and jit.compile_train_step rewrite unfused "
+            "attention/rms_norm/swiglu/rope compositions onto the kernels' "
+            "custom ops unless a call overrides it (the JAX name kept)")

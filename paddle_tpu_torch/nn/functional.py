@@ -17,8 +17,8 @@ them. Under ``amp.auto_cast`` each casts its inputs as the JAX
 dispatcher casts them under its op name (``amp.amp_cast``). The kernel
 ops route to their wrappers in
 ``ops.kernels`` (the CUDA kernel for CUDA tensors, the plain version for
-CPU tensors), the differentiable ones through the kernel's autograd
-function. Attention with a dense mask or with dropout while training is
+CPU tensors), the differentiable ones through the kernel's custom op
+(``ops.kernels._ops``), as is the fused linear cross-entropy. Attention with a dense mask or with dropout while training is
 plain PyTorch (``_sdpa_dense``) on both devices, as the JAX package
 computes it in XLA (``_sdpa_xla``) outside any kernel. Functionals that
 draw random numbers take ``generator=`` (default: the device's generator
@@ -30,6 +30,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.flop_counter
 
 from ..amp import amp_cast
 from ..framework.random import default_generator
@@ -154,14 +155,15 @@ def fused_rope_qk(q, k, cos, sin):
 
 
 def _sdpa_dense(q, k, v, mask=None, dropout_p=0.0, causal=False,
-                training=True, return_lse=False, generator=None):
+                training=True, return_lse=False, generator=None, scale=None):
     """``_sdpa_xla``: attention with the [B, H, S, T] logits materialized.
     q/k/v [B, S, H, D] (K/V heads repeated under GQA); mask bool (True =
     attend) or additive, broadcast against the logits; logits in float32,
     probabilities in q's type, dropout on the probabilities while
     training. return_lse adds the float32 logsumexp of the masked logits
-    [B, H, S] (of -1e30 logits on a row that sees nothing)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    [B, H, S] (of -1e30 logits on a row that sees nothing). scale
+    defaults to 1/sqrt(D) (the graph compiler passes a matched one)."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if kt.shape[1] != qt.shape[1]:
         rep = qt.shape[1] // kt.shape[1]
@@ -469,75 +471,114 @@ def _flce_logits(hid, weight, off, chunk, v, transpose_w):
     return logits, wc
 
 
-class FusedLinearCrossEntropy(torch.autograd.Function):
-    """``_fused_linear_ce`` of ``ops/impl/fused.py``: mean cross-entropy of
-    hidden [T, H] @ weight [H, V] ([V, H] with transpose_w) against labels
-    [T], streaming the vocab in chunks through an online logsumexp so the
-    [T, V] logits never exist; the backward recomputes each chunk's logits
-    and folds (softmax - onehot) into the dhidden and dweight products.
-    The chunk products are float32 ``torch.matmul`` (the JAX package
-    leaves them to XLA: no TPU kernel)."""
+def _flce_forward(hidden: torch.Tensor, weight: torch.Tensor,
+                  labels: torch.Tensor, transpose_w: bool,
+                  chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_fused_linear_ce`` of ``ops/impl/fused.py``: (the mean
+    cross-entropy of hidden [T, H] @ weight [H, V] ([V, H] with
+    transpose_w) against labels [T], in hidden's type; the float32 lse
+    [T]), streaming the vocab in chunks through an online logsumexp so the
+    [T, V] logits never exist. The chunk products are float32
+    ``torch.matmul`` (the JAX package leaves them to XLA: no TPU
+    kernel)."""
+    t = hidden.shape[0]
+    v = weight.shape[0] if transpose_w else weight.shape[1]
+    n_chunks = -(-v // chunk)
+    hid = hidden.float()
+    lab = labels.long()
+    valid = lab >= 0
+    m = torch.full((t,), float("-inf"), device=hidden.device)
+    s = torch.zeros(t, device=hidden.device)
+    zl = torch.zeros(t, device=hidden.device)
+    for ci in range(n_chunks):
+        off = ci * chunk
+        logits, _ = _flce_logits(hid, weight, off, chunk, v, transpose_w)
+        m_new = torch.maximum(m, logits.amax(dim=1))
+        s = s * torch.exp(m - m_new) + torch.exp(
+            logits - m_new[:, None]).sum(dim=1)
+        in_c = (lab >= off) & (lab < off + chunk)
+        picked = logits.gather(
+            1, (lab - off).clamp(0, chunk - 1)[:, None])[:, 0]
+        zl = zl + torch.where(in_c, picked, torch.zeros_like(picked))
+        m = m_new
+    lse = m + torch.log(s)
+    n_valid = valid.sum().clamp_min(1).float()
+    loss = torch.where(valid, lse - zl, torch.zeros_like(lse)).sum() / \
+        n_valid
+    return loss.to(hidden.dtype), lse
 
-    @staticmethod
-    def forward(ctx, hidden, weight, labels, transpose_w, chunk):
-        t = hidden.shape[0]
-        v = weight.shape[0] if transpose_w else weight.shape[1]
-        n_chunks = -(-v // chunk)
-        hid = hidden.float()
-        lab = labels.long()
-        valid = lab >= 0
-        m = torch.full((t,), float("-inf"), device=hidden.device)
-        s = torch.zeros(t, device=hidden.device)
-        zl = torch.zeros(t, device=hidden.device)
-        for ci in range(n_chunks):
-            off = ci * chunk
-            logits, _ = _flce_logits(hid, weight, off, chunk, v, transpose_w)
-            m_new = torch.maximum(m, logits.amax(dim=1))
-            s = s * torch.exp(m - m_new) + torch.exp(
-                logits - m_new[:, None]).sum(dim=1)
-            in_c = (lab >= off) & (lab < off + chunk)
-            picked = logits.gather(
-                1, (lab - off).clamp(0, chunk - 1)[:, None])[:, 0]
-            zl = zl + torch.where(in_c, picked, torch.zeros_like(picked))
-            m = m_new
-        lse = m + torch.log(s)
-        n_valid = valid.sum().clamp_min(1).float()
-        loss = torch.where(valid, lse - zl, torch.zeros_like(lse)).sum() / \
-            n_valid
-        ctx.save_for_backward(hidden, weight, lab, lse)
-        ctx.transpose_w, ctx.chunk = transpose_w, chunk
-        return loss.to(hidden.dtype)
 
-    @staticmethod
-    def backward(ctx, g):
-        hidden, weight, lab, lse = ctx.saved_tensors
-        transpose_w, chunk = ctx.transpose_w, ctx.chunk
-        v = weight.shape[0] if transpose_w else weight.shape[1]
-        n_chunks = -(-v // chunk)
-        hid = hidden.float()
-        valid = lab >= 0
-        n_valid = valid.sum().clamp_min(1).float()
-        # d(mean over valid rows): ignored rows get no pull at all
-        gt = (g.float() / n_valid) * valid.float()
-        dhid = torch.zeros_like(hid)
-        dw = torch.empty_like(weight)
-        rows = torch.arange(hid.shape[0], device=hid.device)
-        for ci in range(n_chunks):
-            off = ci * chunk
-            n = min(chunk, v - off)
-            logits, wc = _flce_logits(hid, weight, off, chunk, v,
-                                      transpose_w)
-            d = torch.exp(logits[:, :n] - lse[:, None])
-            in_c = valid & (lab >= off) & (lab < off + n)
-            d[rows[in_c], lab[in_c] - off] -= 1.0      # softmax - onehot
-            d = d * gt[:, None]
-            if transpose_w:
-                dw[off:off + n] = (d.t() @ hid).to(weight.dtype)
-                dhid = dhid + d @ wc
-            else:
-                dw[:, off:off + n] = (hid.t() @ d).to(weight.dtype)
-                dhid = dhid + d @ wc.t()
-        return dhid.to(hidden.dtype), dw, None, None, None
+# a torch.library op, so that a capture (compiler, jit.to_static) records
+# the loss as one node with this backward instead of inlining the chunk
+# loop (see ops.kernels._ops)
+_flce_op = torch.library.custom_op(
+    "ptt::fused_linear_cross_entropy", _flce_forward, mutates_args=(),
+    device_types=("cpu", "cuda"))
+
+
+@_flce_op.register_fake
+def _(hidden, weight, labels, transpose_w, chunk):
+    return (hidden.new_empty(()),
+            hidden.new_empty((hidden.shape[0],), dtype=torch.float32))
+
+
+def _flce_setup(ctx, inputs, output):
+    hidden, weight, labels, transpose_w, chunk = inputs
+    ctx.save_for_backward(hidden, weight, labels, output[1])
+    ctx.mark_non_differentiable(output[1])
+    ctx.transpose_w, ctx.chunk = transpose_w, chunk
+
+
+def _flce_backward(ctx, g, _dlse):
+    """Recompute each chunk's logits and fold (softmax - onehot) into the
+    dhidden and dweight products."""
+    hidden, weight, labels, lse = ctx.saved_tensors
+    lab = labels.long()
+    transpose_w, chunk = ctx.transpose_w, ctx.chunk
+    v = weight.shape[0] if transpose_w else weight.shape[1]
+    n_chunks = -(-v // chunk)
+    hid = hidden.float()
+    valid = lab >= 0
+    n_valid = valid.sum().clamp_min(1).float()
+    # d(mean over valid rows): ignored rows get no pull at all
+    gt = (g.float() / n_valid) * valid.float()
+    dhid = torch.zeros_like(hid)
+    dw = torch.empty_like(weight)
+    rows = torch.arange(hid.shape[0], device=hid.device)
+    for ci in range(n_chunks):
+        off = ci * chunk
+        n = min(chunk, v - off)
+        logits, wc = _flce_logits(hid, weight, off, chunk, v, transpose_w)
+        d = torch.exp(logits[:, :n] - lse[:, None])
+        in_c = valid & (lab >= off) & (lab < off + n)
+        # softmax - onehot: -1 at the label's column of each row labelled
+        # in this chunk (-0 elsewhere), in place and of no data-dependent
+        # shape
+        d.index_put_((rows, (lab - off).clamp(0, n - 1)), -in_c.float(),
+                     accumulate=True)
+        d = d * gt[:, None]
+        if transpose_w:
+            dw[off:off + n] = (d.t() @ hid).to(weight.dtype)
+            dhid = dhid + d @ wc
+        else:
+            dw[:, off:off + n] = (hid.t() @ d).to(weight.dtype)
+            dhid = dhid + d @ wc.t()
+    return dhid.to(hidden.dtype), dw, None, None, None
+
+
+_flce_op.register_autograd(_flce_backward, setup_context=_flce_setup)
+
+
+def _flce_flops(hidden_shape, weight_shape, *args, out_shape=None, **kw):
+    """The forward's chunk products, 2 T h V, for FlopCounterMode (the
+    modes do not see inside an op)."""
+    return 2 * hidden_shape[0] * hidden_shape[1] * (
+        weight_shape[0] * weight_shape[1] // hidden_shape[1])
+
+
+torch.utils.flop_counter.register_flop_formula(
+    torch.ops.ptt.fused_linear_cross_entropy)(
+    _flce_flops)
 
 
 def fused_linear_cross_entropy(hidden, weight, labels,
@@ -553,5 +594,4 @@ def fused_linear_cross_entropy(hidden, weight, labels,
     l2 = labels.reshape(-1)
     v = weight.shape[0] if transpose_weight else weight.shape[-1]
     chunk = min(int(chunk_size), max(128, -(-int(v) // 128) * 128))
-    return FusedLinearCrossEntropy.apply(h2, weight, l2,
-                                         bool(transpose_weight), chunk)
+    return _flce_op(h2, weight, l2, bool(transpose_weight), chunk)[0]

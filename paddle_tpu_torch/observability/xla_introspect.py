@@ -24,8 +24,10 @@ first step of ``jit.compile_train_step``, and the eager warm-up that
 convolution products of the torch ops) plus a dispatch mode of its own
 (bytes, temps), plus each hand-written kernel's cost from its shapes
 (``ops.kernels._cost``: the kernels are ctypes launches the modes cannot
-see). So the flops are the products of the program (elementwise torch ops
-count no flops, as in ``FlopCounterMode``; the kernels count theirs),
+see inside; the dispatch mode charges each kernel's op,
+``ops.kernels._ops``, and a wrapper called outside an op charges
+itself). So the flops are the products of the program (elementwise torch
+ops count no flops, as in ``FlopCounterMode``; the kernels count theirs),
 ``bytes accessed`` is what each eager op reads and writes (view ops move
 nothing), and the memory kinds are: args, the bytes of the tensors the
 program reads (the caller names them); outputs, what it returns; temps,
@@ -301,11 +303,16 @@ def _storage_bytes(tensors):
 
 def _make_mode(counter):
     from torch.utils._python_dispatch import TorchDispatchMode
+    from ..ops.kernels._ops import COSTS
 
     class _CountMode(TorchDispatchMode):
-        """Bytes each op reads and writes, and the peak of temps."""
+        """Bytes each op reads and writes, and the peak of temps; a
+        kernel's op (``ops.kernels._ops``) is charged its own cost."""
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            spec = COSTS.get(func)
+            if spec is not None:
+                return counter._kernel_op(func, spec, args, kwargs or {})
             out = func(*args, **(kwargs or {}))
             try:
                 counter._op(func, args, kwargs, out)
@@ -368,6 +375,21 @@ class Counter:
                 live = sum(self._live.values())
                 self._peak = max(self._peak, live)
             weakref.finalize(t, self._free, key)
+
+    def _kernel_op(self, func, spec, args, kwargs):
+        """Run a kernel's op and charge it its cost from the op's
+        arguments (``_ops.COSTS``): the wrapper inside runs with the modes
+        popped, so it charges nothing itself."""
+        name, cost = spec
+        since = self.mark()
+        out = func(*args, **kwargs)
+        try:
+            self._op(func, args, kwargs, out)
+            flops, nbytes = cost(*args, **kwargs)
+        except Exception:  # noqa: BLE001 — counting never breaks a run
+            flops = nbytes = None
+        self.kernel(name, flops, nbytes, since)
+        return out
 
     def _free(self, key):
         with self._lock:

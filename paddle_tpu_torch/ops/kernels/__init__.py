@@ -11,9 +11,12 @@ counted apart: tensor-core kernels for bf16/f16 with head dim 64 or 128
 (ragged: and pages of a multiple of 8 tokens), float32 SIMT kernels for
 the rest (``flash_attention.route``, ``ragged_attention.route``).
 
-The autograd functions (``FlashAttention``, ``FlashmaskAttention``,
+The differentiable forms (``FlashAttention``, ``FlashmaskAttention``,
 ``RMSNorm``, ``SwiGLU``, ``FusedRoPE``, ``FusedRoPEQK``,
-``BiasDropoutResidualLN``) run a wrapper forward. Flash attention's
+``BiasDropoutResidualLN``, each with an ``apply``) are ``torch.library``
+custom ops in the ``ptt`` namespace (``_ops``), so that a capture records
+each kernel as one node with its own backward; each op runs a wrapper
+forward. Flash attention's
 backward is a kernel too (``flash_attention_bwd``,
 ``flashmask_attention_bwd``), as the TPU's is, and so is RoPE's
 (``fused_rope_bwd``, the RoPE kernel's transposed form); the others'
@@ -24,16 +27,17 @@ the flash kernels with a range mask and count their launches apart.
 
 from __future__ import annotations
 
-from .bias_dropout_residual_ln import (BiasDropoutResidualLN,
-                                       bias_dropout_residual_ln,
+from ._ops import (BiasDropoutResidualLN, FlashAttention,
+                   FlashmaskAttention, FusedRoPE, FusedRoPEQK, RMSNorm,
+                   SwiGLU)
+from .bias_dropout_residual_ln import (bias_dropout_residual_ln,
                                        bias_dropout_residual_ln_bwd_plain,
                                        bias_dropout_residual_ln_plain)
 from .decode_attention import (paged_decode_attention,
                                paged_decode_attention_plain,
                                paged_decode_attention_split_plain,
                                split_plan)
-from .flash_attention import (FlashAttention, FlashmaskAttention,
-                              flash_attention_bwd, flash_attention_bwd_plain,
+from .flash_attention import (flash_attention_bwd, flash_attention_bwd_plain,
                               flash_attention_fwd, flash_attention_fwd_plain,
                               flashmask_attention_bwd,
                               flashmask_attention_bwd_plain,
@@ -48,11 +52,11 @@ from .quantized_attention import (paged_decode_attention_int8,
 from .ragged_attention import (ragged_paged_attention,
                                ragged_paged_attention_plain,
                                ragged_paged_attention_tiled_plain)
-from .rms_norm import RMSNorm, rms_norm, rms_norm_bwd_plain, rms_norm_plain
-from .rope import (FusedRoPE, FusedRoPEQK, fused_rope, fused_rope_bwd,
+from .rms_norm import rms_norm, rms_norm_bwd_plain, rms_norm_plain
+from .rope import (fused_rope, fused_rope_bwd,
                    fused_rope_bwd_plain, fused_rope_plain, fused_rope_qk,
                    fused_rope_rows_plain)
-from .swiglu import SwiGLU, swiglu, swiglu_bwd_plain, swiglu_plain
+from .swiglu import swiglu, swiglu_bwd_plain, swiglu_plain
 
 # wrapper -> (CUDA source it launches, TPU kernel it replaces)
 KERNELS = {

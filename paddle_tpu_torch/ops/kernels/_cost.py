@@ -1,11 +1,13 @@
 """Each kernel wrapper's cost for the program counter of
 ``observability.xla_introspect``.
 
-The kernels are ``ctypes`` launches inside ``torch.autograd.Function``s,
-so a ``TorchDispatchMode`` (``FlopCounterMode`` among them) never sees
-their work: on the card it sees only the output's allocation, on the CPU
+The kernels are ``ctypes`` launches, so a ``TorchDispatchMode``
+(``FlopCounterMode`` among them) never sees their work: on the card it sees only the output's allocation, on the CPU
 it sees the plain version, whose products are not the kernel's (a causal
 plain attention multiplies every pair, the kernel only the visible ones).
+A kernel reached through its op (``_ops``) is charged by the counter's
+dispatch mode, which sees the op as one call (``_ops.COSTS``); inside the
+op the modes are popped, so the wrapper charges nothing there.
 ``costed(name, cost)`` wraps a wrapper so that, while a counter is active
 in the calling thread, the call adds ``cost(*args, **kwargs) -> (flops,
 bytes)`` under `name` and the counter forgets what the dispatch mode saw

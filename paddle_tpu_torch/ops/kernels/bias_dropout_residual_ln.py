@@ -25,8 +25,9 @@ one. (The bits differ from the TPU's ``prng_random_bits`` and from
 ``bias_dropout_residual_ln_bwd_plain`` is ``_bdrln_bwd``: the vjp of the
 LayerNorm recomputed from the saved y in x's type (not the float32 y),
 dx = dy * keep / (1 - p), dbias the row sum of dx, in plain PyTorch as the
-JAX package computes it in XLA. ``BiasDropoutResidualLN`` is the autograd
-function over the two. Bound and design: see the note in the CUDA source.
+JAX package computes it in XLA. ``BiasDropoutResidualLN`` (``_ops``, the
+op ``ptt::bias_dropout_residual_ln``) is the differentiable form over the
+two. Bound and design: see the note in the CUDA source.
 """
 
 from __future__ import annotations
@@ -191,25 +192,3 @@ def bias_dropout_residual_ln_bwd_plain(y, keep, ln_w, ln_b, g, eps=1e-5,
     dbias = dx.reshape(-1, dx.shape[-1]).float().sum(0).to(y.dtype) \
         if has_bias else None
     return dx, dbias, dy, dw, db
-
-
-class BiasDropoutResidualLN(torch.autograd.Function):
-    """out = LayerNorm(residual + dropout(x + bias)) through
-    ``bias_dropout_residual_ln`` (the kernel on the card); the backward is
-    ``bias_dropout_residual_ln_bwd_plain`` on the saved y and keep mask
-    (the counterpart of ``_bdrln_core``'s custom_vjp). bias may be None."""
-
-    @staticmethod
-    def forward(ctx, x, bias, residual, ln_w, ln_b, eps, p, seed):
-        out, y, keep = bias_dropout_residual_ln(x, residual, ln_w, ln_b,
-                                                bias, eps, p, seed)
-        ctx.save_for_backward(y, keep, ln_w, ln_b)
-        ctx.eps, ctx.p, ctx.has_bias = eps, p, bias is not None
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        y, keep, ln_w, ln_b = ctx.saved_tensors
-        dx, dbias, dres, dw, db = bias_dropout_residual_ln_bwd_plain(
-            y, keep, ln_w, ln_b, g, ctx.eps, ctx.p, ctx.has_bias)
-        return dx, dbias, dres, dw, db, None, None, None

@@ -29,9 +29,9 @@ wrapper counts its launches in ``launches`` and per route in
 ``sm90_launches`` / ``simt_launches``. The plain versions keep P and dS in
 float32 by default; ``p_dtype`` rounds them where the TPU kernel does.
 
-``FlashAttention`` is the autograd function that pairs the two: its
-forward is the forward kernel and it saves q, k, v, out and the float32
-lse. Bound and design: see the notes in the CUDA sources.
+``FlashAttention`` (``_ops``, the ops ``ptt::flash_attention_fwd`` and
+``ptt::flash_attention_bwd``) pairs the two: its forward is the forward
+kernel and it saves q, k, v, out and the float32 lse. Bound and design: see the notes in the CUDA sources.
 
 Flashmask (``flashmask_attention_fwd`` / ``_bwd`` and their ``_plain``
 versions; ``_flashmask_core``, ``_expand_mask_heads`` and
@@ -43,8 +43,9 @@ end2[t]), on top of the causal and length tests. Its launches are counted
 apart from the unmasked ones. A row that sees no key writes 0 and lse =
 NEG_INF + log(L_EPS) (-1e30 in float32; the JAX package's dense path gives
 the logsumexp of its -1e30 logits there instead, so such rows' lse are not
-compared). ``FlashmaskAttention`` is its autograd function: the bounds get
-no gradient and lse comes out detached, as JAX's stop_gradient has it.
+compared). ``FlashmaskAttention`` (``_ops``) is its differentiable form:
+the bounds get no gradient and lse comes out detached, as JAX's
+stop_gradient has it.
 """
 
 from __future__ import annotations
@@ -427,49 +428,3 @@ def flashmask_attention_bwd(q, k, v, out, lse, dout, start, end,
 flashmask_attention_bwd.launches = 0
 flashmask_attention_bwd.sm90_launches = 0
 flashmask_attention_bwd.simt_launches = 0
-
-
-class FlashAttention(torch.autograd.Function):
-    """out = attention(q, k, v) through ``flash_attention_fwd``; the
-    backward is ``flash_attention_bwd`` on the saved q, k, v, out and lse
-    (the counterpart of ``_flash_core``'s custom_vjp)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), ctx.causal,
-                                         ctx.scale)
-        return dq, dk, dv, None, None
-
-
-class FlashmaskAttention(torch.autograd.Function):
-    """(out, lse) = flashmask attention through ``flashmask_attention_fwd``;
-    the backward is ``flashmask_attention_bwd`` on the saved q, k, v, out,
-    lse and bounds (the counterpart of ``_flashmask_core``'s custom_vjp).
-    The bounds get no gradient and lse is non-differentiable. start2/end2
-    may be None."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, start, end, start2, end2, causal, scale):
-        out, lse = flashmask_attention_fwd(q, k, v, start, end, start2, end2,
-                                           causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse, start, end, start2, end2)
-        ctx.mark_non_differentiable(lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out, lse
-
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, out, lse, start, end, start2, end2 = ctx.saved_tensors
-        dq, dk, dv = flashmask_attention_bwd(
-            q, k, v, out, lse, dout.contiguous(), start, end, start2, end2,
-            ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None, None, None, None

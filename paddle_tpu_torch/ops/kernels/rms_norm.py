@@ -10,9 +10,10 @@ to the input's type. Bound and design: see the note in the CUDA source
 registers, the weight loaded once per thread; a scalar path for widths
 that are no whole number of vectors).
 
-``RMSNorm`` is the autograd function: its forward is ``rms_norm`` (the
-kernel on the card), its backward the vjp of ``_rms_xla`` in plain
-PyTorch, as the JAX package computes it in XLA outside Pallas.
+``RMSNorm`` (``_ops``, the op ``ptt::rms_norm``) is the differentiable
+form: its forward is ``rms_norm`` (the kernel on the card), its backward
+``rms_norm_bwd_plain``, the vjp of ``_rms_xla`` in plain PyTorch, as the
+JAX package computes it in XLA outside Pallas.
 """
 
 from __future__ import annotations
@@ -69,17 +70,3 @@ def rms_norm_bwd_plain(x, w, g, eps=1e-6):
     dw = (gf * (xf * r)).reshape(-1, h).sum(0)
     dx = r * dn - xf * (r * r * r) * (dn * xf).mean(dim=-1, keepdim=True)
     return dx.to(x.dtype), dw.to(w.dtype)
-
-
-class RMSNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, eps):
-        ctx.save_for_backward(x, w)
-        ctx.eps = eps
-        return rms_norm(x, w, eps)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        dx, dw = rms_norm_bwd_plain(x, w, g, ctx.eps)
-        return dx, dw, None

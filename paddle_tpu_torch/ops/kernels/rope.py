@@ -21,9 +21,10 @@ among them; ``fused_rope_bwd.launches`` the transposed ones. Each also
 counts its launches on the scalar path (``scalar_launches``: a head dim
 whose half is no whole number of 16-byte vectors, or unaligned pointers).
 
-``FusedRoPE`` and ``FusedRoPEQK`` are the autograd functions: their
-forward is ``fused_rope`` / ``fused_rope_qk``, their backward
-``fused_rope_bwd`` (one launch for q and k). The tables get no gradient.
+``FusedRoPE`` and ``FusedRoPEQK`` (``_ops``, the ops ``ptt::fused_rope``
+and ``ptt::fused_rope_qk``) are the differentiable forms: their forward
+is ``fused_rope`` / ``fused_rope_qk``, their backward ``fused_rope_bwd``
+(one launch for q and k). The tables get no gradient.
 """
 
 from __future__ import annotations
@@ -186,31 +187,3 @@ def fused_rope_bwd(g, cos, sin, g_k=None):
 fused_rope.launches = fused_rope.scalar_launches = 0
 fused_rope_qk.launches = 0
 fused_rope_bwd.launches = fused_rope_bwd.scalar_launches = 0
-
-
-class FusedRoPE(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, cos, sin):
-        ctx.save_for_backward(cos, sin)
-        return fused_rope(x, cos, sin)
-
-    @staticmethod
-    def backward(ctx, g):
-        cos, sin = ctx.saved_tensors
-        return fused_rope_bwd(g.contiguous(), cos, sin), None, None
-
-
-class FusedRoPEQK(torch.autograd.Function):
-    """q and k through one launch each way ([S, D] tables when there is a
-    gradient to take; the per-token rows serve inference only)."""
-
-    @staticmethod
-    def forward(ctx, q, k, cos, sin):
-        ctx.save_for_backward(cos, sin)
-        return fused_rope_qk(q, k, cos, sin)
-
-    @staticmethod
-    def backward(ctx, gq, gk):
-        cos, sin = ctx.saved_tensors
-        dq, dk = fused_rope_bwd(gq.contiguous(), cos, sin, gk.contiguous())
-        return dq, dk, None, None

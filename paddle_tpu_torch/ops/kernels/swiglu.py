@@ -8,9 +8,10 @@ and takes the plain version ``swiglu_plain`` for CPU tensors. Both compute
 Bound and design: see the note in the CUDA source (memory-bound,
 16-byte loads).
 
-``SwiGLU`` is the autograd function: its forward is ``swiglu`` (the kernel
-on the card), its backward ``_swiglu_bwd``'s formula in float32, cast to
-the input types, in plain PyTorch as the JAX package computes it in XLA.
+``SwiGLU`` (``_ops``, the op ``ptt::swiglu``) is the differentiable form:
+its forward is ``swiglu`` (the kernel on the card), its backward
+``swiglu_bwd_plain``, ``_swiglu_bwd``'s formula in float32, cast to the
+input types, in plain PyTorch as the JAX package computes it in XLA.
 """
 
 from __future__ import annotations
@@ -64,15 +65,3 @@ def swiglu_bwd_plain(gate, up, g):
     dgate = gd * up.float() * (sig + silu * (1.0 - sig))
     dup = gd * silu
     return dgate.to(gate.dtype), dup.to(up.dtype)
-
-
-class SwiGLU(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, gate, up):
-        ctx.save_for_backward(gate, up)
-        return swiglu(gate, up)
-
-    @staticmethod
-    def backward(ctx, g):
-        gate, up = ctx.saved_tensors
-        return swiglu_bwd_plain(gate, up, g)

@@ -601,7 +601,14 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers, "
             "paddle_tpu_torch.distributed.fleet.layers.mpu.random, "
             "paddle_tpu_torch.serving, paddle_tpu_torch.serving.mesh_engine, "
-            "paddle_tpu_torch.observability.sharding; "
+            "paddle_tpu_torch.observability.sharding, "
+            "paddle_tpu_torch.compiler, paddle_tpu_torch.compiler.capture, "
+            "paddle_tpu_torch.compiler.patterns, "
+            "paddle_tpu_torch.compiler.rewrites, "
+            "paddle_tpu_torch.compiler.cleanup, "
+            "paddle_tpu_torch.compiler.remat, "
+            "paddle_tpu_torch.ops.kernels._ops, "
+            "paddle_tpu_torch.distributed.passes, fusion_audit_torch; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad); "
@@ -618,7 +625,8 @@ FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import paddle_tpu\b"
 def test_no_module_of_the_port_imports_jax_or_paddle_tpu():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "flash_fwd_ab.py",
-              ROOT / "flash_rounding_check.py"]
+              ROOT / "flash_rounding_check.py",
+              ROOT / "fusion_audit_torch.py"]
     assert len(files) > 10
     for path in files:
         hits = FORBIDDEN.findall(path.read_text())

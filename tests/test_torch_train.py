@@ -303,7 +303,9 @@ def test_optimizer_state_dict_round_trip():
 
 def test_optimizer_refuses_later_slices():
     """A scheduler drives the rate as in JAX; parameters are required; the
-    compiler's options still raise, each naming what it needs; and
+    compiler's options (fuse, the fused remat policy) run the eager step's
+    numbers on a model with no pattern, a JAX checkpoint policy raises
+    naming what to use instead; and
     LlamaConfig(recompute=True) builds a model that computes what the
     recompute=False one does (the flag alone changes nothing in JAX)."""
     p = [torch.nn.Parameter(torch.ones(2))]
@@ -319,14 +321,20 @@ def test_optimizer_refuses_later_slices():
     with pytest.raises(ValueError, match="parameters"):
         topt.AdamW(0.1)
     model = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="compiler slice"):
-        compile_train_step(model, lambda m, x: m(x).sum(),
-                           topt.AdamW(0.1, parameters=model.parameters()),
-                           fuse=True)
-    with pytest.raises(NotImplementedError, match="compiler slice"):
-        compile_train_step(model, lambda m, x: m(x).sum(),
-                           topt.AdamW(0.1, parameters=model.parameters()),
-                           remat_policy="fused")
+    # the compiler's options run (tests/test_torch_compiler.py holds them
+    # to the JAX package): the same steps as the eager step's
+    x = torch.ones(3, 2)
+    losses = {}
+    for kw in ({}, {"fuse": True}, {"fuse": True, "remat_policy": "fused"},
+               {"remat_policy": "fused"}):
+        m = torch.nn.Linear(2, 2)
+        m.load_state_dict(model.state_dict())
+        step = compile_train_step(m, lambda m, x: m(x).sum(),
+                                  topt.AdamW(0.1, parameters=m.parameters()),
+                                  **kw)
+        losses[tuple(kw)] = [float(step(x)) for _ in range(3)]
+    for got in losses.values():
+        assert got == losses[()]
     with pytest.raises(NotImplementedError, match="apply_llama_remat"):
         compile_train_step(model, lambda m, x: m(x).sum(),
                            topt.AdamW(0.1, parameters=model.parameters()),
