@@ -2010,6 +2010,10 @@ def main():
     run("collectives", phase_collectives, dev)
     run("agree:mesh", phase_agree_mesh, dev)
     run("agree:fuse", phase_agree_fuse, dev)
+    opl = run("ops:layer", phase_ops_layer, K, dev)
+    ops = run("ops:sweep", phase_ops_sweep, K, dev)
+    agr = run("autograd", phase_autograd, K, dev)
+    run("device", phase_device, dev)
     masked = run("flashmask", phase_flashmask, K, dev)
     ffn = run("fused_ffn", phase_fused_ffn, K, dev)
     model = run("serve:model", _serving_model, dev)
@@ -2061,10 +2065,10 @@ def main():
           f"build {sum(times.values()):.1f}", flush=True)
     runs = (serve, dense, serve8, dense8, spec, spec8, fleet, fleet8, mesh,
             gserve, gserve8, gdense, bert, train, remat, fuse, static,
-            gtrain, btrain, rtrain, masked, ffn)
+            gtrain, btrain, rtrain, masked, ffn, opl, ops, agr)
     launches = {k: sum(r[k] for r in runs) for k in K.launch_counts()}
-    _require_launched("all serving, fleet, mesh, BERT, training, flashmask "
-                      "and fused_ffn runs", launches, K.KERNELS)
+    _require_launched("all serving, fleet, mesh, BERT, training, flashmask, "
+                      "fused_ffn and op-surface runs", launches, K.KERNELS)
 
     name_power = _nvidia_smi()
     print(name_power)
@@ -7146,6 +7150,343 @@ def phase_to_static(K, dev):
     del st, plain, want, got, ref
     _release()
     return launches
+
+
+# ----------------------------------------------------------------------
+# slice 18: the op surface
+# ----------------------------------------------------------------------
+
+# [ops:layer]: one Llama-2-7B decoder layer (hidden 4096, 32 heads of 128,
+# FFN 11008) in bf16 over OPS_BATCH x OPS_SEQ tokens, written from the op
+# surface and held against LlamaDecoderLayer with the same weights
+OPS_BATCH, OPS_SEQ = 4, 512
+# the kernels each run (forward and backward) must launch, and how often
+OPS_LAYER_LAUNCHES = {"rms_norm": 2, "fused_rope": 1, "fused_rope.qk": 1,
+                      "swiglu": 1, "flash_attention": 1,
+                      "flash_attention_bwd": 1, "fused_rope_bwd": 1}
+# BERT-base's post-norm tail: bias + dropout + residual + LayerNorm
+OPS_BDRLN_ROWS, OPS_BDRLN_H, OPS_BDRLN_P = 16384, 768, 0.1
+
+
+def _surface_layer(ptt, F, p, x, cos, sin, cfg):
+    """LlamaDecoderLayer's forward from surface calls only: p holds the
+    layer's parameters by name (weights [in, out])."""
+    b, s, h = x.shape
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    hd = h // nh
+    a = ptt.fused_rms_norm(x, p["input_layernorm.weight"], cfg.rms_norm_eps)
+    q = ptt.reshape(ptt.matmul(a, p["self_attn.q_proj.weight"]),
+                    [b, s, nh, hd])
+    k = ptt.reshape(ptt.matmul(a, p["self_attn.k_proj.weight"]),
+                    [b, s, nkv, hd])
+    v = ptt.reshape(ptt.matmul(a, p["self_attn.v_proj.weight"]),
+                    [b, s, nkv, hd])
+    q, k, _ = ptt.fused_rotary_position_embedding(q, k, None, sin=sin,
+                                                  cos=cos)
+    att = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    x = ptt.add(x, ptt.matmul(ptt.reshape(att, [b, s, h]),
+                              p["self_attn.o_proj.weight"]))
+    m = ptt.fused_rms_norm(x, p["post_attention_layernorm.weight"],
+                           cfg.rms_norm_eps)
+    gu = ptt.swiglu(ptt.matmul(m, p["mlp.gate_proj.weight"]),
+                    ptt.matmul(m, p["mlp.up_proj.weight"]))
+    return ptt.add(x, ptt.matmul(gu, p["mlp.down_proj.weight"]))
+
+
+def _ulps(got, want):
+    """Largest |got - want| in bf16 ulps of want."""
+    got, want = got.detach().float(), want.detach().float()
+    return float(((got - want).abs() / _ulp_bf16(want)).max())
+
+
+def phase_ops_layer(K, dev):
+    """[ops:layer]: the slice's path at full width. One Llama-2-7B decoder
+    layer from the op surface (matmul, fused_rms_norm,
+    fused_rotary_position_embedding, reshape, swiglu, add and
+    nn.functional.scaled_dot_product_attention), forward and backward
+    (paddle_tpu_torch.grad: the input's and every weight's gradient),
+    against LlamaDecoderLayer with the same seed-0 weights on the card.
+    Rule: output and gradients within one bf16 ulp of the layer's, element
+    by element (the same kernels and products: bit-equal is expected).
+    Both runs must launch OPS_LAYER_LAUNCHES; the operator stats of one
+    surface forward are printed; ms of a forward + backward each (CUDA
+    events, 5 after a warm-up)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.amp import debugging as dbg
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models.llama import LlamaDecoderLayer, _rope_tables
+    from paddle_tpu_torch.nn import functional as F
+
+    tag = "ops:layer"
+    _release()
+    cfg = LlamaConfig.llama2_7b()
+    h = cfg.hidden_size
+    layer = weights.init_random_(LlamaDecoderLayer(
+        cfg, device=dev, dtype=torch.bfloat16), 0)
+    params = dict(layer.named_parameters())
+    names = sorted(params)
+    cos, sin = (t[:OPS_SEQ].to(dev) for t in _rope_tables(
+        h // cfg.num_attention_heads, cfg.max_position_embeddings,
+        cfg.rope_theta))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    x = torch.randn(OPS_BATCH, OPS_SEQ, h, generator=gen, device=dev,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    g = torch.randn(OPS_BATCH, OPS_SEQ, h, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    inputs = [x] + [params[n] for n in names]
+
+    def surface():
+        out = _surface_layer(ptt, F, params, x, cos, sin, cfg)
+        return out, ptt.grad(out, inputs, grad_outputs=g)
+
+    def model():
+        out = layer(x, cos, sin)
+        return out, torch.autograd.grad(out, inputs, g)
+
+    runs, ms = {}, {}
+    for label, fn in (("surface", surface), ("layer", model)):
+        K.reset_launch_counts()
+        out, grads = fn()
+        torch.cuda.synchronize()
+        runs[label] = (out, grads, K.launch_counts())
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(5):
+            fn()
+        end.record()
+        end.synchronize()
+        ms[label] = start.elapsed_time(end) / 5
+    (s_out, s_grads, s_l), (m_out, m_grads, m_l) = runs["surface"], \
+        runs["layer"]
+    err = {"out": _ulps(s_out, m_out), "x": _ulps(s_grads[0], m_grads[0])}
+    err["weights"] = max(_ulps(a, b) for a, b in zip(s_grads[1:],
+                                                      m_grads[1:]))
+    bit_equal = torch.equal(s_out, m_out) and all(
+        torch.equal(a, b) for a, b in zip(s_grads, m_grads))
+    with torch.no_grad(), dbg.collect_operator_stats():
+        _surface_layer(ptt, F, params, x, cos, sin, cfg)
+        stats = dbg.get_operator_stats()
+    per = {k: s_l[k] for k in OPS_LAYER_LAUNCHES}
+    per_m = {k: m_l[k] for k in OPS_LAYER_LAUNCHES}
+    print(f"[{tag}] Llama-2-7B decoder layer (hidden {h}, "
+          f"{cfg.num_attention_heads} heads of "
+          f"{h // cfg.num_attention_heads}, FFN {cfg.intermediate_size}) "
+          f"bf16, [{OPS_BATCH}, {OPS_SEQ}], from the op surface against "
+          f"LlamaDecoderLayer: forward + grad of x and {len(names)} weights;"
+          f" bf16 ulps (max) {json.dumps({k: round(v, 3) for k, v in err.items()})}"
+          f", bit-equal {bit_equal}; launches surface {json.dumps(per)}, "
+          f"layer {json.dumps(per_m)}; ms fwd+bwd surface "
+          f"{ms['surface']:.3f} layer {ms['layer']:.3f}", flush=True)
+    print(f"[{tag}] operator stats of one surface forward "
+          f"{json.dumps(dict(sorted(stats.items())))}", flush=True)
+    if max(err.values()) > 1.0 or per != OPS_LAYER_LAUNCHES or \
+            per_m != OPS_LAYER_LAUNCHES or s_l != m_l:
+        raise AssertionError(f"[{tag}] the surface layer differs from "
+                             "LlamaDecoderLayer")
+    launches = {k: s_l[k] + m_l[k] for k in s_l}
+    del layer, params, inputs, runs, s_out, s_grads, m_out, m_grads
+    _release()
+    return launches
+
+
+def phase_ops_sweep(K, dev):
+    """[ops:sweep]: every op of the surface once on the card against the
+    port on the CPU (``ops_sweep_torch.sweep``: small float64/float32/int
+    cases; float64 1e-9, float32 1e-4 relative, the special functions and
+    decompositions 1e-7, integers exact, the random ops by shape, dtype,
+    device and seeded repeatability); the fused names' kernels must
+    launch. Then fused_bias_dropout_residual_layer_norm at BERT-base's
+    [16384, 768] bf16, p = 0.1, through the surface: one bdrln launch, held
+    against the plain version with the same seed (check_bdrln's rule:
+    one bf16 ulp plus 2^-16 of the terms)."""
+    import ops_sweep_torch as sw
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import next_seed
+
+    tag = "ops:sweep"
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sw.sweep(dev)
+    secs = time.perf_counter() - t0
+    launches = K.launch_counts()
+    fused = {k: launches[k] for k in ("rms_norm", "swiglu", "fused_rope",
+                                      "bias_dropout_residual_ln",
+                                      "paged_decode_attention")}
+    print(f"[{tag}] ops run {out['ops']}, failed {len(out['failed'])}, "
+          f"worst {out['worst'][0]} at {out['worst'][1]:.3g} of its "
+          f"tolerance, {secs:.1f} s; the fused names' launches "
+          f"{json.dumps(fused)}", flush=True)
+    for name, why in sorted(out["failed"].items()):
+        print(f"[{tag}] FAILED {name}: {why}", flush=True)
+    if out["failed"]:
+        raise AssertionError(f"[{tag}] {len(out['failed'])} ops failed")
+    _require_launched(tag, launches, fused)
+    rng = np.random.default_rng(18)
+    x, r = (torch.from_numpy(rng.standard_normal(
+        (OPS_BDRLN_ROWS, OPS_BDRLN_H), dtype=np.float32)).to(
+            dev, torch.bfloat16) for _ in range(2))
+    w, b, bias = (torch.from_numpy(rng.standard_normal(
+        (OPS_BDRLN_H,), dtype=np.float32)).to(dev, torch.bfloat16)
+        for _ in range(3))
+    before = K.launch_counts()["bias_dropout_residual_ln"]
+    ptt.seed(7)
+    got = ptt.fused_bias_dropout_residual_layer_norm(
+        x, r, bias, w, b, dropout_rate=OPS_BDRLN_P, ln_epsilon=1e-12)
+    n = K.launch_counts()["bias_dropout_residual_ln"] - before
+    ptt.seed(7)
+    seed = next_seed()
+    want = K.bias_dropout_residual_ln_plain(x, r, w, b, bias, 1e-12,
+                                            OPS_BDRLN_P, seed)[0].float()
+    allow = _ulp_bf16(want) + 2.0 ** -16 * ((want - b.float()).abs() +
+                                           b.float().abs())
+    worst = float(((got.float() - want).abs() / allow).max())
+    print(f"[{tag}] fused_bias_dropout_residual_layer_norm [{OPS_BDRLN_ROWS}"
+          f", {OPS_BDRLN_H}] bf16 p={OPS_BDRLN_P}: bdrln launches {n}, "
+          f"against the plain version {worst:.3f} of the allowance, max "
+          f"|diff| {_max_err(got, want):.3e}", flush=True)
+    if n != 1 or worst > 1.0:
+        raise AssertionError(f"[{tag}] bdrln through the surface")
+    launches = K.launch_counts()
+    _release()
+    return launches
+
+
+def _autograd_f(ptt, w):
+    def f(x, y):
+        h = ptt.tanh(ptt.matmul(x, w))
+        return ptt.stack([ptt.sum(ptt.multiply(h, y)),
+                          ptt.sum(ptt.pow(x, 3.0))])
+    return f
+
+
+def _swiglu_layer(ptt, ag):
+    class SwiGLUGate(ag.PyLayer):
+        """silu(g) * u through the kernel; the backward replays the op
+        under autograd (a kernel launch in the backward)."""
+
+        @staticmethod
+        def forward(ctx, gate, up):
+            ctx.save_for_backward(gate, up)
+            return ptt.swiglu(gate, up)
+
+        @staticmethod
+        def backward(ctx, dy):
+            gate, up = (t.detach().requires_grad_(True)
+                        for t in ctx.saved_tensor())
+            with torch.enable_grad():
+                out = ptt.swiglu(gate, up)
+            return tuple(torch.autograd.grad(out, [gate, up], dy))
+    return SwiGLUGate
+
+
+def phase_autograd(K, dev):
+    """[autograd]: jacobian, hessian, vjp and jvp of one function written
+    from surface ops (float64) on the card against the CPU (1e-10
+    relative), and a PyLayer whose forward and backward call the SwiGLU
+    kernel op (float32 [256, 1024]: output and gradients against the CPU
+    within 1e-5 of each one's largest value; two swiglu launches a
+    call)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import autograd as ag
+
+    tag = "autograd"
+    K.reset_launch_counts()
+    rng = np.random.default_rng(19)
+    arrs = [rng.standard_normal(s) for s in ((3,), (3,), (3, 3))]
+    res = {}
+    for where in ("cpu", dev):
+        x, y, w = (torch.from_numpy(a).to(where) for a in arrs)
+        f = _autograd_f(ptt, w)
+        res[str(where)] = {
+            "jacobian": ag.jacobian(lambda v: f(v, y), x).value,
+            "hessian": ag.hessian(lambda v: ptt.sum(f(v, y)), x).value,
+            "vjp": ag.vjp(f, [x, y], torch.tensor(
+                [0.5, -2.0], dtype=torch.float64, device=where))[1][0],
+            "jvp": ag.jvp(f, [x, y])[1]}
+    errs = {}
+    for k, v in res[str(dev)].items():
+        want = res["cpu"][k]
+        errs[k] = float(((v.cpu() - want).abs() /
+                         (1e-12 + want.abs())).max())
+    layer = _swiglu_layer(ptt, ag)
+    gu = [rng.standard_normal((256, 1024)).astype(np.float32)
+          for _ in range(2)]
+    dy = rng.standard_normal((256, 1024)).astype(np.float32)
+    outs = {}
+    for where in ("cpu", dev):
+        a, b = (torch.from_numpy(v).to(where).requires_grad_(True)
+                for v in gu)
+        before = K.launch_counts()["swiglu"]
+        out = layer.apply(a, b)
+        grads = torch.autograd.grad(out, [a, b], torch.from_numpy(dy).to(
+            where))
+        outs[str(where)] = ([out] + list(grads),
+                            K.launch_counts()["swiglu"] - before)
+    (c_t, _), (d_t, n) = outs["cpu"], outs[str(dev)]
+    py_err = max(_max_err(d.detach().cpu(), c.detach()) /
+                 float(c.detach().abs().max()) for d, c in zip(d_t, c_t))
+    print(f"[{tag}] card against cpu, float64 (max relative): "
+          f"{json.dumps({k: f'{v:.2e}' for k, v in errs.items()})}; "
+          f"PyLayer over the SwiGLU kernel [256, 1024] float32: out and "
+          f"grads max|diff| / max|cpu| {py_err:.2e}, swiglu launches a call "
+          f"{n}", flush=True)
+    if max(errs.values()) > 1e-10 or py_err > 1e-5 or n != 2:
+        raise AssertionError(f"[{tag}] the card differs from the CPU")
+    return K.launch_counts()
+
+
+def phase_device(dev):
+    """[device]: device.cuda.max_memory_allocated / memory_allocated equal
+    to torch.cuda's; a bf16 [4096, 4096] matmul timed with device Events
+    on a non-default Stream (stream_guard), its result equal to the
+    default stream's; set_device("cpu") and back: creation follows."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import device as D
+
+    tag = "device"
+    _release()
+    a, b = (torch.randn(4096, 4096, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    mem = (D.cuda.max_memory_allocated(dev),
+           torch.cuda.max_memory_allocated(dev),
+           D.cuda.memory_allocated(dev), torch.cuda.memory_allocated(dev))
+    want = ptt.matmul(a, b)
+    s = D.Stream(dev)
+    s.wait_stream(D.current_stream(dev))
+    e0, e1 = (D.Event(dev, enable_timing=True) for _ in range(2))
+    with D.stream_guard(s):
+        ptt.matmul(a, b)                 # warm-up
+        e0.record(s)
+        for _ in range(10):
+            got = ptt.matmul(a, b)
+        e1.record(s)
+    e1.synchronize()
+    ms = e0.elapsed_time(e1) / 10
+    side = s.cuda_stream != torch.cuda.default_stream(dev)
+    same = torch.equal(got, want)
+    prev = D._CURRENT[0]
+    ptt.set_device("cpu")
+    on_cpu = ptt.zeros([2]).device.type == "cpu" and \
+        ptt.get_device() == "cpu"
+    ptt.set_device(f"gpu:{dev.index or 0}")
+    back = ptt.zeros([2]).device.type == "cuda" and \
+        ptt.get_device() == f"gpu:{dev.index or 0}"
+    D._CURRENT[0] = prev
+    tflops = 2 * 4096 ** 3 / (ms / 1e3) / 1e12
+    print(f"[{tag}] max_memory_allocated {mem[0]} (torch.cuda {mem[1]}), "
+          f"memory_allocated {mem[2]} ({mem[3]}); bf16 [4096, 4096] matmul "
+          f"on a side stream {ms:.4f} ms ({tflops:.1f} TFLOP/s), side "
+          f"stream {side}, equal to the default stream's {same}; "
+          f"set_device('cpu') round trip {on_cpu and back}", flush=True)
+    if mem[0] != mem[1] or mem[2] != mem[3] or not (side and same and
+                                                   on_cpu and back):
+        raise AssertionError(f"[{tag}] the device surface")
+    del a, b, got, want
+    _release()
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -10,9 +10,45 @@ transformer layers and the fused ``incubate.nn`` layers beside. The plain tensor
 for ``sm_90a`` under ``csrc/``, built at first use by
 ``ops.kernels._build`` and launched through ``ctypes``.
 
+The op surface is the counterpart of ``import paddle_tpu as paddle;
+paddle.<op>(...)``: the JAX package's top-level ops (``ops.impl``:
+creation, math, manipulation, reduce, logic, linalg, activation, fused,
+extra; ``tensor_tail``; the ``fft``, ``signal`` and ``linalg``
+namespaces) as functions over ``torch.Tensor``, with ``autograd``,
+``device`` and the dtypes. Its decisions:
+
+1. Functions, no patching. The JAX package installs each op as a method
+   of its own ``Tensor``; the port never adds or replaces an attribute of
+   ``torch.Tensor`` (that would change torch for every library in the
+   process, and clash where a Paddle name means something else than
+   torch's method: ``split``, ``gather``, ``scatter``, ``tile``, ``max``).
+   A method form's counterpart is the top-level function; ``Tensor`` and
+   ``Parameter`` are torch's, exported as names only.
+2. In-place forms: ``name_(x, ...)`` writes the result into ``x`` and
+   returns ``x`` (the JAX package rebinds ``x``).
+3. A new tensor goes to the current device (``set_device``): CUDA unless
+   ``set_device("cpu")``, a ``place=`` or a ``device=`` says otherwise;
+   with no card and no CPU request, creation raises. Ops over existing
+   tensors run where their inputs are.
+4. Random ops draw from the port's generators (``seed``), not
+   ``jax.random``'s streams.
+5. Importing the package builds and launches no kernel: the fused names
+   load the kernel modules at their first call.
+
+Every op call goes through ``amp.amp_cast`` under the JAX name
+(``ops.registry``): ``auto_cast`` casts it as the JAX dispatcher does,
+``amp.debugging``'s operator stats count it and ``FLAGS_check_nan_inf``
+checks its outputs.
+
 Layout (each module names its ``paddle_tpu`` counterpart):
 
-- ``device``: device resolution (CUDA unless the caller asks for the CPU).
+- ``device``: places, ``set_device`` / ``get_device``, the card's memory
+  statistics, streams and events; ``resolve_device`` (CUDA unless the
+  caller asks for the CPU).
+- ``ops.registry``, ``ops.impl``, ``tensor_tail``, ``fft``, ``signal``,
+  ``linalg``, ``strings``: the op surface; ``autograd`` (``PyLayer``,
+  ``grad``, the functional forms) and ``incubate.autograd``;
+  ``framework.dtype``: the dtype names and the default float type.
 - ``ops.kernels``: the kernel wrappers (ragged paged attention, paged
   decode attention and their int8 twins, RMSNorm, SwiGLU, flash attention
   forward and backward with and without a flashmask range mask, fused
@@ -68,6 +104,132 @@ Layout (each module names its ``paddle_tpu`` counterpart):
 Nothing here imports JAX or ``paddle_tpu``.
 """
 
-from .device import resolve_device
+import numpy as _np
 
-__all__ = ["resolve_device"]
+from .device import (CPUPlace, CUDAPlace, get_device,
+                     is_compiled_with_cuda, is_compiled_with_custom_device,
+                     is_compiled_with_distribute, is_compiled_with_rocm,
+                     is_compiled_with_xpu, resolve_device, set_device)
+from .framework.dtype import (bfloat16, complex64, complex128, float16,
+                              float32, float64, get_default_dtype, int8,
+                              int16, int32, int64, set_default_dtype, uint8)
+from .framework.dtype import bool_ as bool  # noqa: A001
+from .framework.flags import get_flags, set_flags
+from .framework.random import (default_generator, get_rng_state, seed,
+                               set_rng_state)
+
+import torch as _torch  # noqa: E402
+
+Tensor = _torch.Tensor
+Parameter = _torch.nn.Parameter
+
+from . import autograd  # noqa: E402
+from .autograd import (PyLayer, enable_grad, grad,  # noqa: E402
+                       is_grad_enabled, no_grad)
+
+# --- the op surface (the registry fills this namespace) ---------------------
+from .ops import registry as _registry  # noqa: E402
+from .ops.impl import (activation as _activation,  # noqa: E402,F401
+                       creation as _creation, extra as _extra,
+                       fused as _fused, linalg as _linalg_impl,
+                       logic as _logic, manipulation as _manipulation,
+                       math as _math, reduce as _reduce)
+from . import tensor_tail as _tensor_tail  # noqa: E402
+
+_registry.export_namespace(globals())
+_tensor_tail.install(globals())
+
+from . import fft, linalg, signal, strings  # noqa: E402,F401
+
+
+def to_tensor(data, dtype=None, place=None, stop_gradient=True):
+    """A new tensor from `data` (a tensor, a numpy array, a list or a
+    scalar), on `place` or the current device (a tensor stays where it
+    is). As the JAX package: Python floats take the default float type,
+    int32 lists int64, numpy arrays keep their type. stop_gradient=False
+    makes it require grad."""
+    from .framework.dtype import convert_dtype
+    from .ops.impl._common import device_of
+    if isinstance(data, _torch.Tensor):
+        out = data.detach().clone()
+        if place is not None:
+            out = out.to(device_of(place=place))
+    else:
+        arr = _np.asarray(data)
+        out = _torch.as_tensor(arr.copy(), device=device_of(place=place))
+        if dtype is None and not isinstance(data, _np.ndarray):
+            if arr.dtype == _np.float64:
+                out = out.to(get_default_dtype())
+            elif arr.dtype == _np.int32:
+                out = out.to(int64)
+    if dtype is not None:
+        out = out.to(convert_dtype(dtype))
+    if not stop_gradient:
+        out.requires_grad_(True)
+    return out
+
+
+def tensor(data, dtype=None, place=None, stop_gradient=True):
+    return to_tensor(data, dtype, place, stop_gradient)
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """A ``torch.nn.Parameter`` of `shape` on the current device: zeros
+    for a bias, else Xavier-normal; default_initializer, a callable, fills
+    it in place instead (``torch.nn.init`` style)."""
+    from .framework.dtype import convert_dtype
+    from .ops.impl._common import device_of, shape_of
+    t = _torch.empty(shape_of(shape), dtype=convert_dtype(dtype),
+                     device=device_of())
+    with _torch.no_grad():
+        if default_initializer is not None:
+            default_initializer(t)
+        elif is_bias:
+            t.zero_()
+        else:
+            gen = default_generator(t.device)
+            fan_in = t.shape[0] if t.dim() else 1
+            fan_out = t.shape[1] if t.dim() > 1 else fan_in
+            std = (2.0 / (fan_in + fan_out)) ** 0.5
+            t.normal_(0.0, std, generator=gen)
+    return Parameter(t)
+
+
+def in_dynamic_mode():
+    return True
+
+
+def in_dynamic_or_pir_mode():
+    return True
+
+
+def disable_static(place=None):
+    pass
+
+
+def enable_static():
+    raise NotImplementedError(
+        "paddle_tpu_torch has one execution world: eager torch, captured by "
+        "jit.to_static; there is no static Program mode")
+
+
+def is_grad_enabled_():
+    return is_grad_enabled()
+
+
+# subpackages load on first use, so that ``import paddle_tpu_torch`` stays
+# light: ``paddle_tpu_torch.nn.Linear`` works through __getattr__
+_LAZY = {"amp", "compiler", "distributed", "framework", "incubate",
+         "inference", "io", "jit", "models", "nn", "observability",
+         "optimizer", "profiler", "quantization", "serving", "weights"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'paddle_tpu_torch' has no attribute "
+                         f"'{name}'")

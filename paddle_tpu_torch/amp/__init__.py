@@ -22,7 +22,9 @@ differentiable, so gradients come back in the parameters' own type.
 ``torch.autocast`` is not this: its lists differ (it runs softmax and
 layer_norm in float32, for one).
 
-The same named sites are where ``amp.debugging`` counts operators
+Every call through the op surface (``paddle_tpu_torch.<op>``) goes
+through ``amp_cast`` under its JAX name too (``ops.registry``). The same
+named sites are where ``amp.debugging`` counts operators
 (``OP_STATS``, published as ``dispatch_op_calls{op=}`` as the JAX
 dispatcher publishes its counts) and, under ``FLAGS_check_nan_inf``,
 scans the op's tensors for NaN/Inf.
@@ -80,6 +82,11 @@ class _State(threading.local):
         self.dtype = torch.bfloat16
         self.white = frozenset()
         self.black = frozenset()
+        # > 0 inside a top-level op's body (``ops.registry``): the op was
+        # counted, checked and cast once at its call, as the JAX
+        # dispatcher handles it, and the named sites its body reaches are
+        # not op calls of their own
+        self.in_op = 0
 
 
 _STATE = _State()
@@ -97,18 +104,24 @@ def _target_dtype(name):
     return _STATE.dtype
 
 
-def amp_cast(name, *tensors):
+def amp_cast(name, *tensors, cast=True, check=True):
     """`tensors` as the JAX dispatcher hands them to op `name` under the
     current amp state: float32 tensors cast to the amp type when the op
     is cast, everything else (None, integers, other types) as given. One
     tensor in, one out; several in, a tuple out. Counts the op when
     operator stats are on, and checks its tensors under
-    FLAGS_check_nan_inf."""
+    FLAGS_check_nan_inf. cast=False (an op the JAX package registers
+    with amp=False) counts and checks without casting; check=False leaves
+    the check to the caller (the top-level ops check their outputs, as
+    the JAX dispatcher does). Inside a top-level op's body it does
+    nothing (``_State.in_op``)."""
+    if _STATE.in_op:
+        return tensors[0] if len(tensors) == 1 else tensors
     if OP_STATS["enabled"]:
         OP_STATS["counts"][name] = OP_STATS["counts"].get(name, 0) + 1
-    if _FLAGS["check_nan_inf"]:
+    if check and _FLAGS["check_nan_inf"]:
         _check_nan_inf(name, tensors)
-    if _STATE.level != "O0":
+    if cast and _STATE.level != "O0":
         dt = _target_dtype(name)
         if dt is not None:
             tensors = tuple(

@@ -5,7 +5,9 @@ TensorChecker, enable_operator_stats_collection, compare_accuracy).
 The JAX package hooks every op its dispatcher runs. The port has no
 dispatcher: its hook points are the named op sites of ``amp.amp_cast``
 (the functionals, layers and models call it under the JAX op names where
-the JAX package dispatches those ops). There:
+the JAX package dispatches those ops) and every call through the op
+surface (``paddle_tpu_torch.<op>``, ``ops.registry``: counted under its
+name, its outputs scanned as the JAX dispatcher scans them). There:
 
 - ``FLAGS_check_nan_inf`` (``check_numerics_guard``,
   ``enable_tensor_checker``) scans the op's floating tensors and raises a

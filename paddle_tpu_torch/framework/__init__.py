@@ -1,7 +1,8 @@
-"""Framework state of the port: the random generators and the runtime
-flags."""
+"""Framework state of the port: the dtypes, the random generators and
+the runtime flags."""
 
-from . import flags, random
-from .flags import get_flag, set_flags
+from . import dtype, flags, random
+from .flags import get_flag, get_flags, set_flags
 
-__all__ = ["flags", "get_flag", "random", "set_flags"]
+__all__ = ["dtype", "flags", "get_flag", "get_flags", "random",
+           "set_flags"]

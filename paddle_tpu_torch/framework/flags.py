@@ -51,6 +51,14 @@ def set_flags(flags: dict):
     FLAGS_EPOCH[0] += 1
 
 
+def get_flags(names):
+    """{"FLAGS_<name>": value} for a name or a list of names."""
+    if isinstance(names, str):
+        names = [names]
+    return {f"FLAGS_{n.removeprefix('FLAGS_')}":
+            _FLAGS[n.removeprefix("FLAGS_")] for n in names}
+
+
 def get_flag(name):
     return _FLAGS[name.removeprefix("FLAGS_")]
 
