@@ -247,13 +247,28 @@ source, all started together; each build's seconds printed), then:
    forward at full width, one capture, its logits and the eager ones
    against the float32 forward's and each other. [time] prints each
    phase's seconds.
+11. nn and the diffusion UNet (slice 19): kernels: the UNet's attention
+   rows, forward and backward, non-causal bf16 [16, 1024, 4, 32] (the
+   SIMT route: P and dS float32, every gradient element held to the
+   bf16 rule) and [16, 256, 4, 64] (tensor cores), beside SDPA / aten;
+   agree:unet (after agree:fuse): the tiny UNet in float32 on the CPU
+   and the card with the same weights (forward, first gradients, 3
+   AdamW steps), then every kernel entry point on strided bf16 views
+   (bit-equal to its dense call, within 2e-2 of the plain version);
+   train:unet (after train:bert): UNetConfig() at full width, 16 x
+   4x64x64 latents, O1 bf16, AdamW(1e-4) through compile_train_step,
+   one warm-up and 10 steps timed with CUDA events (median ms, images/s,
+   peak memory, losses finite and falling, 9 flash forward and 9
+   backward launches a step: 4 SIMT + 5 tensor-core each way), then one
+   step profiled (the attention's share of the device time).
 
 Each flashmask, fused_ffn, serving (serve:mesh too), BERT and training
 run's (the resilient one's too) launch counts are set to 0 just before it and read just after it; every kernel of its path
 must have launched, the int8 runs must launch the float paged attention
-kernels 0 times, every flash launch of the training, dense-serving and
-flashmask runs (bfloat16) and every ragged launch of the serving runs must
-take the tensor-core route; every model step of the Llama serving runs
+kernels 0 times, every flash launch of the Llama, GPT and BERT training,
+dense-serving and flashmask runs (bfloat16) and every ragged launch of
+the serving runs must take the tensor-core route (the UNet's head dim 32
+takes SIMT: its routes are held per step); every model step of the Llama serving runs
 must launch RoPE once a layer (q and k together, on the vector path), and
 every training step once a layer each way. Then
 it prints the card's name and power limit, one JSON line with every
@@ -769,10 +784,16 @@ def _causal_pairs(s_q, s_k):
     return sum(max(0, min(i + off + 1, s_k)) for i in range(s_q))
 
 
-def _p_dtype(dtype):
-    """The rounding of P and dS in the flash kernel of this type: the
-    tensor-core kernels (16-bit inputs) round them to the input type where
-    the TPU kernel does; the float32 SIMT kernels keep them float32."""
+def _p_dtype(dtype, q=None):
+    """The rounding of P and dS in the flash kernel of this type (and of
+    q's route, when q is given): the tensor-core kernels (16-bit inputs,
+    D 64 or 128) round them to the input type where the TPU kernel does;
+    the SIMT kernels (float32, and 16-bit inputs of other head dims, such
+    as the UNet's D = 32) keep them float32."""
+    if q is not None:
+        from paddle_tpu_torch.ops.kernels.flash_attention import route
+        if route(q) == "simt":
+            return None
     return None if dtype == torch.float32 else dtype
 
 
@@ -843,7 +864,7 @@ def check_flash(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
     v = torch.from_numpy(rng.standard_normal(
         (b, s_k, h_kv, d), dtype=np.float32)).to(dev, dtype)
     got, lse = K.flash_attention_fwd(q, k, v, causal=causal)
-    pd = _p_dtype(dtype)
+    pd = _p_dtype(dtype, q)
     want, want_lse = K.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                  p_dtype=pd)
     torch.cuda.synchronize()
@@ -861,8 +882,9 @@ def check_flash(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
     if library and (s_q == s_k or not causal):
         lib = _time_ms(lambda: _sdpa(q, k, v, causal))
     pairs = _causal_pairs(s_q, s_k) if causal else s_q * s_k
+    from paddle_tpu_torch.ops.kernels.flash_attention import route
     return {"got": got, "want": want, "err": _max_err(got, want),
-            "lse_err": lse_err, "acc": acc,
+            "lse_err": lse_err, "acc": acc, "route": route(q),
             "flops": 4 * b * h * d * pairs,
             "bytes": (2 * q.numel() + 2 * k.numel()) * elt + lse.numel() * 4,
             "ms": _time_ms(lambda: K.flash_attention_fwd(q, k, v,
@@ -900,28 +922,28 @@ def _rounding_terms(K, q, k, v, out, lse, do, causal, bounds=None):
 
 
 def check_flash_bwd(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
-                    library=True):
-    """The causal flash backward against its plain version (rounding P and
-    dS where the kernel of this type does) on the same q, k, v, dout and
-    the forward kernel's out and lse. The library call is PyTorch's
-    backward of the same function: aten's flash attention backward
-    (aten._scaled_dot_product_flash_attention_backward, on [B, H, S, D]
-    views, after its own forward) where S_q = S_k without GQA, SDPA's
-    backward with enable_gqa under autograd under GQA; a yardstick the
-    port never calls."""
+                    library=True, causal=True):
+    """The flash backward (causal unless told otherwise) against its plain
+    version (rounding P and dS where the kernel of this type does) on the
+    same q, k, v, dout and the forward kernel's out and lse. The library
+    call is PyTorch's backward of the same function: aten's flash
+    attention backward (aten._scaled_dot_product_flash_attention_backward,
+    on [B, H, S, D] views, after its own forward) where S_q = S_k without
+    GQA, SDPA's backward with enable_gqa under autograd under GQA; a
+    yardstick the port never calls."""
     q, do = (torch.from_numpy(rng.standard_normal(
         (b, s_q, h, d), dtype=np.float32)).to(dev, dtype) for _ in range(2))
     k, v = (torch.from_numpy(rng.standard_normal(
         (b, s_k, h_kv, d), dtype=np.float32)).to(dev, dtype)
         for _ in range(2))
-    out, lse = K.flash_attention_fwd(q, k, v, causal=True)
-    got = K.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-    pd = _p_dtype(dtype)
-    want = K.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+    out, lse = K.flash_attention_fwd(q, k, v, causal=causal)
+    got = K.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    pd = _p_dtype(dtype, q)
+    want = K.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
                                        p_dtype=pd)
     torch.cuda.synchronize()
     terms = None if pd is None else _rounding_terms(K, q, k, v, out, lse, do,
-                                                    True)
+                                                    causal)
     res = _grad_rule(got, want, terms)
     if terms is not None:
         # the rule must reject a kernel wrong by one typical value on a
@@ -949,44 +971,46 @@ def check_flash_bwd(K, dev, dtype, rng, b, s_q, s_k, h, h_kv, d=128,
     # (blind rows give NaN in SDPA: no library there)
     acc = None
     if pd is not None:
-        acc = _accuracy_bwd(K, q, k, v, do, got, True,
+        acc = _accuracy_bwd(K, q, k, v, do, got, causal,
                             library=s_q <= s_k)
     elt = q.element_size()
     lib = None
     if library:
-        lib = _library_flash_bwd(q, k, v, do)
+        lib = _library_flash_bwd(q, k, v, do, causal)
+    from paddle_tpu_torch.ops.kernels.flash_attention import route
+    pairs = _causal_pairs(s_q, s_k) if causal else s_q * s_k
     res.update({
-        "got": got, "want": want, "acc": acc,
+        "got": got, "want": want, "acc": acc, "route": route(q),
         # five products over the visible pairs: S, dP, dV, dQ, dK
-        "flops": 10 * b * h * d * _causal_pairs(s_q, s_k),
+        "flops": 10 * b * h * d * pairs,
         # q, out, dout and k, v read, lse read, dq, dk, dv written
         "bytes": (4 * q.numel() + 4 * k.numel()) * elt + lse.numel() * 4,
         "ms": _time_ms(lambda: K.flash_attention_bwd(
-            q, k, v, out, lse, do, causal=True)),
+            q, k, v, out, lse, do, causal=causal)),
         "plain_ms": _time_ms(lambda: K.flash_attention_bwd_plain(
-            q, k, v, out, lse, do, causal=True, p_dtype=pd), ITERS // 10),
+            q, k, v, out, lse, do, causal=causal, p_dtype=pd), ITERS // 10),
         "library_ms": lib})
     return res
 
 
-def _library_flash_bwd(q, k, v, do):
-    """ms of PyTorch's backward of causal attention at this shape: aten's
-    flash attention backward without GQA, SDPA's backward with enable_gqa
-    under autograd with it; None (printed) when this PyTorch build refuses
-    the call."""
+def _library_flash_bwd(q, k, v, do, causal=True):
+    """ms of PyTorch's backward of attention (causal unless told
+    otherwise) at this shape: aten's flash attention backward without
+    GQA, SDPA's backward with enable_gqa under autograd with it; None
+    (printed) when this PyTorch build refuses the call."""
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     try:
         if q.shape[2] != k.shape[2]:
             leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
             o = torch.nn.functional.scaled_dot_product_attention(
-                *leaves, is_causal=True, enable_gqa=True)
+                *leaves, is_causal=causal, enable_gqa=True)
             return _time_ms(lambda: torch.autograd.grad(
                 o, leaves, dot, retain_graph=True))
         fw = torch.ops.aten._scaled_dot_product_flash_attention(
-            qt, kt, vt, 0.0, True, False)
+            qt, kt, vt, 0.0, causal, False)
         bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
         args = (dot, qt, kt, vt, fw[0], fw[1], fw[2], fw[3], fw[4], fw[5],
-                0.0, True, fw[6], fw[7])
+                0.0, causal, fw[6], fw[7])
         return _time_ms(lambda: bwd(*args))
     except (RuntimeError, TypeError) as e:
         print(f"[kernels] library flash backward not timed: "
@@ -1394,6 +1418,12 @@ def _within(name, res, dtype):
             ok = all(e <= 1e-4 * max(1.0, m)
                      for e, m in zip(res["errs"], res["scales"]))
             return ok, "<= 1e-4 of max|grad| per dq/dk/dv"
+        if not res["over_n"]:
+            # the SIMT route in 16 bits (the UNet's D = 32) keeps P and dS
+            # float32 and rounds each gradient once, as the plain version
+            return all(w <= 1.0 for w in res["worst"]), (
+                "every element <= 2^-7|want| + 2^-8 rms(want) (SIMT: P "
+                "and dS float32)")
         ok = all(c <= _over_allowed(n)
                  for c, n in zip(res["over_n"], res["n"])) and \
             all(w <= 1.0 for w in res["bound"])
@@ -1496,6 +1526,8 @@ def phase_kernels(K, dev):
     rng_v = np.random.default_rng(5)
     # GPT-3 1.3B's and BERT-base's shapes, likewise apart
     rng_g = np.random.default_rng(6)
+    # the UNet's attention shapes, likewise apart
+    rng_u = np.random.default_rng(7)
     out = {}
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         if dtype == torch.float16:
@@ -1598,6 +1630,24 @@ def phase_kernels(K, dev):
                     K, dev, dtype, rng_g, 4, 256, 256, 16, 16)),
                 ("flash_attention[bert]", lambda: check_flash(
                     K, dev, dtype, rng_g, 8, 512, 512, 12, 12, d=64,
+                    causal=False)),
+            ]
+            # the UNet's attention blocks ([train:unet], batch 16 of
+            # 64x64 latents): non-causal, 4 heads of channels / 4; block
+            # 1 at 32x32 = 1024 positions, D 32 (the SIMT route in bf16),
+            # block 2 and the middle at 16x16 = 256, D 64 (tensor cores)
+            cases += [
+                ("flash_attention[unet32]", lambda: check_flash(
+                    K, dev, dtype, rng_u, 16, 1024, 1024, 4, 4, d=32,
+                    causal=False)),
+                ("flash_attention[unet64]", lambda: check_flash(
+                    K, dev, dtype, rng_u, 16, 256, 256, 4, 4, d=64,
+                    causal=False)),
+                ("flash_attention_bwd[unet32]", lambda: check_flash_bwd(
+                    K, dev, dtype, rng_u, 16, 1024, 1024, 4, 4, d=32,
+                    causal=False)),
+                ("flash_attention_bwd[unet64]", lambda: check_flash_bwd(
+                    K, dev, dtype, rng_u, 16, 256, 256, 4, 4, d=64,
                     causal=False)),
             ]
             # the training step's shapes: [train] runs B=4, S=2048, 16
@@ -2010,6 +2060,7 @@ def main():
     run("collectives", phase_collectives, dev)
     run("agree:mesh", phase_agree_mesh, dev)
     run("agree:fuse", phase_agree_fuse, dev)
+    run("agree:unet", phase_agree_unet, dev)
     opl = run("ops:layer", phase_ops_layer, K, dev)
     ops = run("ops:sweep", phase_ops_sweep, K, dev)
     agr = run("autograd", phase_autograd, K, dev)
@@ -2060,15 +2111,17 @@ def main():
     static = run("to_static", phase_to_static, K, dev)
     gtrain = run("train:gpt", phase_train_gpt, K, dev)
     btrain = run("train:bert", phase_train_bert, K, dev)
+    utrain = run("train:unet", phase_train_unet, K, dev)
     rtrain = run("train:resilient", phase_train_resilient, K, dev)
     print(f"[time] seconds per phase {json.dumps(times)}; total since the "
           f"build {sum(times.values()):.1f}", flush=True)
     runs = (serve, dense, serve8, dense8, spec, spec8, fleet, fleet8, mesh,
             gserve, gserve8, gdense, bert, train, remat, fuse, static,
-            gtrain, btrain, rtrain, masked, ffn, opl, ops, agr)
+            gtrain, btrain, utrain, rtrain, masked, ffn, opl, ops, agr)
     launches = {k: sum(r[k] for r in runs) for k in K.launch_counts()}
-    _require_launched("all serving, fleet, mesh, BERT, training, flashmask, "
-                      "fused_ffn and op-surface runs", launches, K.KERNELS)
+    _require_launched("all serving, fleet, mesh, BERT, training (the "
+                      "UNet's too), flashmask, fused_ffn and op-surface "
+                      "runs", launches, K.KERNELS)
 
     name_power = _nvidia_smi()
     print(name_power)
@@ -2099,7 +2152,8 @@ def main():
 # layers (cut from 12: at full depth the phase took 89-109 s on an H100
 # host, most of it writing, verifying and reading three 10.3 GB
 # checkpoints on the host; at 6 layers 83.1 s of an 823.0 s smoke that
-# must keep under 760 s, at 3 58.5 s of a 767.5 s one) under
+# must keep under 760 s, at 3 58.5 s of a 767.5 s one, at 2 52.5 s of a
+# 767.8 s one after the UNet's phases joined, on a slow host) under
 # ResilientTrainer: RES_STEPS steps, a checkpoint every
 # RES_CKPT_EVERY steps, a host snapshot every RES_SNAPSHOT_EVERY, one
 # non-finite loss (step RES_NAN_STEP's loss times NaN: the NaN reaches
@@ -2107,7 +2161,7 @@ def main():
 # rolls back at once (max_consecutive_bad=1), and one hang of the wait
 # after step RES_HANG_STEP (the watchdog's wait seam sleeps past its
 # timeout) that the trainer recovers from the last checkpoint
-RES_LAYERS = 2
+RES_LAYERS = 1
 RES_STEPS, RES_CKPT_EVERY, RES_SNAPSHOT_EVERY = 12, 4, 4
 RES_NAN_STEP, RES_HANG_STEP = 5, 9
 RES_TIMEOUT_S = 20.0            # the watchdog's deadline on a step
@@ -4785,8 +4839,10 @@ def phase_agree_gpt(dev):
 # the serving runs of GPT-3 1.3B take its first SERVE_GPT_LAYERS of 24
 # layers (cut: at 24 the three took 135.4 s of an 823.0 s smoke on an
 # H100 host, at 12 71.8 s of a 767.5 s one, which must keep under 760 s;
-# every per-layer fact is held as at 24)
-SERVE_GPT_LAYERS = 6
+# at 6 38.2 s of a 732.4 s one, after the UNet's phases joined, at 4
+# 30.3 s of a 767.8 s one on a slow host; every per-layer fact is held as
+# at 24)
+SERVE_GPT_LAYERS = 2
 
 
 def _serving_gpt(dev):
@@ -7486,6 +7542,353 @@ def phase_device(dev):
         raise AssertionError(f"[{tag}] the device surface")
     del a, b, got, want
     _release()
+
+
+# ----------------------------------------------------------------------
+# slice 19: nn's layers and the diffusion UNet
+# ----------------------------------------------------------------------
+
+UNET_AGREE_BATCH = 2          # tiny UNet, 16x16 images of 3 channels
+UNET_BATCH = 16               # [train:unet]: 16 latents of 4x64x64 (SD 1.x
+UNET_RES = 64                 # at 512 px)
+UNET_STEPS = 10               # timed steps after one warm-up
+UNET_LR = 1e-4
+# flash launches of one UNet training step: the attention blocks of block
+# 1 (32x32 positions, D 32: SIMT in bf16) down and up, 2 each, and of
+# block 2 (16x16, D 64: tensor cores) down and up, 2 each, plus the middle
+UNET_PER_STEP = {"flash_attention": 9, "flash_attention.simt": 4,
+                 "flash_attention.sm90": 5, "flash_attention_bwd": 9,
+                 "flash_attention_bwd.simt": 4, "flash_attention_bwd.sm90": 5}
+# a strided entry point's result on the card against the CPU's plain
+# version on float32 copies: bf16 inputs, errors of one bf16 rounding of
+# the inputs and outputs, relative to the output's largest value
+STRIDED_REL = 2e-2
+
+
+def _unet_pair(dev):
+    """The tiny UNet in float32 with one set of seeded weights
+    (``weights.random_state``, seed 0) on the CPU and on the card."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models.unet import UNet2DModel, UNetConfig
+
+    cpu = UNet2DModel(UNetConfig.tiny(), device="cpu")
+    arrays = weights.random_state(cpu, seed=0)
+    weights.from_paddle_tpu_state(arrays, cpu)
+    gpu = weights.from_paddle_tpu_state(
+        arrays, UNet2DModel(UNetConfig.tiny(), device=dev))
+    return cpu, gpu
+
+
+def _unet_batch(n, c, res, dev, seed=0):
+    """(x0, t, noise): seeded normal latents, timesteps uniform in
+    [0, 1000), seeded normal noise."""
+    r = np.random.default_rng(seed)
+    x0 = torch.from_numpy(r.standard_normal((n, c, res, res),
+                                            dtype=np.float32))
+    t = torch.from_numpy(r.integers(0, 1000, (n,)).astype(np.int64))
+    noise = torch.from_numpy(r.standard_normal((n, c, res, res),
+                                               dtype=np.float32))
+    return tuple(v.to(dev) for v in (x0, t, noise))
+
+
+def phase_agree_unet(dev):
+    """[agree:unet]: the tiny UNet in float32, the same weights on the CPU
+    (plain versions, CPU convolutions) and the card (the flash kernels,
+    cuDNN; TF32 off): the eval forward within 1e-5 of its largest value,
+    the first backward's gradients within 1e-4 + 1e-4 |grad|, and 3
+    AdamW(1e-3) ``compile_train_step`` steps of ``ddpm_loss`` within 1e-4
+    (the same float32 products summed in other orders). The flash forward
+    and backward must launch. Then the strided entry points in bf16
+    (``_strided_entries``)."""
+    from paddle_tpu_torch.jit import compile_train_step
+    from paddle_tpu_torch.models.unet import ddpm_loss
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+
+    tag = "agree:unet"
+    cpu, gpu = _unet_pair(dev)
+    batch = {"cpu": _unet_batch(UNET_AGREE_BATCH, 3, 16, "cpu")}
+    batch["gpu"] = tuple(v.to(dev) for v in batch["cpu"])
+    K.reset_launch_counts()
+    outs, grads = {}, {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        x0, t, noise = batch[name]
+        model.eval()
+        with torch.no_grad():
+            outs[name] = model(x0, t).cpu()
+        model.train()
+        ddpm_loss(model, x0, t, noise).backward()
+        grads[name] = {n: p.grad.detach().cpu().clone()
+                       for n, p in model.named_parameters()}
+        model.clear_gradients()
+    fwd_err = _max_err(outs["gpu"], outs["cpu"]) / float(
+        outs["cpu"].abs().max())
+    worst = max(float(((grads["gpu"][n] - g).abs() - 1e-4 * g.abs()).max())
+                for n, g in grads["cpu"].items())
+    losses = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        step = compile_train_step(model, ddpm_loss,
+                                  AdamW(1e-3, parameters=model.parameters()))
+        losses[name] = [float(step(*batch[name])) for _ in range(3)]
+    loss_err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["gpu"]))
+    launches = K.launch_counts()
+    print(f"[{tag}] tiny UNet f32 ({sum(p.numel() for p in cpu.parameters())}"
+          f" params, batch {UNET_AGREE_BATCH}x3x16x16): forward max|diff| / "
+          f"max|cpu| {fwd_err:.3e} (<= 1e-5); first grads max(|err| - 1e-4 "
+          f"|grad|) {worst:.3e} (<= 1e-4); 3 AdamW steps: losses cpu "
+          f"{losses['cpu']} cuda {losses['gpu']} max_err {loss_err:.3e} "
+          f"(<= 1e-4); launches "
+          f"{json.dumps({k: launches[k] for k in UNET_PER_STEP})}",
+          flush=True)
+    if fwd_err > 1e-5 or worst > 1e-4 or loss_err > 1e-4:
+        raise AssertionError(f"[{tag}] the CPU and the card disagree")
+    _require_launched(tag, launches, ("flash_attention",
+                                      "flash_attention_bwd"))
+    del cpu, gpu
+    _strided_entries(K, dev)
+    _release()
+
+
+def _strided_view(r, shape, perm, dev, dtype):
+    """(a non-contiguous view of `shape` on the card in `dtype`, its
+    float32 CPU copy): a permutation of a dense tensor."""
+    inv = np.argsort(perm)
+    base = r.standard_normal([shape[i] for i in perm], dtype=np.float32)
+    t = torch.from_numpy(base).to(dev, dtype).permute(*inv)
+    assert tuple(t.shape) == tuple(shape) and not t.is_contiguous()
+    return t, t.float().cpu()
+
+
+def _strided_entries(K, dev):
+    """[agree:unet:strided]: each entry point that hands a tensor to a
+    kernel, called on the card with strided bf16 views (the UNet's q, k
+    and v sliced out of one permuted qkv tensor at both of its attention
+    shapes, forward and backward; permuted inputs of the others). Each
+    result must equal the same call on dense copies bit for bit (the
+    entry point makes the copies), and hold against the CPU's plain
+    version on float32 copies within STRIDED_REL of its largest value
+    (the CPU's, or, for the UNet-shaped attention, the plain functions on
+    the card); every kernel must launch."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nn import functional as F
+
+    tag = "agree:unet:strided"
+    r = np.random.default_rng(19)
+    bf = torch.bfloat16
+    cases = []
+    for s, heads, d in ((1024, 4, 32), (256, 4, 64)):
+        qkv = torch.from_numpy(r.standard_normal(
+            (2, 3, heads, d, s), dtype=np.float32)).to(dev, bf).permute(
+                0, 4, 1, 2, 3)
+        q, k, v = (qkv[:, :, i] for i in range(3))
+        # the plain version at the UNet's shapes runs on the card (on the
+        # host it would take minutes): float32 dense copies
+        cases.append((f"scaled_dot_product_attention[s{s},d{d}]",
+                      F.scaled_dot_product_attention, (q, k, v),
+                      tuple(x.float().contiguous() for x in (q, k, v)),
+                      {}, True, lambda a, b, c: K.flash_attention_fwd_plain(
+                          a, b, c, False)[0]))
+    q, cq = _strided_view(r, (2, 300, 8, 64), (0, 2, 1, 3), dev, bf)
+    k, ck = _strided_view(r, (2, 300, 4, 64), (0, 2, 1, 3), dev, bf)
+    v, cv = _strided_view(r, (2, 300, 4, 64), (0, 2, 1, 3), dev, bf)
+    cases.append(("flash_attention", lambda a, b, c: F.flash_attention(
+        a, b, c, causal=True)[0], (q, k, v), (cq, ck, cv), {}, True))
+    bounds = torch.full((2, 1, 300, 1), 250, dtype=torch.int32)
+    cases.append(("flashmask_attention", lambda a, b, c, m: F.
+                  flashmask_attention(a, b, c, m, causal=True),
+                  (q, k, v, bounds.to(dev)), (cq, ck, cv, bounds), {}, True))
+    x, cx = _strided_view(r, (512, 1024), (1, 0), dev, bf)
+    w = torch.from_numpy(r.uniform(0.5, 1.5, 1024).astype(np.float32))
+    cases.append(("rms_norm", lambda a, b: F.rms_norm(a, b), (x, w.to(dev,
+                                                                   bf)),
+                  (cx, w), {}, False))
+    cases.append(("fused_rms_norm", lambda a, b: ptt.fused_rms_norm(
+        a, b, 1e-6), (x, w.to(dev, bf)), (cx, w), {}, False))
+    g, cg = _strided_view(r, (512, 1024), (1, 0), dev, bf)
+    cases.append(("swiglu", F.swiglu, (x, g), (cx, cg), {}, False))
+    ang = r.standard_normal((300, 32)).astype(np.float32)
+    cos = torch.from_numpy(np.cos(np.concatenate([ang, ang], -1)))
+    sin = torch.from_numpy(np.sin(np.concatenate([ang, ang], -1)))
+    tables = (cos.to(dev, bf), sin.to(dev, bf))
+    cases.append(("fused_rope", lambda a, c, s_: F.fused_rope(a, c, s_),
+                  (q,) + tables, (cq, cos, sin), {}, False))
+    cases.append(("fused_rope[op]", lambda a, c, s_: ptt.fused_rope(
+        a, c, s_), (q,) + tables, (cq, cos, sin), {}, False))
+    cases.append(("fused_rope_qk", lambda a, b, c, s_: torch.cat(
+        F.fused_rope_qk(a, b, c, s_), 2), (q, k) + tables,
+        (cq, ck, cos, sin), {}, False))
+    res, cres = _strided_view(r, (512, 1024), (1, 0), dev, bf)
+    cases.append(("fused_bias_dropout_residual_layer_norm",
+                  lambda a, b: ptt.fused_bias_dropout_residual_layer_norm(
+                      a, b, dropout_rate=0.0), (x, res), (cx, cres), {},
+                  False))
+    pages = torch.from_numpy(r.standard_normal(
+        (64, 16, 128, 8), dtype=np.float32)).permute(0, 1, 3, 2)
+    tab = torch.arange(64, dtype=torch.int32).reshape(4, 16)
+    ctx = torch.tensor([200, 17, 256, 1], dtype=torch.int32)
+    qd, cqd = _strided_view(r, (4, 32, 128), (2, 1, 0), dev, bf)
+    gp = pages.to(dev, bf)
+    cases.append(("paged_attention", lambda a, p, tb, cx_: F.paged_attention(
+        a, p, p, tb, cx_), (qd, gp, tab.to(dev), ctx.to(dev)),
+        (cqd, gp.float().cpu(), tab, ctx), {}, False))
+    qr, cqr = _strided_view(r, (4, 8, 32, 128), (3, 1, 2, 0), dev, bf)
+    ql = torch.tensor([8, 3, 8, 1], dtype=torch.int32)
+    cases.append(("ragged_paged_attention", lambda a, p, tb, cx_, l_: F.
+                  ragged_paged_attention(a, p, p, tb, cx_, l_),
+                  (qr, gp, tab.to(dev), ctx.to(dev), ql.to(dev)),
+                  (cqr, gp.float().cpu(), tab, ctx, ql), {}, False))
+    K.reset_launch_counts()
+    worst = 0.0
+    for name, fn, args, cpu_args, kw, grad, *plain in cases:
+        ref = plain[0] if plain else fn
+        # the strided views as autograd leaves (detach keeps the strides)
+        leaves = [a.detach().requires_grad_() if grad and a.is_floating_point()
+                  else a for a in args]
+        got = fn(*leaves, **kw)
+        dense = fn(*[a.contiguous() for a in args], **kw)
+        want = ref(*cpu_args, **kw)
+        same = torch.equal(got.detach(), dense.detach())
+        err = _max_err(got.detach().cpu(), want.cpu()) / max(
+            float(want.abs().max()), 1e-30)
+        line = (f"[{tag}] {name:42s} strided==dense {same} max|err| / "
+                f"max|plain| {err:.3e}")
+        if grad:
+            do = torch.from_numpy(r.standard_normal(
+                tuple(got.shape), dtype=np.float32))
+            gs = torch.autograd.grad(got, [x for x in leaves
+                                           if x.requires_grad],
+                                     do.to(dev, bf))
+            cl = [a.detach().requires_grad_() for a in cpu_args
+                  if a.is_floating_point()]
+            cw = ref(*cl, *cpu_args[len(cl):], **kw)
+            cg = torch.autograd.grad(cw, cl, do.to(cw.device))
+            gerr = max(_max_err(a.cpu(), b.cpu()) / max(
+                float(b.abs().max()), 1e-30) for a, b in zip(gs, cg))
+            err = max(err, gerr)
+            line += f" grads max|err| / max|plain| {gerr:.3e}"
+        worst = max(worst, err)
+        print(line + f" (<= {STRIDED_REL})", flush=True)
+        if not same or err > STRIDED_REL:
+            raise AssertionError(f"[{tag}] {name}: strided inputs on the "
+                                 f"card disagree")
+    launches = K.launch_counts()
+    _require_launched(tag, launches, (
+        "flash_attention", "flash_attention_bwd", "flashmask_attention",
+        "flashmask_attention_bwd", "rms_norm", "swiglu", "fused_rope",
+        "bias_dropout_residual_ln", "paged_decode_attention",
+        "ragged_paged_attention"))
+    print(f"[{tag}] {len(cases)} entry points, worst {worst:.3e}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+
+
+def phase_train_unet(K, dev):
+    """[train:unet]: UNetConfig() at full width (12,625,604 parameters,
+    float32; 4 latent channels, channels 64/128/256, 2 layers a block,
+    16 groups; the layers' own initializers drawn from seed 0) trains on
+    UNET_BATCH random 4x64x64 latents (Stable Diffusion 1.x's latent at
+    512 px) with timesteps uniform in 0-999 (seed 0): ``ddpm_loss`` under
+    ``amp.auto_cast(level="O1", dtype="bfloat16")``, AdamW(1e-4) over the
+    float32 parameters (the masters) through ``compile_train_step``; one
+    warm-up step and UNET_STEPS timed ones, each timed with CUDA events.
+    Every loss finite, the last below the first; every step launches the
+    flash kernels UNET_PER_STEP times by route and direction. Then one
+    step under the profiler: the attention's share of the device time.
+    Returns the timed steps' summed launches."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import compile_train_step
+    from paddle_tpu_torch.models.unet import (UNet2DModel, UNetConfig,
+                                              ddpm_loss)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    tag = "train:unet"
+    _release()
+    cfg = UNetConfig()
+    ptt.seed(0)
+    model = UNet2DModel(cfg, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != 12625604:
+        raise AssertionError(f"[{tag}] {n_params} parameters")
+
+    def loss_fn(m, x0, t, noise):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return ddpm_loss(m, x0, t, noise)
+
+    opt = AdamW(UNET_LR, parameters=model.parameters())
+    step = compile_train_step(model, loss_fn, opt)
+    batch = _unet_batch(UNET_BATCH, cfg.in_channels, UNET_RES, dev)
+    losses, ms = [], []
+    totals = dict.fromkeys(K.launch_counts(), 0)
+    for i in range(UNET_STEPS + 1):
+        K.reset_launch_counts()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        loss = step(*batch)
+        e1.record()
+        losses.append(float(loss))           # waits for the step
+        ms.append(e0.elapsed_time(e1))
+        counts = K.launch_counts()
+        bad = {k: counts[k] for k, n in UNET_PER_STEP.items()
+               if counts[k] != n}
+        other = {k: v for k, v in counts.items()
+                 if v and k.split(".")[0] not in ("flash_attention",
+                                                  "flash_attention_bwd")}
+        if bad or other:
+            raise AssertionError(f"[{tag}] step {i} launched {bad or other}"
+                                 f", expected {UNET_PER_STEP}")
+        if i:
+            for k in totals:
+                totals[k] += counts[k]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timed = sorted(ms[1:])
+    med = timed[len(timed) // 2] if len(timed) % 2 else \
+        0.5 * (timed[len(timed) // 2 - 1] + timed[len(timed) // 2])
+    print(f"[{tag}] UNetConfig(): {n_params} params f32, channels "
+          f"{cfg.block_channels}, {cfg.layers_per_block} layers a block, "
+          f"{cfg.norm_groups} groups; batch {UNET_BATCH}x{cfg.in_channels}x"
+          f"{UNET_RES}x{UNET_RES}; O1 bf16; AdamW({UNET_LR})")
+    print(f"[{tag}] losses (warm-up first) {losses}")
+    print(f"[{tag}] step_ms (CUDA events) {[round(x, 3) for x in ms]} "
+          f"median_timed={med:.3f} images_per_s="
+          f"{UNET_BATCH / med * 1e3:.1f} peak_mem_gb={peak:.3f}")
+    print(f"[{tag}] flash launches per step {json.dumps(UNET_PER_STEP)} "
+          f"(held every step)", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] losses {losses}")
+    _profile_unet_step(tag, step, batch, med)
+    del model, opt, step
+    _release()
+    return totals
+
+
+def _profile_unet_step(tag, step, batch, med):
+    """One more UNet training step under torch.profiler: device time by
+    kernel and the flash kernels' share, by route (the SIMT kernels are
+    ``flash_fwd_kernel`` / ``flash_bwd_*``, the tensor-core ones
+    ``*_sm90_*``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(*batch))
+        wall = time.perf_counter() - t0
+    _print_profile(f"profile:{tag}", prof, wall, "one UNet training step")
+    rows = [((getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0)), e.key)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    busy = sum(us for us, _ in rows) or 1
+    flash = [(us, k) for us, k in rows if "flash" in k and "ptt" in k]
+    sm90 = sum(us for us, k in flash if "sm90" in k)
+    simt = sum(us for us, k in flash) - sm90
+    print(f"[{tag}] attention share of the profiled step's device time: "
+          f"flash {100 * (sm90 + simt) / busy:.1f}% (SIMT D 32 "
+          f"{simt / 1e3:.3f} ms = {100 * simt / busy:.1f}%, tensor-core "
+          f"D 64 {sm90 / 1e3:.3f} ms = {100 * sm90 / busy:.1f}%); busy "
+          f"{busy / 1e3:.3f} ms of a {med:.3f} ms median step", flush=True)
 
 
 if __name__ == "__main__":

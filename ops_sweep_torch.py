@@ -4,8 +4,9 @@ device against the port on the CPU.
     python3 ops_sweep_torch.py [--device cuda]
 
 The tables (``MATH``, ``CREATION``, ``MANIPULATION``, ``REDUCE``,
-``LOGIC``, ``ACTIVATION``, ``LINALG``, ``EXTRA``, ``TAIL``, ``FFT``: each
-a namespace of seeded numpy inputs and ``CASES``, rows of (op name,
+``LOGIC``, ``ACTIVATION``, ``LINALG``, ``EXTRA``, ``TAIL``, ``FFT``,
+``NN`` (``nn.functional``'s ops) and ``LEGACY`` (the detection and legacy
+ops): each a namespace of seeded numpy inputs and ``CASES``, rows of (op name,
 args, kwargs, options)) are the inputs of the CPU parity tests
 (``tests/test_torch_ops_*.py``, which hold the port against the JAX
 package) and of ``sweep``, which runs each case through
@@ -825,12 +826,479 @@ def _fft():
     ]
     return SimpleNamespace(**locals())
 
+def _nn():
+    """nn.functional's ops (conv, pooling, norms, common, losses,
+    attention)."""
+    R = np.random.default_rng(15)
+
+    def f64(*shape, scale=1.0):
+        return R.standard_normal(shape) * scale
+
+    def f32(*shape, scale=1.0):
+        return f64(*shape, scale=scale).astype(np.float32)
+
+    CONV_TOL = (1e-4, 1e-5)
+    F32_TOL = (1e-5, 1e-6)
+    X1, X2, X3 = f64(2, 3, 9), f64(2, 3, 8, 8), f64(1, 2, 5, 5, 5)
+    W1, W2, W3 = f64(4, 3, 3), f64(4, 3, 3, 3), f64(3, 2, 3, 3, 3)
+    B4 = f64(4)
+    IMG = f64(2, 3, 7, 7)
+    POS = R.uniform(0.2, 2.0, (2, 3, 6, 6))
+    # pooled values and their argmax offsets for the unpools
+    UNPOOL_IDX = np.array([[[[0, 3], [9, 14]], [[5, 2], [13, 15]]]],
+                          np.int64)
+    UNPOOL3_IDX = np.array([[[[[0, 3], [10, 15]], [[16, 19], [60, 63]]]]],
+                           np.int64)
+    LOGITS = f64(6, 5)
+    LABELS = R.integers(0, 5, (6,)).astype(np.int64)
+    LABELS_IGN = LABELS.copy()
+    LABELS_IGN[2] = -100
+    PROB = R.uniform(0.05, 0.95, (6, 5))
+    BIN = (R.uniform(size=(6, 5)) > 0.5).astype(np.float64)
+    LOGP4 = np.log(np.exp(f64(2, 4, 3, 3)) / np.exp(
+        f64(2, 4, 3, 3)).sum(1, keepdims=True))
+    LAB4 = R.integers(0, 4, (2, 3, 3)).astype(np.int64)
+    SOFT = PROB / PROB.sum(-1, keepdims=True)
+    SIGN = np.where(R.uniform(size=(6,)) > 0.5, 1.0, -1.0)
+    CTC_LOGP = f64(8, 2, 5)
+    CTC_LAB = np.array([[1, 2, 2], [3, 1, 0]], np.int64)
+    CTC_IN = np.array([8, 6], np.int64)
+    CTC_LL = np.array([3, 2], np.int64)
+    RNNT_IN = f32(2, 4, 3, 5)
+    RNNT_LAB = np.array([[1, 3], [2, 0]], np.int32)
+    RNNT_TL = np.array([4, 3], np.int32)
+    RNNT_UL = np.array([2, 1], np.int32)
+    B, S, H, D = 2, 6, 4, 8
+    Q, K, V = f32(B, S, H, D), f32(B, S, 2, D), f32(B, S, 2, D)
+    FLASHMASK = np.array([[[[4], [5], [6], [6], [6], [6]]]] * B, np.int32)
+    PAGES_K, PAGES_V = f32(6, 4, 2, D), f32(6, 4, 2, D)
+    TABLES = np.array([[0, 2, 4], [1, 3, 5]], np.int32)
+    CTX = np.array([9, 5], np.int32)
+    MASK = np.where(R.uniform(size=(B, H, S, S)) > 0.3, 0.0,
+                    -1e4).astype(np.float32)
+    THETA = f64(2, 2, 3, scale=0.5) + np.array([[1, 0, 0], [0, 1, 0]])
+    GRID = np.tanh(f64(2, 4, 5, 2)) * 1.2
+
+    CASES = [
+        # conv
+        ("conv1d", (X1, W1, B4), {"padding": 1}, {"grad": True}),
+        ("conv1d", (np.moveaxis(X1, 1, 2).copy(), W1), {
+            "stride": 2, "padding": "SAME", "data_format": "NLC"},
+         {"id": "nlc-same"}),
+        ("conv2d", (X2, W2, B4), {"padding": 1}, {"grad": True}),
+        ("conv2d", (X2, W2), {"stride": 2, "padding": "SAME",
+                              "dilation": 2}, {"id": "same-dilated"}),
+        ("conv2d", (X2, f64(6, 1, 3, 3)), {"padding": "VALID", "groups": 3},
+         {"id": "valid-groups"}),
+        ("conv2d", (np.moveaxis(X2, 1, 3).copy(), W2, B4), {
+            "padding": [1, 0, 2, 1], "data_format": "NHWC"},
+         {"id": "nhwc-per-side", "grad": True}),
+        ("conv2d", (X2.astype(np.float32), W2.astype(np.float32)),
+         {"padding": 1}, {"id": "f32", "tol": CONV_TOL}),
+        ("conv3d", (X3, W3), {"padding": 1}, {"grad": True}),
+        ("conv1d_transpose", (f64(2, 4, 5), f64(4, 3, 3), f64(3)),
+         {"stride": 2, "padding": 1, "output_padding": 1}, {"grad": True}),
+        ("conv2d_transpose", (f64(2, 4, 5, 5), f64(4, 3, 3, 3)),
+         {"stride": 2, "padding": 1}, {"grad": True}),
+        ("conv2d_transpose", (f64(2, 4, 5, 5), f64(4, 2, 3, 3)),
+         {"stride": 2, "padding": 1, "groups": 2, "output_size": [10, 11]},
+         {"id": "groups-output-size"}),
+        ("conv2d_transpose", (f64(2, 4, 5, 5), f64(4, 3, 3, 3)),
+         {"stride": 2, "padding": [1, 0, 0, 1]},
+         {"id": "per-side", "grad": True}),
+        ("conv2d_transpose", (f64(2, 4, 5, 5), f64(4, 3, 3, 3)),
+         {"stride": 2, "padding": "SAME"}, {"id": "same"}),
+        ("conv2d_transpose", (np.moveaxis(f64(2, 4, 5, 5), 1, 3).copy(),
+                              f64(4, 3, 2, 2), f64(3)),
+         {"stride": 2, "data_format": "NHWC"}, {"id": "nhwc"}),
+        ("conv3d_transpose", (f64(1, 2, 3, 3, 3), f64(2, 3, 2, 2, 2)),
+         {"stride": 2}, {}),
+        # pooling
+        ("avg_pool1d", (X1, 3, 2, 1), {}, {"grad": True}),
+        ("avg_pool2d", (X2, 3, 2, 1), {}, {"grad": True}),
+        ("avg_pool2d", (X2, 3, 2, 1), {"exclusive": False},
+         {"id": "inclusive"}),
+        ("avg_pool2d", (IMG, 2, 2), {"ceil_mode": True}, {"id": "ceil"}),
+        ("avg_pool2d", (X2, 3, 2, 1), {"divisor_override": 4},
+         {"id": "divisor"}),
+        ("avg_pool2d", (np.moveaxis(IMG, 1, 3).copy(), 3, 2),
+         {"padding": "SAME", "data_format": "NHWC"}, {"id": "nhwc-same"}),
+        ("avg_pool3d", (X3, 2, 2), {"padding": 1}, {}),
+        ("max_pool1d", (X1, 3, 2, 1), {}, {"grad": True}),
+        ("max_pool2d", (X2, 3, 2, 1), {}, {"grad": True}),
+        ("max_pool2d", (IMG, 2, 2), {"ceil_mode": True}, {"id": "ceil"}),
+        ("max_pool2d", (X2, 3, 2, 1), {"return_mask": True},
+         {"id": "mask"}),
+        ("max_pool2d", (np.moveaxis(IMG, 1, 3).copy(), 3, 2),
+         {"padding": "SAME", "data_format": "NHWC"}, {"id": "nhwc-same"}),
+        ("max_pool1d", (X1, 2), {"return_mask": True}, {"id": "mask"}),
+        ("max_pool3d", (X3, 2, 2), {"padding": 1, "return_mask": True}, {}),
+        ("adaptive_avg_pool1d", (X1, 4), {}, {"grad": True}),
+        ("adaptive_avg_pool2d", (X2, 4), {}, {}),
+        ("adaptive_avg_pool2d", (IMG, [3, 5]), {}, {"id": "uneven",
+                                                    "grad": True}),
+        ("adaptive_avg_pool2d", (np.moveaxis(X2, 1, 3).copy(), 2),
+         {"data_format": "NHWC"}, {"id": "nhwc"}),
+        ("adaptive_avg_pool3d", (X3[:, :, :4, :4, :4].copy(), 2), {}, {}),
+        # the JAX op stacks an uneven 3-D result's last two dims swapped
+        ("adaptive_avg_pool3d", (X3, 2), {}, {"id": "uneven",
+                                              "jax_swaps_last_two": True}),
+        ("adaptive_max_pool1d", (X1, 3), {}, {}),
+        ("adaptive_max_pool2d", (IMG, [3, 2]), {}, {"grad": True}),
+        ("adaptive_max_pool3d", (X3[:, :, :4, :4, :4].copy(), [2, 4, 1]),
+         {}, {}),
+        ("adaptive_max_pool3d", (X3, [2, 3, 2]), {},
+         {"id": "uneven", "jax_swaps_last_two": True}),
+        ("lp_pool2d", (POS, 2.0, 2), {}, {"grad": True}),
+        ("lp_pool2d", (POS, 3.0, 3, 2), {"padding": 1, "ceil_mode": True},
+         {"id": "ceil"}),
+        ("max_unpool2d", (f64(1, 2, 2, 2), UNPOOL_IDX, 2), {}, {}),
+        ("max_unpool3d", (f64(1, 1, 2, 2, 2), UNPOOL3_IDX, 2), {}, {}),
+        ("fractional_max_pool2d", (IMG, 3), {"random_u": 0.3},
+         {"grad": True}),
+        ("fractional_max_pool2d", (IMG, [4, 3]), {
+            "kernel_size": 2, "random_u": 0.7}, {"id": "overlap"}),
+        ("fractional_max_pool2d", (IMG, 3), {"random_u": 0.4,
+                                             "return_mask": True},
+         {"id": "mask"}),
+        ("fractional_max_pool3d", (X3, 2), {"random_u": 0.5}, {}),
+        # norms
+        ("batch_norm_infer", (X2, f64(3), R.uniform(0.5, 2, 3), f64(3),
+                              f64(3)), {}, {"grad": True}),
+        ("batch_norm_infer", (np.moveaxis(X2, 1, 3).copy(), f64(3),
+                              R.uniform(0.5, 2, 3)),
+         {"data_format": "NHWC"}, {"id": "nhwc"}),
+        ("batch_norm_train", (X2, f64(3), f64(3)), {}, {"grad": True}),
+        ("batch_norm_train", (f64(8, 3),), {}, {"id": "2d"}),
+        ("layer_norm", (X2, [8, 8], f64(8, 8), f64(8, 8)), {},
+         {"grad": True}),
+        ("rms_norm", (f32(6, 16), f32(16) + 1.0), {"epsilon": 1e-5},
+         {"tol": F32_TOL}),
+        ("group_norm", (f64(2, 6, 4, 4), 3), {"weight": f64(6),
+                                               "bias": f64(6)},
+         {"grad": True}),
+        ("group_norm", (f64(2, 4, 4, 6), 2), {"data_format": "NHWC"},
+         {"id": "nhwc"}),
+        ("instance_norm", (X2,), {"weight": f64(3), "bias": f64(3)},
+         {"grad": True}),
+        ("local_response_norm", (f64(2, 6, 3, 3), 3), {}, {"grad": True}),
+        ("local_response_norm", (f64(2, 3, 3, 6), 4),
+         {"data_format": "NHWC"}, {"id": "nhwc"}),
+        ("spectral_norm", (f64(4, 6), f64(4), f64(6)),
+         {"power_iters": 2}, {"grad": True, "diff": (0,)}),
+        # common
+        ("linear", (f64(3, 4), f64(4, 5), f64(5)), {}, {"grad": True}),
+        ("dropout", (f64(3, 4),), {"training": False,
+                                   "mode": "downscale_in_infer"}, {}),
+        ("dropout2d", (X2,), {"training": False}, {}),
+        ("dropout3d", (X3,), {"training": False}, {}),
+        ("alpha_dropout", (f64(3, 4),), {"training": False}, {}),
+        ("embedding", (np.array([[0, 2, 5], [2, 2, 1]]), f64(6, 3)),
+         {"padding_idx": 2}, {"grad": True, "diff": (1,)}),
+        ("one_hot", (np.array([0, 3, 1, 4]), 5), {}, {}),
+        ("label_smooth", (BIN,), {"epsilon": 0.2}, {}),
+        ("label_smooth", (BIN, SOFT[:1]), {}, {"id": "prior"}),
+        ("cosine_similarity", (f64(4, 5), f64(4, 5)), {}, {"grad": True}),
+        ("normalize", (f64(4, 5),), {}, {"grad": True}),
+        ("normalize", (f64(4, 5),), {"p": 1, "axis": 0}, {"id": "p1"}),
+        ("pixel_shuffle", (f64(1, 8, 2, 3), 2), {}, {}),
+        ("pixel_shuffle", (f64(1, 2, 3, 8), 2), {"data_format": "NHWC"},
+         {"id": "nhwc"}),
+        ("pixel_unshuffle", (f64(1, 2, 4, 6), 2), {}, {}),
+        ("channel_shuffle", (f64(1, 6, 2, 2), 3), {}, {}),
+        ("unfold", (IMG, [2, 3]), {"strides": [1, 2], "paddings": 1},
+         {"grad": True}),
+        ("unfold", (IMG, 3), {"paddings": [1, 0, 2, 1], "dilations": 2},
+         {"id": "per-side"}),
+        ("fold", (f64(2, 12, 12), [4, 5], 2), {}, {"grad": True}),
+        ("interpolate", (IMG,), {"scale_factor": 2}, {"grad": True}),
+        ("interpolate", (IMG,), {"size": [10, 4]}, {"id": "nearest-odd"}),
+        ("interpolate", (IMG,), {"size": [11, 9], "mode": "bilinear"},
+         {"id": "bilinear-up", "grad": True}),
+        ("interpolate", (IMG,), {"size": [4, 3], "mode": "bilinear"},
+         {"id": "bilinear-down"}),
+        ("interpolate", (IMG,), {"size": [5, 10], "mode": "bicubic"},
+         {"id": "bicubic"}),
+        # align_corners weights are float32 in JAX (its scale_and_translate
+        # takes float32 scales): float32's tolerance
+        ("interpolate", (IMG,), {"scale_factor": 1.5, "mode": "bilinear",
+                                 "align_corners": True},
+         {"id": "align-corners", "tol": F32_TOL}),
+        ("interpolate", (X1,), {"size": [5], "mode": "linear",
+                                "data_format": "NCW"}, {"id": "linear-1d"}),
+        ("interpolate", (X3,), {"size": [3, 7, 4], "mode": "trilinear"},
+         {"id": "trilinear"}),
+        ("interpolate", (IMG,), {"size": [3, 3], "mode": "area"},
+         {"id": "area"}),
+        ("interpolate", (np.moveaxis(IMG, 1, 3).copy(),),
+         {"size": [9, 5], "mode": "bilinear", "data_format": "NHWC"},
+         {"id": "nhwc"}),
+        ("upsample", (IMG,), {"scale_factor": 2, "mode": "bilinear"}, {}),
+        ("affine_grid", (THETA, [2, 3, 4, 5]), {}, {}),
+        ("affine_grid", (THETA, [2, 3, 4, 5]), {"align_corners": False},
+         {"id": "half-pixel"}),
+        ("grid_sample", (IMG[:, :, :4, :5], GRID), {}, {"grad": True,
+                                                        "diff": (0,)}),
+        ("grid_sample", (IMG[:, :, :4, :5], GRID),
+         {"padding_mode": "border", "align_corners": False},
+         {"id": "border"}),
+        ("grid_sample", (IMG[:, :, :4, :5], GRID),
+         {"padding_mode": "reflection"}, {"id": "reflection"}),
+        ("grid_sample", (IMG[:, :, :4, :5], GRID), {"mode": "nearest"},
+         {"id": "nearest"}),
+        ("bilinear", (f64(3, 4), f64(3, 5), f64(2, 4, 5), f64(2)), {},
+         {"grad": True}),
+        ("temporal_shift", (f64(4, 8, 2, 2), 2), {}, {}),
+        # losses
+        ("cross_entropy", (LOGITS, LABELS), {}, {"grad": True,
+                                                 "diff": (0,)}),
+        ("softmax_with_cross_entropy", (LOGITS, LABELS_IGN[:, None]), {},
+         {"grad": True, "diff": (0,)}),
+        ("softmax_with_cross_entropy", (LOGITS, SOFT),
+         {"soft_label": True, "return_softmax": True}, {"id": "soft"}),
+        ("mse_loss", (f64(4, 5), f64(4, 5)), {}, {"grad": True}),
+        ("l1_loss", (f64(4, 5), f64(4, 5)), {"reduction": "sum"}, {}),
+        ("smooth_l1_loss", (f64(4, 5), f64(4, 5)), {"delta": 0.5},
+         {"grad": True}),
+        ("huber_loss", (f64(4, 5), f64(4, 5)), {"delta": 0.7,
+                                                 "reduction": "none"}, {}),
+        ("binary_cross_entropy", (PROB, BIN), {"weight": f64(5) ** 2},
+         {"grad": True, "diff": (0,)}),
+        ("binary_cross_entropy_with_logits", (LOGITS, BIN), {},
+         {"grad": True, "diff": (0,)}),
+        ("binary_cross_entropy_with_logits", (LOGITS, BIN),
+         {"pos_weight": R.uniform(0.5, 2, 5), "reduction": "sum"},
+         {"id": "pos-weight"}),
+        ("nll_loss", (np.log(SOFT), LABELS_IGN), {}, {"grad": True,
+                                                      "diff": (0,)}),
+        ("nll_loss", (LOGP4, LAB4), {"weight": R.uniform(0.5, 2, 4)},
+         {"id": "4d-weight"}),
+        ("kl_div", (np.log(SOFT), SOFT[::-1].copy()),
+         {"reduction": "batchmean"}, {"grad": True, "diff": (0,)}),
+        ("kl_div", (np.log(SOFT), np.log(SOFT[::-1])),
+         {"log_target": True, "reduction": "sum"}, {"id": "log-target"}),
+        ("margin_ranking_loss", (f64(6), f64(6), SIGN), {"margin": 0.3},
+         {"grad": True, "diff": (0, 1)}),
+        ("hinge_embedding_loss", (f64(6), SIGN), {}, {}),
+        ("cosine_embedding_loss", (f64(6, 4), f64(6, 4), SIGN),
+         {"margin": 0.1}, {"grad": True, "diff": (0, 1)}),
+        ("triplet_margin_loss", (f64(5, 4), f64(5, 4), f64(5, 4)), {},
+         {"grad": True}),
+        ("triplet_margin_loss", (f64(5, 4), f64(5, 4), f64(5, 4)),
+         {"swap": True, "p": 1.0, "reduction": "none"}, {"id": "swap"}),
+        ("ctc_loss", (CTC_LOGP, CTC_LAB, CTC_IN, CTC_LL), {},
+         {"grad": True, "diff": (0,)}),
+        ("ctc_loss", (CTC_LOGP, CTC_LAB, CTC_IN, CTC_LL),
+         {"reduction": "none"}, {"id": "none"}),
+        ("sigmoid_focal_loss", (LOGITS, BIN), {}, {"grad": True,
+                                                   "diff": (0,)}),
+        ("square_error_cost", (f64(4, 5), f64(4, 5)), {}, {}),
+        ("log_loss", (PROB, BIN), {}, {}),
+        ("npair_loss", (f64(4, 6), f64(4, 6), np.array([0, 1, 0, 2])), {},
+         {"grad": True, "diff": (0, 1)}),
+        ("hsigmoid_loss", (f32(4, 6), np.array([0, 3, 5, 2]), 6,
+                           f32(5, 6), f32(5)), {},
+         {"tol": F32_TOL, "grad": True, "diff": (0, 3, 4)}),
+        ("rnnt_loss", (RNNT_IN, RNNT_LAB, RNNT_TL, RNNT_UL), {},
+         {"tol": F32_TOL, "grad": True, "diff": (0,)}),
+        # attention
+        ("scaled_dot_product_attention", (Q, K, V), {},
+         {"tol": F32_TOL, "grad": True}),
+        ("scaled_dot_product_attention", (Q, K, V), {"is_causal": True},
+         {"tol": F32_TOL, "id": "causal"}),
+        ("scaled_dot_product_attention", (Q, Q, Q, MASK), {},
+         {"tol": F32_TOL, "id": "mask"}),
+        ("flash_attention", (Q, K, V), {"causal": True}, {"tol": F32_TOL}),
+        ("flashmask_attention", (Q, K, V, FLASHMASK), {"causal": True},
+         {"tol": F32_TOL}),
+        ("paged_attention", (f32(B, H, D), PAGES_K, PAGES_V, TABLES, CTX),
+         {}, {"tol": F32_TOL}),
+        ("ragged_paged_attention", (f32(B, 3, H, D), PAGES_K, PAGES_V,
+                                    TABLES, CTX, np.array([3, 1],
+                                                          np.int32)),
+         {}, {"tol": F32_TOL}),
+        ("softmax_mask_fuse", (f32(B, H, S, S), MASK), {},
+         {"tol": F32_TOL}),
+        ("softmax_mask_fuse_upper_triangle", (f32(B, H, S, S),), {},
+         {"tol": F32_TOL}),
+    ]
+    # random draws (dropout while training): checked in the sweep by
+    # shape, type and repeat; by moments in the tests
+    RANDOM = {
+        "dropout": ((f32(64, 8),), {"p": 0.3}),
+        "dropout2d": ((f32(8, 16, 4, 4),), {"p": 0.5}),
+        "dropout3d": ((f32(4, 8, 2, 2, 2),), {"p": 0.5}),
+        "alpha_dropout": ((f32(64, 8),), {"p": 0.2}),
+        "fractional_max_pool2d": ((f32(2, 3, 9, 9), 4), {}),
+    }
+    return SimpleNamespace(**locals())
+
+
+def _legacy():
+    """The detection and legacy ops: one case each, from the JAX
+    package's tests (``tests/test_detection_legacy_ops.py``)."""
+    R = np.random.default_rng(16)
+
+    def f32(*shape, scale=1.0):
+        return (R.standard_normal(shape) * scale).astype(np.float32)
+
+    def i64(*v):
+        return np.asarray(v, np.int64)
+
+    YOLO_X = f32(2, 3 * (5 + 4), 4, 4)
+    IMG_HW = np.asarray([[128, 128], [96, 64]], np.int32)
+    ANCHORS = [10, 13, 16, 30, 33, 23]
+    GT = np.asarray([[[0.5, 0.5, 0.3, 0.4], [0, 0, 0, 0]]] * 2, np.float32)
+    GL = np.asarray([[1, 0]] * 2, np.int32)
+    NMS_B = np.asarray([[[0, 0, 10, 10], [0.2, 0.2, 10.2, 10.2],
+                         [20, 20, 30, 30]]], np.float32)
+    NMS_S = np.zeros((1, 2, 3), np.float32)
+    NMS_S[0, 1] = [0.9, 0.85, 0.8]
+    PS_X = np.zeros((1, 8, 4, 4), np.float32)
+    for c in range(8):
+        PS_X[0, c] = c
+    H = W = 4
+    A = 3
+    ANC = R.uniform(0, 32, size=(H, W, A, 4)).astype(np.float32)
+    ANC[..., 2:] += ANC[..., :2]
+    VAR = np.ones((H, W, A, 4), np.float32) * 0.1
+    RPN_S = R.normal(size=(1, A, H, W)).astype(np.float32)
+    RPN_D = (R.normal(size=(1, 4 * A, H, W)) * 0.1).astype(np.float32)
+    FPN_ROIS = np.asarray([[0, 0, 10, 10], [0, 0, 500, 500]], np.float32)
+    EM = f32(7, 4)
+    TR = f32(6, 4)
+    RO = np.asarray([[1, 1, 0, 0, -1], [0, 0, -1, 0, -1]], np.int32)
+    DEQ_W = np.zeros((3, 4), np.float32)
+    DEQ_W[:, 1] = 1.0
+    DEQ_W[1, 2:] = np.frombuffer(np.arange(8, dtype=np.uint8).tobytes(),
+                                 np.float32)
+    SEQ = np.arange(8, dtype=np.float32).reshape(4, 2)
+    LOD = i64(0, 1, 4)
+    COLPTR = i64(0, 2, 3, 5, 5)
+    ROW = i64(1, 2, 0, 1, 3)
+    TREE = np.asarray([[0, 0, 0, 0, 0], [0, 1, 0, 2, 3], [5, 2, 1, 0, 0],
+                       [0, 2, 1, 4, 0], [7, 3, 3, 0, 0]], np.int32)
+
+    CASES = [
+        ("yolo_box", (YOLO_X, IMG_HW), {"anchors": ANCHORS,
+                                        "class_num": 4, "conf_thresh": 0.5},
+         {}),
+        ("yolo_loss", (YOLO_X, GT, GL), {
+            "anchors": ANCHORS, "anchor_mask": [0, 1, 2], "class_num": 4,
+            "downsample_ratio": 32}, {"grad": True, "diff": (0,)}),
+        ("matrix_nms", (NMS_B, NMS_S), {
+            "score_threshold": 0.1, "nms_top_k": 10, "keep_top_k": 10,
+            "post_threshold": 0.5, "return_index": True}, {}),
+        ("bipartite_match", (np.asarray([[0.9, 0.1], [0.3, 0.8],
+                                         [0.2, 0.2]], np.float32),), {}, {}),
+        ("box_clip", (np.asarray([[[-1, -1, 9, 9], [2, 3, 4, 12]]],
+                                 np.float32),
+                      np.asarray([[8, 8, 1.0]], np.float32)), {}, {}),
+        ("psroi_pool", (PS_X, np.asarray([[0, 0, 3, 3], [1, 0, 2, 3]],
+                                         np.float32),
+                        np.asarray([2], np.int32), 2, 2, 2, 1.0), {}, {}),
+        ("collect_fpn_proposals", (
+            [np.asarray([[0, 0, 1, 1], [0, 0, 2, 2], [0, 0, 3, 3],
+                         [0, 0, 4, 4]], np.float32)],
+            [np.asarray([0.1, 0.9, 0.8, 0.2], np.float32)]),
+         {"multi_level_rois_num": [np.asarray([2, 2], np.int32)],
+          "post_nms_top_n": 1}, {}),
+        ("distribute_fpn_proposals", (FPN_ROIS, 2, 5, 4, 224), {}, {}),
+        ("yolo_box_head", (YOLO_X,), {"anchors": ANCHORS, "class_num": 4},
+         {}),
+        ("yolo_box_post", (YOLO_X, f32(2, 27, 8, 8), f32(2, 27, 16, 16),
+                           np.asarray([[256, 256], [256, 256]], np.float32),
+                           np.asarray([[1, 1], [1, 1]], np.float32)),
+         {"anchors0": ANCHORS, "anchors1": ANCHORS, "anchors2": ANCHORS,
+          "class_num": 4, "conf_thresh": 0.5}, {}),
+        ("generate_proposals", (RPN_S, RPN_D,
+                                np.asarray([[64, 64]], np.float32), ANC,
+                                VAR),
+         {"pre_nms_top_n": 20, "post_nms_top_n": 5, "nms_thresh": 0.5,
+          "min_size": 1.0}, {}),
+        ("crf_decoding", (EM, TR), {"lod": i64(0, 3, 7)}, {}),
+        ("dgc", (np.zeros(10, np.float32), np.zeros(10, np.float32),
+                 np.arange(1.0, 11.0, dtype=np.float32)),
+         {"sparsity": [0.7], "current_step": np.asarray([10.0],
+                                                        np.float32)}, {}),
+        ("detection_map", (np.asarray([[1, 0.9, 0, 0, 10, 10],
+                                       [1, 0.8, 50, 50, 60, 60]],
+                                      np.float32),
+                           np.asarray([[1, 0, 0, 10, 10, 0]], np.float32)),
+         {}, {}),
+        ("shuffle_channel", (f32(2, 8, 2, 2),), {"group": 2}, {}),
+        ("affine_channel", (f32(1, 3, 2, 2), f32(3), f32(3)), {},
+         {"grad": True}),
+        ("partial_concat", ([f32(2, 6), f32(2, 6)],),
+         {"start_index": 1, "length": 2}, {}),
+        ("partial_sum", ([f32(2, 6), f32(2, 6)],),
+         {"start_index": 1, "length": 2}, {}),
+        ("im2sequence", (f32(2, 3, 8, 8),), {"kernels": [2, 2],
+                                             "strides": [2, 2]}, {}),
+        ("add_position_encoding", (f32(1, 4, 6),), {"alpha": 0.5,
+                                                    "beta": 1.0}, {}),
+        ("correlation", (f32(1, 2, 6, 6), f32(1, 2, 6, 6)), {
+            "pad_size": 1, "kernel_size": 1, "max_displacement": 1,
+            "stride1": 1, "stride2": 1}, {"grad": True}),
+        ("cvm", (np.asarray([[1.0, 3.0, 5.0, 6.0]], np.float32), None),
+         {"use_cvm": True}, {}),
+        ("batch_fc", (np.ones((2, 1, 3), np.float32),
+                      np.ones((2, 3, 2), np.float32),
+                      np.asarray([[0., -10.], [1., -10.]], np.float32)),
+         {}, {}),
+        ("rank_attention", (np.asarray([[1., 2.], [3., 4.]], np.float32),
+                            RO, np.arange(8, dtype=np.float32).reshape(8, 1)),
+         {"max_rank": 2}, {}),
+        ("lookup_table_dequant", (DEQ_W, i64(1)[None]), {}, {}),
+        ("sequence_pool", (SEQ, LOD, "MAX"), {}, {}),
+        ("sequence_conv", (SEQ, LOD, f32(6, 2)), {"context_length": 3},
+         {"grad": True, "diff": (0, 2)}),
+        ("match_matrix_tensor", (np.asarray([[1., 0.]], np.float32),
+                                 np.asarray([[0., 1., 0.]], np.float32),
+                                 f32(2, 3), i64(0, 1), i64(0, 1)), {}, {}),
+        ("attention_lstm", (f32(5, 3), i64(0, 2, 5),
+                            np.zeros((2, 4), np.float32), None, f32(7, 1),
+                            None, None, None, f32(7, 16),
+                            np.zeros(16, np.float32)), {}, {}),
+        ("row_conv", (f32(5, 3), f32(2, 3)), {"lod": i64(0, 2, 5)}, {}),
+        ("sequence_expand", (f32(2, 3), i64(0, 2, 5)), {}, {}),
+        ("sequence_softmax", (f32(5), i64(0, 2, 5)), {}, {}),
+        ("shuffle_batch", (f32(5, 2),), {"seed": i64(7)}, {}),
+        ("ctc_align", (np.asarray([[1, 1, 0, 2, 2, 0, 3],
+                                   [4, 4, 4, 0, 0, 5, 0]], np.int32),
+                       np.asarray([[7], [6]], np.int64)), {"blank": 0}, {}),
+        ("chunk_eval", (i64(0, 1, 4, 0, 1, 1), i64(0, 1, 4, 0, 1, 4)),
+         {"num_chunk_types": 2, "chunk_scheme": "IOB"}, {}),
+        ("graph_sample_neighbors", (ROW, COLPTR, i64(0, 2)),
+         {"sample_size": -1}, {}),
+        ("weighted_sample_neighbors", (ROW, COLPTR,
+                                       np.ones(5, np.float32), i64(0, 2)),
+         {"sample_size": -1}, {}),
+        ("reindex_graph", (i64(0, 2), i64(1, 2, 1, 3), i64(2, 2)), {}, {}),
+        ("graph_khop_sampler", (ROW, COLPTR, i64(0, 2)),
+         {"sample_sizes": [-1]}, {}),
+        ("tdm_child", (np.asarray([[1], [2]], np.int32), TREE),
+         {"child_nums": 2}, {}),
+        ("tdm_sampler", (np.asarray([[0], [1]], np.int32),
+                         np.asarray([[1, 2], [1, 3]], np.int32),
+                         np.asarray([1, 2, 3], np.int32)),
+         {"neg_samples_num_list": [0, 1], "layer_offset_lod": [0, 1, 3],
+          "seed": 7}, {}),
+        ("pyramid_hash", (i64(3, 7, 9, 2), f32(50, 16), i64(0, 4)),
+         {"num_emb": 16, "space_len": 49, "pyramid_layer": 3,
+          "rand_len": 16}, {}),
+    ]
+    return SimpleNamespace(**locals())
+
+
 MATH, CREATION, MANIPULATION = _math(), _creation(), _manipulation()
 REDUCE, LOGIC, ACTIVATION = _reduce(), _logic(), _activation()
 LINALG, EXTRA, TAIL, FFT = _linalg(), _extra(), _tail(), _fft()
+NN, LEGACY = _nn(), _legacy()
 TABLES = {"math": MATH, "creation": CREATION, "manipulation": MANIPULATION,
           "reduce": REDUCE, "logic": LOGIC, "activation": ACTIVATION,
-          "linalg": LINALG, "extra": EXTRA, "tail": TAIL, "fft": FFT}
+          "linalg": LINALG, "extra": EXTRA, "tail": TAIL, "fft": FFT,
+          "nn": NN, "legacy": LEGACY}
 
 
 def _random_cases():
@@ -910,7 +1378,8 @@ SPECIAL = {"lgamma", "digamma", "polygamma", "gammaln", "erfinv", "i0",
 # ops that compute in float32 whatever their inputs' type (the JAX
 # package's bodies cast): float32's tolerance
 FLOAT32_INSIDE = {"p_norm", "clip_by_norm", "renorm", "swiglu",
-                  "fused_rms_norm", "fused_rope",
+                  "fused_rms_norm", "fused_rope", "rms_norm", "hsigmoid_loss",
+                  "rnnt_loss",
                   "fused_rotary_position_embedding",
                   "fused_bias_dropout_residual_layer_norm",
                   "fused_feedforward", "fused_linear_cross_entropy"}
@@ -940,6 +1409,7 @@ def first_cases():
                 getattr(table, "SIGNAL_CASES", [])):
             out.setdefault(name, (args, kwargs))
     out.update(RANDOM)
+    out.update(NN.RANDOM)
     out.update(MORE)
     return out
 
@@ -1017,6 +1487,7 @@ def sweep(device="cuda", seed=5):
     the CPU. Returns {"ops": n, "failed": {op: why}, "worst": (op, err)}:
     err is the largest |device - cpu| / tolerance (1 passes)."""
     import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn.functional  # noqa: F401  (registers its ops)
     from paddle_tpu_torch.device import _CURRENT
     from paddle_tpu_torch.ops.registry import OP_TABLE
 
@@ -1032,7 +1503,7 @@ def sweep(device="cuda", seed=5):
             args, kwargs = cases[name]
             fn = op_of(name)
             try:
-                if name in RANDOM:
+                if name in RANDOM or name in NN.RANDOM:
                     ptt.seed(seed)
                     a = _flat(_run(fn, args, kwargs, dev))
                     ptt.seed(seed)

@@ -13,8 +13,9 @@ for ``sm_90a`` under ``csrc/``, built at first use by
 The op surface is the counterpart of ``import paddle_tpu as paddle;
 paddle.<op>(...)``: the JAX package's top-level ops (``ops.impl``:
 creation, math, manipulation, reduce, logic, linalg, activation, fused,
-extra; ``tensor_tail``; the ``fft``, ``signal`` and ``linalg``
-namespaces) as functions over ``torch.Tensor``, with ``autograd``,
+extra, and the detection and legacy ops; ``tensor_tail``; the ``fft``,
+``signal`` and ``linalg`` namespaces; ``nn.functional``'s ops, loaded at
+their first use) as functions over ``torch.Tensor``, with ``autograd``,
 ``device`` and the dtypes. Its decisions:
 
 1. Functions, no patching. The JAX package installs each op as a method
@@ -60,8 +61,9 @@ Layout (each module names its ``paddle_tpu`` counterpart):
 - ``framework.random``: a default generator per device and ``seed``.
 - ``quantization.page_quant``: int8 KV page codes and the offset-0 scale
   freeze rule.
-- ``nn``: functional surface (with the losses, masked attention and
-  ``flashmask_attention``), the layers and containers, and
+- ``nn``: the ``Layer`` base and ``ParamAttr``, the initializers, the
+  functional surface (conv, pooling, norms, resize, losses, masked
+  attention and ``flashmask_attention``), the layers and containers, and
   ``nn.transformer`` (multi-head attention with its caches, the encoder
   and decoder stacks, ``Transformer``).
 - ``incubate.nn``: the fused functionals (the FFN and attention blocks,
@@ -69,7 +71,8 @@ Layout (each module names its ``paddle_tpu`` counterpart):
   fused layers.
 - ``models.llama``, ``models.gpt``: the decoder LMs, their losses and the
   paged-model contract (``apply_llama_remat``: recompute per layer);
-  ``models.bert``: the encoder and its heads.
+  ``models.bert``: the encoder and its heads; ``models.unet``: the
+  diffusion UNet and its DDPM loss.
 - ``optimizer``: the SGD and Adam families, ASGD, Rprop and LBFGS (fp32
   masters), the learning-rate schedulers (``optimizer.lr``),
   regularizers, gradient clipping.
@@ -130,10 +133,12 @@ from .autograd import (PyLayer, enable_grad, grad,  # noqa: E402
 # --- the op surface (the registry fills this namespace) ---------------------
 from .ops import registry as _registry  # noqa: E402
 from .ops.impl import (activation as _activation,  # noqa: E402,F401
-                       creation as _creation, extra as _extra,
-                       fused as _fused, linalg as _linalg_impl,
-                       logic as _logic, manipulation as _manipulation,
-                       math as _math, reduce as _reduce)
+                       creation as _creation, detection as _detection,
+                       extra as _extra, fused as _fused,
+                       linalg as _linalg_impl, logic as _logic,
+                       manipulation as _manipulation, math as _math,
+                       misc_legacy as _misc_legacy, reduce as _reduce,
+                       sampling_legacy as _sampling_legacy)
 from . import tensor_tail as _tensor_tail  # noqa: E402
 
 _registry.export_namespace(globals())
@@ -231,5 +236,13 @@ def __getattr__(name):
         mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
         return mod
+    if not name.startswith("__"):
+        # nn.functional's ops are top-level names too, as in the JAX
+        # package; importing nn registers them
+        from .nn import functional  # noqa: F401
+        entry = _registry.OP_TABLE.get(name)
+        if entry is not None:
+            globals()[name] = entry["api"]
+            return entry["api"]
     raise AttributeError(f"module 'paddle_tpu_torch' has no attribute "
                          f"'{name}'")

@@ -39,6 +39,11 @@ def seed(n):
         gen.manual_seed(_SEED[0])
 
 
+def initial_seed():
+    """The last seed given to ``seed`` (0 before any)."""
+    return _SEED[0]
+
+
 def default_generator(device="cpu"):
     """The default generator of `device`, made on first use from the last
     seed (inside a tracker's ``rng_state`` block: that state's)."""

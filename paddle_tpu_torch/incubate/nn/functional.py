@@ -84,8 +84,11 @@ def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
         ln_bias = torch.zeros(h, dtype=x.dtype, device=x.device)
     p = float(dropout_rate) if training else 0.0
     seed = next_seed(generator) if p > 0.0 else 0
-    return _k.BiasDropoutResidualLN.apply(x, bias, residual, ln_scale,
-                                          ln_bias, ln_epsilon, p, seed)
+    x, residual, ln_scale, ln_bias = (t.contiguous() for t in (
+        x, residual, ln_scale, ln_bias))
+    return _k.BiasDropoutResidualLN.apply(
+        x, None if bias is None else bias.contiguous(), residual, ln_scale,
+        ln_bias, ln_epsilon, p, seed)
 
 
 def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,

@@ -27,18 +27,18 @@ from torch import nn
 
 from ...device import resolve_device
 from ...nn import functional as NF
-from ...nn.layers import wants_param
+from ...nn import initializer as I
+from ...nn.layers import make_parameter
 from . import functional as F
 
 
-def _param(shape, attr, what, kw, fill=None):
-    """A parameter of `shape` (empty, or filled with `fill`), or None when
-    `attr` is False."""
-    if not wants_param(attr, what):
-        return None
-    t = torch.empty(shape, **kw) if fill is None else \
-        torch.full(shape, float(fill), **kw)
-    return nn.Parameter(t)
+def _param(shape, attr, kw, fill=None):
+    """A parameter of `shape` made as `attr` says (``nn.layers.
+    make_parameter``; default: filled with `fill`, or Xavier-normal), or
+    None when `attr` is False."""
+    init = I.XavierNormal() if fill is None else I.Constant(float(fill))
+    return make_parameter(shape, attr, kw["dtype"],
+                          default_initializer=init, device=kw["device"])
 
 
 class FusedLinear(nn.Module):
@@ -53,8 +53,8 @@ class FusedLinear(nn.Module):
         self.transpose_weight = transpose_weight
         shape = ([out_features, in_features] if transpose_weight
                  else [in_features, out_features])
-        self.weight = _param(shape, weight_attr, "weight_attr", kw)
-        self.bias = _param([out_features], bias_attr, "bias_attr", kw, 0)
+        self.weight = _param(shape, weight_attr, kw)
+        self.bias = _param([out_features], bias_attr, kw, 0)
 
     def forward(self, x):
         return F.fused_linear(x, self.weight, self.bias,
@@ -92,9 +92,9 @@ class FusedBiasDropoutResidualLayerNorm(nn.Module):
         self.embed_dim = embed_dim
         self.dropout_rate = dropout_rate
         self.epsilon = epsilon
-        self.linear_bias = _param([embed_dim], bias_attr, "bias_attr", kw, 0)
-        self.ln_scale = _param([embed_dim], weight_attr, "weight_attr", kw, 1)
-        self.ln_bias = _param([embed_dim], None, "", kw, 0)
+        self.linear_bias = _param([embed_dim], bias_attr, kw, 0)
+        self.ln_scale = _param([embed_dim], weight_attr, kw, 1)
+        self.ln_bias = _param([embed_dim], None, kw, 0)
 
     def forward(self, x, residual, generator=None):
         return F.fused_bias_dropout_residual_layer_norm(
@@ -134,21 +134,14 @@ class FusedMultiHeadAttention(nn.Module):
         self.normalize_before = normalize_before
         self.epsilon = epsilon
         e, n, hd = embed_dim, num_heads, self.head_dim
-        wants_param(pre_ln_bias_attr, "pre_ln_bias_attr")   # JAX ignores
-        wants_param(ln_bias_attr, "ln_bias_attr")           # these two
-        self.qkv_weight = _param([3, n, hd, e], qkv_weight_attr,
-                                 "qkv_weight_attr", kw)
-        self.qkv_bias = _param([3, n, hd], qkv_bias_attr, "qkv_bias_attr",
-                               kw, 0)
-        self.linear_weight = _param([e, e], linear_weight_attr,
-                                    "linear_weight_attr", kw)
-        self.linear_bias = _param([e], linear_bias_attr, "linear_bias_attr",
-                                  kw, 0)
-        self.pre_ln_scale = _param([e], pre_ln_scale_attr,
-                                   "pre_ln_scale_attr", kw, 1)
-        self.pre_ln_bias = _param([e], None, "", kw, 0)
-        self.ln_scale = _param([e], ln_scale_attr, "ln_scale_attr", kw, 1)
-        self.ln_bias = _param([e], None, "", kw, 0)
+        self.qkv_weight = _param([3, n, hd, e], qkv_weight_attr, kw)
+        self.qkv_bias = _param([3, n, hd], qkv_bias_attr, kw, 0)
+        self.linear_weight = _param([e, e], linear_weight_attr, kw)
+        self.linear_bias = _param([e], linear_bias_attr, kw, 0)
+        self.pre_ln_scale = _param([e], pre_ln_scale_attr, kw, 1)
+        self.pre_ln_bias = _param([e], None, kw, 0)
+        self.ln_scale = _param([e], ln_scale_attr, kw, 1)
+        self.ln_bias = _param([e], None, kw, 0)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -190,18 +183,14 @@ class FusedFeedForward(nn.Module):
         self.normalize_before = normalize_before
         self.epsilon = epsilon
         d, f = d_model, dim_feedforward
-        self.linear1_weight = _param([d, f], linear1_weight_attr,
-                                     "linear1_weight_attr", kw)
-        self.linear1_bias = _param([f], linear1_bias_attr,
-                                   "linear1_bias_attr", kw, 0)
-        self.linear2_weight = _param([f, d], linear2_weight_attr,
-                                     "linear2_weight_attr", kw)
-        self.linear2_bias = _param([d], linear2_bias_attr,
-                                   "linear2_bias_attr", kw, 0)
-        self.ln1_scale = _param([d], ln1_scale_attr, "ln1_scale_attr", kw, 1)
-        self.ln1_bias = _param([d], ln1_bias_attr, "ln1_bias_attr", kw, 0)
-        self.ln2_scale = _param([d], ln2_scale_attr, "ln2_scale_attr", kw, 1)
-        self.ln2_bias = _param([d], ln2_bias_attr, "ln2_bias_attr", kw, 0)
+        self.linear1_weight = _param([d, f], linear1_weight_attr, kw)
+        self.linear1_bias = _param([f], linear1_bias_attr, kw, 0)
+        self.linear2_weight = _param([f, d], linear2_weight_attr, kw)
+        self.linear2_bias = _param([d], linear2_bias_attr, kw, 0)
+        self.ln1_scale = _param([d], ln1_scale_attr, kw, 1)
+        self.ln1_bias = _param([d], ln1_bias_attr, kw, 0)
+        self.ln2_scale = _param([d], ln2_scale_attr, kw, 1)
+        self.ln2_bias = _param([d], ln2_bias_attr, kw, 0)
 
     def forward(self, src, cache=None):
         x = src
@@ -220,8 +209,7 @@ class FusedFeedForward(nn.Module):
 
 class FusedTransformerEncoderLayer(nn.Module):
     """``FusedMultiHeadAttention`` then ``FusedFeedForward``. weight_attr
-    and bias_attr are taken and not used, as in JAX (a ParamAttr
-    raises)."""
+    and bias_attr are taken and not used, as in JAX."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout_rate=0.1,
                  activation="relu", attn_dropout_rate=None,
@@ -230,8 +218,6 @@ class FusedTransformerEncoderLayer(nn.Module):
                  dtype=None):
         super().__init__()
         kw = {"device": resolve_device(device), "dtype": dtype}
-        wants_param(weight_attr, "weight_attr")
-        wants_param(bias_attr, "bias_attr")
         attn_dropout_rate = (dropout_rate if attn_dropout_rate is None
                              else attn_dropout_rate)
         self.fused_attn = FusedMultiHeadAttention(
@@ -252,7 +238,7 @@ class FusedMultiTransformer(nn.Module):
     registered as ``layer_0``, ``layer_1``, ... The number of layers is
     num_layers, or the length of qkv_weight_attrs when that is a list
     (else 1). As in JAX, the per-layer attrs and epsilon are taken and not
-    used (a ParamAttr in a list raises)."""
+    used."""
 
     def __init__(self, embed_dim, num_heads, dim_feedforward,
                  dropout_rate=0.0, activation="gelu", normalize_before=True,
@@ -263,11 +249,6 @@ class FusedMultiTransformer(nn.Module):
                  name=None, *, device=None, dtype=None):
         super().__init__()
         kw = {"device": resolve_device(device), "dtype": dtype}
-        attrs = (ln_scale_attrs, qkv_weight_attrs, linear_weight_attrs,
-                 ffn_ln_scale_attrs, ffn1_weight_attrs, ffn2_weight_attrs)
-        for a in attrs:
-            for x in (a if isinstance(a, (list, tuple)) else [a]):
-                wants_param(x, "a per-layer attr")
         if num_layers < 0:
             num_layers = (len(qkv_weight_attrs)
                           if isinstance(qkv_weight_attrs, (list, tuple))

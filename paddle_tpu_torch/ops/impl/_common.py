@@ -181,3 +181,19 @@ def all_dims(x, axis):
     if a is None:
         return tuple(range(x.dim()))
     return a
+
+
+def to_host(t):
+    """A tensor (or array-like) as a numpy array on the host: the host
+    ops of the detection and legacy families read their inputs so."""
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def device_of_input(t):
+    return t.device if isinstance(t, torch.Tensor) else torch.device("cpu")
+
+
+def from_host(arr, device):
+    """A numpy result as a tensor on `device` (a 0-d array stays 0-d)."""
+    return torch.from_numpy(np.array(arr, order="C")).to(device)

@@ -187,6 +187,14 @@ def require_cuda(ref, what, **tensors):
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+def empty_dense(t):
+    """An uninitialized tensor of t's shape, type and device with packed
+    row-major strides, whatever t's own strides: a kernel's output is
+    indexed as packed."""
+    import torch
+    return torch.empty(tuple(t.shape), dtype=t.dtype, device=t.device)
+
+
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 

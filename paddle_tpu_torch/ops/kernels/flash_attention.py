@@ -151,8 +151,10 @@ def route(q):
     """The kernel route of a launch on q: "sm90" (tensor cores) for
     bfloat16/float16 with head dim 64 or 128, else "simt" (float32 CUDA
     cores). A stated routing by type and shape: the float32 checks hold
-    the SIMT kernels to 1e-4, which TF32 tensor-core products would break,
-    and no path of the port has another head dim in 16 bits."""
+    the SIMT kernels to 1e-4, which TF32 tensor-core products would break.
+    16-bit launches of other head dims take SIMT too: the UNet's attention
+    at 64 channels (4 heads of 32) does, 4 forward and 4 backward launches
+    of its training step, where P and dS stay float32."""
     if q.dtype in SM90_DTYPES and q.shape[-1] in SM90_HEAD_DIMS:
         return "sm90"
     return "simt"
@@ -234,7 +236,7 @@ def _fwd(q, k, v, causal, scale, bounds, what):
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    out = torch.empty_like(q)
+    out = _build.empty_dense(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     head = [_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             _build.ptr(lse)]
@@ -365,9 +367,7 @@ def _bwd(q, k, v, out, lse, dout, causal, scale, bounds, what):
     if rt == "sm90":
         q, k, v, dout = (_aligned(t) for t in (q, k, v, dout))
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dq, dk, dv = (_build.empty_dense(t) for t in (q, k, v))
     head = [_build.ptr(t) for t in (q, k, v, dout, lse, delta, dq, dk, dv)]
     tail = [b, s_q, s_k, h, h_kv, d, float(scale), int(bool(causal)),
             _build.dtype_code(q), _build.stream(q)]

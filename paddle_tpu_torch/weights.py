@@ -5,7 +5,10 @@ The port keeps the JAX package's parameter names and layouts (Linear
 weights ``[in, out]``), so the bridge is a name-for-name copy with no
 transposes: ``from_paddle_tpu_state`` takes the JAX model's parameters as
 numpy arrays under its names (``llama.layers.0.self_attn.q_proj.weight``,
-...) and copies them into the port's model.
+...) and copies them into the port's model. Conv weights are ``[out,
+in/groups, *k]`` in both packages (the UNet's, ``unet.conv_in.weight``
+...), so they too go across as they are; persistable buffers the arrays
+name (a batch norm's ``_mean`` and ``_variance``) are copied as well.
 """
 
 from __future__ import annotations
@@ -26,16 +29,21 @@ def _to_tensor(arr):
 
 def from_paddle_tpu_state(arrays, model):
     """Copy `arrays` ({JAX parameter name: np.ndarray}) into `model`'s
-    parameters. The names and shapes must match exactly; values are cast
-    to the model's dtype (bit-equal when the dtypes agree)."""
+    parameters, and into the persistable buffers it names. Every
+    parameter must be there and every name must be the model's; shapes
+    must match exactly; values are cast to the model's dtype (bit-equal
+    when the dtypes agree)."""
     params = dict(model.named_parameters())
+    targets = dict(params)
+    targets.update({n: b for n, b in model.state_dict(keep_vars=True).items()
+                    if n in arrays and n not in params})
     missing = sorted(set(params) - set(arrays))
-    extra = sorted(set(arrays) - set(params))
+    extra = sorted(set(arrays) - set(targets))
     if missing or extra:
         raise KeyError(f"parameter names differ: missing {missing[:5]}, "
                        f"unexpected {extra[:5]}")
     with torch.no_grad():
-        for name, p in params.items():
+        for name, p in targets.items():
             src = _to_tensor(arrays[name])
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != "

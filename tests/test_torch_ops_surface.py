@@ -1,8 +1,10 @@
 """The port's op surface as a whole, against the JAX package's:
 
 - coverage: every name the JAX package's creation, math, manipulation,
-  reduce, logic, linalg, activation, fused and extra modules,
-  ``tensor_tail``, ``fft`` and ``signal`` put in ``OP_TABLE`` (read by
+  reduce, logic, linalg, activation, fused, extra, detection and legacy
+  modules, ``tensor_tail``, ``fft``, ``signal`` and ``nn.functional``'s
+  common, conv, pooling, norm, loss and attention modules put in
+  ``OP_TABLE`` (read by
   each entry's ``fn.__module__``) is an attribute of ``paddle_tpu_torch``
   or of its ``fft``/``signal``/``linalg`` namespace, and the port's
   top-level ``_`` names equal the JAX package's;
@@ -35,6 +37,7 @@ from paddle_tpu.amp import debugging as jdbg
 from paddle_tpu.ops.registry import OP_TABLE as JOP_TABLE
 
 import paddle_tpu_torch as ptt
+import paddle_tpu_torch.nn.functional  # noqa: F401  (registers its ops)
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch.amp import debugging as tdbg
 from paddle_tpu_torch.ops.registry import OP_TABLE
@@ -44,36 +47,39 @@ torch.set_num_threads(1)
 
 SLICE_MODULES = {f"paddle_tpu.ops.impl.{m}" for m in (
     "creation", "math", "manipulation", "reduce", "logic", "linalg",
-    "activation", "fused", "extra")} | {
-    "paddle_tpu.tensor_tail", "paddle_tpu.fft", "paddle_tpu.signal"}
-# left for the next slice (ROADMAP §A.8) and §A.11
-LATER = {"paddle_tpu.ops.impl.detection", "paddle_tpu.ops.impl.misc_legacy",
-         "paddle_tpu.ops.impl.sampling_legacy",
-         "paddle_tpu.ops.impl.fused_inference"}
+    "activation", "fused", "extra", "detection", "misc_legacy",
+    "sampling_legacy")} | {
+    "paddle_tpu.tensor_tail", "paddle_tpu.fft", "paddle_tpu.signal"} | {
+    f"paddle_tpu.nn.functional.{m}" for m in (
+        "common", "conv", "pooling", "norm", "loss", "attention")}
+# left for the next slices (ROADMAP §A.9, §A.11): nn.functional's tail,
+# the rnn layers' op and fused_inference; sdp_kernel only raises in JAX
+LATER = {"paddle_tpu.ops.impl.fused_inference",
+         "paddle_tpu.nn.functional.tail", "paddle_tpu.nn.layer.rnn"}
 
 
 def test_every_jax_op_of_the_slice_is_on_the_port():
     names = sorted(n for n, e in JOP_TABLE.items()
                    if e["fn"].__module__ in SLICE_MODULES)
-    assert len(names) > 380
-    missing = [n for n in names if not any(
+    assert len(names) > 500
+    missing = [n for n in names if n != "sdp_kernel" and not any(
         hasattr(ns, n) for ns in (ptt, ptt.fft, ptt.signal, ptt.linalg))]
     assert missing == []
     ops_only = set(OP_TABLE) - set(JOP_TABLE)
     assert ops_only == set(), ops_only
-    # what the port lacks is from modules outside the slice: the legacy
-    # and detection ops and fused_inference (LATER), nn.functional's
-    # (§A.9), and whatever other JAX modules a process has imported
+    # what the port lacks is from modules outside the slice (LATER) and
+    # whatever other JAX modules a process has imported
     left = {e["fn"].__module__ for n, e in JOP_TABLE.items()
-            if not any(hasattr(ns, n)
-                       for ns in (ptt, ptt.fft, ptt.signal))}
+            if n != "sdp_kernel" and not any(
+                hasattr(ns, n) for ns in (ptt, ptt.fft, ptt.signal))}
     assert not left & SLICE_MODULES, left & SLICE_MODULES
 
 
 def test_later_ops_are_what_the_port_lacks_and_the_sweep_covers_the_rest():
-    """ROADMAP §A.8 leaves the legacy and detection ops (and §A.11
-    fused_inference); every op the port has runs in the sweep, which
-    passes on the CPU against itself."""
+    """ROADMAP §A.9 and §A.11 leave nn.functional's tail, the rnn op and
+    fused_inference; every op the port has (nn.functional's and the
+    legacy and detection ops among them) runs in the sweep, which passes
+    on the CPU against itself."""
     later = [n for n, e in JOP_TABLE.items() if e["fn"].__module__ in LATER]
     assert later and not any(hasattr(ptt, n) for n in later)
     assert set(OP_TABLE) <= set(SWEEP.first_cases())

@@ -218,7 +218,7 @@ def test_linear_has_a_zero_bias_by_default():
     np.testing.assert_allclose(lin(torch.from_numpy(x)).detach().numpy(),
                                ref(paddle.to_tensor(x)).numpy(), rtol=TOL,
                                atol=TOL)
-    with pytest.raises(NotImplementedError, match="ParamAttr"):
+    with pytest.raises(TypeError, match="ParamAttr"):
         tnn.Linear(4, 8, bias_attr=object(), device="cpu")
 
 
