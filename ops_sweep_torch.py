@@ -5,8 +5,9 @@ device against the port on the CPU.
 
 The tables (``MATH``, ``CREATION``, ``MANIPULATION``, ``REDUCE``,
 ``LOGIC``, ``ACTIVATION``, ``LINALG``, ``EXTRA``, ``TAIL``, ``FFT``,
-``NN`` (``nn.functional``'s ops) and ``LEGACY`` (the detection and legacy
-ops): each a namespace of seeded numpy inputs and ``CASES``, rows of (op name,
+``NN`` (``nn.functional``'s ops), ``LEGACY`` (the detection and legacy
+ops) and ``NNTAIL`` (``nn.functional``'s tail, the rnn op and
+``vision.ops``): each a namespace of seeded numpy inputs and ``CASES``, rows of (op name,
 args, kwargs, options)) are the inputs of the CPU parity tests
 (``tests/test_torch_ops_*.py``, which hold the port against the JAX
 package) and of ``sweep``, which runs each case through
@@ -1291,14 +1292,83 @@ def _legacy():
     return SimpleNamespace(**locals())
 
 
+def _nntail():
+    """``nn.functional``'s tail, the rnn layers' op and the detection ops
+    of ``vision.ops``: one or two cases each, from the CPU parity tests
+    (``tests/test_torch_nn_tail.py``, ``test_torch_rnn.py``,
+    ``test_torch_vision.py``)."""
+    R = np.random.default_rng(17)
+    F32_TOL = (1e-5, 1e-6)
+    A, B = R.standard_normal((4, 3)), R.standard_normal((4, 3))
+    POS = R.uniform(0.5, 2.0, (4, 3))
+    LAB5 = R.integers(0, 5, (4,)).astype(np.int64)
+    X5 = R.standard_normal((4, 5))
+    PROB5 = np.exp(X5) / np.exp(X5).sum(-1, keepdims=True)
+
+    def f32(*shape):
+        return R.standard_normal(shape).astype(np.float32)
+
+    LSTM_W = [f32(24, 5), f32(24, 6), f32(24), f32(24),
+              f32(24, 5), f32(24, 6), f32(24), f32(24)]
+    BOXES = np.array([[0, 0, 10, 10], [1, 1, 11, 11], [20, 20, 30, 30],
+                      [21, 19, 31, 29]], np.float64)
+    X_ROI = R.standard_normal((2, 3, 12, 10))
+    ROI = np.array([[1.0, 2.0, 7.5, 9.0], [0.0, 0.0, 9.0, 11.0],
+                    [3.2, 1.1, 5.0, 4.0]])
+    ROI_N = np.array([2, 1], np.int32)
+    PRIOR = np.array([[0.1, 0.1, 0.4, 0.5], [0.3, 0.2, 0.9, 0.8]])
+    TARGET = np.array([[0.2, 0.1, 0.6, 0.7]])
+    CASES = [
+        ("gaussian_nll_loss", (A, B, POS), {}, {"grad": True}),
+        ("poisson_nll_loss", (A, np.round(POS)), {}, {"grad": True}),
+        ("soft_margin_loss", (A, np.sign(B)), {}, {"grad": True}),
+        ("multi_label_soft_margin_loss", (A, (B > 0) * 1.0), {},
+         {"grad": True}),
+        ("multi_margin_loss", (X5, LAB5), {"p": 2}, {"grad": True}),
+        ("triplet_margin_with_distance_loss", (A, B, POS), {},
+         {"grad": True}),
+        ("dice_loss", (PROB5, LAB5[:, None]), {}, {}),
+        ("pairwise_distance", (A, B), {}, {"grad": True}),
+        ("margin_cross_entropy", (R.uniform(-0.9, 0.9, (4, 5)), LAB5), {},
+         {"grad": True}),
+        ("adaptive_log_softmax_with_loss",
+         (f32(6, 8), np.array([0, 3, 4, 6, 7, 9], np.int64), f32(8, 6),
+          [(f32(8, 4), f32(4, 3)), (f32(8, 2), f32(2, 3))], [4, 7]), {},
+         {"tol": F32_TOL}),
+        ("rnn_sequence", (f32(3, 4, 5), f32(2, 3, 6), f32(2, 3, 6), LSTM_W,
+                          "LSTM", 1, True, 0.0, False), {},
+         {"tol": F32_TOL}),
+        ("nms", (BOXES,), {"scores": np.array([0.9, 0.8, 0.7, 0.95])},
+         {}),
+        ("roi_align", (X_ROI, ROI, ROI_N, 4), {}, {"tol": F32_TOL}),
+        ("roi_pool", (X_ROI, ROI, ROI_N, 3), {}, {}),
+        ("box_coder", (PRIOR, np.array([0.1, 0.1, 0.2, 0.2]), TARGET), {},
+         {"tol": F32_TOL}),
+        ("prior_box", (np.zeros((1, 8, 3, 4)), np.zeros((1, 3, 12, 16)),
+                       [4.0]), {"max_sizes": [8.0], "flip": True,
+                                "aspect_ratios": (2.0,)},
+         {"tol": F32_TOL}),
+        ("deform_conv2d", (R.standard_normal((1, 4, 6, 5)),
+                           R.standard_normal((1, 18, 6, 5)),
+                           R.standard_normal((6, 4, 3, 3)), None, 1, 1),
+         {}, {"tol": F32_TOL}),
+    ]
+    RANDOM = {
+        "class_center_sample": ((np.array([3, 7, 3, 11, 0], np.int64), 20,
+                                 8), {}),
+        "feature_alpha_dropout": ((f32(8, 6, 5),), {"p": 0.3}),
+    }
+    return SimpleNamespace(**locals())
+
+
 MATH, CREATION, MANIPULATION = _math(), _creation(), _manipulation()
 REDUCE, LOGIC, ACTIVATION = _reduce(), _logic(), _activation()
 LINALG, EXTRA, TAIL, FFT = _linalg(), _extra(), _tail(), _fft()
-NN, LEGACY = _nn(), _legacy()
+NN, LEGACY, NNTAIL = _nn(), _legacy(), _nntail()
 TABLES = {"math": MATH, "creation": CREATION, "manipulation": MANIPULATION,
           "reduce": REDUCE, "logic": LOGIC, "activation": ACTIVATION,
           "linalg": LINALG, "extra": EXTRA, "tail": TAIL, "fft": FFT,
-          "nn": NN, "legacy": LEGACY}
+          "nn": NN, "legacy": LEGACY, "nntail": NNTAIL}
 
 
 def _random_cases():
@@ -1382,7 +1452,8 @@ FLOAT32_INSIDE = {"p_norm", "clip_by_norm", "renorm", "swiglu",
                   "rnnt_loss",
                   "fused_rotary_position_embedding",
                   "fused_bias_dropout_residual_layer_norm",
-                  "fused_feedforward", "fused_linear_cross_entropy"}
+                  "fused_feedforward", "fused_linear_cross_entropy",
+                  "roi_align", "deform_conv2d"}
 DEVICE_TOL = {torch.float64: (1e-9, 1e-11), torch.complex128: (1e-9, 1e-11),
               torch.float32: (1e-4, 1e-5), torch.complex64: (1e-4, 1e-5),
               torch.float16: (1e-2, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
@@ -1410,6 +1481,7 @@ def first_cases():
             out.setdefault(name, (args, kwargs))
     out.update(RANDOM)
     out.update(NN.RANDOM)
+    out.update(NNTAIL.RANDOM)
     out.update(MORE)
     return out
 
@@ -1487,7 +1559,8 @@ def sweep(device="cuda", seed=5):
     the CPU. Returns {"ops": n, "failed": {op: why}, "worst": (op, err)}:
     err is the largest |device - cpu| / tolerance (1 passes)."""
     import paddle_tpu_torch as ptt
-    import paddle_tpu_torch.nn.functional  # noqa: F401  (registers its ops)
+    import paddle_tpu_torch.nn  # noqa: F401  (registers its ops)
+    import paddle_tpu_torch.vision.ops  # noqa: F401
     from paddle_tpu_torch.device import _CURRENT
     from paddle_tpu_torch.ops.registry import OP_TABLE
 
@@ -1503,7 +1576,8 @@ def sweep(device="cuda", seed=5):
             args, kwargs = cases[name]
             fn = op_of(name)
             try:
-                if name in RANDOM or name in NN.RANDOM:
+                if name in RANDOM or name in NN.RANDOM or \
+                        name in NNTAIL.RANDOM:
                     ptt.seed(seed)
                     a = _flat(_run(fn, args, kwargs, dev))
                     ptt.seed(seed)

@@ -63,12 +63,19 @@ Layout (each module names its ``paddle_tpu`` counterpart):
   freeze rule.
 - ``nn``: the ``Layer`` base and ``ParamAttr``, the initializers, the
   functional surface (conv, pooling, norms, resize, losses, masked
-  attention and ``flashmask_attention``), the layers and containers, and
+  attention and ``flashmask_attention``, the tail losses and the packed
+  flash entry points), the layers and containers, the RNNs,
   ``nn.transformer`` (multi-head attention with its caches, the encoder
-  and decoder stacks, ``Transformer``).
+  and decoder stacks, ``Transformer``), ``nn.utils`` (weight and
+  spectral norm) and the gradient clips.
 - ``incubate.nn``: the fused functionals (the FFN and attention blocks,
   their epilogues, RoPE, paged and dense-cache decode attention) and the
   fused layers.
+- ``vision``: the model zoo (ResNet ... InceptionV3), ``transforms``,
+  ``datasets`` and the detection ops; ``hapi``: ``Model`` (``fit``,
+  ``evaluate``, ``predict``, ``save`` / ``load``) and ``summary``, also
+  top-level names; ``metric``: ``Accuracy``, ``Precision``, ``Recall``,
+  ``Auc``.
 - ``models.llama``, ``models.gpt``: the decoder LMs, their losses and the
   paged-model contract (``apply_llama_remat``: recompute per layer);
   ``models.bert``: the encoder and its heads; ``models.unet``: the
@@ -85,7 +92,8 @@ Layout (each module names its ``paddle_tpu`` counterpart):
   ``CommTimeoutError``), ``fleet.elastic`` (heartbeats over a store) and
   ``resilient`` (``ResilientTrainer``, ``BadStepGuard``).
 - ``io``: datasets, samplers and ``DataLoader`` (thread prefetch,
-  shared-memory workers); ``profiler``: ``Profiler`` on
+  shared-memory workers); ``framework.io``: ``save`` / ``load`` (the
+  JAX package's pickle format, top-level names too); ``profiler``: ``Profiler`` on
   ``torch.profiler`` with the JAX scheduler, ``RecordEvent``.
 - ``framework``: the random generators and the runtime flags.
 - ``jit``: ``compile_train_step`` (eager, or its fused program) and
@@ -225,21 +233,28 @@ def is_grad_enabled_():
 
 # subpackages load on first use, so that ``import paddle_tpu_torch`` stays
 # light: ``paddle_tpu_torch.nn.Linear`` works through __getattr__
-_LAZY = {"amp", "compiler", "distributed", "framework", "incubate",
-         "inference", "io", "jit", "models", "nn", "observability",
-         "optimizer", "profiler", "quantization", "serving", "weights"}
+_LAZY = {"amp", "compiler", "distributed", "framework", "hapi",
+         "incubate", "inference", "io", "jit", "metric", "models", "nn",
+         "observability", "optimizer", "profiler", "quantization",
+         "serving", "vision", "weights"}
+# top-level names of lazy subpackages, as the JAX package exports them
+_LAZY_NAMES = {"Model": "hapi", "summary": "hapi"}
+
+from .framework.io import load, save  # noqa: E402
 
 
 def __getattr__(name):
-    if name in _LAZY:
+    if name in _LAZY or name in _LAZY_NAMES:
         import importlib
-        mod = importlib.import_module(f".{name}", __name__)
-        globals()[name] = mod
-        return mod
+        mod = importlib.import_module(f".{_LAZY_NAMES.get(name, name)}",
+                                      __name__)
+        value = getattr(mod, name) if name in _LAZY_NAMES else mod
+        globals()[name] = value
+        return value
     if not name.startswith("__"):
-        # nn.functional's ops are top-level names too, as in the JAX
-        # package; importing nn registers them
-        from .nn import functional  # noqa: F401
+        # nn.functional's ops (and the rnn layers' op) are top-level names
+        # too, as in the JAX package; importing nn registers them
+        from . import nn  # noqa: F401
         entry = _registry.OP_TABLE.get(name)
         if entry is not None:
             globals()[name] = entry["api"]

@@ -1,8 +1,13 @@
 """``nn`` of the port: the counterpart of ``paddle_tpu.nn`` — the layer
 base (``Layer``, ``ParamAttr``), the containers, the functional surface
 (``functional``), the initializers (``initializer``), the layers of
-``nn.layer`` (activation, common, conv, norm, pooling, loss) and the
-transformer stacks (``nn.transformer``)."""
+``nn.layer`` (activation, common, conv, norm, pooling, loss, the RNNs of
+``rnn`` and the rest of the names in ``tail``), the transformer stacks
+(``nn.transformer``), ``utils`` (weight and spectral norm,
+``parameters_to_vector``) and the gradient clips ``clip_grad_norm_`` /
+``clip_grad_value_`` (``paddle_tpu/nn/__init__.py:50, :75``)."""
+
+import torch as _torch
 
 from . import functional, initializer
 from .container import LayerList, ParameterList, Sequential
@@ -37,5 +42,42 @@ from .layers import (GELU, Dropout, Embedding, Layer, LayerNorm, Linear,
 from .transformer import (MultiHeadAttention, Transformer,
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
+from .layer.rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,
+                        RNNCellBase, SimpleRNN, SimpleRNNCell)
+from .layer.tail import *  # noqa: E402,F401,F403
+from ..optimizer.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
+                              ClipGradByValue)
+
+
+def _grads(parameters):
+    params = parameters if isinstance(parameters, (list, tuple)) \
+        else [parameters]
+    return [p for p in params if p.grad is not None]
+
+
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
+                    error_if_nonfinite=False):
+    """Scale the gradients in place by min(max_norm / (total + 1e-6), 1),
+    total the norm_type norm of their norms; returns total (0 with no
+    gradients). error_if_nonfinite is taken and ignored, as in JAX."""
+    params = _grads(parameters)
+    if not params:
+        return _torch.zeros([])
+    total = _torch.linalg.vector_norm(_torch.stack([
+        _torch.linalg.vector_norm(p.grad.reshape(-1), norm_type)
+        for p in params]), norm_type)
+    coef = _torch.clamp(max_norm / (total + 1e-6), max=1.0)
+    for p in params:
+        p.grad.mul_(coef.to(p.grad.dtype))
+    return total
+
+
+def clip_grad_value_(parameters, clip_value):
+    """Clamp the gradients in place to [-clip_value, clip_value]."""
+    for p in _grads(parameters):
+        p.grad.clamp_(-clip_value, clip_value)
+
+
+from . import utils  # noqa: E402,F401
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -8,7 +8,10 @@ instance, local-response and spectral norms), ``loss``, ``attention``
 ``softmax_mask_fuse*``) — with the port's own ``fused`` (``swiglu``,
 ``fused_rope``, ``fused_rope_qk``, ``fused_linear_cross_entropy``) and
 ``activation`` (``gelu``, ``relu``, ``tanh``); the other activations and
-``pad`` are the op surface's functions of the same names.
+``pad`` are the op surface's functions of the same names. ``tail`` adds
+the small losses, ``pairwise_distance``, ``class_center_sample``,
+``feature_alpha_dropout``, the packed flash entry points,
+``sparse_attention`` and the in-place activations (``relu_`` ...).
 
 Each function takes the JAX function's parameters in its order, with its
 names and defaults (``name`` is taken and ignored, as paddle's is);
@@ -69,3 +72,13 @@ _SURFACE = ("relu6", "sigmoid", "silu", "swish", "hardswish", "hardsigmoid",
 for _name in _SURFACE:
     globals()[_name] = _T[_name]["api"]
 del _name
+
+from . import tail as _tail  # noqa: E402
+from .tail import (adaptive_log_softmax_with_loss,  # noqa: E402,F401
+                   class_center_sample, dice_loss, feature_alpha_dropout,
+                   gaussian_nll_loss, margin_cross_entropy,
+                   multi_label_soft_margin_loss, multi_margin_loss,
+                   pairwise_distance, poisson_nll_loss, soft_margin_loss,
+                   triplet_margin_with_distance_loss)
+
+_tail.install(globals())

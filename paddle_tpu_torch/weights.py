@@ -7,8 +7,10 @@ transposes: ``from_paddle_tpu_state`` takes the JAX model's parameters as
 numpy arrays under its names (``llama.layers.0.self_attn.q_proj.weight``,
 ...) and copies them into the port's model. Conv weights are ``[out,
 in/groups, *k]`` in both packages (the UNet's, ``unet.conv_in.weight``
-...), so they too go across as they are; persistable buffers the arrays
-name (a batch norm's ``_mean`` and ``_variance``) are copied as well.
+..., the vision models'), so they too go across as they are; persistable
+buffers the arrays name (a batch norm's ``_mean`` and ``_variance``) are
+copied as well, and ``to_numpy_state`` gives them back. The RNN layers' weights keep their ``[gates * hidden, in]`` layout
+in both packages (``weight_ih_l0`` ...).
 """
 
 from __future__ import annotations
@@ -53,9 +55,12 @@ def from_paddle_tpu_state(arrays, model):
 
 
 def to_numpy_state(model):
-    """{parameter name: np.ndarray} of `model` (bfloat16 as float32)."""
+    """{name: np.ndarray} of `model`'s parameters and persistable buffers
+    (a batch norm's ``_mean`` and ``_variance``; bfloat16 as float32):
+    the arrays the JAX model's ``set_state_dict`` takes, the way back of
+    ``from_paddle_tpu_state``."""
     out = {}
-    for name, p in model.named_parameters():
+    for name, p in model.state_dict(keep_vars=True).items():
         t = p.detach().cpu()
         out[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return out

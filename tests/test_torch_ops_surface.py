@@ -2,9 +2,9 @@
 
 - coverage: every name the JAX package's creation, math, manipulation,
   reduce, logic, linalg, activation, fused, extra, detection and legacy
-  modules, ``tensor_tail``, ``fft``, ``signal`` and ``nn.functional``'s
-  common, conv, pooling, norm, loss and attention modules put in
-  ``OP_TABLE`` (read by
+  modules, ``tensor_tail``, ``fft``, ``signal``, ``nn.functional``'s
+  common, conv, pooling, norm, loss, attention and tail modules, the rnn
+  layers' module and ``vision.ops`` put in ``OP_TABLE`` (read by
   each entry's ``fn.__module__``) is an attribute of ``paddle_tpu_torch``
   or of its ``fft``/``signal``/``linalg`` namespace, and the port's
   top-level ``_`` names equal the JAX package's;
@@ -31,13 +31,16 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu.fft  # noqa: F401
 import paddle_tpu.linalg  # noqa: F401
+import paddle_tpu.nn.layer.rnn  # noqa: F401
 import paddle_tpu.signal  # noqa: F401
+import paddle_tpu.vision.ops  # noqa: F401
 from paddle_tpu import amp as jamp
 from paddle_tpu.amp import debugging as jdbg
 from paddle_tpu.ops.registry import OP_TABLE as JOP_TABLE
 
 import paddle_tpu_torch as ptt
-import paddle_tpu_torch.nn.functional  # noqa: F401  (registers its ops)
+import paddle_tpu_torch.nn  # noqa: F401  (registers its ops)
+import paddle_tpu_torch.vision.ops  # noqa: F401
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch.amp import debugging as tdbg
 from paddle_tpu_torch.ops.registry import OP_TABLE
@@ -51,11 +54,11 @@ SLICE_MODULES = {f"paddle_tpu.ops.impl.{m}" for m in (
     "sampling_legacy")} | {
     "paddle_tpu.tensor_tail", "paddle_tpu.fft", "paddle_tpu.signal"} | {
     f"paddle_tpu.nn.functional.{m}" for m in (
-        "common", "conv", "pooling", "norm", "loss", "attention")}
-# left for the next slices (ROADMAP §A.9, §A.11): nn.functional's tail,
-# the rnn layers' op and fused_inference; sdp_kernel only raises in JAX
-LATER = {"paddle_tpu.ops.impl.fused_inference",
-         "paddle_tpu.nn.functional.tail", "paddle_tpu.nn.layer.rnn"}
+        "common", "conv", "pooling", "norm", "loss", "attention",
+        "tail")} | {"paddle_tpu.nn.layer.rnn", "paddle_tpu.vision.ops"}
+# left for a later slice (ROADMAP §A.11): fused_inference; sdp_kernel
+# only raises in JAX
+LATER = {"paddle_tpu.ops.impl.fused_inference"}
 
 
 def test_every_jax_op_of_the_slice_is_on_the_port():
@@ -76,10 +79,10 @@ def test_every_jax_op_of_the_slice_is_on_the_port():
 
 
 def test_later_ops_are_what_the_port_lacks_and_the_sweep_covers_the_rest():
-    """ROADMAP §A.9 and §A.11 leave nn.functional's tail, the rnn op and
-    fused_inference; every op the port has (nn.functional's and the
-    legacy and detection ops among them) runs in the sweep, which passes
-    on the CPU against itself."""
+    """ROADMAP §A.11 leaves fused_inference; every op the port has
+    (nn.functional's with its tail, the rnn op, vision.ops and the legacy
+    and detection ops among them) runs in the sweep, which passes on the
+    CPU against itself."""
     later = [n for n, e in JOP_TABLE.items() if e["fn"].__module__ in LATER]
     assert later and not any(hasattr(ptt, n) for n in later)
     assert set(OP_TABLE) <= set(SWEEP.first_cases())
