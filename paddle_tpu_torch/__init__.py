@@ -117,7 +117,7 @@ Nothing here imports JAX or ``paddle_tpu``.
 
 import numpy as _np
 
-from .device import (CPUPlace, CUDAPlace, get_device,
+from .device import (CPUPlace, CUDAPlace, CustomPlace, get_device,
                      is_compiled_with_cuda, is_compiled_with_custom_device,
                      is_compiled_with_distribute, is_compiled_with_rocm,
                      is_compiled_with_xpu, resolve_device, set_device)
@@ -235,10 +235,10 @@ def is_grad_enabled_():
 # light: ``paddle_tpu_torch.nn.Linear`` works through __getattr__
 _LAZY = {"amp", "compiler", "distributed", "framework", "hapi",
          "incubate", "inference", "io", "jit", "metric", "models", "nn",
-         "observability", "optimizer", "profiler", "quantization",
+         "observability", "onnx", "optimizer", "profiler", "quantization",
          "serving", "vision", "weights"}
 # top-level names of lazy subpackages, as the JAX package exports them
-_LAZY_NAMES = {"Model": "hapi", "summary": "hapi"}
+_LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "ParamAttr": "nn"}
 
 from .framework.io import load, save  # noqa: E402
 

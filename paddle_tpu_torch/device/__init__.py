@@ -69,6 +69,19 @@ class CUDAPlace(Place):
         super().__init__(torch.device("cuda", int(idx)))
 
 
+class CustomPlace(Place):
+    """A custom device's place (``paddle_tpu/device/__init__.py:57``):
+    the accelerator, which is the CUDA card here, as the JAX package's is
+    its TPU; `dev_type` is kept."""
+
+    def __init__(self, dev_type="gpu", idx=0):
+        super().__init__(torch.device("cuda", int(idx)))
+        self.custom_type = dev_type
+
+    def is_custom_place(self):
+        return True
+
+
 def _parse(device):
     """A device spec (None, a Place, a torch.device, "cpu", "gpu",
     "gpu:N", "cuda", "cuda:N") as a torch.device; None stays None."""

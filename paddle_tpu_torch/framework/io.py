@@ -43,14 +43,18 @@ def _pack(obj):
     return obj
 
 
+def _from_numpy(arr):
+    """A CPU tensor holding a copy of `arr` (an ``ml_dtypes`` bfloat16
+    array becomes a bfloat16 tensor)."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
 def _to_tensor(arr):
     from ..device import resolve_device
-    if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.array(arr).view(np.int16)).view(
-            torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(arr, copy=True))
-    return t.to(resolve_device(None))
+    return _from_numpy(arr).to(resolve_device(None))
 
 
 def _unpack(obj, return_numpy=False):

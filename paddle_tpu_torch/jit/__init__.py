@@ -44,16 +44,24 @@ step made while telemetry is enabled runs under an
 "train_step" (the first train step of the process; later ones
 "train_step#<n>", the JAX labels): its flops, bytes and memory.
 
-``jit.save``, ``jit.load`` and ``TranslatedLayer`` (the deploy path
-through ``torch.export`` over the same custom ops) are ROADMAP §A.10:
-they raise.
+``jit.save``, ``jit.load`` and ``TranslatedLayer`` are the deploy path:
+``torch.export`` of the eval forward, where each kernel stays one node of
+its custom op, saved as ``<path>.pt2`` beside the weights in the JAX
+package's ``.pdiparams`` pickle (see ``save``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import itertools
+import json
+import os
+import pickle
+import time
 import warnings
 
+import numpy as np
 import torch
 
 from .. import compiler
@@ -287,18 +295,278 @@ class InputSpec:
         return f"InputSpec(shape={self.shape}, dtype={self.dtype})"
 
 
-_SAVE_LATER = ("comes with ROADMAP §A.10 (the deploy path: torch.export "
-               "over the kernels' custom ops)")
+# ---------------- save / load (deploy path) ----------------
+
+# the deploy metadata inside <path>.pt2 (an extra file of torch.export's
+# archive): the parameter and buffer names in the .pdiparams order and the
+# inputs' shapes, types and dynamic ranges
+_DEPLOY_META = "ptt_deploy.json"
+# the example size of an InputSpec dim of None: export specializes sizes
+# 0 and 1, so a dynamic dim is traced at 2
+_DYNAMIC_EXAMPLE = 2
+
+
+def _layer_device(layer):
+    from ..device import resolve_device
+    for t in itertools.chain(layer.parameters(), layer.buffers()):
+        return t.device
+    return resolve_device(None)
+
+
+def _examples(input_spec, device):
+    """(example inputs, dynamic_shapes) for ``torch.export.export``: an
+    InputSpec becomes zeros of its type with each None dim dynamic (traced
+    at _DYNAMIC_EXAMPLE); an example tensor is used as it is (static)."""
+    from ..framework.dtype import convert_dtype
+    examples, dynamic = [], []
+    for spec in input_spec:
+        if isinstance(spec, torch.Tensor):
+            examples.append(spec.detach().to(device))
+            dynamic.append(None)
+            continue
+        shape = tuple(spec.shape)
+        examples.append(torch.zeros(
+            [_DYNAMIC_EXAMPLE if d is None else int(d) for d in shape],
+            dtype=convert_dtype(spec.dtype), device=device))
+        dims = {i: torch.export.Dim.DYNAMIC
+                for i, d in enumerate(shape) if d is None}
+        dynamic.append(dims or None)
+    return examples, dynamic
+
+
+def _input_meta(program):
+    """Each user input's shape (None where dynamic), type, and the range
+    export derived for each dynamic dim ({dim: [lo, hi]}, hi None when
+    unbounded)."""
+    user = set(program.graph_signature.user_inputs)
+    out = []
+    for node in program.graph.nodes:
+        if node.op != "placeholder" or node.name not in user:
+            continue
+        val = node.meta["val"]
+        shape, ranges = [], {}
+        for i, d in enumerate(val.shape):
+            if isinstance(d, int):
+                shape.append(d)
+                continue
+            shape.append(None)
+            vr = program.range_constraints[d.node.expr]
+            ranges[str(i)] = [int(vr.lower), int(vr.upper)
+                              if vr.upper.is_Integer else None]
+        out.append({"shape": shape, "dtype": _dtype_name(val.dtype),
+                    "range": ranges})
+    return out
+
+
+def _dtype_name(dtype):
+    return str(dtype).removeprefix("torch.")
+
+
+@contextlib.contextmanager
+def _eager_forward(layer):
+    """The layer's forward with a ``to_static`` StaticFunction unwrapped
+    (the JAX package exports the raw forward, ``StaticFunction._fn``)."""
+    static = layer.__dict__.get("forward")
+    if not isinstance(static, StaticFunction):
+        yield
+        return
+    layer.forward = static._fn
+    try:
+        yield
+    finally:
+        layer.forward = static
+
+
+def export_layer(layer, examples, dynamic=None):
+    """``torch.export.export`` of `layer`'s eval forward (a to_static
+    forward unwrapped) on `examples`; the training flag is restored."""
+    was_training = layer.training
+    layer.eval()
+    try:
+        with _eager_forward(layer):
+            return torch.export.export(
+                layer, tuple(examples),
+                dynamic_shapes=None if dynamic is None or not any(dynamic)
+                else tuple(dynamic), strict=False)
+    finally:
+        layer.train(was_training)
 
 
 def save(layer, path, input_spec=None, **configs):
-    raise NotImplementedError(f"jit.save {_SAVE_LATER}")
+    """jit.save (``paddle_tpu/jit/__init__.py:737``): `layer`'s eval
+    forward through ``torch.export`` (each kernel one ``ptt`` op node)
+    over `input_spec` (InputSpecs, a dim of None dynamic, or example
+    tensors).
 
+    Writes ``<path>.pt2`` (``torch.export.save``; the program's weights
+    moved to the CPU, so it loads on a machine without a card),
+    ``<path>.pdiparams`` (the JAX package's pickle: ``{"params": [...],
+    "buffers": [...]}`` as numpy arrays in ``named_parameters()`` /
+    ``named_buffers()`` order, bfloat16 as ``ml_dtypes``), and
+    ``<path>.native.json``: for a fully static signature the inputs'
+    shapes and types with ``"format": "aoti"`` (``inference.native``
+    compiles the program with AOTInductor), else ``{"error": ...}``.
+    ``native=False`` writes no ``.native.json``. Returns the seconds of
+    the export and of the writing, and the files' bytes
+    (``{"export_s", "write_s", "pt2_bytes", "pdiparams_bytes"}``)."""
+    from torch.export.passes import move_to_device_pass
 
-def load(path, **configs):
-    raise NotImplementedError(f"jit.load {_SAVE_LATER}")
+    from ..framework.io import _pack
+    from ..ops.kernels import _ops  # noqa: F401  (the ptt ops)
+
+    if not isinstance(layer, torch.nn.Module):
+        raise TypeError("jit.save expects a Layer")
+    if input_spec is None:
+        raise ValueError("jit.save requires input_spec (list of InputSpec or "
+                         "example Tensors)")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    examples, dynamic = _examples(input_spec, _layer_device(layer))
+    t0 = time.perf_counter()
+    program = export_layer(layer, examples, dynamic)
+    t1 = time.perf_counter()
+    params = list(layer.named_parameters())
+    buffers = list(layer.named_buffers())
+    meta = {"params": [n for n, _ in params],
+            "buffers": [n for n, _ in buffers],
+            "inputs": _input_meta(program)}
+    program = move_to_device_pass(program, "cpu")
+    torch.export.save(program, path + ".pt2",
+                      extra_files={_DEPLOY_META: json.dumps(meta)})
+    with open(path + ".pdiparams", "wb") as f:
+        pickle.dump({"params": _pack([p for _, p in params]),
+                     "buffers": _pack([b for _, b in buffers])}, f)
+    if configs.get("native", True):
+        dyn = [(i, int(d)) for i, spec in enumerate(meta["inputs"])
+               for d in spec["range"]]
+        native = {"inputs": [{"shape": spec["shape"], "dtype": spec["dtype"]}
+                             for spec in meta["inputs"]],
+                  "format": "aoti"} if not dyn else {
+            "error": "ValueError: the signature has dynamic dims (input, "
+                     f"dim) {dyn}; an AOTInductor program takes static "
+                     "shapes"}
+        with open(path + ".native.json", "w") as f:
+            json.dump(native, f)
+    return {"export_s": t1 - t0, "write_s": time.perf_counter() - t1,
+            "pt2_bytes": os.path.getsize(path + ".pt2"),
+            "pdiparams_bytes": os.path.getsize(path + ".pdiparams")}
 
 
 class TranslatedLayer:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"jit.TranslatedLayer {_SAVE_LATER}")
+    """Inference-only layer loaded from a jit.save artifact (ref:
+    python/paddle/jit/translated_layer.py): the exported program with the
+    ``.pdiparams`` weights, on one device.
+
+    A call checks its inputs against the exported signature: a static dim
+    must match, a dynamic one must lie in the range export derived (a
+    lower bound of 2 admits 1: export traces dynamic sizes from 2 and its
+    program's own guards accept 1); a type or size outside raises
+    ValueError naming the input and the dim, never a new export.
+
+    Only the ``.pdiparams`` file is shared with the JAX package: its
+    ``<path>.stablehlo`` program cannot be read without JAX."""
+
+    def __init__(self, program, meta, device):
+        self._program = program
+        self._module = program.module()
+        self._meta = meta
+        self._inputs = meta["inputs"]
+        self.n_inputs = len(self._inputs)
+        self.training = False
+        self.device = device
+
+    def program(self):
+        """The ``torch.export.ExportedProgram``."""
+        return self._program
+
+    def _input(self, i, a):
+        from ..framework.io import _from_numpy
+        t = a if isinstance(a, torch.Tensor) else \
+            _from_numpy(np.asarray(a))
+        spec = self._inputs[i]
+        if _dtype_name(t.dtype) != spec["dtype"]:
+            raise ValueError(f"input {i}: type {_dtype_name(t.dtype)}, the "
+                             f"program takes {spec['dtype']}")
+        if t.dim() != len(spec["shape"]):
+            raise ValueError(f"input {i}: rank {t.dim()}, the program takes "
+                             f"{len(spec['shape'])}")
+        for d, (n, want) in enumerate(zip(t.shape, spec["shape"])):
+            if want is None:
+                lo, hi = spec["range"][str(d)]
+                lo = 1 if lo == 2 else lo
+                if n < lo or (hi is not None and n > hi):
+                    raise ValueError(
+                        f"input {i} dim {d}: size {n} outside the exported "
+                        f"range [{lo}, {hi}]")
+            elif n != want:
+                raise ValueError(f"input {i} dim {d}: size {n}, the program "
+                                 f"was exported with {want}")
+        return t.to(self.device)
+
+    def __call__(self, *args):
+        if len(args) != self.n_inputs:
+            raise ValueError(f"expected {self.n_inputs} inputs, got "
+                             f"{len(args)}")
+        xs = [self._input(i, a) for i, a in enumerate(args)]
+        with torch.no_grad():
+            return self._module(*xs)
+
+    def eval(self):
+        return self
+
+    forward = __call__
+
+
+def _load_program(path):
+    """(the ExportedProgram of <path>.pt2, its deploy metadata)."""
+    from ..ops.kernels import _ops  # noqa: F401  (the ptt ops)
+    extra = {_DEPLOY_META: ""}
+    program = torch.export.load(path + ".pt2", extra_files=extra)
+    return program, json.loads(extra[_DEPLOY_META])
+
+
+def load(path, device=None, **configs):
+    """jit.load (``paddle_tpu/jit/__init__.py:851``): the program of
+    ``<path>.pt2`` with the weights of ``<path>.pdiparams`` (written by
+    this package's or the JAX package's ``jit.save``: the same pickle,
+    matched by order to the names the program records), placed on
+    `device` (the current device, the card unless the CPU was asked
+    for). A weight whose shape or type differs from the program's
+    raises ValueError."""
+    from torch.export.passes import move_to_device_pass
+
+    from ..device import resolve_device
+    from ..framework.io import _from_numpy
+
+    program, meta = _load_program(path)
+    with open(path + ".pdiparams", "rb") as f:
+        weights = pickle.load(f)
+    for kind in ("params", "buffers"):
+        names, arrays = meta[kind], weights[kind]
+        if len(names) != len(arrays):
+            raise ValueError(f"{path}.pdiparams holds {len(arrays)} {kind}, "
+                             f"the program {len(names)}")
+        for name, arr in zip(names, arrays):
+            _set_weight(program, name, _from_numpy(np.asarray(arr)))
+    device = resolve_device(device)
+    return TranslatedLayer(move_to_device_pass(program, device), meta,
+                           device)
+
+
+def _set_weight(program, name, value):
+    """Put `value` in the program's state (parameters, persistent buffers)
+    or constants (non-persistent buffers, such as the Llama's RoPE
+    tables); a name the program does not hold (a buffer the forward never
+    reads) is skipped."""
+    table = program.state_dict if name in program.state_dict else \
+        program.constants if name in program.constants else None
+    if table is None:
+        return
+    old = table[name]
+    if old.shape != value.shape or old.dtype != value.dtype:
+        raise ValueError(
+            f"weight {name}: {tuple(value.shape)} {_dtype_name(value.dtype)}"
+            f", the program holds {tuple(old.shape)} "
+            f"{_dtype_name(old.dtype)}")
+    if isinstance(old, torch.nn.Parameter):
+        value = torch.nn.Parameter(value, requires_grad=old.requires_grad)
+    table[name] = value

@@ -12,6 +12,8 @@ function is what the JAX dispatcher is for each call
   operator stats count the call under the op's name;
 - under ``FLAGS_check_nan_inf`` its floating outputs are scanned and a
   ``FloatingPointError`` names the op, as the JAX dispatcher scans them;
+- under ``FLAGS_benchmark`` the call waits for the card to finish its
+  work ("sync after each op for timing", the JAX flag's doc);
 - the op's body runs with ``amp._STATE.in_op`` raised, so the named op
   sites it reaches inside (the functionals a fused op calls) are not
   counted or cast again: the JAX package's bodies are plain ``jnp`` code
@@ -77,6 +79,15 @@ def _check_outputs(name, out):
                 "(FLAGS_check_nan_inf=1)")
 
 
+def _sync_outputs(out):
+    """Wait for the card that holds the op's first CUDA output."""
+    vals = out if isinstance(out, (tuple, list)) else [out]
+    for v in vals:
+        if isinstance(v, torch.Tensor) and v.is_cuda:
+            torch.cuda.synchronize(v.device)
+            return
+
+
 def _wrap(name, fn, amp):
     state = _amp._STATE
 
@@ -97,6 +108,8 @@ def _wrap(name, fn, amp):
             state.in_op -= 1
         if _FLAGS["check_nan_inf"]:
             _check_outputs(name, out)
+        if _FLAGS["benchmark"]:
+            _sync_outputs(out)
         return out
 
     api.__name__ = name

@@ -353,7 +353,16 @@ _PLAIN = ("float8_e4m3fn", "float8_e5m2", "dtype", "finfo", "iinfo",
           "disable_signal_handler", "get_cuda_rng_state",
           "set_cuda_rng_state", "check_shape", "tensor_split", "hsplit",
           "vsplit", "dsplit", "atleast_2d", "atleast_3d", "floor_mod",
-          "tolist", "CUDAPinnedPlace", "LazyGuard", "batch")
+          "tolist", "CUDAPinnedPlace", "LazyGuard", "batch", "flops")
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    """What the JAX package's ``flops`` returns
+    (``paddle_tpu/tensor_tail.py:514-518``): ``hapi.summary``'s
+    ``"total_ops"``, which summary does not count, so 0."""
+    from .hapi import summary
+    info = summary(net, input_size)
+    return info.get("total_ops", 0) if isinstance(info, dict) else 0
 
 
 def install(ns):

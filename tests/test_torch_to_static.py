@@ -17,8 +17,9 @@ package's ``jit.to_static`` where both compute.
   broken signatures the function runs eagerly without capturing;
 - ``amp.auto_cast`` under capture gives eager's casts (O1 and O2: the
   same dtypes and bit-equal values);
-- ``InputSpec``, ``not_to_static``, ``enable_to_static``, and
-  ``jit.save`` / ``jit.load`` raising for ROADMAP §A.10.
+- ``InputSpec``, ``not_to_static``, ``enable_to_static``, and the error
+  paths of ``jit.save`` / ``jit.load`` (the deploy path itself is
+  ``test_torch_deploy.py``'s).
 
 Inputs are numpy draws from fixed seeds.
 """
@@ -226,7 +227,7 @@ def test_auto_cast_under_capture_gives_eager_casts(level):
     assert got32[0].dtype == torch.float32 and len(st.programs()) == 2
 
 
-def test_knobs_and_deploy_path():
+def test_knobs_and_deploy_path(tmp_path):
     spec = jit.InputSpec([None, 16], "float32", name="x")
     assert spec.shape == (None, 16) and "InputSpec" in repr(spec)
 
@@ -249,9 +250,10 @@ def test_knobs_and_deploy_path():
     jit.set_verbosity(1)
     with jit.ignore_module([torch.nn]):
         pass
-    with pytest.raises(NotImplementedError, match="A.10"):
-        jit.save(Net(), "/nonexistent/x", input_spec=[spec])
-    with pytest.raises(NotImplementedError, match="A.10"):
-        jit.load("/nonexistent/x")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        jit.TranslatedLayer()
+    with pytest.raises(ValueError, match="input_spec"):
+        jit.save(Net(), str(tmp_path / "x"))
+    with pytest.raises(TypeError, match="Layer"):
+        jit.save(lambda x: x, str(tmp_path / "x"), input_spec=[spec])
+    with pytest.raises(FileNotFoundError):
+        jit.load(str(tmp_path / "missing"))
+    assert isinstance(jit.TranslatedLayer, type)
