@@ -102,7 +102,7 @@ source, all started together; each build's seconds printed), then:
    bf16 and the FusedBiasDropoutResidualLayerNorm layer, one bdrln launch
    a call;
 4. serve: Llama-2-7B geometry in bfloat16 with random weights from a seed
-   (SERVE_LAYERS, 10, of its 32 layers) serves 8 requests of 300-900 tokens (chunked prefill,
+   (SERVE_LAYERS, 4, of its 32 layers) serves 8 requests of 300-900 tokens (chunked prefill,
    a prefix hit, mixed steps) through one engine whose step programs are
    CUDA graphs: a cold wave captures them, a warm wave of the same shapes
    (it must build none) gives the numbers, and a third wave runs engine
@@ -230,7 +230,7 @@ source, all started together; each build's seconds printed), then:
    of the dense argmax; sharding: the harvest and partition audit of that engine
    (green), and the narrow Llama with q_proj.weight overridden to
    replicated (red, naming the parameter); serve:mesh runs the 7B
-   model's first MESH_SERVE_LAYERS (8) layers.
+   model's first MESH_SERVE_LAYERS (4) layers.
 10. the graph compiler (slice 17): dispatch (after kernels): the host
    us per call of a kernel through its custom op beside the bare
    wrapper; agree:fuse (after agree:mesh): the plain-op tiny Llama
@@ -290,6 +290,24 @@ source, all started together; each build's seconds printed), then:
    AOTInductor package of the Llama artifact (compile seconds, launches,
    logits within the bf16 rule, the package reused by a second
    construction).
+14. the distributed strategies of BASELINE configs 3 and 4 (slice 22),
+   after train:gpt, every rank of each mesh on the one card:
+   train:hybrid: GPT-3 1.3B at full width and depth as a PipelineLayer
+   at dp 2 x pp 2, 4 micro-batches a step, stage-2 ZeRO over dp through
+   fleet.distributed_optimizer(DygraphShardingOptimizer), a warm-up and
+   3 timed train_batch calls; its losses held bit-close to the same
+   micro-batches accumulated on one device and to the whole-batch
+   compile_train_step run (the first within 1e-3, the later ones within
+   20 times what one bf16 ulp on half the weights moves that run);
+   train:pipeline: CompiledPipeline over 8 of its 24 blocks at dp 2 x pp
+   2 x mp 2 with apply_tp and zero_axis="dp", 2 steps under 1F1B and 2
+   under ZBH1 from the same weights (equal losses; the B chain's and the
+   W phase's ms); train:semi: Llama-2-7B widths at 2 layers through
+   apply_llama_tp, shard_optimizer(ShardingStage2) and dist.to_static,
+   held to the single-device compile_train_step's losses. Each prints ms
+   a step (CUDA events), peak memory, each rank's optimizer-state bytes
+   (half of the whole, held), collective calls and bytes per step by op
+   (held) and its kernels' launches per step by route (held).
 
 Each flashmask, fused_ffn, tail, serving (serve:mesh too), BERT, training
 (the resilient one's too) and deploy run's launch counts are set to 0 just before it and read just after it; every kernel of its path
@@ -2143,6 +2161,9 @@ def main():
     fuse = run("train:fuse", phase_train_fuse, K, dev, base)
     static = run("to_static", phase_to_static, K, dev)
     gtrain = run("train:gpt", phase_train_gpt, K, dev)
+    htrain = run("train:hybrid", phase_train_hybrid, K, dev)
+    ptrain = run("train:pipeline", phase_train_pipeline, K, dev)
+    strain = run("train:semi", phase_train_semi, K, dev)
     btrain = run("train:bert", phase_train_bert, K, dev)
     utrain = run("train:unet", phase_train_unet, K, dev)
     resnet = run("train:resnet", phase_train_resnet, dev)
@@ -2155,8 +2176,8 @@ def main():
           f"build {sum(times.values()):.1f}", flush=True)
     runs = (serve, dense, serve8, dense8, spec, spec8, fleet, fleet8, mesh,
             gserve, gserve8, gdense, bert, train, remat, fuse, static,
-            gtrain, btrain, utrain, rtrain, masked, ffn, tail, opl, ops,
-            agr, deployed, native)
+            gtrain, htrain, ptrain, strain, btrain, utrain, rtrain, masked,
+            ffn, tail, opl, ops, agr, deployed, native)
     launches = {k: sum(r[k] for r in runs) for k in K.launch_counts()}
     _require_launched("all serving, fleet, mesh, BERT, training (the "
                       "UNet's too), flashmask, fused_ffn, tail, op-surface "
@@ -3812,8 +3833,11 @@ def _kernel_kind(name):
 # smoke took 707.4-789.3 s of command on H100 hosts of different speeds,
 # the serving and fleet phases ~320 s of it; cut to 10 when the deploy
 # phases joined: at 20 it took 677.4 and 924.9 s on two hosts, the serving
-# and fleet phases 160-245 s of it; every per-layer fact is held as at 32)
-SERVE_LAYERS = 10
+# and fleet phases 160-245 s of it; cut to 4 when the distributed
+# training phases joined: at 10 it took 753.6 s on a slow host, the
+# serving and fleet phases 118 s of it; every per-layer fact is held as
+# at 32)
+SERVE_LAYERS = 4
 
 
 def _serving_model(dev):
@@ -6723,9 +6747,9 @@ def _agree_mesh_export(tag, eng, model, prompt, kv):
 
 
 # [serve:mesh] runs the first MESH_SERVE_LAYERS of the serving model's
-# layers (cut to keep the smoke under 760 s with the compiler's phases;
-# every per-layer fact is held as at 32)
-MESH_SERVE_LAYERS = 8
+# layers (cut to keep the smoke under 760 s with the compiler's phases,
+# then to the serving model's 4; every per-layer fact is held as at 32)
+MESH_SERVE_LAYERS = 4
 
 
 def _first_layers(model, n):
@@ -8741,6 +8765,560 @@ def phase_deploy_native(K, path, ids, want):
     shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
     _release()
     return launches
+
+
+
+# ----------------------------------------------------------------------
+# slice 22: the distributed strategies of BASELINE configs 3 and 4
+# ----------------------------------------------------------------------
+
+# [train:hybrid]: GPT-3 1.3B (all 24 layers) as a PipelineLayer at dp 2 x
+# pp 2 on the one card, HYBRID_ACC micro-batches a step, stage-2 ZeRO over
+# dp; a warm-up and HYBRID_STEPS timed train_batch calls. The losses are
+# float32 cross-entropies of the bf16 logits (the model's own loss is
+# bf16, whose ulp at ~10.8 is 0.0625, too coarse to compare).
+HYBRID_ACC = 4
+HYBRID_STEPS = 3
+HYBRID_LR = 1e-4
+HYBRID_FIRST_REL = 1e-3     # step 1 against the full-batch run
+HYBRID_SENS_FACTOR = 20.0   # later steps: 20x the run's own sensitivity
+SAME_REL = 1e-6             # runs of the same arithmetic
+HYBRID_PER_STEP = {"flash_attention": 96, "flash_attention_bwd": 96,
+                   "flash_attention.sm90": 96,
+                   "flash_attention_bwd.sm90": 96, "rms_norm": 0,
+                   "swiglu": 0, "fused_rope": 0, "fused_rope_bwd": 0}
+# [train:pipeline]: CompiledPipeline over PIPE_LAYERS of GPT-3 1.3B's 24
+# blocks (a depth cut, for time) at dp 2 x pp 2 x mp 2, the embeddings,
+# final norm and tied head outside the stack; PIPE_STEPS steps under each
+# schedule from the same weights
+PIPE_LAYERS = 8
+PIPE_STEPS = 2
+PIPE_TP_RULES = {"qkv_proj.weight": 1, "out_proj.weight": 0,
+                 "mlp.0.weight": 1, "mlp.2.weight": 0}
+PIPE_PER_STEP = {"flash_attention": 32, "flash_attention_bwd": 32,
+                 "flash_attention.sm90": 32, "flash_attention_bwd.sm90": 32,
+                 "rms_norm": 0, "swiglu": 0, "fused_rope": 0,
+                 "fused_rope_bwd": 0}
+# [train:semi]: Llama-2-7B widths at SEMI_LAYERS of its 32 layers (a depth
+# cut: AdamW's state of the whole 7B does not fit one card), dp 2 x mp 2
+SEMI_LAYERS = 2
+SEMI_STEPS = 3
+SEMI_PER_STEP = {"flash_attention": 2, "flash_attention_bwd": 2,
+                 "flash_attention.sm90": 2, "flash_attention_bwd.sm90": 2,
+                 "rms_norm": 5, "swiglu": 2, "fused_rope": 2,
+                 "fused_rope.qk": 2, "fused_rope_bwd": 2,
+                 "fused_rope.scalar": 0, "fused_rope_bwd.scalar": 0}
+TRAIN22_BATCH = (4, 2048)
+COLL_OPS = ("send", "recv", "scatter", "all_gather", "reduce_scatter",
+            "all_reduce")
+
+
+def _coll_counts():
+    from paddle_tpu_torch.observability.metrics import REGISTRY
+    return {op: (REGISTRY.counter("collective_calls_total",
+                                  labels={"op": op}).value,
+                 REGISTRY.counter("collective_bytes_total",
+                                  labels={"op": op}).value)
+            for op in COLL_OPS}
+
+
+def _coll_delta(before):
+    now = _coll_counts()
+    return {op: [int(now[op][0] - before[op][0]),
+                 int(now[op][1] - before[op][1])] for op in COLL_OPS}
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _f32_ce(logits, labels):
+    """Cross-entropy in float32 over bf16 logits [..., V]."""
+    from paddle_tpu_torch.nn import functional as F
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))
+
+
+def _timed_steps(tag, K, call, n_timed, per_step):
+    """One warm-up and n_timed timed calls of call() -> loss, each timed
+    with CUDA events, its launches held to per_step and its collectives
+    (calls, bytes) by op counted. Returns (losses, ms, the timed steps'
+    summed launches, per-step collectives)."""
+    losses, ms, colls = [], [], []
+    totals = dict.fromkeys(K.launch_counts(), 0)
+    for i in range(n_timed + 1):
+        K.reset_launch_counts()
+        c0 = _coll_counts()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        loss = call()
+        e1.record()
+        losses.append(float(loss))            # waits for the step
+        ms.append(e0.elapsed_time(e1))
+        colls.append(_coll_delta(c0))
+        counts = K.launch_counts()
+        bad = {k: counts[k] for k, n in per_step.items() if counts[k] != n}
+        if bad:
+            raise AssertionError(f"[{tag}] step {i} launched {bad}, "
+                                 f"expected {per_step}")
+        if i:
+            for k in totals:
+                totals[k] += counts[k]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[{tag}] a loss is not finite: {losses}")
+    return losses, ms, totals, colls
+
+
+def _restore(model, state):
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(state[n])
+
+
+def _ulp_perturbed(state, seed=2):
+    """`state` with a random half of every tensor's elements moved one
+    bf16 ulp (the bit pattern's last place)."""
+    gen = torch.Generator(device=next(iter(state.values())).device)
+    gen.manual_seed(seed)
+    out = {}
+    for n, t in state.items():
+        bits = t.clone().view(torch.int16)
+        bits.add_(torch.randint(0, 2, bits.shape, generator=gen,
+                                device=bits.device, dtype=torch.int16))
+        out[n] = bits.view(torch.bfloat16)
+    return out
+
+
+class _GPTEmbedPipe(torch.nn.Module):
+    """GPT's token and position embeddings as one pipeline layer; its wte
+    table is the tied head's weight (GPTModel.forward's first line)."""
+
+    def __init__(self, cfg, device=None, dtype=None):
+        from paddle_tpu_torch.nn import Embedding
+        super().__init__()
+        self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, device=device,
+                             dtype=dtype)
+        self.wpe = Embedding(cfg.max_position_embeddings, cfg.hidden_size,
+                             device=device, dtype=dtype)
+
+    def forward(self, ids):
+        from paddle_tpu_torch.amp import amp_add
+        pos = torch.arange(ids.shape[1], device=ids.device)[None]
+        return amp_add(self.wte(ids), self.wpe(pos))
+
+
+def _gpt_tied_head(layer, hidden):
+    """GPTForCausalLM._head over the shared layer's wte."""
+    from paddle_tpu_torch.amp import amp_cast
+    hidden, w = amp_cast("matmul", hidden, layer.wte.weight)
+    return torch.matmul(hidden, w.t())
+
+
+def _gpt_descs(cfg, dev, dtype):
+    """GPT as pipeline descs: the embeddings (a SharedLayerDesc holding
+    wte), the blocks, the final LayerNorm and the tied head (the shared
+    layer again)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, SharedLayerDesc)
+    from paddle_tpu_torch.models.gpt import GPTBlock
+    from paddle_tpu_torch.nn import LayerNorm
+    kw = {"device": dev, "dtype": dtype}
+    return ([SharedLayerDesc("embed", _GPTEmbedPipe, cfg, **kw)]
+            + [LayerDesc(GPTBlock, cfg, **kw)
+               for _ in range(cfg.num_hidden_layers)]
+            + [LayerDesc(LayerNorm, cfg.hidden_size, cfg.layer_norm_epsilon,
+                         **kw),
+               SharedLayerDesc("embed", _GPTEmbedPipe, cfg,
+                               forward_func=_gpt_tied_head,
+                               shared_weight_attr="wte.weight", **kw)])
+
+
+def _pipe_name(name, n_layers):
+    """GPTForCausalLM's parameter name -> the PipelineLayer's."""
+    if name.startswith("gpt.wte.") or name.startswith("gpt.wpe."):
+        return "0." + name[len("gpt."):]
+    if name.startswith("gpt.h."):
+        i, rest = name[len("gpt.h."):].split(".", 1)
+        return f"{int(i) + 1}.{rest}"
+    if name.startswith("gpt.ln_f."):
+        return f"{n_layers + 1}." + name[len("gpt.ln_f."):]
+    raise KeyError(name)
+
+
+def _gpt_ref_run(model, state, batch, n_micro, n_steps):
+    """n_steps of AdamW(HYBRID_LR, multi_precision) from `state` on one
+    device: compile_train_step over the whole batch (n_micro None), or
+    the micro-batches' gradients accumulated (each loss / n_micro, the
+    pipeline's arithmetic). Returns (the losses, the median ms of the
+    steps after the first, CUDA events)."""
+    from paddle_tpu_torch.jit import compile_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    _restore(model, state)
+    opt = AdamW(HYBRID_LR, parameters=model.parameters(),
+                multi_precision=True)
+    ids, lab = batch
+    mb = ids.shape[0] // (n_micro or 1)
+    whole = compile_train_step(model, lambda m, i, l: _f32_ce(m(i), l),
+                               opt) if n_micro is None else None
+
+    def accumulated():
+        losses = []
+        for k in range(n_micro):
+            sl = slice(k * mb, (k + 1) * mb)
+            loss = _f32_ce(model(ids[sl]), lab[sl])
+            losses.append(loss.detach())
+            (loss / n_micro).backward()
+        opt.step()
+        opt.clear_grad()
+        total = losses[0]
+        for l in losses[1:]:
+            total = total + l
+        return total / n_micro
+
+    out, ms = [], []
+    for _ in range(n_steps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        loss = whole(ids, lab) if n_micro is None else accumulated()
+        e1.record()
+        out.append(float(loss))
+        ms.append(e0.elapsed_time(e1))
+    return out, _median(ms[1:])
+
+
+def _print_zero(tag, zero, replicated_ok=False):
+    """Print each owner's optimizer-state bytes; each must hold 1/n of
+    the sharded state (and nothing may stay whole unless
+    replicated_ok: the compiled pipeline's outer weights)."""
+    b = zero.state_bytes()
+    print(f"[{tag}] optimizer state (float32 masters and moments, beta "
+          f"powers) bytes per rank {b['per_rank']} of {b['sharded_whole']}"
+          f" (+ {b['replicated']} kept whole); {len(zero.shards)} "
+          f"parameters sharded", flush=True)
+    half = b["sharded_whole"] / len(b["per_rank"])
+    if len(set(b["per_rank"])) != 1 or b["per_rank"][0] != half or \
+            (b["replicated"] and not replicated_ok):
+        raise AssertionError(f"[{tag}] state bytes {b}: not 1/n a rank")
+
+
+def _check_colls(tag, colls, want):
+    """Each timed step's collective calls equal `want` ({op: calls})."""
+    for i, c in enumerate(colls[1:], 1):
+        got = {op: c[op][0] for op in want}
+        if got != want:
+            raise AssertionError(f"[{tag}] step {i} collectives {got}, "
+                                 f"expected {want}")
+
+
+def phase_train_hybrid(K, dev):
+    """[train:hybrid], BASELINE config 3's strategies: GPTConfig.
+    gpt3_1p3b() (24 layers, hidden 2048, 16 heads, FFN 8192, vocab 50304)
+    in bf16 with [train:gpt]'s seed-0 weights and batch (4 x 2048, seed
+    1), built as a PipelineLayer (_gpt_descs) under fleet.init with dp 2 x
+    pp 2 (four ranks on the one card), HYBRID_ACC micro-batches a step,
+    fleet.distributed_optimizer(DygraphShardingOptimizer(AdamW(
+    multi_precision=True), stage=2)); a warm-up and HYBRID_STEPS timed
+    train_batch calls. References from the same weights, released before
+    the hybrid run: the single-device compile_train_step over the whole
+    batch, the same with a random half of the weights one bf16 ulp off
+    (the run's own sensitivity), and the micro-batches accumulated on one
+    device (the pipeline's arithmetic). Held: every loss within SAME_REL
+    of the accumulated run's; the first within HYBRID_FIRST_REL of the
+    whole-batch run's, each later one within HYBRID_SENS_FACTOR times the
+    sensitivity run's distance from it; 96 flash launches each way a step
+    on the tensor cores; each dp rank's master and moment bytes half of
+    the whole; a scatter and an all-gather per parameter a step and 16
+    stage transfers (each micro-batch's activation and the tied wte across
+    the stage boundary and their gradients back). Returns the timed
+    steps' launches."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.base import topology
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineLayer)
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    tag = "train:hybrid"
+    _release()
+    cfg = GPTConfig.gpt3_1p3b()
+    batch = _train_batch(cfg.vocab_size, *TRAIN22_BATCH, dev)
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    weights.init_random_(model, seed=0)
+    model.train()
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    n_steps = HYBRID_STEPS + 1
+    t0 = time.perf_counter()
+    full, full_ms = _gpt_ref_run(model, init, batch, None, n_steps)
+    sens, _ = _gpt_ref_run(model, _ulp_perturbed(init), batch, None,
+                           n_steps)
+    micro, micro_ms = _gpt_ref_run(model, init, batch, HYBRID_ACC, n_steps)
+    ref_s = time.perf_counter() - t0
+    del model
+    _release()
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 2, "mp_degree": 1,
+                               "pp_degree": 2, "sharding_degree": 1,
+                               "sep_degree": 1}
+    strategy.pipeline_configs = {"accumulate_steps": HYBRID_ACC}
+    fleet.init(strategy=strategy, devices=dev)
+    try:
+        hcg = fleet.get_hybrid_communicate_group()
+        pl = PipelineLayer(_gpt_descs(cfg, dev, torch.bfloat16),
+                           loss_fn=_f32_ce)
+        pl.train()
+        _restore(pl, {_pipe_name(n, cfg.num_hidden_layers): t
+                      for n, t in init.items()})
+        del init
+        model = fleet.distributed_model(pl)
+        inner = AdamW(HYBRID_LR, parameters=pl.parameters(),
+                      multi_precision=True)
+        opt = fleet.distributed_optimizer(
+            fleet.DygraphShardingOptimizer(inner, hcg, stage=2))
+        n_params = len(list(pl.parameters()))
+        losses, ms, totals, colls = _timed_steps(
+            tag, K, lambda: model.train_batch(batch, opt), HYBRID_STEPS,
+            HYBRID_PER_STEP)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[{tag}] GPTConfig.gpt3_1p3b() as a PipelineLayer of "
+              f"{len(pl.run_function)} descs (chunks {pl._chunk_bounds}), "
+              f"{type(model).__name__} at dp 2 x pp 2 on one card, "
+              f"{HYBRID_ACC} micro-batches of {TRAIN22_BATCH[0] // HYBRID_ACC}"
+              f"x{TRAIN22_BATCH[1]}, {type(opt).__name__}("
+              f"DygraphShardingOptimizer(AdamW({HYBRID_LR}, "
+              f"multi_precision=True), stage=2)); {n_params} parameters")
+        print(f"[{tag}] losses (warm-up first; float32 CE) {losses}")
+        print(f"[{tag}] one device: whole batch {full}; weights half one "
+              f"bf16 ulp off {sens}; micro-batches accumulated {micro} "
+              f"({ref_s:.1f} s for the three; median step_ms whole batch "
+              f"{full_ms:.3f}, accumulated {micro_ms:.3f})")
+        print(f"[{tag}] step_ms (CUDA events) {[round(x, 3) for x in ms]} "
+              f"median_timed={_median(ms[1:]):.3f} tokens_per_s="
+              f"{TRAIN22_BATCH[0] * TRAIN22_BATCH[1] / _median(ms[1:]) * 1e3:.1f}"
+              f" peak_mem_gb={peak:.2f}")
+        print(f"[{tag}] collectives per step (calls, bytes) by op "
+              f"{json.dumps(colls[-1])}")
+        print(f"[{tag}] launches per step {json.dumps(HYBRID_PER_STEP)} "
+              f"(held every step)", flush=True)
+        _print_zero(tag, inner._zero)
+        _check_colls(tag, colls, {"scatter": n_params,
+                                  "all_gather": n_params,
+                                  "send": 4 * HYBRID_ACC,
+                                  "recv": 4 * HYBRID_ACC,
+                                  "reduce_scatter": 0, "all_reduce": 0})
+        same = [_rel(a, b) for a, b in zip(losses, micro)]
+        bounds = [HYBRID_FIRST_REL * abs(full[0])] + [
+            HYBRID_SENS_FACTOR * abs(a - b) for a, b in zip(sens[1:],
+                                                             full[1:])]
+        dist_full = [abs(a - b) for a, b in zip(losses, full)]
+        print(f"[{tag}] against the accumulated run: relative "
+              f"{[f'{x:.3e}' for x in same]} (bit-equal "
+              f"{losses == micro}); against the whole batch: |diff| "
+              f"{[f'{x:.3e}' for x in dist_full]} within "
+              f"{[f'{x:.3e}' for x in bounds]}", flush=True)
+        if max(same) > SAME_REL or any(d > b for d, b in zip(dist_full,
+                                                              bounds)):
+            raise AssertionError(f"[{tag}] losses {losses} against the "
+                                 f"references {micro} / {full}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"[{tag}] the loss did not fall: {losses}")
+    finally:
+        topology._HCG[0] = None
+    del model, opt, inner, pl
+    _release()
+    return totals
+
+
+def phase_train_pipeline(K, dev):
+    """[train:pipeline], the JAX package's config-3 program
+    (full_hybrid_demo) at width: CompiledPipeline over PIPE_LAYERS of
+    GPT-3 1.3B's blocks (bf16, seed-0 weights, [train:gpt]'s batch as 4
+    micro-batches of 1 x 2048) on a dp 2 x pp 2 x mp 2 mesh of the one
+    card, apply_tp on the qkv, out and MLP weights (placements), the
+    embeddings, final norm and tied head as outer parameters (embed_fn /
+    loss_fn), zero_axis="dp"; PIPE_STEPS steps under "1F1B" and again
+    under "ZBH1" from the same weights. Held: the first loss within
+    HYBRID_FIRST_REL of the serial eager forward's; ZBH1's losses within
+    SAME_REL of 1F1B's; 32 flash launches each way a step (tensor cores);
+    each dp rank half the stack's optimizer state; a scatter and an
+    all-gather per stack parameter and 16 stage transfers a step. Prints
+    each step's forward, B-chain, W-phase and update ms. Returns the
+    timed steps' launches (both schedules)."""
+    import dataclasses
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.amp import amp_add
+    from paddle_tpu_torch.distributed.auto_parallel.placement import \
+        PartitionSpec
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        CompiledPipeline)
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    tag = "train:pipeline"
+    _release()
+    cfg = dataclasses.replace(GPTConfig.gpt3_1p3b(),
+                              num_hidden_layers=PIPE_LAYERS)
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    weights.init_random_(model, seed=0)
+    model.train()
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ids, lab = _train_batch(cfg.vocab_size, *TRAIN22_BATCH, dev)
+    n_micro = TRAIN22_BATCH[0]
+    with torch.no_grad():
+        serial = float(_f32_ce(model(ids, labels=None), lab))
+    mesh = dist.ProcessMesh(np.arange(8).reshape(2, 2, 2),
+                            ["dp", "pp", "mp"], devices=dev)
+    mx = ids.reshape(n_micro, 1, -1)
+    my = lab.reshape(n_micro, 1, -1)
+    g = model.gpt
+    pos = torch.arange(ids.shape[1], device=dev)[None]
+
+    def embed_fn(outer, x):
+        return amp_add(g.wte(x), g.wpe(pos))
+
+    def loss_fn(outer, outs, ys):
+        return _f32_ce(model._head(g.ln_f(outs)), ys)
+
+    runs, totals = {}, dict.fromkeys(K.launch_counts(), 0)
+    for schedule in ("1F1B", "ZBH1"):
+        _restore(model, init)
+        cp = CompiledPipeline(g.h, mesh=mesh, axis="pp", n_micro=n_micro,
+                              x_spec=PartitionSpec(None, "dp"))
+        cp.apply_tp(PIPE_TP_RULES)
+        outer = [g.wte.weight, g.wpe.weight, g.ln_f.weight, g.ln_f.bias]
+        opt = AdamW(HYBRID_LR, parameters=model.parameters(),
+                    multi_precision=True)
+        step = cp.compile_train_step(opt, loss_fn, outer_params=outer,
+                                     zero_axis="dp", embed_fn=embed_fn,
+                                     schedule=schedule)
+        timing = []
+
+        def call():
+            loss = step(mx, my)
+            timing.append(dict(step.timing))
+            return loss
+
+        losses, ms, tot, colls = _timed_steps(f"{tag}:{schedule}", K, call,
+                                              PIPE_STEPS - 1, PIPE_PER_STEP)
+        for k in totals:
+            totals[k] += tot[k]
+        runs[schedule] = losses
+        n_stack = sum(1 for layer in g.h for _ in layer.parameters())
+        print(f"[{tag}:{schedule}] losses {losses}; step_ms (CUDA events) "
+              f"{[round(x, 3) for x in ms]}; phases ms "
+              f"{[{k: round(v, 3) for k, v in t.items()} for t in timing]}"
+              f" (fwd, b: the backward ticks, w: the deferred weight "
+              f"phase, update); peak_mem_gb="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        print(f"[{tag}:{schedule}] collectives per step (calls, bytes) by "
+              f"op {json.dumps(colls[-1])}", flush=True)
+        _print_zero(f"{tag}:{schedule}", step.zero, replicated_ok=True)
+        _check_colls(f"{tag}:{schedule}", colls, {
+            "scatter": n_stack, "all_gather": n_stack,
+            "send": 4 * n_micro, "recv": 4 * n_micro,
+            "reduce_scatter": 0, "all_reduce": 0})
+        del cp, opt, step
+        _release()
+    a, b = runs["1F1B"], runs["ZBH1"]
+    print(f"[{tag}] {PIPE_LAYERS} of GPT-3 1.3B's 24 blocks at dp 2 x pp 2 "
+          f"x mp 2 (placements) with ZeRO-2 over dp; serial eager loss "
+          f"{serial:.6f}; 1F1B {a}; ZBH1 {b} (bit-equal {a == b})",
+          flush=True)
+    if _rel(a[0], serial) > HYBRID_FIRST_REL or \
+            max(_rel(x, y) for x, y in zip(b, a)) > SAME_REL or \
+            not a[-1] < a[0]:
+        raise AssertionError(f"[{tag}] losses 1F1B {a}, ZBH1 {b}, serial "
+                             f"{serial}")
+    del model, init
+    _release()
+    return totals
+
+
+def phase_train_semi(K, dev):
+    """[train:semi], BASELINE config 4's semi-auto path: Llama-2-7B widths
+    at SEMI_LAYERS of its 32 layers in bf16 (seed-0 weights, batch 4 x
+    2048 from seed 1), apply_llama_tp over a dp 2 x mp 2 ProcessMesh of
+    the one card, shard_optimizer(AdamW(multi_precision=True),
+    ShardingStage2("dp", mesh)), dist.to_static(model, loader, loss, opt)
+    -> DistModel; SEMI_STEPS steps (the first a warm-up for the timing).
+    Held: the losses within SAME_REL of the single-device
+    compile_train_step's from the same weights (run first); every step's
+    RMSNorm, SwiGLU, RoPE (q + k, forward and backward) and flash
+    launches (tensor cores); each dp rank half the optimizer state; a
+    scatter and an all-gather per parameter a step. Returns the timed
+    steps' launches."""
+    import dataclasses
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.jit import compile_train_step
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         apply_llama_tp)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    tag = "train:semi"
+    _release()
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
+                              num_hidden_layers=SEMI_LAYERS)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    weights.init_random_(model, seed=0)
+    model.train()
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ids, lab = _train_batch(cfg.vocab_size, *TRAIN22_BATCH, dev)
+    opt = AdamW(HYBRID_LR, parameters=model.parameters(),
+                multi_precision=True)
+    step = compile_train_step(model, lambda m, i, l: _f32_ce(m(i), l), opt)
+    ref, ref_ms, _, _ = _timed_steps(f"{tag}:ref", K,
+                                     lambda: step(ids, lab),
+                                     SEMI_STEPS - 1, SEMI_PER_STEP)
+    del opt, step
+    _restore(model, init)
+    del init
+    _release()
+    mesh = dist.ProcessMesh(np.arange(4).reshape(2, 2), ["dp", "mp"],
+                            devices=dev)
+    apply_llama_tp(model, mesh)
+    opt = dist.shard_optimizer(
+        AdamW(HYBRID_LR, parameters=model.parameters(),
+              multi_precision=True), dist.ShardingStage2("dp", mesh))
+    dm = dist.to_static(model, [(ids, lab)], _f32_ce, opt)
+    dm.train()
+    losses, ms, totals, colls = _timed_steps(tag, K, lambda: dm(ids, lab),
+                                             SEMI_STEPS - 1, SEMI_PER_STEP)
+    n_params = len(list(model.parameters()))
+    print(f"[{tag}] llama2_7b() widths at {SEMI_LAYERS} of 32 layers, bf16, "
+          f"{sum(p.numel() for p in model.parameters())} parameters; "
+          f"apply_llama_tp over ProcessMesh dp 2 x mp 2 (one card); "
+          f"shard_optimizer(AdamW({HYBRID_LR}, multi_precision=True), "
+          f"ShardingStage2('dp')); to_static -> {type(dm).__name__}; batch "
+          f"{TRAIN22_BATCH[0]}x{TRAIN22_BATCH[1]}")
+    print(f"[{tag}] losses (float32 CE) {losses}; single-device "
+          f"compile_train_step {ref} (bit-equal {losses == ref})")
+    print(f"[{tag}] step_ms (CUDA events) {[round(x, 3) for x in ms]} "
+          f"median_timed={_median(ms[1:]):.3f} (single device "
+          f"{_median(ref_ms[1:]):.3f}) peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    print(f"[{tag}] collectives per step (calls, bytes) by op "
+          f"{json.dumps(colls[-1])}")
+    print(f"[{tag}] launches per step {json.dumps(SEMI_PER_STEP)} (held "
+          f"every step)", flush=True)
+    _print_zero(tag, opt._zero)
+    _check_colls(tag, colls, {"scatter": n_params, "all_gather": n_params,
+                              "reduce_scatter": 0, "all_reduce": 0})
+    if max(_rel(a, b) for a, b in zip(losses, ref)) > SAME_REL or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] losses {losses} against {ref}")
+    del model, opt, dm
+    _release()
+    return totals
 
 
 if __name__ == "__main__":

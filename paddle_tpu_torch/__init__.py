@@ -238,7 +238,8 @@ _LAZY = {"amp", "compiler", "distributed", "framework", "hapi",
          "observability", "onnx", "optimizer", "profiler", "quantization",
          "serving", "vision", "weights"}
 # top-level names of lazy subpackages, as the JAX package exports them
-_LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "ParamAttr": "nn"}
+_LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "ParamAttr": "nn",
+               "DataParallel": "distributed"}
 
 from .framework.io import load, save  # noqa: E402
 

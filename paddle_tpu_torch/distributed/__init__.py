@@ -10,14 +10,19 @@ training runtime:
   variants;
 - ``auto_parallel``: ``ProcessMesh`` over torch devices, the placements
   and the semi-auto API (``shard_tensor``, ``reshard``, ...);
-- ``fleet``: the hybrid topology, the mpu layers and ``recompute``, and
+- ``auto_parallel``'s ``shard_optimizer`` with ``ShardingStage1-3``,
+  ``DistModel`` / ``to_static`` and the moe helpers;
+- ``fleet``: the hybrid topology, the mpu layers, the pipeline
+  (``meta_parallel``), the sharding optimizers (``meta_optimizers``),
+  ``utils`` (``recompute``, ``sequence_parallel_utils``) and
   ``fleet.elastic``;
+- ``parallel.DataParallel``;
 - ``checkpoint`` (the JAX package's file format, one process),
   ``watchdog`` and ``resilient``.
 
 One process drives every rank (see ``parallel_base``). A multi-process
-world, ``DataParallel``, ``launch``, ``spawn``, ``TCPStore`` and the gloo
-helpers belong to a later slice (ROADMAP §A.13) and raise.
+world, ``launch``, ``spawn``, ``TCPStore`` and the gloo helpers belong to
+a later slice (ROADMAP §A.13) and raise.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from .auto_parallel import (  # noqa: F401
 from .auto_parallel.placement import Placement  # noqa: F401
 from .auto_parallel.process_mesh import get_mesh, set_mesh  # noqa: F401
 from .checkpoint import load_state_dict, save_state_dict  # noqa: F401
+from .parallel import DataParallel  # noqa: F401
 from .parallel_base import (  # noqa: F401
     init_parallel_env, is_initialized, get_rank, get_world_size,
     ParallelEnv, new_group, get_group, destroy_process_group, ReduceOp,
@@ -88,14 +94,6 @@ class TCPStore:
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "TCPStore " + _LATER.format("a multi-process world"))
-
-
-class DataParallel:
-    """``paddle.DataParallel``: raises (a later slice)."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DataParallel " + _LATER.format("parallel.py, DataParallel"))
 
 
 def launch(*args, **kwargs):

@@ -1,23 +1,26 @@
-"""``fleet``: the hybrid topology and its tensor-parallel part (``init``,
-``get_hybrid_communicate_group``, ``distributed_model``, the mpu layers),
-``utils.recompute`` and the ``elastic`` manager: the counterparts of
+"""``fleet``: the hybrid topology (``init``,
+``get_hybrid_communicate_group``), the wrappers ``distributed_model``
+picks (``PipelineParallel`` or its interleaved form, ``TensorParallel``,
+``SegmentParallel``, ``DataParallel``), ``distributed_optimizer`` (ZeRO
+through ``DygraphShardingOptimizer`` when the sharding axis has more than
+one rank) and ``distributed_scaler``, the mpu layers, ``meta_parallel``,
+``meta_optimizers``, ``utils`` (``recompute``, ``sequence_parallel_utils``)
+and the ``elastic`` manager: the counterparts of
 ``paddle_tpu/distributed/fleet``'s (``fleet/__init__.py``,
-``base/topology.py``, ``layers/mpu``).
-
-Data, pipeline, segment and sharding parallelism (``DataParallel``,
-``meta_parallel``'s pipelines, ``meta_optimizers``,
-``distributed_optimizer``) belong to a later slice (ROADMAP §A.13) and
-raise.
+``base/topology.py``, ``layers/mpu``, ``meta_parallel``,
+``meta_optimizers``).
 """
 
 from __future__ import annotations
 
-from . import elastic, layers, meta_parallel, utils
+from . import elastic, layers, meta_optimizers, meta_parallel, utils
 from .base.topology import (CommunicateTopology, HybridCommunicateGroup,
                             get_hcg)
+from .meta_optimizers import (  # noqa: F401
+    DygraphShardingOptimizer, HybridParallelGradScaler,
+    HybridParallelOptimizer,
+)
 from .utils import recompute
-
-_LATER = "belongs to a later slice of paddle_tpu_torch (ROADMAP §A.13: {})"
 
 
 class DistributedStrategy:
@@ -87,29 +90,53 @@ def barrier_worker():
 
 
 def distributed_model(model):
-    """``fleet.py`` distributed_model: the wrapper for the topology.
-    mp > 1 gives ``TensorParallel``; segment and data parallelism raise (a
-    later slice, as ``PipelineLayer``, the only model the pipeline
-    wrapper takes, does)."""
+    """``fleet.py`` distributed_model: the wrapper for the topology, in
+    the JAX package's order (``fleet/__init__.py:93-121``): a
+    ``PipelineLayer`` with pp > 1 gets ``PipelineParallel`` (the
+    interleaved form when it has virtual stages); else mp > 1 gives
+    ``TensorParallel``, sep > 1 ``SegmentParallel`` and dp > 1
+    ``DataParallel`` over the dp ranks."""
     hcg = get_hcg()
     if hcg is None:
         return model
+    strategy = _FLEET["strategy"]
+    if hcg.get_pipe_parallel_world_size() > 1 and \
+            isinstance(model, meta_parallel.PipelineLayer):
+        if getattr(model, "_num_virtual", 1) > 1:
+            return meta_parallel.PipelineParallelWithInterleave(
+                model, hcg, strategy)
+        return meta_parallel.PipelineParallel(model, hcg, strategy)
     if hcg.get_model_parallel_world_size() > 1:
-        return meta_parallel.TensorParallel(model, hcg, _FLEET["strategy"])
+        return meta_parallel.TensorParallel(model, hcg, strategy)
     if hcg.get_sep_parallel_world_size() > 1:
-        raise NotImplementedError(_LATER.format("segment parallelism"))
+        return meta_parallel.SegmentParallel(model, hcg, strategy)
     if hcg.get_data_parallel_world_size() > 1:
-        raise NotImplementedError(_LATER.format("DataParallel"))
+        from ..parallel import DataParallel
+        return DataParallel(model, group=hcg.get_data_parallel_group())
     return model
 
 
 def distributed_optimizer(optimizer, strategy=None):
-    raise NotImplementedError(_LATER.format(
-        "meta_optimizers: HybridParallelOptimizer, sharding"))
+    """``fleet.py:1427``: ZeRO stage 1 (``DygraphShardingOptimizer``) when
+    the sharding axis has more than one rank, inside a
+    ``HybridParallelOptimizer``."""
+    hcg = get_hcg()
+    strategy = strategy or _FLEET["strategy"]
+    if hcg is not None and hcg.get_sharding_parallel_world_size() > 1 and \
+            not isinstance(optimizer, DygraphShardingOptimizer):
+        optimizer = DygraphShardingOptimizer(optimizer, hcg)
+    return HybridParallelOptimizer(optimizer, hcg, strategy)
+
+
+def distributed_scaler(scaler):
+    return HybridParallelGradScaler(scaler, get_hcg())
 
 
 __all__ = ["CommunicateTopology", "DistributedStrategy",
-           "HybridCommunicateGroup", "barrier_worker", "distributed_model",
-           "distributed_optimizer", "elastic", "get_hybrid_communicate_group",
-           "init", "is_first_worker", "layers", "meta_parallel",
-           "recompute", "utils", "worker_index", "worker_num"]
+           "DygraphShardingOptimizer", "HybridCommunicateGroup",
+           "HybridParallelGradScaler", "HybridParallelOptimizer",
+           "barrier_worker", "distributed_model", "distributed_optimizer",
+           "distributed_scaler", "elastic", "get_hybrid_communicate_group",
+           "init", "is_first_worker", "layers", "meta_optimizers",
+           "meta_parallel", "recompute", "utils", "worker_index",
+           "worker_num"]

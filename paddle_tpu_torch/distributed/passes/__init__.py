@@ -52,24 +52,31 @@ PASS_EQUIVALENTS = {
     "auto_parallel_sharding":
         "dist.shard_optimizer(opt, dist.ShardingStage1/2/3)",
     "auto_parallel_gradient_merge_pass":
-        "microbatch loops (ROADMAP §A.13: pipeline parallelism)",
+        "fleet PipelineParallel's micro-batches (accumulate_steps)",
     "auto_parallel_grad_clip": "optimizer grad_clip=",
     "auto_parallel_master_grad_pass":
         "optimizer multi_precision=True master weights",
-    "auto_parallel_pipeline": "ROADMAP §A.13 (pipeline parallelism)",
+    "auto_parallel_pipeline": "fleet PipelineLayer + PipelineParallel",
     "fuse_all_reduce":
         "the mesh engine's one all-reduce per row product",
-    "allreduce_matmul_grad_overlapping": "ROADMAP §A.13",
+    "allreduce_matmul_grad_overlapping":
+        "DataParallel's bucketed all-reduces during the backward",
     "fuse_optimizer": "compile_train_step (the optimizer's update)",
     "fused_attention":
         "paddle_tpu_torch.compiler pattern_fusion (jit fuse=True / "
         "PADDLE_TPU_FUSION=1): a graph rewrite onto the flash kernel",
     "fused_feedforward":
         "paddle_tpu_torch.compiler pattern_fusion (swiglu/rms rewrites)",
-    "pipeline_scheduler_FThenB": "ROADMAP §A.13 (pipeline parallelism)",
-    "pipeline_scheduler_1F1B": "ROADMAP §A.13 (pipeline parallelism)",
-    "pipeline_scheduler_VPP": "ROADMAP §A.13 (pipeline parallelism)",
-    "pipeline_scheduler_ZBH1": "ROADMAP §A.13 (pipeline parallelism)",
+    "pipeline_scheduler_FThenB":
+        "meta_parallel.pipeline_schedules.f_then_b",
+    "pipeline_scheduler_1F1B":
+        "meta_parallel.pipeline_schedules.one_f_one_b (PipelineParallel)",
+    "pipeline_scheduler_VPP":
+        "meta_parallel.pipeline_schedules.interleaved_1f1b "
+        "(PipelineParallelWithInterleave)",
+    "pipeline_scheduler_ZBH1":
+        "CompiledPipeline.compile_train_step(schedule='ZBH1') (the B / W "
+        "split of zero_bubble)",
 }
 
 

@@ -35,7 +35,12 @@ checkpoint``'s selective checkpoint with ``compiler.fused_save_policy()``
 everything else is recomputed in the backward, piece by piece. Unlike
 the JAX program, the step honours AdamW's ``lr_ratio`` and
 ``apply_decay_param_fun``, and the optimizer's ``state_dict`` stays live
-across steps. As the JAX
+across steps. An optimizer under ZeRO (``distributed.shard_optimizer``,
+``fleet.DygraphShardingOptimizer``) updates through its engine, as the
+JAX step honours ``optimizer._shard_fn`` (``paddle_tpu/jit/__init__.py:
+572-579, 604-619``): stage >= 2 moves each gradient to its owners, the
+parameters are all-gathered after the update, and at stage 3 they are
+gathered before the forward. As the JAX
 package's fused program folds the update into its one program, the step
 runs the optimizer's update without the "optimizer" phase that an eager
 ``Optimizer.step`` reports to an active ``perf.StepTimer``. The first
@@ -117,7 +122,14 @@ def compile_train_step(model, loss_fn, optimizer, donate=True,
             remat=policy)
         programs = forward.programs
 
+    # ZeRO (``shard_optimizer`` / ``DygraphShardingOptimizer``): the update
+    # is the engine's (gradients to their owners, slices updated, the
+    # parameters gathered back); stage 3 gathers the parameters on use
+    zero = getattr(optimizer, "_zero", None)
+
     def run(*batch):
+        if zero is not None:
+            zero.gather_params()
         loss = forward(*batch)
         loss.backward()
         update()

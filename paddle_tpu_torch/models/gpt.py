@@ -339,8 +339,9 @@ class GPTForCausalLM(nn.Module, PagedGenerationMixin):
 def apply_gpt_tp(model, mesh, mp_axis="mp"):
     """Megatron tensor-parallel placements for the qkv/out/mlp weights and
     biases and the vocab-parallel wte (``paddle_tpu/models/gpt.py:466``):
-    placements only, the values stay the unsharded model's. Returns the
-    model."""
+    placements only, the values stay the unsharded model's and the model
+    computes the unsharded products (per-rank tensor-parallel compute is
+    the mpu layers'). Returns the model."""
     from .. import distributed as dist
 
     def put(w, dim):

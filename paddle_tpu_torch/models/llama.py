@@ -554,8 +554,9 @@ def apply_llama_tp(model, mesh, mp_axis="mp"):
     (the output dim of the ``[in, out]`` weights), row-parallel o/down,
     the vocab-parallel embedding and a column-parallel lm_head. Placements
     only (``distributed.shard_tensor`` on each parameter); the values, and
-    so the forward and its gradients, stay those of the unsharded model.
-    Returns the model."""
+    so the forward and its gradients, stay those of the unsharded model
+    (per-rank tensor-parallel compute is the mpu layers'). Returns the
+    model."""
     from .. import distributed as dist
 
     def put(w, dim):

@@ -96,13 +96,13 @@ class AdamW(Adam):
         self._apply_decay_param_fun = apply_decay_param_fun
         self._lr_ratio = lr_ratio
 
-    def _apply_one(self, p, g, lr_mult, wd):
+    def _param_rule(self, p, lr_mult, wd):
         if self._lr_ratio is not None:
             lr_mult = lr_mult * float(self._lr_ratio(p))
         if self._apply_decay_param_fun is not None and \
                 not self._apply_decay_param_fun(getattr(p, "param_name", "")):
             wd = None
-        super()._apply_one(p, g, lr_mult, wd)
+        return lr_mult, wd
 
 
 class Adamax(Optimizer):
@@ -217,6 +217,8 @@ class Lamb(Optimizer):
     p, and the layer's trust ratio |p| / |r| (1 where either is 0):
     p - lr trust r. exclude_from_weight_decay_fn is taken and, as in the
     JAX package, not applied."""
+
+    _elementwise = False            # the trust ratio reads whole norms
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,

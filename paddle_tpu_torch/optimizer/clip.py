@@ -63,7 +63,10 @@ class ClipGradByGlobalNorm(ClipGradBase):
               if _clipped(p, g)]
         if not sq:
             return params_grads
-        global_norm = torch.sqrt(torch.stack(sq).sum())
+        # a pipeline's stages may hold their gradients on several devices:
+        # each squared norm counts once, summed on the first one's device
+        home = sq[0].device
+        global_norm = torch.sqrt(torch.stack([q.to(home) for q in sq]).sum())
         scale = self.clip_norm / global_norm.clamp_min(self.clip_norm)
-        return [(p, (g.float() * scale).to(g.dtype) if _clipped(p, g) else g)
-                for p, g in params_grads]
+        return [(p, (g.float() * scale.to(g.device)).to(g.dtype)
+                 if _clipped(p, g) else g) for p, g in params_grads]

@@ -84,6 +84,8 @@ class LBFGS(Optimizer):
     names strong-Wolfe-lite. line_search_fn is taken and, as in the JAX
     package, does not change the search."""
 
+    _elementwise = False            # the recursion reads whole vectors
+
     def __init__(self, learning_rate=1.0, max_iter=20, max_eval=None,
                  tolerance_grad=1e-7, tolerance_change=1e-9,
                  history_size=100, line_search_fn=None, parameters=None,

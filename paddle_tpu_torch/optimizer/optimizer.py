@@ -53,6 +53,12 @@ def _weak(c, t):
 
 class Optimizer:
     _decoupled_wd = False
+    # a ZeRO engine (``distributed._zero``) that owns this optimizer's
+    # update once its state is sharded; None: the whole update here
+    _zero = None
+    # every rule that updates element by element (a slice's update is the
+    # slice of the whole's) can be sharded; Lamb's trust ratio cannot
+    _elementwise = True
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
@@ -147,12 +153,25 @@ class Optimizer:
 
     @torch.no_grad()
     def _step_impl(self):
+        if self._zero is not None:       # ZeRO: the owners update slices
+            return self._zero.step()
         self._step_count += 1
+        for p, g, lr_mult, wd in self._grouped(self._params_grads()):
+            self._apply_one(p, g, lr_mult, wd)
+
+    def _params_grads(self):
+        """(param, grad) of every trainable parameter with a gradient,
+        through the gradient clip when there is one."""
         params_grads = [(p, p.grad) for p in self._parameter_list
                         if p.grad is not None
                         and getattr(p, "trainable", p.requires_grad)]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
+        return params_grads
+
+    def _grouped(self, params_grads):
+        """(param, grad, group lr multiplier, group decay) in group
+        order."""
         for group in self._param_groups:
             group_lr_mult = group.get("learning_rate", 1.0)
             wd = group.get("weight_decay", self._weight_decay)
@@ -161,13 +180,30 @@ class Optimizer:
             group_ids = {id(p) for p in group["params"]}
             for p, g in params_grads:
                 if id(p) in group_ids:
-                    self._apply_one(p, g, group_lr_mult, wd)
+                    yield p, g, group_lr_mult, wd
+
+    def _param_rule(self, p, lr_mult, wd):
+        """(lr_mult, wd) for parameter p: a subclass's per-parameter
+        adjustments (AdamW's lr_ratio and apply_decay_param_fun)."""
+        return lr_mult, wd
 
     def _apply_one(self, p, g, lr_mult, wd):
-        lr = self.get_lr() * lr_mult * getattr(
-            p, "optimize_attr", {}).get("learning_rate", 1.0)
         master = self._get_master(p)
         target = master if master is not None else p.detach()
+        new = self._apply_rule(p, target, g, self._state_of(p), lr_mult, wd)
+        if master is not None:
+            master.copy_(new)
+        p.copy_(new)            # re-emitted in p's own type
+
+    def _apply_rule(self, p, target, g, state, lr_mult, wd):
+        """The update of `target` (p's master or p itself, or an owner's
+        slice of either) by gradient g with the state tensors `state`
+        (updated in place): the decay, the regularizer and the rule, for
+        parameter p's group multiplier and decay. Returns the new value;
+        elementwise, so a slice's update is the slice of the whole's."""
+        lr_mult, wd = self._param_rule(p, lr_mult, wd)
+        lr = self.get_lr() * lr_mult * getattr(
+            p, "optimize_attr", {}).get("learning_rate", 1.0)
         if g.dtype != target.dtype:
             g = g.to(target.dtype)
         # regularizer-style decay is added to the gradient; decoupled decay
@@ -183,10 +219,7 @@ class Optimizer:
             wd_coeff = wd.coeff if hasattr(wd, "coeff") else float(wd)
         if regularizer is not None:
             g = g + regularizer._apply(target)
-        new = self._update(target, g, self._state_of(p), lr, wd_coeff)
-        if master is not None:
-            master.copy_(new)
-        p.copy_(new)            # re-emitted in p's own type
+        return self._update(target, g, state, lr, wd_coeff)
 
     @torch.no_grad()
     def clear_grad(self, set_to_zero=False):
@@ -199,7 +232,13 @@ class Optimizer:
     # -- state dict ------------------------------------------------------------
     def state_dict(self):
         """{key: tensor} of the live state (not copies), the scheduler's
-        state dict under "LR_Scheduler" when there is one, and "@step"."""
+        state dict under "LR_Scheduler" when there is one, and "@step".
+        Under ZeRO the owners' slices gathered into whole tensors."""
+        if self._zero is not None:
+            return self._zero.state_dict()
+        return self._local_state_dict()
+
+    def _local_state_dict(self):
         sd = OrderedDict()
         for i, p in enumerate(self._parameter_list):
             key = _name(p, i)
@@ -215,7 +254,12 @@ class Optimizer:
     def set_state_dict(self, state_dict):
         """Load copies of the saved state onto each parameter's device; a
         saved accumulator takes the type of the fresh state (float32 for a
-        low-precision parameter)."""
+        low-precision parameter). Under ZeRO each owner takes its slice."""
+        self._local_set_state_dict(state_dict)
+        if self._zero is not None:
+            self._zero.reshard_state()
+
+    def _local_set_state_dict(self, state_dict):
         names = self._acc_names()
         for i, p in enumerate(self._parameter_list):
             key = _name(p, i)

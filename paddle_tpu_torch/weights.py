@@ -10,7 +10,13 @@ in/groups, *k]`` in both packages (the UNet's, ``unet.conv_in.weight``
 ..., the vision models'), so they too go across as they are; persistable
 buffers the arrays name (a batch norm's ``_mean`` and ``_variance``) are
 copied as well, and ``to_numpy_state`` gives them back. The RNN layers' weights keep their ``[gates * hidden, in]`` layout
-in both packages (``weight_ih_l0`` ...).
+in both packages (``weight_ih_l0`` ...). A ``PipelineLayer`` names its
+parameters by run-function index (``"3.lin.weight"``) in both packages, a
+shared layer once, under its first index, so it bridges the same way
+(its wrappers, ``PipelineParallel`` and the others, name them alike).
+``optimizer_state_numpy`` / ``load_optimizer_state`` carry an optimizer's
+state in its ``state_dict`` layout, a ZeRO-sharded one's slices gathered
+into whole arrays.
 """
 
 from __future__ import annotations
@@ -118,3 +124,29 @@ def init_random_(model, seed):
             else:
                 p.fill_(1.0 if kind == "ones" else 0.0)
     return model
+
+
+def optimizer_state_numpy(optimizer):
+    """{key: np.ndarray} of ``optimizer.state_dict()`` (the JAX layout's
+    keys and whole arrays; under ZeRO the owners' slices gathered;
+    bfloat16 as float32), "@step" an int; the scheduler's state left
+    out."""
+    out = {}
+    for k, v in optimizer.state_dict().items():
+        if k == "LR_Scheduler":
+            continue
+        if torch.is_tensor(v):
+            t = v.detach().cpu()
+            v = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        out[k] = v
+    return out
+
+
+def load_optimizer_state(optimizer, arrays):
+    """Load {key: array} (``optimizer_state_numpy``'s layout, or the JAX
+    optimizer's state under this optimizer's keys) into `optimizer`; a
+    ZeRO-sharded optimizer hands each owner its slice."""
+    optimizer.set_state_dict({k: (v if isinstance(v, int) else
+                                  _to_tensor(v))
+                              for k, v in arrays.items()})
+    return optimizer

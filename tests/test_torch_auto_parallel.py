@@ -230,11 +230,22 @@ def test_dtensor_from_fn_and_later_slices():
     t = dist.dtensor_from_fn(torch.ones, tm,
                              [dist.Shard(0), dist.Replicate()], 8, 2)
     assert _tshapes(t) == [(2, 2)] * 8
-    for fn in (dist.shard_optimizer, dist.to_static,
-               dist.moe_global_mesh_tensor, dist.moe_sub_mesh_tensors):
-        with pytest.raises(NotImplementedError, match="A.13"):
-            fn(None)
-    for cls in (dist.DistModel, dist.Strategy, dist.ShardingStage1,
-                dist.ShardingStage2, dist.ShardingStage3):
-        with pytest.raises(NotImplementedError, match="A.13"):
-            cls()
+    # the later slice's names work now (held to JAX in
+    # test_torch_dist_model.py and test_torch_sharding_stages.py)
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.optimizer import Adam
+    net = Linear(8, 2, device="cpu")
+    opt = dist.shard_optimizer(Adam(0.1, parameters=net.parameters()),
+                               dist.ShardingStage1("dp", tm))
+    assert opt._zero.stage == 1 and len(opt._zero.shards) == 1
+    assert isinstance(dist.to_static(net, loss=torch.nn.MSELoss(),
+                                     optimizer=opt), dist.DistModel)
+    pieces = dist.moe_sub_mesh_tensors(
+        dist.moe_global_mesh_tensor([torch.ones(2, 2)] * 4, tm,
+                                    [dist.Shard(0), dist.Replicate()]),
+        local_mesh_dim=0)
+    assert [tuple(q.shape) for q in pieces] == [(2, 2)] * 4
+    for cls in (dist.ShardingStage1, dist.ShardingStage2,
+                dist.ShardingStage3):
+        assert cls("dp", tm).stage in (1, 2, 3)
+    assert dist.Strategy({"amp": None}).amp is None

@@ -301,6 +301,10 @@ def test_refusals():
     for fn in (dist.spawn, dist.gloo_barrier, dist.launch):
         with pytest.raises(NotImplementedError, match="A.13"):
             fn()
-    for cls in (dist.TCPStore, dist.DataParallel):
-        with pytest.raises(NotImplementedError, match="A.13"):
-            cls()
+    with pytest.raises(NotImplementedError, match="A.13"):
+        dist.TCPStore()
+    # DataParallel is ported (held in test_torch_pipeline.py): over the
+    # default world it runs a layer rank by rank
+    dp = dist.DataParallel(torch.nn.Linear(2, 2),
+                           group=PB.group_of(["cpu"] * 2))
+    assert dp.nranks == 2 and tuple(dp(torch.ones(4, 2)).shape) == (4, 2)

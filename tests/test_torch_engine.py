@@ -596,6 +596,22 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.distributed.fleet, "
             "paddle_tpu_torch.distributed.fleet.base.topology, "
             "paddle_tpu_torch.distributed.fleet.meta_parallel, "
+            "paddle_tpu_torch.distributed.fleet.meta_parallel.pp_layers, "
+            "paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "pipeline_parallel, "
+            "paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "pipeline_schedules, "
+            "paddle_tpu_torch.distributed.fleet.meta_parallel."
+            "compiled_pipeline, "
+            "paddle_tpu_torch.distributed.fleet.meta_parallel.zero_bubble, "
+            "paddle_tpu_torch.distributed.fleet.meta_optimizers, "
+            "paddle_tpu_torch.distributed.fleet.meta_optimizers."
+            "dygraph_optimizer, "
+            "paddle_tpu_torch.distributed.fleet.utils."
+            "sequence_parallel_utils, "
+            "paddle_tpu_torch.distributed.parallel, "
+            "paddle_tpu_torch.distributed._zero, "
+            "paddle_tpu_torch.distributed._state, "
             "paddle_tpu_torch.distributed.fleet.layers.mpu, "
             "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops, "
             "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers, "

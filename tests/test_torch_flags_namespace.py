@@ -51,7 +51,6 @@ OWED = {
         "fused_token_prune", "gemm_epilogue", "max_pool2d_v2",
         "multihead_matmul", "qkv_unpack_mha", "resnet_unit",
         "skip_layernorm", "variable_length_memory_efficient_attention")},
-    "DataParallel": "§A.13 (distributed/parallel.py)",
     "version": "§A.14 (version.py)",
     "core": "by design (the JAX Tensor and dispatcher)",
     "TPUPlace": "by design (no TPU)",

@@ -109,8 +109,11 @@ def test_topology():
     model = torch.nn.Linear(2, 2)
     assert isinstance(fleet.distributed_model(model),
                       fleet.meta_parallel.TensorParallel)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        fleet.distributed_optimizer(None)
+    # sharding degree 1: no ZeRO, the hybrid wrapper around the optimizer
+    opt = fleet.distributed_optimizer(torch.optim.SGD(model.parameters(),
+                                                      0.1))
+    assert isinstance(opt, fleet.HybridParallelOptimizer)
+    assert isinstance(opt._inner_opt, torch.optim.SGD)
 
 
 @pytest.mark.parametrize("gather_output", [False, True])
