@@ -308,6 +308,35 @@ source, all started together; each build's seconds printed), then:
    a step (CUDA events), peak memory, each rank's optimizer-state bytes
    (half of the whole, held), collective calls and bytes per step by op
    (held) and its kernels' launches per step by route (held).
+15. quantization, MoE, incubate, text and audio (slice 23), after
+   train:semi: quant:ptq: Llama-2-7B widths at QAT_LAYERS layers in bf16
+   calibrated by PTQ over PTQ_BATCHES batches of PTQ_BATCH tokens with the
+   Absmax, Hist and KL observers on the activations (Absmax on the
+   weights): the first layer's scales and each observer's host seconds;
+   quant:qat (the slice's main path): the same model trained QAT_STEPS
+   AdamW steps float, then swapped by QAT and trained again from the same
+   weights through compile_train_step, and by an eager twin loop: swapped
+   layers counted, ms a step and peak memory beside the float run's,
+   RMSNorm, SwiGLU, RoPE and flash (tensor cores) launches held every
+   step, one profiled step each (device kernels a step: the fake quant's
+   launches), losses different from the float ones and equal to the
+   twin's; quant:weight_only: weight_quantize and weight_only_linear on
+   gate_proj [4096, 11008] (int8 per channel, int4 in groups of 128) at 4
+   and 2048 rows, error against the float32 dequantized product, weight
+   bytes, ms beside torch.matmul on the bf16 weight; quant:pass: the
+   plain-op Llama at TRAIN_CFG widths and QPASS_LAYERS layers through
+   compiler.optimize with pattern fusion then quantize_pass: one
+   quant_linear rewrite per linear product, the kernels fusion still
+   places, logits against the eager fake-quant composition (the pass
+   alone: bit-equal); moe: MoELayer at Mixtral-8x7B's widths, forward and
+   backward under both dispatch forms and at ep=4 on a co-located mesh
+   (ms, peak memory, tokens dropped, the three gates' aux losses, sorted
+   against one-hot and ep=4 against dense); incubate: 2:4 prune_model of
+   a 7B decoder layer, one decorated AdamW step (sparsity held),
+   LookAhead and ModelAverage steps, the geometric ops card against CPU;
+   text: viterbi_decode (32 x 256 x 64) card against CPU, paths equal;
+   audio: LogMelSpectrogram and MFCC of 32 clips of 5 s at 44.1 kHz card
+   against CPU.
 
 Each flashmask, fused_ffn, tail, serving (serve:mesh too), BERT, training
 (the resilient one's too) and deploy run's launch counts are set to 0 just before it and read just after it; every kernel of its path
@@ -2164,6 +2193,16 @@ def main():
     htrain = run("train:hybrid", phase_train_hybrid, K, dev)
     ptrain = run("train:pipeline", phase_train_pipeline, K, dev)
     strain = run("train:semi", phase_train_semi, K, dev)
+    qmodel = run("quant:model", _quant_model, dev)
+    run("quant:ptq", phase_quant_ptq, qmodel)
+    qtrain = run("quant:qat", phase_quant_qat, K, qmodel)
+    del qmodel
+    run("quant:weight_only", phase_quant_weight_only, dev)
+    qpass = run("quant:pass", phase_quant_pass, K, dev)
+    run("moe", phase_moe, dev)
+    run("incubate", phase_incubate, dev)
+    run("text", phase_text, dev)
+    run("audio", phase_audio, dev)
     btrain = run("train:bert", phase_train_bert, K, dev)
     utrain = run("train:unet", phase_train_unet, K, dev)
     resnet = run("train:resnet", phase_train_resnet, dev)
@@ -2176,12 +2215,13 @@ def main():
           f"build {sum(times.values()):.1f}", flush=True)
     runs = (serve, dense, serve8, dense8, spec, spec8, fleet, fleet8, mesh,
             gserve, gserve8, gdense, bert, train, remat, fuse, static,
-            gtrain, htrain, ptrain, strain, btrain, utrain, rtrain, masked,
-            ffn, tail, opl, ops, agr, deployed, native)
+            gtrain, htrain, ptrain, strain, qtrain, qpass, btrain, utrain,
+            rtrain, masked, ffn, tail, opl, ops, agr, deployed, native)
     launches = {k: sum(r[k] for r in runs) for k in K.launch_counts()}
     _require_launched("all serving, fleet, mesh, BERT, training (the "
-                      "UNet's too), flashmask, fused_ffn, tail, op-surface "
-                      "and deploy runs", launches, K.KERNELS)
+                      "UNet's and QAT's too), quantize-pass, flashmask, "
+                      "fused_ffn, tail, op-surface and deploy runs",
+                      launches, K.KERNELS)
 
     name_power = _nvidia_smi()
     print(name_power)
@@ -7426,6 +7466,10 @@ def phase_ops_layer(K, dev):
     return launches
 
 
+# BERT-base's attention shape [B, S, H, D] for the fused inference ops
+OPS_FDPA_SHAPE = (8, 512, 12, 64)
+
+
 def phase_ops_sweep(K, dev):
     """[ops:sweep]: every op of the surface once on the card against the
     port on the CPU (``ops_sweep_torch.sweep``: small float64/float32/int
@@ -7435,7 +7479,9 @@ def phase_ops_sweep(K, dev):
     launch. Then fused_bias_dropout_residual_layer_norm at BERT-base's
     [16384, 768] bf16, p = 0.1, through the surface: one bdrln launch, held
     against the plain version with the same seed (check_bdrln's rule:
-    one bf16 ulp plus 2^-16 of the terms)."""
+    one bf16 ulp plus 2^-16 of the terms). Then the fused inference
+    attention ops at OPS_FDPA_SHAPE bf16: one tensor-core flash launch
+    each, against SDPA."""
     import ops_sweep_torch as sw
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.framework.random import next_seed
@@ -7483,6 +7529,30 @@ def phase_ops_sweep(K, dev):
           f"|diff| {_max_err(got, want):.3e}", flush=True)
     if n != 1 or worst > 1.0:
         raise AssertionError(f"[{tag}] bdrln through the surface")
+    # the fused inference attention ops at BERT-base's [8, 512, 12, 64]
+    # bf16: each one flash launch on the tensor cores, held against
+    # PyTorch's SDPA (float32 math on the same inputs) within TOL
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        OPS_FDPA_SHAPE, dtype=np.float32)).to(dev, torch.bfloat16)
+        for _ in range(3))
+    want = _sdpa(q.float(), k.float(), v.float(), False).transpose(1, 2)
+    rows = {}
+    for name, call in (
+            ("fused_dot_product_attention",
+             lambda: ptt.fused_dot_product_attention(q, k, v)),
+            ("qkv_unpack_mha", lambda: ptt.qkv_unpack_mha(q, k, v))):
+        before = K.launch_counts()
+        got = call()
+        after = K.launch_counts()
+        sm90 = after["flash_attention.sm90"] - before["flash_attention.sm90"]
+        err = _max_err(got, want) / float(want.abs().max())
+        rows[name] = [sm90, float(f"{err:.3e}")]
+        if sm90 != 1 or err > TOL[torch.bfloat16]:
+            raise AssertionError(f"[{tag}] {name}: {sm90} sm90 flash "
+                                 f"launches, error {err}")
+    print(f"[{tag}] fused inference attention at {list(OPS_FDPA_SHAPE)} "
+          f"bf16 [flash_attention.sm90 launches, max |err| vs SDPA of its "
+          f"largest] {json.dumps(rows)}", flush=True)
     launches = K.launch_counts()
     _release()
     return launches
@@ -9319,6 +9389,771 @@ def phase_train_semi(K, dev):
     del model, opt, dm
     _release()
     return totals
+
+
+# ----------------------------------------------------------------------
+# slice 23: quantization, MoE, incubate, geometric, text and audio
+# ----------------------------------------------------------------------
+
+# [quant:qat] / [quant:ptq]: Llama-2-7B widths (hidden 4096, FFN 11008, 32
+# heads, vocab 32000) at QAT_LAYERS of its 32 layers, bf16, seed-0
+# weights; QAT_STEPS AdamW steps (the first a warm-up for the timing) on
+# batch QAT_BATCH; PTQ calibrates on PTQ_BATCHES batches of PTQ_BATCH
+# tokens (the histogram observers read every activation on the host)
+QAT_LAYERS = 2
+QAT_STEPS = 3
+QAT_BATCH = (1, 2048)
+QAT_PER_STEP = SEMI_PER_STEP
+PTQ_BATCHES = 4
+PTQ_BATCH = (1, 256)
+PTQ_KINDS = ("AbsmaxObserver", "HistObserver", "KLObserver")
+# [quant:weight_only]: Llama-2-7B's gate_proj [in, out] and the two forms
+WO_SHAPE = (4096, 11008)
+WO_FORMS = (("weight_only_int8", -1), ("weight_only_int4", 128))
+WO_ROWS = (4, 2048)
+# [quant:pass]: TRAIN_CFG's widths at QPASS_LAYERS layers, batch
+# QPASS_BATCH, bf16. The fused program (the kernels round once, in
+# float32 inside) and the eager bf16 fake-quant composition (rounding at
+# every op) both move activations across half-code boundaries, each
+# moving an element by a whole code step; so the fused logits are held
+# against the float32 composition of the same weights, no further off
+# than QPASS_FACTOR times the eager bf16 composition (the [to_static]
+# rule), in the mean and (QPASS_MAX_FACTOR) the largest |difference|
+QPASS_LAYERS = 2
+QPASS_BATCH = (1, 2048)
+QPASS_FACTOR = 1.5
+QPASS_MAX_FACTOR = 2.0
+# [moe]: Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1
+# config.json: hidden_size 4096, intermediate_size 14336,
+# num_local_experts 8, num_experts_per_tok 2) in the JAX layer's FFN form
+# (one w_gate_up, tanh GELU), capacity factor 1.5, 2 x 2048 tokens of bf16;
+# each run one warm-up and MOE_TIMED timed forward + backward passes; the
+# one-hot form against the sorted one, and the ep=4 run (outputs and
+# every gradient) against the dense one, within MOE_REL of each tensor's
+# largest |value|: one bf16 rounding (the forms sum a token's two
+# weighted expert outputs in other orders in float32, and the ep run's
+# float32 products may take other cuBLAS algorithms at 2 and at 8
+# experts a batch, before the one cast to bf16; near-zero elements then
+# differ by many of their own ulps, so ulps are printed, not held)
+MOE_SHAPE = (4096, 14336, 8, 2)
+MOE_CF = 1.5
+MOE_TOKENS = (2, 2048)
+MOE_TIMED = 2
+MOE_EP = 4
+MOE_REL = 2.0 ** -8
+# [incubate] geometric: a graph of GEO_NODES nodes of GEO_FEAT float32
+# features and GEO_EDGES random edges, card against CPU (sums in float32
+# within GEO_REL of the largest, max / min exact)
+GEO_NODES, GEO_FEAT, GEO_EDGES = 100_000, 64, 1_000_000
+GEO_REL = 1e-5
+# [text]: Viterbi over batch 32, 256 steps, 64 tags
+VITERBI_SHAPE = (32, 256, 64)
+# [audio]: 32 clips in ESC-50's format (5 s of 44.1 kHz mono); the dB
+# features card against CPU within AUDIO_DB_ATOL dB, a 1.2% difference of
+# a bin's power: the two libraries' float32 FFTs differ by ~1e-6 of a
+# frame's largest bin in every bin, which the quietest mel bins (1e-4 -
+# 1e-5 of the largest) carry as 0.004-0.04 dB (0.0089 dB on this data on
+# an H100)
+AUDIO_CLIPS, AUDIO_SR, AUDIO_SECONDS = 32, 44100, 5
+AUDIO_DB_ATOL = 5e-2
+
+
+def _kernels_in(fn):
+    """(device kernels fn launched, their device ms) from one profiled
+    call, the window's edges padded as _profile_step pads them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.prepare_trace()
+    x = torch.zeros(1 << 20, device="cuda")
+    for _ in range(256):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    del x
+    prof.start_trace()
+    time.sleep(TRACE_EDGE_S)
+    fn()
+    torch.cuda.synchronize()
+    time.sleep(TRACE_EDGE_S)
+    prof.stop_trace()
+    rows = [((getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0)), e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    rows = [r for r in rows if r[0] > 0]
+    return sum(c for _, c in rows), sum(us for us, _ in rows) / 1e3
+
+
+def _quant_model(dev):
+    """Llama-2-7B widths at QAT_LAYERS layers, bf16, seed-0 weights."""
+    import dataclasses
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    _release()
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(),
+                              num_hidden_layers=QAT_LAYERS)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    return weights.init_random_(model, seed=0)
+
+
+def phase_quant_ptq(model):
+    """[quant:ptq]: PTQ(QuantConfig(activation=<kind>(),
+    weight=AbsmaxObserver())) of the float model (a copy per kind) over
+    PTQ_BATCHES batches of PTQ_BATCH tokens: the outputs must equal the
+    float model's (observers pass their input through); printed: the
+    first layer's activation and weight scales, and each kind's host
+    seconds beyond the float forwards'."""
+    from paddle_tpu_torch import quantization as Q
+
+    tag = "quant:ptq"
+    cfg = model.config
+    rng = np.random.default_rng(3)
+    dev = model.device
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, PTQ_BATCH))
+               .to(dev) for _ in range(PTQ_BATCHES)]
+    model.eval()
+    with torch.no_grad():
+        model(batches[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [model(b) for b in batches]
+        torch.cuda.synchronize()
+        base = time.perf_counter() - t0
+        for kind in PTQ_KINDS:
+            q = Q.PTQ(Q.QuantConfig(getattr(Q, kind)(),
+                                    Q.AbsmaxObserver())).quantize(model)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = [q(b) for b in batches]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"[{tag}] {kind}: an observer changed "
+                                     "the forward")
+            layer = q.llama.layers[0]
+            scales = {}
+            for name, lin in (("q", layer.self_attn.q_proj),
+                              ("o", layer.self_attn.o_proj),
+                              ("gate", layer.mlp.gate_proj),
+                              ("down", layer.mlp.down_proj)):
+                a = lin.activation_quanter.scales()
+                w = lin.weight_quanter.scales()
+                scales[name] = [round(float(a), 5), round(float(w), 5)]
+            n = sum(isinstance(m, Q.QuantedLinear) for m in q.modules())
+            print(f"[{tag}] {kind} on the activations, AbsmaxObserver on "
+                  f"the weights, {n} layers swapped: layer 0 [activation, "
+                  f"weight] scales {json.dumps(scales)}; {PTQ_BATCHES} "
+                  f"batches of {PTQ_BATCH[0]}x{PTQ_BATCH[1]} in "
+                  f"{secs:.3f} s, observers' host s {secs - base:.3f} "
+                  f"(float forwards {base:.3f} s)", flush=True)
+            del q, got
+    del want
+    _release()
+
+
+def _swapped(model):
+    from paddle_tpu_torch import quantization as Q
+    return sum(isinstance(m, Q.QuantedLinear) for m in model.modules())
+
+
+def phase_quant_qat(K, model):
+    """[quant:qat], the slice's main path: QAT_STEPS AdamW
+    (multi_precision) steps of compile_train_step on the float model,
+    then QAT(QuantConfig()).quantize(model, inplace=True) and
+    QAT_STEPS steps from the same weights, then the same QAT steps in an
+    eager loop (backward, step, clear_grad) from the same weights and
+    fresh quanters. Held: QAT_PER_STEP launches every step of both
+    trained runs (RMSNorm, SwiGLU, RoPE q + k and its backward, flash
+    forward and backward on the tensor cores), the QAT losses different
+    from the float ones (beyond SAME_REL) and within SAME_REL of the eager
+    twin's. Printed: swapped layers, ms a step (CUDA events) and peak
+    memory beside the float run's, and one profiled step of each (device
+    kernels a step: the difference is the fake quant's launches).
+    Returns the QAT run's timed launches."""
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.jit import compile_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    tag = "quant:qat"
+    cfg = model.config
+    model.train()
+    init = [(p, p.detach().clone()) for p in model.parameters()]
+
+    def restore():
+        with torch.no_grad():
+            for p, v in init:
+                p.copy_(v)
+
+    ids, lab = _train_batch(cfg.vocab_size, *QAT_BATCH, model.device)
+
+    def loss_fn(m, i, l):
+        return _f32_ce(m(i), l)
+
+    _release()
+    opt = AdamW(HYBRID_LR, parameters=model.parameters(),
+                multi_precision=True)
+    step = compile_train_step(model, loss_fn, opt)
+    flt, flt_ms, _, _ = _timed_steps(f"{tag}:float", K,
+                                     lambda: step(ids, lab), QAT_STEPS - 1,
+                                     QAT_PER_STEP)
+    flt_peak = torch.cuda.max_memory_allocated() / 1e9
+    flt_k, flt_dev = _kernels_in(lambda: float(step(ids, lab)))
+    del step, opt
+    restore()
+    _release()
+    Q.QAT(Q.QuantConfig()).quantize(model, inplace=True)
+    n = _swapped(model)
+    if n != 7 * QAT_LAYERS + 1:
+        raise AssertionError(f"[{tag}] {n} layers swapped, want "
+                             f"{7 * QAT_LAYERS + 1}")
+    opt = AdamW(HYBRID_LR, parameters=model.parameters(),
+                multi_precision=True)
+    step = compile_train_step(model, loss_fn, opt)
+    losses, ms, totals, _ = _timed_steps(tag, K, lambda: step(ids, lab),
+                                         QAT_STEPS - 1, QAT_PER_STEP)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    q_k, q_dev = _kernels_in(lambda: float(step(ids, lab)))
+    del step, opt
+    restore()
+    for m in model.modules():
+        if isinstance(m, Q.BaseObserver):
+            m._scale = None
+    opt = AdamW(HYBRID_LR, parameters=model.parameters(),
+                multi_precision=True)
+    twin = []
+    for _ in range(QAT_STEPS):
+        loss = loss_fn(model, ids, lab)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        twin.append(float(loss))
+    del opt
+    print(f"[{tag}] llama2_7b() widths at {QAT_LAYERS} of 32 layers, bf16, "
+          f"batch {QAT_BATCH[0]}x{QAT_BATCH[1]}, AdamW({HYBRID_LR}, "
+          f"multi_precision=True): QAT(QuantConfig()) swapped {n} Linear "
+          f"layers (FakeQuanterWithAbsMax on activations and weights)",
+          flush=True)
+    print(f"[{tag}] losses (float32 CE) QAT {losses}; float {flt}; QAT "
+          f"eager twin {twin}", flush=True)
+    print(f"[{tag}] step_ms (CUDA events) QAT {[round(x, 3) for x in ms]} "
+          f"median_timed={_median(ms[1:]):.3f}; float "
+          f"{[round(x, 3) for x in flt_ms]} median_timed="
+          f"{_median(flt_ms[1:]):.3f}; peak_mem_gb QAT {peak:.2f} float "
+          f"{flt_peak:.2f}", flush=True)
+    print(f"[{tag}] one profiled step: device kernels QAT {q_k} ({q_dev:.3f}"
+          f" device ms), float {flt_k} ({flt_dev:.3f} device ms): "
+          f"fake-quant launches a step {q_k - flt_k}", flush=True)
+    print(f"[{tag}] launches per step {json.dumps(QAT_PER_STEP)} (held "
+          f"every step)", flush=True)
+    if min(_rel(a, b) for a, b in zip(losses, flt)) <= SAME_REL:
+        raise AssertionError(f"[{tag}] the QAT losses {losses} equal the "
+                             f"float ones {flt}: the quantization is a "
+                             "no-op")
+    if max(_rel(a, b) for a, b in zip(losses, twin)) > SAME_REL:
+        raise AssertionError(f"[{tag}] compile_train_step {losses} against "
+                             f"the eager twin {twin}")
+    _require_launched(tag, totals, [k for k, v in QAT_PER_STEP.items()
+                                    if v])
+    del init
+    _release()
+    return totals
+
+
+def phase_quant_weight_only(dev):
+    """[quant:weight_only]: weight_quantize of gate_proj's weight (bf16,
+    WO_SHAPE, seed 4) in each WO_FORMS form and weight_only_linear at
+    each of WO_ROWS rows of bf16 x: the error against the float32 product
+    of x and the dequantized weight (held within 2^-7 of its largest, one
+    bf16 rounding), the codes' and scales' bytes against the bf16
+    weight's, and ms (the smoke's _time_ms: L2 emptied, mean of ITERS)
+    beside torch.matmul on the bf16 weight."""
+    from paddle_tpu_torch import quantization as Q
+
+    tag = "quant:weight_only"
+    k, n = WO_SHAPE
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    for algo, group in WO_FORMS:
+        codes, scale = Q.weight_quantize(w, algo=algo, group_size=group)
+        qmax = 127 if algo.endswith("int8") else 7
+        if int(codes.abs().max()) != qmax or codes.dtype != torch.int8:
+            raise AssertionError(f"[{tag}] {algo}: codes {codes.dtype} "
+                                 f"max {int(codes.abs().max())}")
+        deq = codes.float()
+        if scale.dim() == 2:
+            deq = (deq.reshape(n, scale.shape[1], -1)
+                   * scale[:, :, None]).reshape(n, k)
+        else:
+            deq = deq * scale[:, None]
+        wbytes = codes.numel() + scale.numel() * 4
+        qerr = float((deq.t() - w.float()).abs().max())
+        for rows in WO_ROWS:
+            x = torch.randn(rows, k, generator=g, device=dev).to(
+                torch.bfloat16)
+            got = Q.weight_only_linear(x, codes, None, scale,
+                                       group_size=group)
+            want = x.float() @ deq.t()
+            err = float((got.float() - want).abs().max() /
+                        want.abs().max())
+            ms = _time_ms(lambda: Q.weight_only_linear(
+                x, codes, None, scale, group_size=group))
+            ref_ms = _time_ms(lambda: torch.matmul(x, w))
+            print(f"[{tag}] {algo} group_size={group} x [{rows}, {k}] "
+                  f"bf16: max err vs the float32 dequantized product "
+                  f"{err:.3e} of its largest; weight bytes {wbytes} vs "
+                  f"bf16 {2 * k * n} ({wbytes / (2 * k * n):.3f}; int4 "
+                  f"codes unpacked in int8); max |dequant - w| {qerr:.3e}"
+                  f"; ms weight_only_linear {ms:.4f} torch.matmul(bf16) "
+                  f"{ref_ms:.4f}", flush=True)
+            if err > 2.0 ** -7:
+                raise AssertionError(f"[{tag}] {algo} at {rows} rows: "
+                                     f"error {err}")
+    _release()
+
+
+class _FakeQuantMatmuls(torch.overrides.TorchFunctionMode):
+    """x @ W with W a rank-2 parameter computed as fq(x) @ fq(W), each
+    with its own absmax: the eager composition quantize_pass rewrites a
+    program into."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if getattr(func, "__name__", "") in ("matmul", "__matmul__") and \
+                len(args) == 2 and isinstance(args[1], torch.nn.Parameter) \
+                and args[1].dim() == 2:
+            from paddle_tpu_torch.quantization import fake_quant_dequant
+            x, w = args
+            return torch.matmul(
+                fake_quant_dequant(x, x.abs().amax()),
+                fake_quant_dequant(w, w.abs().amax()))
+        return func(*args, **kwargs)
+
+
+def phase_quant_pass(K, dev):
+    """[quant:pass]: fusion_audit_torch.PlainLlama (plain torch ops) at
+    TRAIN_CFG's widths and QPASS_LAYERS layers, bf16, seed-0 weights, its
+    logits on QPASS_BATCH ids through compiler.optimize twice: with
+    pattern fusion then quantize_pass (then DCE), and with quantize_pass
+    alone. Held: quant_linear rewrites equal to the linear products (the
+    2-d products of the capture: 7 a layer and the head), 0 fallbacks;
+    the pass-alone program's logits bit-equal to the eager bf16
+    fake-quant composition (_FakeQuantMatmuls); the fused program's
+    within QPASS_FACTOR (mean) and QPASS_MAX_FACTOR (largest) times that
+    composition's distance from the float32 composition of the same
+    weights; the quantized logits different from the float ones. Printed: the kernels the
+    fused program places (its ptt nodes) and one run's launches. Returns
+    the fused run's launches."""
+    import copy
+
+    from paddle_tpu_torch import compiler
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.observability.metrics import REGISTRY
+
+    tag = "quant:pass"
+    _release()
+    cfg = LlamaConfig(**{**TRAIN_CFG, "num_hidden_layers": QPASS_LAYERS})
+    plain = _plain_llama(cfg, dev, torch.bfloat16)
+    plain.eval()
+    ids, _ = _train_batch(cfg.vocab_size, *QPASS_BATCH, dev)
+
+    def count(name):
+        c = REGISTRY.get(name, {"pattern": "quant_linear"})
+        return c.value if c is not None else 0
+
+    secs = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        flt = plain(ids)
+        with _FakeQuantMatmuls():
+            eager = plain(ids)
+            plain32 = copy.deepcopy(plain).float()     # the same weights
+            ref = plain32(ids)
+            del plain32
+        torch.cuda.synchronize()
+        secs["eager"] = time.perf_counter() - t0
+        out = {}
+        for name, passes in (
+                ("fused", ["pattern_fusion", Q.quantize_pass(), "dce"]),
+                ("alone", [Q.quantize_pass(), "dce"])):
+            r0, f0 = (count("compiler_rewrites_total"),
+                      count("compiler_fallbacks_total"))
+            t0 = time.perf_counter()
+            fn = compiler.optimize(lambda i: plain(i), name=f"qpass_{name}",
+                                   pass_manager=compiler.PassManager(passes))
+            fn(ids)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            K.reset_launch_counts()
+            got = fn(ids)
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+            (gm,) = fn.programs.values()
+            # the 2-d products: each rewrite keeps its one mm, so the
+            # pass-alone program has exactly the capture's
+            n_mm = sum(nd.target is torch.ops.aten.mm.default
+                       for nd in gm.graph.nodes)
+            out[name] = (got, count("compiler_rewrites_total") - r0,
+                         count("compiler_fallbacks_total") - f0,
+                         _ptt_nodes(gm), launches, n_mm)
+            del fn, gm
+    n_linear = out["alone"][5]
+    d_eager = (eager.float() - ref.float()).abs()
+    e_mean, e_max = float(d_eager.mean()), float(d_eager.max())
+    moved = float((eager.float() - flt.float()).abs().mean())
+    print(f"[{tag}] plain-op Llama at TRAIN_CFG widths, {QPASS_LAYERS} "
+          f"layers, bf16, {QPASS_BATCH[0]}x{QPASS_BATCH[1]}: the eager bf16 "
+          f"fake-quant composition from the float32 one (the same "
+          f"weights): mean |diff| {e_mean:.4e}, max {e_max:.4e} (logits' "
+          f"largest {float(ref.abs().max()):.3f}); from the float logits "
+          f"mean {moved:.4e}; seconds {json.dumps({k: round(v, 2) for k, v in secs.items()})}",
+          flush=True)
+    bad = []
+    for name, (got, rw, fb, nodes, launches, _) in out.items():
+        d = (got.float() - ref.float()).abs()
+        mean, mx = float(d.mean()), float(d.max())
+        same = torch.equal(got, eager)
+        print(f"[{tag}] {name}: quant_linear rewrites {rw} (linear "
+              f"products in the graph {n_linear}), fallbacks {fb}; fused "
+              f"kernels placed {json.dumps(nodes)}; launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}; "
+              f"from the float32 composition mean |diff| {mean:.4e} "
+              f"({mean / e_mean:.3f}x the eager bf16's), max {mx:.4e} "
+              f"({mx / e_max:.3f}x); bit-equal to the eager bf16 "
+              f"composition {same}", flush=True)
+        if rw != n_linear or n_linear != 7 * QPASS_LAYERS + 1 or fb:
+            bad.append(f"{name}: {rw} rewrites, {n_linear} products, {fb} "
+                       "fallbacks")
+        if name == "alone" and not same:
+            bad.append("the pass alone differs from the eager composition")
+        if mean > QPASS_FACTOR * e_mean or mx > QPASS_MAX_FACTOR * e_max:
+            bad.append(f"{name}: mean {mean} / max {mx} against the eager "
+                       f"{e_mean} / {e_max}")
+    if not moved > 0:
+        bad.append("the quantized logits equal the float ones")
+    fused = out["fused"][4]
+    for k in ("flash_attention", "rms_norm", "swiglu", "fused_rope"):
+        if fused[k] <= 0:
+            bad.append(f"the fused program launched no {k}")
+    if bad:
+        raise AssertionError(f"[{tag}] " + "; ".join(bad))
+    del plain, out, flt, eager, ref
+    _release()
+    return fused
+
+
+def _moe_ulps(got, want):
+    """Largest |got - want| in bf16 ulps of want (elementwise)."""
+    w = want.float()
+    return float(((got.float() - w).abs() / _ulp_bf16(w)).max())
+
+
+def _moe_rel(got, want):
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def phase_moe(dev):
+    """[moe]: MoELayer(4096, 14336, 8 experts, top-2, capacity factor 1.5)
+    in bf16 (seed-0 weights: 1.88 GB of experts) on 2 x 2048 tokens:
+    forward + backward (sum of out times a fixed random weight, plus the
+    aux loss) under the sorted dispatch, the one-hot dispatch, and the
+    sorted one at ep=MOE_EP (the expert weights annotated Shard(0) over a
+    co-located ProcessMesh of the card). Held: finite outputs, the
+    one-hot form within MOE_REL of the sorted one, the ep run's outputs
+    and every gradient within MOE_REL of the dense run's (relative to the
+    largest; bf16 ulps and the elements that differ printed). Printed:
+    ms fwd + bwd (CUDA events, median of MOE_TIMED after a
+    warm-up), peak memory, the tokens dropped, the naive, GShard and
+    Switch gates' aux losses and dropped pairs on these tokens."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.incubate.distributed import moe_layer as ML
+
+    tag = "moe"
+    _release()
+    h, f, e, k = MOE_SHAPE
+    layer = weights.init_random_(
+        ML.MoELayer(h, f, num_expert=e, topk=k, capacity_factor=MOE_CF,
+                    device=dev, dtype=torch.bfloat16), seed=0)
+    layer.train()
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    x = torch.randn(*MOE_TOKENS, h, generator=g, device=dev).to(
+        torch.bfloat16)
+    wout = torch.randn(*MOE_TOKENS, h, generator=g, device=dev)
+    params = dict(layer.named_parameters())
+
+    def run(name, sorted_flag):
+        from paddle_tpu_torch.framework.flags import set_flags
+        set_flags({"FLAGS_moe_sorted_dispatch": sorted_flag})
+        ms = []
+        for i in range(MOE_TIMED + 1):
+            for p in params.values():
+                p.grad = None
+            xi = x.detach().requires_grad_(True)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = layer(xi)
+            ((out.float() * wout).sum() + layer._aux_loss).backward()
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        set_flags({"FLAGS_moe_sorted_dispatch": True})
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"[{tag}] {name}: output not finite")
+        grads = {"x": xi.grad.clone(),
+                 **{n: p.grad.clone() for n, p in params.items()}}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[{tag}] {name}: fwd+bwd ms {[round(t, 2) for t in ms]} "
+              f"median_timed={_median(ms[1:]):.2f} peak_mem_gb={peak:.2f}",
+              flush=True)
+        return out.detach(), grads
+
+    with torch.no_grad():
+        logits = layer.gate(x.reshape(-1, h))
+    stats = ML.dispatch_stats(logits, k, MOE_CF)
+    sorted_out, sorted_g = run("sorted", True)
+    _release()
+    onehot_out, _ = run("onehot", False)
+    _release()
+    mesh = dist.ProcessMesh(np.arange(MOE_EP), ["ep"], devices=dev)
+    for p in (layer.w_gate_up, layer.w_down):
+        dist.shard_tensor(p, mesh, [dist.Shard(0)])
+    shards = ML._ep_shards(layer.w_gate_up)
+    ep_out, ep_g = run(f"ep{MOE_EP}", True)
+    for p in (layer.w_gate_up, layer.w_down):
+        del p._dist_attr
+    oh = _moe_ulps(onehot_out, sorted_out)
+    oh_rel = _moe_rel(onehot_out, sorted_out)
+    ep = _moe_ulps(ep_out, sorted_out)
+    ep_rel = _moe_rel(ep_out, sorted_out)
+    ep_diff = int((ep_out != sorted_out).sum())
+    gep = {n: _moe_ulps(ep_g[n], sorted_g[n]) for n in sorted_g}
+    grel = {n: _moe_rel(ep_g[n], sorted_g[n]) for n in sorted_g}
+    gdiff = {n: int((ep_g[n] != sorted_g[n]).sum()) for n in sorted_g}
+    aux = {}
+    with torch.no_grad():
+        flat = x.reshape(-1, h)
+        for name, gate in (
+                ("naive", layer.gate),
+                ("gshard", ML.GShardGate(h, e, topk=k, device=dev,
+                                         dtype=torch.bfloat16)),
+                ("switch", ML.SwitchGate(h, e, device=dev,
+                                         dtype=torch.bfloat16))):
+            if gate is not layer.gate:
+                gate.gate.weight.copy_(layer.gate.gate.weight)
+                gate.train()
+            lg = gate(flat)
+            a = gate.aux_loss(lg)
+            a = ML.load_balance_loss(lg, gate.topk) if a is None else a
+            st = ML.dispatch_stats(lg, gate.topk, MOE_CF)
+            aux[name] = [round(float(a), 6), st["dropped"], st["pairs"]]
+    print(f"[{tag}] Mixtral-8x7B widths (hidden {h}, FFN {f}, {e} experts, "
+          f"top-{k}), capacity factor {MOE_CF} (capacity {stats['capacity']}"
+          f" rows an expert), {MOE_TOKENS[0]}x{MOE_TOKENS[1]} bf16 tokens: "
+          f"dropped pairs {stats['dropped']} of {stats['pairs']}; aux loss, "
+          f"dropped, pairs by gate {json.dumps(aux)}", flush=True)
+    print(f"[{tag}] one-hot vs sorted output: max |diff| {oh_rel:.3e} of "
+          f"the largest, {oh:.2f} bf16 ulps at worst; ep{MOE_EP} "
+          f"({len(shards)} positions, experts "
+          f"{[(lo, hi) for lo, hi, _ in shards]}) vs dense: output "
+          f"{ep_rel:.3e} of the largest ({ep:.2f} ulps, {ep_diff} elements "
+          f"differ), gradients {json.dumps({n: float(f'{v:.3e}') for n, v in grel.items()})} "
+          f"({json.dumps({n: round(v, 2) for n, v in gep.items()})} ulps; "
+          f"elements differing {json.dumps(gdiff)}); bound {MOE_REL:.3e} of "
+          f"the largest", flush=True)
+    if oh_rel > MOE_REL or ep_rel > MOE_REL or max(grel.values()) > MOE_REL:
+        raise AssertionError(f"[{tag}] the dispatch forms or the ep run "
+                             "disagree beyond the bound")
+    del layer, params, x, wout, sorted_out, onehot_out, ep_out, sorted_g, ep_g
+    _release()
+
+
+def phase_incubate(dev):
+    """[incubate]: prune_model (2:4, mask_1d) of a Llama-2-7B decoder
+    layer's seven projections (bf16, seed 0), one step of a decorated
+    AdamW on a 1 x 512 forward (check_sparsity held on every projection,
+    density 0.5), one LookAhead(AdamW, k=1) step (the slow weights
+    taken) and a ModelAverage step with apply/restore on the same layer;
+    then the geometric ops on a GEO_NODES x GEO_FEAT float32 graph with
+    GEO_EDGES edges, card against CPU (sums and means within GEO_REL of
+    the largest, max / min exact; seconds of each on the card)."""
+    import paddle_tpu_torch.incubate as inc
+    from paddle_tpu_torch import geometric as G
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models.llama import (LlamaDecoderLayer,
+                                               _rope_tables)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    tag = "incubate"
+    _release()
+    cfg = LlamaConfig.llama2_7b()
+    layer = LlamaDecoderLayer(cfg, device=dev, dtype=torch.bfloat16)
+    weights.init_random_(layer, seed=0)
+    layer.train()
+    projs = [m.weight for m in layer.modules()
+             if type(m).__name__ == "Linear"]
+    t0 = time.perf_counter()
+    asp.prune_model(layer)
+    torch.cuda.synchronize()
+    prune_s = time.perf_counter() - t0
+    cos, sin = (t[:512].to(dev) for t in _rope_tables(
+        cfg.hidden_size // cfg.num_attention_heads, 512, cfg.rope_theta))
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    x = torch.randn(1, 512, cfg.hidden_size, generator=g, device=dev).to(
+        torch.bfloat16)
+
+    def loss():
+        return layer(x, cos, sin).float().pow(2).mean()
+
+    opt = asp.decorate(AdamW(1e-3, parameters=layer.parameters()))
+    loss().backward()
+    opt.step()
+    opt.clear_grad()
+    sparse = [asp.check_sparsity(w) for w in projs]
+    dens = sorted({round(asp.calculate_density(w), 6) for w in projs})
+    la = inc.LookAhead(AdamW(1e-3, parameters=layer.parameters()), k=1)
+    ma = inc.ModelAverage(0.5, parameters=layer.parameters(),
+                          min_average_window=2, max_average_window=2)
+    before = projs[0].detach().clone()
+    ma.step()
+    la.minimize(loss())
+    ma.step()
+    moved = float((projs[0].float() - before.float()).abs().max())
+    live = projs[0].detach().clone()
+    with ma:
+        avg = projs[0].detach().clone()
+    restored = torch.equal(projs[0], live)
+    want_avg = ((before.float() + live.float()) / 2).to(avg.dtype)
+    avg_err = float((avg.float() - want_avg.float()).abs().max())
+    print(f"[{tag}] Llama-2-7B decoder layer bf16: prune_model 2:4 of "
+          f"{len(projs)} projections in {prune_s:.3f} s; after one "
+          f"decorated AdamW step check_sparsity {sparse}, densities {dens};"
+          f" LookAhead(k=1) step moved the first projection by "
+          f"{moved:.3e}; ModelAverage over those 2 steps: applied average "
+          f"max |diff| from (w1 + w2) / 2 {avg_err:.3e}, restored "
+          f"{restored}", flush=True)
+    if not all(sparse) or dens != [0.5] or not moved or not restored:
+        raise AssertionError(f"[{tag}] sparsity {sparse} {dens}, LookAhead "
+                             f"moved {moved}, restored {restored}")
+    del layer, opt, la, ma, projs, x, before, live, avg, want_avg
+    _release()
+    rng = np.random.default_rng(7)
+    xg = torch.from_numpy(rng.standard_normal(
+        (GEO_NODES, GEO_FEAT), dtype=np.float32))
+    yg = torch.from_numpy(rng.standard_normal(
+        (GEO_EDGES, GEO_FEAT), dtype=np.float32))
+    src = torch.from_numpy(rng.integers(0, GEO_NODES, GEO_EDGES))
+    dst = torch.from_numpy(rng.integers(0, GEO_NODES, GEO_EDGES))
+    seg = torch.sort(dst).values
+    cases = [("send_u_recv", (xg, src, dst), {"reduce_op": r})
+             for r in ("sum", "mean", "max", "min")]
+    cases += [("send_ue_recv", (xg, yg, src, dst),
+               {"message_op": "mul", "reduce_op": r})
+              for r in ("sum", "max")]
+    cases += [(f"segment_{r}", (yg, seg), {})
+              for r in ("sum", "mean", "max", "min")]
+    rows = {}
+    for name, args, kw in cases:
+        fn = getattr(G, name)
+        want = fn(*args, **kw)
+        dargs = [a.to(dev) for a in args]
+        fn(*dargs, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(*dargs, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        err = float((got.cpu() - want).abs().max())
+        exact = kw.get("reduce_op") in ("max", "min") or \
+            name in ("segment_max", "segment_min")
+        limit = 0.0 if exact else GEO_REL * float(want.abs().max())
+        rows[f"{name}:{kw.get('reduce_op', '')}"] = [round(ms, 3),
+                                                     float(f"{err:.3e}")]
+        if got.device.type != "cuda" or err > limit:
+            raise AssertionError(f"[{tag}] {name} {kw}: error {err} "
+                                 f"(limit {limit})")
+    print(f"[{tag}] geometric on {GEO_NODES} nodes x {GEO_FEAT} float32, "
+          f"{GEO_EDGES} edges, card against CPU [ms on the card, max |diff|]"
+          f" {json.dumps(rows)}", flush=True)
+    _release()
+
+
+def phase_text(dev):
+    """[text]: viterbi_decode of VITERBI_SHAPE float32 potentials (seed 8)
+    and 64 x 64 transitions, card against CPU: paths equal, scores within
+    1e-5 of their largest; ms of the card's call (host clock)."""
+    from paddle_tpu_torch import text
+
+    tag = "text"
+    b, t, n = VITERBI_SHAPE
+    rng = np.random.default_rng(8)
+    pot = torch.from_numpy(rng.standard_normal((b, t, n), dtype=np.float32))
+    trans = torch.from_numpy(rng.standard_normal((n, n), dtype=np.float32))
+    lens = torch.full((b,), t, dtype=torch.int64)
+    t0 = time.perf_counter()
+    ws, wp = text.viterbi_decode(pot, trans, lens)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    text.viterbi_decode(pot.to(dev), trans.to(dev), lens.to(dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gs, gp = text.viterbi_decode(pot.to(dev), trans.to(dev), lens.to(dev))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = float((gs.cpu() - ws).abs().max() / ws.abs().max())
+    same = torch.equal(gp.cpu(), wp)
+    print(f"[{tag}] viterbi_decode batch {b}, {t} steps, {n} tags: paths "
+          f"equal {same}, scores rel err {err:.2e}; ms card {ms:.2f}, CPU "
+          f"{cpu_ms:.2f}", flush=True)
+    if not same or err > 1e-5 or gp.device.type != "cuda":
+        raise AssertionError(f"[{tag}] card and CPU disagree")
+
+
+def phase_audio(dev):
+    """[audio]: LogMelSpectrogram and MFCC (sr 44100, the layers' other
+    defaults) of AUDIO_CLIPS clips of AUDIO_SECONDS s (ESC-50's format;
+    tones plus noise from seed 9), card against CPU within AUDIO_DB_ATOL
+    dB; ms of each on the card (host clock)."""
+    from paddle_tpu_torch import audio
+
+    tag = "audio"
+    n = AUDIO_SR * AUDIO_SECONDS
+    rng = np.random.default_rng(9)
+    t = np.arange(n) / AUDIO_SR
+    clips = np.stack([0.4 * np.sin(2 * np.pi * (110.0 * (i + 1)) * t)
+                      + 0.05 * rng.standard_normal(n)
+                      for i in range(AUDIO_CLIPS)]).astype(np.float32)
+    x = torch.from_numpy(clips)
+    out = {}
+    for name in ("LogMelSpectrogram", "MFCC"):
+        cpu_layer = getattr(audio, name)(sr=AUDIO_SR, device="cpu")
+        want = cpu_layer(x)
+        layer = getattr(audio, name)(sr=AUDIO_SR, device=dev)
+        xd = x.to(dev)
+        layer(xd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = layer(xd)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        err = float((got.cpu() - want).abs().max())
+        out[name] = [list(got.shape), round(ms, 3), float(f"{err:.3e}")]
+        if got.device.type != "cuda" or err > AUDIO_DB_ATOL or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"[{tag}] {name}: max |diff| {err} dB")
+    print(f"[{tag}] {AUDIO_CLIPS} clips of {AUDIO_SECONDS} s at "
+          f"{AUDIO_SR} Hz, card against CPU [shape, ms on the card, max "
+          f"|diff| dB] {json.dumps(out)} (tolerance {AUDIO_DB_ATOL} dB)",
+          flush=True)
+    _release()
 
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ device against the port on the CPU.
 The tables (``MATH``, ``CREATION``, ``MANIPULATION``, ``REDUCE``,
 ``LOGIC``, ``ACTIVATION``, ``LINALG``, ``EXTRA``, ``TAIL``, ``FFT``,
 ``NN`` (``nn.functional``'s ops), ``LEGACY`` (the detection and legacy
-ops) and ``NNTAIL`` (``nn.functional``'s tail, the rnn op and
-``vision.ops``): each a namespace of seeded numpy inputs and ``CASES``, rows of (op name,
+ops), ``NNTAIL`` (``nn.functional``'s tail, the rnn op and
+``vision.ops``), ``FUSEDINF`` (the fused inference ops) and ``INCUBATE``
+(the quantization, MoE and geometric ops): each a namespace of seeded numpy inputs and ``CASES``, rows of (op name,
 args, kwargs, options)) are the inputs of the CPU parity tests
 (``tests/test_torch_ops_*.py``, which hold the port against the JAX
 package) and of ``sweep``, which runs each case through
@@ -1361,14 +1362,170 @@ def _nntail():
     return SimpleNamespace(**locals())
 
 
+def _fused_inference():
+    """The fused inference ops (``ops.impl.fused_inference``): one or
+    two cases each, from the CPU parity tests
+    (``tests/test_torch_fused_inference.py``); the attention ops in
+    float32 (the flash kernel takes no float64)."""
+    R = np.random.default_rng(23)
+    F32_TOL = (1e-5, 1e-6)
+
+    def f64(*shape):
+        return R.standard_normal(shape)
+
+    def f32(*shape):
+        return R.standard_normal(shape).astype(np.float32)
+
+    A, B = f64(4, 6), f64(4, 6)
+    POS = R.uniform(0.5, 2.0, (4, 6))
+    X3, Y3 = f64(2, 3, 8), f64(2, 3, 8)
+    G8, B8 = R.uniform(0.5, 1.5, (8,)), f64(8)
+    QA, KA, VA = f32(2, 16, 4, 16), f32(2, 16, 4, 16), f32(2, 16, 4, 16)
+    IDS1 = R.integers(0, 10, (2, 5)).astype(np.int64)
+    IDS2 = R.integers(0, 7, (2, 5)).astype(np.int64)
+    ATTN = R.uniform(0.0, 1.0, (2, 2, 6, 6))
+    VQ, VK, VV = f64(2, 2, 5, 4), f64(2, 2, 5, 4), f64(2, 2, 5, 4)
+    SEQ = np.array([5, 5], np.int32)
+    CASES = [
+        ("fc", (f64(4, 3, 5), f64(15, 6), f64(6)),
+         {"activation_type": "relu"}, {"grad": True}),
+        ("fused_dropout_add", (A, B), {"p": 0.3, "is_test": True,
+                                       "mode": "downscale_in_infer"},
+         {"id": "infer"}),
+        ("fused_dot_product_attention", (QA, KA, VA),
+         {"is_causal_masking": True}, {"tol": F32_TOL}),
+        ("fused_elementwise_add", (A, B), {"act": "relu"}, {"grad": True}),
+        ("fused_elementwise_sub", (A, B), {"fused_output_scale": 0.5}, {}),
+        ("fused_elementwise_mul", (A, B), {"act": "gelu"}, {}),
+        ("fused_elementwise_div", (A, POS), {"act": "tanh"}, {}),
+        ("fused_elemwise_activation", (A, B),
+         {"functor_list": ["elementwise_mul", "sigmoid"]}, {}),
+        ("fused_elemwise_activation", (A, B),
+         {"functor_list": ["elementwise_add", "scale"], "scale": 0.25},
+         {"id": "scale"}),
+        ("fused_elemwise_add_activation", (A, B),
+         {"functor_list": ["elementwise_add", "tanh"]}, {}),
+        ("skip_layernorm", (X3, Y3, G8, B8), {}, {"grad": True}),
+        ("fused_bias_residual_layernorm", (X3, B8, Y3, G8, B8),
+         {"residual_alpha": 0.5}, {}),
+        ("add_group_norm_silu", (f64(2, 4, 4, 8), f64(2, 4, 4, 8), G8, B8),
+         {"groups": 4}, {"tol": F32_TOL}),
+        ("add_group_norm_silu", (f64(2, 8, 3, 3), None, G8, None),
+         {"groups": 2, "data_format": "NCHW"},
+         {"tol": F32_TOL, "id": "nchw"}),
+        ("fused_fc_elementwise_layernorm", (f64(4, 6), f64(6, 8), f64(4, 8),
+                                            B8, G8, B8), {}, {}),
+        ("fused_embedding_eltwise_layernorm",
+         ([IDS1, IDS2], [f64(10, 8), f64(7, 8)], B8, G8), {}, {}),
+        ("multihead_matmul", (f64(2, 5, 12), f64(12, 3, 2, 4),
+                              f64(3, 2, 4), f64(2, 2, 5, 5)),
+         {"alpha": 0.5, "head_number": 2}, {"grad": True}),
+        ("qkv_unpack_mha", (f32(2, 8, 2, 16), f32(2, 8, 2, 16),
+                            f32(2, 8, 2, 16)), {}, {"tol": F32_TOL}),
+        ("fused_scale_bias_add_relu", (f64(2, 4, 3), f64(3), f64(3),
+                                       f64(2, 4, 3), f64(3), f64(3)),
+         {"fuse_dual": True}, {}),
+        ("blha_get_max_len", (np.array([3, 9, 0, 4], np.int32),
+                              np.array([1, 0, 7, 2], np.int32)), {}, {}),
+        ("fused_token_prune", (ATTN, f64(2, 6, 3), np.ones((2, 2, 6, 6)),
+                               np.ones((2, 2, 3, 3))), {"keep_order": True},
+         {}),
+        ("fused_token_prune", (ATTN, f64(2, 6, 3), np.ones((2, 2, 6, 6)),
+                               np.ones((2, 2, 4, 4))),
+         {"keep_first_token": False}, {"id": "unordered"}),
+        ("max_pool2d_v2", (f64(2, 3, 6, 6), 2), {"stride": 2}, {}),
+        ("max_pool2d_v2", (f64(2, 3, 6, 6), 2), {"global_pooling": True},
+         {"id": "global"}),
+        ("variable_length_memory_efficient_attention",
+         (VQ, VK, VV, SEQ, np.array([3, 0], np.int32)), {}, {}),
+        ("variable_length_memory_efficient_attention",
+         (VQ, VK, VV, SEQ, np.array([5, 4], np.int32)),
+         {"causal": True, "mask": f64(2, 1, 5, 5)}, {"id": "causal"}),
+        ("gemm_epilogue", (f64(3, 4), f64(5, 4), f64(5)),
+         {"trans_y": True, "activation": "gelu"}, {"grad": True}),
+        ("resnet_unit", (f64(1, 6, 6, 4), f64(8, 4, 3, 3), G8, B8, B8,
+                         R.uniform(0.5, 2.0, (8,))), {}, {}),
+        ("resnet_unit", (f64(1, 6, 6, 4), f64(8, 4, 3, 3), G8, B8, B8,
+                         R.uniform(0.5, 2.0, (8,)), f64(1, 6, 6, 8)),
+         {"fuse_add": True, "act": "identity"}, {"id": "add"}),
+        ("fp8_fp8_half_gemm_fused", (f32(4, 16), f32(16, 8)),
+         {"bias": f32(8), "scale": 0.5, "activation_type": "relu"}, {}),
+        ("fp8_fp8_half_gemm_fused", (f32(16, 4), f32(8, 16)),
+         {"transpose_x": True, "transpose_y": True,
+          "output_dtype": "float32"}, {"tol": F32_TOL, "id": "transposed"}),
+    ]
+    RANDOM = {"fused_dropout_add": ((f32(64, 8), f32(64, 8)), {"p": 0.3})}
+    return SimpleNamespace(**locals())
+
+
+def _incubate():
+    """The quantization ops, the MoE ops and the geometric ops (each
+    registered when its module is imported: ``quantization``,
+    ``incubate``): one or more cases each, from
+    ``tests/test_torch_quantization.py``, ``test_torch_moe.py`` and
+    ``test_torch_incubate_tail.py``."""
+    R = np.random.default_rng(29)
+    F32_TOL = (1e-5, 1e-6)
+
+    def f64(*shape):
+        return R.standard_normal(shape)
+
+    def f32(*shape):
+        return R.standard_normal(shape).astype(np.float32)
+
+    W = f32(16, 8)
+    CODES = R.integers(-127, 128, (8, 16)).astype(np.int8)
+    SRC = np.array([0, 1, 2, 3, 4, 0, 2], np.int64)
+    DST = np.array([1, 2, 1, 0, 0, 4, 4], np.int64)
+    SEG = np.array([0, 0, 1, 3, 3, 3], np.int64)
+    LOGITS = f32(16, 4)
+    CASES = [
+        ("fake_quant_dequant", (f32(4, 8), 2.5), {}, {"grad": True}),
+        ("fake_quant_dequant", (f32(4, 8), 1.5), {"bit_length": 4},
+         {"id": "int4"}),
+        ("weight_quantize", (W,), {}, {}),
+        ("weight_quantize", (W,), {"algo": "weight_only_int4",
+                                   "group_size": 8}, {"id": "int4_g8"}),
+        ("weight_only_linear", (f32(3, 16), CODES, None,
+                                R.uniform(0.001, 0.01, (8,)).astype(
+                                    np.float32)), {}, {"tol": F32_TOL}),
+        ("weight_only_linear", (f32(3, 16), CODES, f32(8),
+                                R.uniform(0.001, 0.01, (8, 2)).astype(
+                                    np.float32)), {"group_size": 8},
+         {"tol": F32_TOL, "id": "grouped"}),
+        ("moe_dispatch_combine", (f32(16, 8), LOGITS, f32(4, 8, 12),
+                                  f32(4, 12, 8), 2, 1.0), {},
+         {"tol": F32_TOL}),
+        ("moe_balance_loss", (LOGITS,), {}, {"tol": F32_TOL}),
+        ("send_u_recv", (f64(5, 3), SRC, DST), {}, {"grad": True}),
+        ("send_u_recv", (f64(5, 3), SRC, DST), {"reduce_op": "max"},
+         {"id": "max"}),
+        ("send_u_recv", (f64(5, 3), SRC, DST), {"reduce_op": "mean",
+                                                "out_size": 6},
+         {"id": "mean"}),
+        ("send_ue_recv", (f64(5, 3), f64(7, 3), SRC, DST),
+         {"message_op": "mul", "reduce_op": "min"}, {}),
+        ("send_ue_recv", (f64(5, 3), f64(7, 3), SRC, DST),
+         {"message_op": "sub", "reduce_op": "sum"}, {"id": "sum"}),
+        ("segment_sum", (f64(6, 3), SEG), {}, {"grad": True}),
+        ("segment_mean", (f64(6, 3), SEG), {}, {}),
+        ("segment_max", (f64(6, 3), SEG), {}, {}),
+        ("segment_min", (f64(6, 3), SEG), {}, {}),
+    ]
+    RANDOM = {}
+    return SimpleNamespace(**locals())
+
+
 MATH, CREATION, MANIPULATION = _math(), _creation(), _manipulation()
 REDUCE, LOGIC, ACTIVATION = _reduce(), _logic(), _activation()
 LINALG, EXTRA, TAIL, FFT = _linalg(), _extra(), _tail(), _fft()
 NN, LEGACY, NNTAIL = _nn(), _legacy(), _nntail()
+FUSEDINF, INCUBATE = _fused_inference(), _incubate()
 TABLES = {"math": MATH, "creation": CREATION, "manipulation": MANIPULATION,
           "reduce": REDUCE, "logic": LOGIC, "activation": ACTIVATION,
           "linalg": LINALG, "extra": EXTRA, "tail": TAIL, "fft": FFT,
-          "nn": NN, "legacy": LEGACY, "nntail": NNTAIL}
+          "nn": NN, "legacy": LEGACY, "nntail": NNTAIL,
+          "fused_inference": FUSEDINF, "incubate": INCUBATE}
 
 
 def _random_cases():
@@ -1453,7 +1610,8 @@ FLOAT32_INSIDE = {"p_norm", "clip_by_norm", "renorm", "swiglu",
                   "fused_rotary_position_embedding",
                   "fused_bias_dropout_residual_layer_norm",
                   "fused_feedforward", "fused_linear_cross_entropy",
-                  "roi_align", "deform_conv2d"}
+                  "roi_align", "deform_conv2d", "add_group_norm_silu",
+                  "moe_dispatch_combine", "moe_balance_loss"}
 DEVICE_TOL = {torch.float64: (1e-9, 1e-11), torch.complex128: (1e-9, 1e-11),
               torch.float32: (1e-4, 1e-5), torch.complex64: (1e-4, 1e-5),
               torch.float16: (1e-2, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
@@ -1480,8 +1638,8 @@ def first_cases():
                 getattr(table, "SIGNAL_CASES", [])):
             out.setdefault(name, (args, kwargs))
     out.update(RANDOM)
-    out.update(NN.RANDOM)
-    out.update(NNTAIL.RANDOM)
+    for table in TABLES.values():
+        out.update(getattr(table, "RANDOM", {}))
     out.update(MORE)
     return out
 
@@ -1559,7 +1717,9 @@ def sweep(device="cuda", seed=5):
     the CPU. Returns {"ops": n, "failed": {op: why}, "worst": (op, err)}:
     err is the largest |device - cpu| / tolerance (1 passes)."""
     import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.incubate  # noqa: F401  (MoE, geometric ops)
     import paddle_tpu_torch.nn  # noqa: F401  (registers its ops)
+    import paddle_tpu_torch.quantization.quant  # noqa: F401
     import paddle_tpu_torch.vision.ops  # noqa: F401
     from paddle_tpu_torch.device import _CURRENT
     from paddle_tpu_torch.ops.registry import OP_TABLE
@@ -1576,8 +1736,9 @@ def sweep(device="cuda", seed=5):
             args, kwargs = cases[name]
             fn = op_of(name)
             try:
-                if name in RANDOM or name in NN.RANDOM or \
-                        name in NNTAIL.RANDOM:
+                if name in RANDOM or any(
+                        name in getattr(t, "RANDOM", {})
+                        for t in TABLES.values()):
                     ptt.seed(seed)
                     a = _flat(_run(fn, args, kwargs, dev))
                     ptt.seed(seed)

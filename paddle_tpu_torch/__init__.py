@@ -143,6 +143,7 @@ from .ops import registry as _registry  # noqa: E402
 from .ops.impl import (activation as _activation,  # noqa: E402,F401
                        creation as _creation, detection as _detection,
                        extra as _extra, fused as _fused,
+                       fused_inference as _fused_inference,
                        linalg as _linalg_impl, logic as _logic,
                        manipulation as _manipulation, math as _math,
                        misc_legacy as _misc_legacy, reduce as _reduce,
@@ -153,6 +154,8 @@ _registry.export_namespace(globals())
 _tensor_tail.install(globals())
 
 from . import fft, linalg, signal, strings  # noqa: E402,F401
+from . import version  # noqa: E402,F401
+from .version import full_version as __version__  # noqa: E402,F401
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True):
@@ -233,10 +236,11 @@ def is_grad_enabled_():
 
 # subpackages load on first use, so that ``import paddle_tpu_torch`` stays
 # light: ``paddle_tpu_torch.nn.Linear`` works through __getattr__
-_LAZY = {"amp", "compiler", "distributed", "framework", "hapi",
-         "incubate", "inference", "io", "jit", "metric", "models", "nn",
-         "observability", "onnx", "optimizer", "profiler", "quantization",
-         "serving", "vision", "weights"}
+_LAZY = {"amp", "audio", "compiler", "distributed", "framework",
+         "geometric", "hapi", "incubate", "inference", "io", "jit",
+         "metric", "models", "nn", "observability", "onnx", "optimizer",
+         "profiler", "quantization", "serving", "text", "vision",
+         "weights"}
 # top-level names of lazy subpackages, as the JAX package exports them
 _LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "ParamAttr": "nn",
                "DataParallel": "distributed"}

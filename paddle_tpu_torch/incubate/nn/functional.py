@@ -375,3 +375,33 @@ def masked_multihead_attention(x, cache_k, cache_v, seq_len, scale=None,
     out = _decode_attention(x, cache_k, cache_v, seq_len - 1, h,
                             cache_k.shape[2], scale=scale)
     return out.reshape(b, 1, h, d)
+
+
+# ---- the JAX package's aliases of registered ops --------------------------
+
+def fused_moe(x, gate_logits, w_gate_up, w_down, k=2, capacity_factor=1.5,
+              name=None):
+    """``moe_dispatch_combine`` (``incubate.distributed.moe_layer``)."""
+    from ..distributed.moe_layer import moe_dispatch_combine
+    return moe_dispatch_combine(x, gate_logits, w_gate_up, w_down, k,
+                                capacity_factor)
+
+
+def blha_get_max_len(seq_lens_encoder, seq_lens_decoder, batch_size=None,
+                     name=None):
+    """The ``blha_get_max_len`` op (``ops.impl.fused_inference``)."""
+    from ...ops.impl.fused_inference import blha_get_max_len as op
+    return op(seq_lens_encoder, seq_lens_decoder, batch_size)
+
+
+def variable_length_memory_efficient_attention(query, key, value, seq_lens,
+                                               kv_seq_lens, mask=None,
+                                               scale=None, causal=False,
+                                               pre_cache_length=0,
+                                               name=None):
+    """The ``variable_length_memory_efficient_attention`` op
+    (``ops.impl.fused_inference``)."""
+    from ...ops.impl.fused_inference import \
+        variable_length_memory_efficient_attention as op
+    return op(query, key, value, seq_lens, kv_seq_lens, mask, scale, causal,
+              pre_cache_length)

@@ -17,6 +17,15 @@ shared layer once, under its first index, so it bridges the same way
 ``optimizer_state_numpy`` / ``load_optimizer_state`` carry an optimizer's
 state in its ``state_dict`` layout, a ZeRO-sharded one's slices gathered
 into whole arrays.
+
+The quantized and MoE layers bridge by name too: ``QuantedLinear`` keeps
+its Linear as ``inner`` (``...q_proj.inner.weight``), ``QuantedConv2D``
+as ``conv``, ``MoELayer`` its ``w_gate_up``, ``w_down`` and
+``gate.gate.weight``, in both packages. An observer's calibration state
+is no parameter in either package (a Python float, numpy histograms, a
+scale tensor): ``observer_state`` reads it from a model of either
+package by sublayer name, and ``load_observer_state`` writes it into a
+port model, so a calibrated or QAT-trained model carries over whole.
 """
 
 from __future__ import annotations
@@ -150,3 +159,64 @@ def load_optimizer_state(optimizer, arrays):
                                   _to_tensor(v))
                               for k, v in arrays.items()})
     return optimizer
+
+
+# the attributes that hold an observer's or quanter's calibration state
+OBSERVER_STATE = ("_scale", "_hist", "_edges", "_edge")
+
+
+def _state_value(v):
+    """An observer attribute as a Python float or a numpy array (a torch
+    tensor or another package's tensor, through ``numpy()``)."""
+    if v is None or isinstance(v, (int, float)):
+        return v
+    if torch.is_tensor(v):
+        t = v.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+    if hasattr(v, "numpy"):
+        return np.array(v.numpy(), copy=True)
+    return np.array(v, copy=True)
+
+
+def _sublayers(model):
+    """(name, layer) of `model` and its sublayers: ``named_sublayers`` of
+    a paddle layer (either package), ``named_modules`` of a torch module."""
+    if hasattr(model, "named_sublayers"):
+        return list(model.named_sublayers(include_self=True))
+    return list(model.named_modules())
+
+
+def observer_state(model):
+    """{sublayer name: {attribute: value}} of every observer and quanter
+    (a sublayer with ``quant_bits``) of `model`, a port or a JAX model
+    (``named_sublayers``): the scale (a float or a numpy array), and the
+    histogram observers' ``_hist`` with ``_edges`` / ``_edge``."""
+    out = {}
+    for name, layer in _sublayers(model):
+        if not hasattr(layer, "quant_bits"):
+            continue
+        out[name] = {a: _state_value(getattr(layer, a))
+                     for a in OBSERVER_STATE if hasattr(layer, a)}
+    return out
+
+
+def load_observer_state(model, state, device=None):
+    """Write ``observer_state``'s dict into the port `model`'s observers
+    (by sublayer name; every name must be one). A numpy scale becomes a
+    float32 tensor on `device` (default: the model's parameters')."""
+    layers = dict(_sublayers(model))
+    extra = sorted(set(state) - set(layers))
+    if extra:
+        raise KeyError(f"no such observers: {extra[:5]}")
+    if device is None:
+        p = next(model.parameters(), None)
+        device = p.device if p is not None else "cpu"
+    for name, attrs in state.items():
+        layer = layers[name]
+        for a, v in attrs.items():
+            if a == "_scale" and isinstance(v, np.ndarray):
+                v = torch.as_tensor(v, dtype=torch.float32, device=device)
+            elif isinstance(v, np.ndarray):
+                v = v.copy()
+            setattr(layer, a, v)
+    return model

@@ -528,8 +528,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     assert LlamaForCausalLM(LlamaConfig.tiny(),
                             device="cpu").device.type == "cpu"
     # every layer and model that holds parameters resolves its device so
+    from paddle_tpu_torch import audio
     from paddle_tpu_torch import nn as tnn
     from paddle_tpu_torch.incubate import nn as tinn
+    from paddle_tpu_torch.incubate.distributed.models import moe
     from paddle_tpu_torch.models import (BertConfig, BertForMaskedLM,
                                          BertForSequenceClassification,
                                          BertModel, GPTConfig,
@@ -558,6 +560,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         lambda **kw: LlamaForCausalLM(
             LlamaConfig(**{**vars(LlamaConfig.tiny()), "recompute": True}),
             **kw),
+        lambda **kw: moe.MoELayer(8, 16, num_expert=4, **kw),
+        lambda **kw: moe.GShardGate(8, 4, **kw),
+        lambda **kw: moe.SwitchGate(8, 4, **kw),
+        lambda **kw: audio.MFCC(sr=8000, **kw),
     ]
     for make in makers:
         for kw in ({}, {"device": "cuda"}):
@@ -624,7 +630,17 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.compiler.cleanup, "
             "paddle_tpu_torch.compiler.remat, "
             "paddle_tpu_torch.ops.kernels._ops, "
-            "paddle_tpu_torch.distributed.passes, fusion_audit_torch; "
+            "paddle_tpu_torch.distributed.passes, fusion_audit_torch, "
+            "paddle_tpu_torch.quantization, "
+            "paddle_tpu_torch.quantization.quant, "
+            "paddle_tpu_torch.incubate, paddle_tpu_torch.incubate.asp, "
+            "paddle_tpu_torch.incubate.optimizer, "
+            "paddle_tpu_torch.incubate.distributed.moe_layer, "
+            "paddle_tpu_torch.incubate.distributed.models.moe, "
+            "paddle_tpu_torch.ops.impl.fused_inference, "
+            "paddle_tpu_torch.geometric, paddle_tpu_torch.text, "
+            "paddle_tpu_torch.text.datasets, paddle_tpu_torch.audio, "
+            "paddle_tpu_torch.audio.datasets, paddle_tpu_torch.version; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad); "

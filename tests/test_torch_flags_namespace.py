@@ -9,8 +9,8 @@
   (deterministic on, benchmark cleared; off again), and
   ``FLAGS_benchmark`` makes each surface op wait for its outputs;
 - ``dir(paddle_tpu)`` of a fresh process against ``paddle_tpu_torch``:
-  equal, less the names that ROADMAP §A still owes and those absent by
-  design (``OWED``, each with its section); ``ParamAttr``,
+  equal, less the names absent by design (``OWED``, each with its
+  reason; ROADMAP §A owes none there any more); ``ParamAttr``,
   ``CustomPlace``, ``flops``, ``inference`` and ``onnx`` are top-level
   names, and ``flops`` returns what the JAX package's returns.
 """
@@ -36,22 +36,9 @@ from paddle_tpu_torch.ops import registry
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# names of the JAX package's top level that the port does not have yet
-# (ROADMAP section) or has by design never
+# names of the JAX package's top level that the port has by design never
+# (nothing of ROADMAP §A is owed there any more)
 OWED = {
-    **{n: "§A.11 (ops/impl/fused_inference.py)" for n in (
-        "add_group_norm_silu", "blha_get_max_len", "fc",
-        "fp8_fp8_half_gemm_fused", "fused_bias_residual_layernorm",
-        "fused_dot_product_attention", "fused_dropout_add",
-        "fused_elementwise_add", "fused_elementwise_div",
-        "fused_elementwise_mul", "fused_elementwise_sub",
-        "fused_elemwise_activation", "fused_elemwise_add_activation",
-        "fused_embedding_eltwise_layernorm",
-        "fused_fc_elementwise_layernorm", "fused_scale_bias_add_relu",
-        "fused_token_prune", "gemm_epilogue", "max_pool2d_v2",
-        "multihead_matmul", "qkv_unpack_mha", "resnet_unit",
-        "skip_layernorm", "variable_length_memory_efficient_attention")},
-    "version": "§A.14 (version.py)",
     "core": "by design (the JAX Tensor and dispatcher)",
     "TPUPlace": "by design (no TPU)",
     "annotations": "by design (a __future__ import, not an API)",

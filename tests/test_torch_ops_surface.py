@@ -1,10 +1,12 @@
 """The port's op surface as a whole, against the JAX package's:
 
 - coverage: every name the JAX package's creation, math, manipulation,
-  reduce, logic, linalg, activation, fused, extra, detection and legacy
-  modules, ``tensor_tail``, ``fft``, ``signal``, ``nn.functional``'s
-  common, conv, pooling, norm, loss, attention and tail modules, the rnn
-  layers' module and ``vision.ops`` put in ``OP_TABLE`` (read by
+  reduce, logic, linalg, activation, fused, extra, detection, legacy and
+  fused inference modules, ``tensor_tail``, ``fft``, ``signal``,
+  ``nn.functional``'s common, conv, pooling, norm, loss, attention and
+  tail modules, the rnn layers' module, ``vision.ops``,
+  ``quantization``, the MoE layer's module and ``geometric`` put in
+  ``OP_TABLE`` (read by
   each entry's ``fn.__module__``) is an attribute of ``paddle_tpu_torch``
   or of its ``fft``/``signal``/``linalg`` namespace, and the port's
   top-level ``_`` names equal the JAX package's;
@@ -30,35 +32,46 @@ import torch
 
 import paddle_tpu as paddle
 import paddle_tpu.fft  # noqa: F401
+import paddle_tpu.incubate  # noqa: F401  (the MoE and geometric ops)
 import paddle_tpu.linalg  # noqa: F401
 import paddle_tpu.nn.layer.rnn  # noqa: F401
 import paddle_tpu.signal  # noqa: F401
+import paddle_tpu.quantization  # noqa: F401
 import paddle_tpu.vision.ops  # noqa: F401
 from paddle_tpu import amp as jamp
 from paddle_tpu.amp import debugging as jdbg
+from paddle_tpu.incubate.distributed import moe_layer as jmoe
 from paddle_tpu.ops.registry import OP_TABLE as JOP_TABLE
 
 import paddle_tpu_torch as ptt
+import paddle_tpu_torch.incubate  # noqa: F401  (the MoE and geometric ops)
 import paddle_tpu_torch.nn  # noqa: F401  (registers its ops)
+import paddle_tpu_torch.quantization.quant  # noqa: F401
 import paddle_tpu_torch.vision.ops  # noqa: F401
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch.amp import debugging as tdbg
+from paddle_tpu_torch.incubate.distributed import moe_layer as tmoe
 from paddle_tpu_torch.ops.registry import OP_TABLE
 from torch_parity import SWEEP, cpu_device, rng  # noqa: F401
 
 torch.set_num_threads(1)
+# the MoE balance loss registers its op at its first call, in both packages
+jmoe.load_balance_loss(paddle.zeros([2, 2]))
+tmoe.load_balance_loss(torch.zeros(2, 2))
 
 SLICE_MODULES = {f"paddle_tpu.ops.impl.{m}" for m in (
     "creation", "math", "manipulation", "reduce", "logic", "linalg",
     "activation", "fused", "extra", "detection", "misc_legacy",
-    "sampling_legacy")} | {
+    "sampling_legacy", "fused_inference")} | {
     "paddle_tpu.tensor_tail", "paddle_tpu.fft", "paddle_tpu.signal"} | {
     f"paddle_tpu.nn.functional.{m}" for m in (
         "common", "conv", "pooling", "norm", "loss", "attention",
-        "tail")} | {"paddle_tpu.nn.layer.rnn", "paddle_tpu.vision.ops"}
-# left for a later slice (ROADMAP §A.11): fused_inference; sdp_kernel
-# only raises in JAX
-LATER = {"paddle_tpu.ops.impl.fused_inference"}
+        "tail")} | {"paddle_tpu.nn.layer.rnn", "paddle_tpu.vision.ops",
+                    "paddle_tpu.quantization",
+                    "paddle_tpu.incubate.distributed.moe_layer",
+                    "paddle_tpu.geometric"}
+# left for a later slice: nothing (sdp_kernel only raises in JAX)
+LATER = set()
 
 
 def test_every_jax_op_of_the_slice_is_on_the_port():
@@ -79,12 +92,15 @@ def test_every_jax_op_of_the_slice_is_on_the_port():
 
 
 def test_later_ops_are_what_the_port_lacks_and_the_sweep_covers_the_rest():
-    """ROADMAP §A.11 leaves fused_inference; every op the port has
-    (nn.functional's with its tail, the rnn op, vision.ops and the legacy
-    and detection ops among them) runs in the sweep, which passes on the
-    CPU against itself."""
+    """No JAX op module is left for later (LATER is empty: the fused
+    inference ops came with the quantization, MoE and geometric ones);
+    every op the port has (nn.functional's with its tail, the rnn op,
+    vision.ops, the legacy, detection and fused inference ops, the
+    quantization, MoE and geometric ops among them) runs in the sweep,
+    which passes on the CPU against itself."""
+    assert LATER == set()
     later = [n for n, e in JOP_TABLE.items() if e["fn"].__module__ in LATER]
-    assert later and not any(hasattr(ptt, n) for n in later)
+    assert later == []
     assert set(OP_TABLE) <= set(SWEEP.first_cases())
     out = SWEEP.sweep("cpu")
     assert out["ops"] == len(OP_TABLE) and out["failed"] == {}
