@@ -3,7 +3,9 @@
     python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from paddle_tpu_torch/csrc (one nvcc per
-source, all started together; each build's seconds printed), then:
+source, all started together; each build's seconds printed) and, beside
+them, the native runtime from paddle_tpu_torch/csrc/native (the runner
+library, ptt_run and the C++ op library, paddle_tpu_torch.runtime), then:
 
 1. kernels: each kernel against its plain PyTorch version on the card
    (each kernel with a custom op called through it, `torch.ops.ptt`), at
@@ -337,6 +339,17 @@ source, all started together; each build's seconds printed), then:
    text: viterbi_decode (32 x 256 x 64) card against CPU, paths equal;
    audio: LogMelSpectrogram and MFCC of 32 clips of 5 s at 44.1 kHz card
    against CPU.
+16. the Python-free native runner (slice 24): deploy:native runs its
+   package through the C API (ptt_predictor_* over ctypes); deploy:cpp
+   (after it) runs the same package with no Python in the process:
+   ptt_run (ldd shows no libpython; an environment without PYTHON*
+   variables) on the artifact's ids, its logits within the bf16 rule of
+   eager, its C++ ops' launches those of one forward on the tensor-core
+   and q + k routes, load and run seconds; a plain C client
+   (examples/ptt_c_client.c, gcc -x c) giving ptt_run's bytes; and
+   ptt_run --selftest: each of the seven C++ ops once through the
+   dispatcher on seeded inputs at the deploy widths, bit-equal to the
+   Python op on the same inputs.
 
 Each flashmask, fused_ffn, tail, serving (serve:mesh too), BERT, training
 (the resilient one's too) and deploy run's launch counts are set to 0 just before it and read just after it; every kernel of its path
@@ -2098,10 +2111,15 @@ def main():
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     parent = _start_parent(args.parent) if args.parent else None
+    from paddle_tpu_torch import runtime
+    native_job = runtime.start_build(ops=True)
     waited = _build.build_all()
+    native_s = runtime.finish_build(native_job)
     print(f"[build] seconds per source "
           f"{json.dumps({k: round(v, 2) for k, v in waited.items()})}"
-          f" total_s={time.perf_counter() - t0:.2f}", flush=True)
+          f" total_s={time.perf_counter() - t0:.2f}; the native runtime "
+          f"(runner, ptt_run, C++ op library, g++ beside nvcc) done at "
+          f"{native_s:.2f} s into {runtime.build_dir()}", flush=True)
     if parent:
         _finish_parent(parent)
         print(f"[build] the parent's {', '.join(PARENT_SOURCES)} from "
@@ -2208,7 +2226,9 @@ def main():
     resnet = run("train:resnet", phase_train_resnet, dev)
     deployed, deploy_art = run("deploy", phase_deploy, K, dev, resnet)
     del resnet
-    native = run("deploy:native", phase_deploy_native, K, *deploy_art)
+    native, native_logits = run("deploy:native", phase_deploy_native, K,
+                                *deploy_art)
+    run("deploy:cpp", phase_deploy_cpp, K, *deploy_art, native_logits)
     del deploy_art
     rtrain = run("train:resilient", phase_train_resilient, K, dev)
     print(f"[time] seconds per phase {json.dumps(times)}; total since the "
@@ -8796,9 +8816,10 @@ def phase_deploy_native(K, path, ids, want):
     rms(want) of the eager forward's (Inductor fuses the elementwise work
     around the kernels: bit-equality is not expected; the bit-equal share
     is printed), and a second construction that reuses the compiled
-    package (no compile)."""
-    import shutil
-
+    package (no compile). The package runs through the C API
+    (``ptt_predictor_*``), the package calling the Python ops back in
+    this process. Returns the launches and the logits' bytes; the
+    artifact stays for ``[deploy:cpp]``."""
     from paddle_tpu_torch.inference.native import NativePredictor
 
     tag = "deploy:native"
@@ -8832,9 +8853,213 @@ def phase_deploy_native(K, path, ids, want):
         raise AssertionError(f"[{tag}] native logits worst {worst:.3f}, "
                              f"second compile {again.compile_s}")
     del npred, again
+    _release()
+    return launches, outs[0]
+
+
+# [deploy:cpp]: ptt_run's timed runs of the package (the first is cold)
+DEPLOY_CPP_RUNS = 3
+# ptt_run --selftest: each C++ op once at the deploy widths (Llama-2-7B:
+# hidden 4096, FFN 11008, 32 heads of 128, [4, 512] tokens), bf16, seed 24;
+# bias-dropout-residual-LN at [2048, 4096] with p 0.1
+SELFTEST_SEED = 24
+SELFTEST_BDRLN = dict(eps=1e-5, p=0.1, seed=1234)
+
+
+def _scrubbed_env():
+    """This process's environment less every PYTHON* variable."""
+    return {k: v for k, v in os.environ.items()
+            if not k.startswith("PYTHON")}
+
+
+def _selftest_calls(dev):
+    """[(name, op, args)] of ptt_run --selftest: seeded inputs on the
+    card, as the Python ops take them."""
+    g = torch.Generator(device="cpu").manual_seed(SELFTEST_SEED)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    b, s, h, f, nh, d = 4, 512, 4096, 11008, 32, 128
+    q, k, v = (rnd(b, s, nh, d) for _ in range(3))
+    cos, sin = rnd(s, d, dtype=torch.float32), rnd(s, d, dtype=torch.float32)
+    # two documents of 256 tokens: rows of the second cannot see the first
+    start = torch.full((b, 1, s), s, dtype=torch.int32)
+    start[:, :, : s // 2] = s // 2
+    end = torch.full((b, 1, s), s, dtype=torch.int32)
+    x = rnd(b * s, h)
+    return [
+        ("rms", "rms_norm", [rnd(b, s, h), rnd(h), 1e-6]),
+        ("swiglu", "swiglu", [rnd(b, s, f), rnd(b, s, f)]),
+        ("rope", "fused_rope", [q, cos, sin]),
+        ("rope_qk", "fused_rope_qk", [q, k, cos, sin]),
+        ("flash", "flash_attention_fwd", [q, k, v, True, None]),
+        ("flashmask", "flashmask_attention_fwd",
+         [q, k, v, start.to(dev), end.to(dev), None, None, True, 0.08]),
+        ("bdrln", "bias_dropout_residual_ln",
+         [x, rnd(b * s, h), rnd(h), rnd(h), rnd(h),
+          SELFTEST_BDRLN["eps"], SELFTEST_BDRLN["p"],
+          SELFTEST_BDRLN["seed"]]),
+    ]
+
+
+def _write_selftest(workdir, calls):
+    """<workdir>/calls.txt and each tensor's bytes, in ptt_run's format."""
+    from paddle_tpu_torch.runtime import DTYPE_CODES
+
+    lines = []
+    for name, op, args in calls:
+        parts = [name, op]
+        for j, a in enumerate(args):
+            if isinstance(a, torch.Tensor):
+                fname = f"{name}.in{j}.bin"
+                a.contiguous().cpu().view(torch.uint8).numpy().tofile(
+                    os.path.join(workdir, fname))
+                code = DTYPE_CODES[str(a.dtype).removeprefix("torch.")]
+                parts.append(f"t:{code}:{a.dim()}:"
+                             f"{','.join(map(str, a.shape))}:{fname}")
+            elif a is None:
+                parts.append("none")
+            elif isinstance(a, bool):
+                parts.append(f"b:{int(a)}")
+            elif isinstance(a, int):
+                parts.append(f"i:{a}")
+            else:
+                parts.append(f"f:{a!r}")
+        lines.append(" ".join(parts))
+    with open(os.path.join(workdir, "calls.txt"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def _stderr_field(text, key):
+    """The values of `key: value` lines of ptt_run's stderr."""
+    return [line.split(": ", 1)[1] for line in text.splitlines()
+            if line.startswith(key + ": ")]
+
+
+def phase_deploy_cpp(K, path, ids, want, native_logits):
+    """[deploy:cpp]: ``[deploy:native]``'s AOTInductor package (no second
+    compile) with no Python in the process. ``ptt_run`` (``ldd`` shows no
+    libpython) runs it DEPLOY_CPP_RUNS times on the artifact's ids in a
+    subprocess whose environment has no PYTHON* variables: its logits
+    within the bf16 rule of the eager forward's (the share bit-equal to
+    ``[deploy:native]``'s printed), the C++ ops' launches of its last run
+    equal to one forward's (flash on the tensor cores, RoPE's q and k in
+    one vector launch), the load's and each run's seconds printed. A
+    plain C client (examples/ptt_c_client.c, compiled with gcc -x c
+    against the header) gives ptt_run's bytes. ``ptt_run --selftest``
+    calls each of the seven C++ ops once through the dispatcher on seeded
+    inputs (``_selftest_calls``): every output bit-equal to the Python op's
+    on the same inputs (both launch the same kernel), one launch each."""
+    import shutil
+
+    from paddle_tpu_torch import runtime
+
+    tag = "deploy:cpp"
+    p = runtime.paths()
+    ldd = subprocess.run(["ldd", str(p["run"])], capture_output=True,
+                         text=True, check=True).stdout
+    if "libpython" in ldd:
+        raise AssertionError(f"[{tag}] ptt_run links libpython:\n{ldd}")
+    work = os.path.abspath(os.path.join(DEPLOY_DIR, "cpp"))
+    os.makedirs(work, exist_ok=True)
+    ids_bin = os.path.join(work, "ids.bin")
+    np.ascontiguousarray(ids, dtype=np.int64).tofile(ids_bin)
+    spec = f"7:2:{ids.shape[0]},{ids.shape[1]}:{ids_bin}"
+    package = os.path.abspath(path + ".aoti.pt2")
+    env = _scrubbed_env()
+    t0 = time.perf_counter()
+    r = subprocess.run([str(p["run"]), "--runs", str(DEPLOY_CPP_RUNS),
+                        package, spec], cwd=work, env=env,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"[{tag}] ptt_run rc {r.returncode}:\n"
+                             f"{r.stderr[-4000:]}")
+    launches = json.loads(_stderr_field(r.stderr, "launches")[-1])
+    load_s = float(_stderr_field(r.stderr, "load_s")[0])
+    run_s = [float(t) for t in _stderr_field(r.stderr, "run_s")]
+    platform = _stderr_field(r.stderr, "platform")[0]
+    raw = open(os.path.join(work, "out_0.bin"), "rb").read()
+    got = torch.frombuffer(bytearray(raw), dtype=torch.bfloat16).reshape(
+        want.shape).float()
+    ref = want.float().cpu()
+    err = (got - ref).abs()
+    allow = BWD_REL_BF16 * ref.abs() + \
+        BWD_FLOOR_BF16 * float(ref.square().mean().sqrt())
+    worst = float((err / allow).max())
+    native = torch.frombuffer(bytearray(native_logits.tobytes()),
+                              dtype=torch.bfloat16).reshape(want.shape)
+    same_native = float((got == native.float()).float().mean())
+    print(f"[{tag}] ptt_run {package} (no libpython in ldd, no PYTHON* "
+          f"variables): platform {platform}, load_s={load_s:.3f}, run_s="
+          f"{json.dumps([round(t, 4) for t in run_s])} (the first cold), "
+          f"process wall {wall:.2f} s; logits against eager: max |diff| "
+          f"{float(err.max()):.3e}, worst err / (2^-7 |want| + 2^-8 "
+          f"rms(want)) {worst:.3f} (<= 1); share bit-equal to "
+          f"[deploy:native]'s {same_native:.4f}", flush=True)
+    _check_deploy_launches(tag, launches, DEPLOY_LAYERS)
+    if worst > 1.0 or platform != "cuda":
+        raise AssertionError(f"[{tag}] ptt_run logits worst {worst:.3f} "
+                             f"on {platform}")
+
+    client = os.path.join(work, "ptt_c_client")
+    cc = subprocess.run(
+        ["gcc", "-x", "c", os.path.abspath("examples/ptt_c_client.c"),
+         "-x", "none", "-I", str(p["include"]), str(p["lib"]),
+         f"-Wl,-rpath,{p['dir']}", "-o", client],
+        capture_output=True, text=True)
+    if cc.returncode != 0:
+        raise AssertionError(f"[{tag}] the C client does not build:\n"
+                             f"{cc.stderr[-4000:]}")
+    t0 = time.perf_counter()
+    c = subprocess.run([client, os.path.abspath(path), "cuda", "7", ids_bin,
+                        *map(str, ids.shape)], cwd=work, env=env,
+                       capture_output=True, text=True, timeout=600)
+    c_wall = time.perf_counter() - t0
+    if c.returncode != 0:
+        raise AssertionError(f"[{tag}] the C client rc {c.returncode}:\n"
+                             f"{c.stderr[-4000:]}")
+    c_raw = open(os.path.join(work, "c_out_0.bin"), "rb").read()
+    print(f"[{tag}] C client (gcc -x c, ptt_predictor_*): "
+          f"{c.stdout.strip().splitlines()[0]}, process wall {c_wall:.2f} "
+          f"s; bytes equal to ptt_run's {c_raw == raw}", flush=True)
+    if c_raw != raw:
+        raise AssertionError(f"[{tag}] the C client's logits differ from "
+                             "ptt_run's")
+
+    selftest = os.path.join(work, "selftest")
+    os.makedirs(selftest, exist_ok=True)
+    calls = _selftest_calls(torch.device("cuda", 0))
+    _write_selftest(selftest, calls)
+    st = subprocess.run([str(p["run"]), "--selftest", selftest], env=env,
+                        capture_output=True, text=True, timeout=600)
+    if st.returncode != 0:
+        raise AssertionError(f"[{tag}] ptt_run --selftest rc "
+                             f"{st.returncode}:\n{st.stderr[-4000:]}")
+    st_launches = json.loads(_stderr_field(st.stderr, "launches")[-1])
+    equal = {}
+    for name, op, args in calls:
+        outs = getattr(torch.ops.ptt, op)(*args)
+        outs = outs if isinstance(outs, (tuple, list)) else [outs]
+        equal[f"{name}:{op}"] = all(
+            open(os.path.join(selftest, f"{name}.out{j}.bin"), "rb").read()
+            == o.contiguous().cpu().view(torch.uint8).numpy().tobytes()
+            for j, o in enumerate(outs))
+    want_st = {"rms_norm": 1, "swiglu": 1, "fused_rope": 2,
+               "fused_rope.qk": 1, "fused_rope.scalar": 0,
+               "flash_attention": 1, "flash_attention.sm90": 1,
+               "flashmask_attention": 1, "flashmask_attention.sm90": 1,
+               "bias_dropout_residual_ln": 1}
+    print(f"[{tag}] ptt_run --selftest at the deploy widths (bf16, seed "
+          f"{SELFTEST_SEED}): bit-equal to the Python op {json.dumps(equal)};"
+          f" C++ launches {json.dumps(st_launches)}", flush=True)
+    bad = {k: v for k, v in want_st.items() if st_launches.get(k) != v}
+    if not all(equal.values()) or bad:
+        raise AssertionError(f"[{tag}] selftest: {equal}, launches off "
+                             f"{bad}")
     shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
     _release()
-    return launches
 
 
 

@@ -237,10 +237,10 @@ def is_grad_enabled_():
 # subpackages load on first use, so that ``import paddle_tpu_torch`` stays
 # light: ``paddle_tpu_torch.nn.Linear`` works through __getattr__
 _LAZY = {"amp", "audio", "compiler", "distributed", "framework",
-         "geometric", "hapi", "incubate", "inference", "io", "jit",
+         "geometric", "hapi", "hub", "incubate", "inference", "io", "jit",
          "metric", "models", "nn", "observability", "onnx", "optimizer",
-         "profiler", "quantization", "serving", "text", "vision",
-         "weights"}
+         "profiler", "quantization", "regularizer", "serving",
+         "text", "utils", "vision", "weights"}
 # top-level names of lazy subpackages, as the JAX package exports them
 _LAZY_NAMES = {"Model": "hapi", "summary": "hapi", "ParamAttr": "nn",
                "DataParallel": "distributed"}

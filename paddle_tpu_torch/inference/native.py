@@ -7,21 +7,21 @@ package: ``torch._inductor.aoti_compile_and_package`` compiles the
 ``jit.load``'ed program (the ``.pdiparams`` weights in it) once into
 ``<path>.aoti.pt2``, for the device it runs on, and a later construction
 over the same program, weights and device reuses that file (the key is
-kept in ``<path>.aoti.json``); ``aoti_load_package`` runs it.
+kept in ``<path>.aoti.json``). Inductor links the package with
+``-fopenmp``, so the compile uses ``runtime.openmp_cxx()``.
 
-Inductor links the package with ``-fopenmp``, so the C++ compiler must
-find OpenMP's ``libgomp.spec``: the one Inductor is configured with (the
-``CXX`` environment variable, else ``g++``) when it does, else the first
-``g++`` / ``c++`` on ``PATH`` that does (``_openmp_cxx``).
-
-The kernels are ``ptt`` custom ops registered from Python, so the
-compiled package calls them back through the dispatcher: unlike the JAX
-package's runner, this one is not free of Python. A Python-free runner
-needs the kernels registered as C++ ops.
+The package then runs through the native runtime's C API
+(``ptt_predictor_*`` of ``csrc/native/paddle_tpu_torch_c_api.h`` over
+``ctypes``), as the JAX predictor runs through ``pjrt_runner.cc``: the
+same library serves ``ptt_run`` and a plain C client with no Python in
+the process. Here, in a Python process, the package reaches the kernels
+as the ``ptt`` ops that ``ops.kernels`` registers (counted in
+``<wrapper>.launches``); without Python, the C++ ops of ``ops.cpp``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import os
@@ -30,30 +30,7 @@ import time
 import numpy as np
 import torch
 
-
-def _openmp_cxx():
-    """A C++ compiler that can link OpenMP (finds ``libgomp.spec``):
-    Inductor's configured one first, then ``g++`` / ``c++`` on PATH."""
-    import shutil
-    import subprocess
-
-    from torch._inductor import config
-    cxx = config.cpp.cxx
-    tried = [c for c in (cxx if isinstance(cxx, (list, tuple)) else [cxx])
-             if c] + [shutil.which(c) for c in ("g++", "c++")]
-    for c in tried:
-        if not c:
-            continue
-        try:
-            spec = subprocess.run([c, "-print-file-name=libgomp.spec"],
-                                  capture_output=True, text=True,
-                                  timeout=60).stdout.strip()
-        except OSError:
-            continue
-        if os.path.isabs(spec) and os.path.isfile(spec):
-            return c
-    raise RuntimeError(f"no C++ compiler of {tried} finds libgomp.spec, "
-                       "which AOTInductor's link step (-fopenmp) needs")
+from ..runtime import DTYPE_CODES
 
 
 def _digest(paths, device):
@@ -73,9 +50,9 @@ class NativePredictor:
     time (0.0 when the package was reused)."""
 
     def __init__(self, path, device=None):
-        from torch._inductor import aoti_compile_and_package, \
-            aoti_load_package
+        from torch._inductor import aoti_compile_and_package
 
+        from .. import runtime
         from ..device import resolve_device
         from ..jit import load as jit_load
         with open(path + ".native.json") as f:
@@ -102,7 +79,7 @@ class NativePredictor:
             # tiny Llama on a CPU host); on the card the package's host code
             # is the wrapper alone, so Inductor's probe of the CPU's vector
             # ISAs (a test build per ISA, ~25 s on a CPU host) is skipped
-            opts = {"cpp.cxx": (None, _openmp_cxx()),
+            opts = {"cpp.cxx": (None, runtime.openmp_cxx()),
                     "aot_inductor.precompile_headers": False}
             if self._device.type == "cuda":
                 opts["cpp.vec_isa_ok"] = False
@@ -111,11 +88,21 @@ class NativePredictor:
             self.compile_s = time.perf_counter() - t0
             with open(path + ".aoti.json", "w") as f:
                 json.dump({"key": key}, f)
-        self._runner = aoti_load_package(package)
-        self.num_outputs = None
+        # the ptt ops the package calls, defined before it is loaded
+        from ..ops import kernels  # noqa: F401
+        self._lib = runtime.get_native_lib()
+        err = ctypes.create_string_buffer(1024)
+        self._pred = self._lib.ptt_predictor_create(
+            path.encode(), str(self._device).encode(), err, 1024)
+        if not self._pred:
+            raise RuntimeError(f"native predictor: {err.value.decode()}")
+        self.num_outputs = int(self._lib.ptt_predictor_num_outputs(
+            self._pred))
 
     def platform(self):
-        return "cuda" if self._device.type == "cuda" else "cpu"
+        buf = ctypes.create_string_buffer(64)
+        self._lib.ptt_predictor_platform(self._pred, buf, 64)
+        return buf.value.decode()
 
     def run(self, *inputs):
         """inputs: numpy arrays (or tensors) matching the exported
@@ -135,15 +122,39 @@ class NativePredictor:
                 raise ValueError(
                     f"input shape {tuple(t.shape)} != exported "
                     f"{spec['shape']}")
-            xs.append(t.to(self._device, getattr(torch, spec["dtype"])))
-        with torch.no_grad():
-            outs = self._runner(*xs)
-        outs = outs if isinstance(outs, (list, tuple)) else [outs]
-        self.num_outputs = len(outs)
-        return [_bytes(o) for o in outs]
+            xs.append(t.detach().to("cpu", getattr(torch, spec["dtype"]))
+                      .contiguous())
+        n = len(xs)
+        dims = [d for t in xs for d in t.shape]
+        data = (ctypes.c_void_p * n)(*[t.data_ptr() for t in xs])
+        dims_arr = (ctypes.c_int64 * max(len(dims), 1))(*dims)
+        ranks = (ctypes.c_int * n)(*[t.dim() for t in xs])
+        codes = (ctypes.c_int * n)(
+            *[DTYPE_CODES[str(t.dtype).removeprefix("torch.")] for t in xs])
+        max_out = max(self.num_outputs, 1)
+        out_ptrs = (ctypes.c_void_p * max_out)()
+        out_sizes = (ctypes.c_int64 * max_out)()
+        err = ctypes.create_string_buffer(4096)
+        n_out = self._lib.ptt_predictor_run(
+            self._pred, n, data, dims_arr, ranks, codes, out_ptrs,
+            out_sizes, max_out, err, 4096)
+        if n_out < 0:
+            raise RuntimeError(f"native predictor run: "
+                               f"{err.value.decode()}")
+        outs = []
+        for i in range(n_out):       # one copy out of the library's buffer
+            buf = (ctypes.c_uint8 * out_sizes[i]).from_address(out_ptrs[i])
+            outs.append(np.frombuffer(buf, dtype=np.uint8).copy())
+            self._lib.ptt_native_free_host(out_ptrs[i])
+        return outs
 
+    def close(self):
+        if getattr(self, "_pred", None):
+            self._lib.ptt_predictor_destroy(self._pred)
+            self._pred = None
 
-def _bytes(t):
-    """A tensor's bytes as a flat uint8 numpy array."""
-    t = t.detach().contiguous().cpu()
-    return t.reshape(-1).view(torch.uint8).numpy().copy()
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -12,7 +12,9 @@
   equal, less the names absent by design (``OWED``, each with its
   reason; ROADMAP §A owes none there any more); ``ParamAttr``,
   ``CustomPlace``, ``flops``, ``inference`` and ``onnx`` are top-level
-  names, and ``flops`` returns what the JAX package's returns.
+  names, and ``flops`` returns what the JAX package's returns;
+- ``utils``, ``hub`` and ``regularizer`` are top-level modules whose
+  public names (and ``utils.cpp_extension``'s) equal the JAX package's.
 """
 
 import json
@@ -145,3 +147,21 @@ def test_new_top_level_names():
     jnet = paddle.nn.Linear(4, 2)
     tnet = nn.Linear(4, 2, device="cpu")
     assert ptt.flops(tnet, [1, 4]) == paddle.flops(jnet, [1, 4]) == 0
+
+
+def _public(mod):
+    """A module's public names, less the modules it imported."""
+    import types
+    return {n for n in dir(mod) if not n.startswith("_")
+            and not isinstance(getattr(mod, n), types.ModuleType)}
+
+
+@pytest.mark.parametrize("name", ["utils", "hub", "regularizer"])
+def test_utils_hub_regularizer_top_level_names_match_jax(name):
+    jmod, tmod = getattr(paddle, name), getattr(ptt, name)
+    assert tmod.__name__ == f"paddle_tpu_torch.{name}"
+    assert _public(tmod) == _public(jmod)
+    if name == "utils":
+        assert tmod.dlpack.__name__ == "paddle_tpu_torch.utils.dlpack"
+        assert {n for n in dir(tmod.cpp_extension) if not n.startswith("_")} \
+            == {n for n in dir(jmod.cpp_extension) if not n.startswith("_")}
