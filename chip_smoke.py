@@ -350,6 +350,23 @@ library, ptt_run and the C++ op library, paddle_tpu_torch.runtime), then:
    ptt_run --selftest: each of the seven C++ ops once through the
    dispatcher on seeded inputs at the deploy widths, bit-equal to the
    Python op on the same inputs.
+17. the multi-process world, context parallelism and the auto-tuner
+   (slice 25): dist:launch (after train:hybrid, which also accumulates
+   the reference: the two half-batches in one process) starts two
+   workers with `python -m paddle_tpu_torch.distributed.launch --nnodes 2
+   --rank r --master 127.0.0.1:<port>` on the card, joined over gloo: GPT-3
+   1.3B's widths, DataParallel with ZeRO stage 2 (reduce-scatter of each
+   rank's gradients, all-gather of the new slices), 3 timed AdamW steps,
+   then save_checkpoint(world_size=2) through the commit barrier; losses
+   against the one-process run, gloo calls / bytes / seconds / host-staged
+   bytes a step, state bytes per rank, flash launches per rank, start-up
+   and wall seconds, LATEST after both progress posts; ring:
+   ring_flash_attention (causal and not) and ulysses_attention at
+   [1, 16384, 32, 128] bf16 over a 4-rank mesh of the card, forward and
+   backward against whole-sequence flash, flash launches by direction and
+   route (the causal ring: 10 blocks of 16), ms and peak; auto_tuner
+   (after profile:train): the h100 profile's predicted ms and bytes for
+   [train]'s configuration against [train]'s median and peak.
 
 Each flashmask, fused_ffn, tail, serving (serve:mesh too), BERT, training
 (the resilient one's too) and deploy run's launch counts are set to 0 just before it and read just after it; every kernel of its path
@@ -407,7 +424,7 @@ BWD_OVER_FLOOR = 4
 # a 16-bit kernel's error against the float32 plain version, at most this
 # multiple of the library call's
 LIB_ERR_FACTOR = 2.0
-ITERS = 20                          # timed launches per kernel
+ITERS = 10                          # timed launches per kernel
 L2_FLUSH_BYTES = 256 << 20          # > the H100's 50 MB L2
 # device clock cycles (~1 ms) the stream spins before each timed launch
 HEAD_START_CYCLES = 2_000_000
@@ -2201,6 +2218,7 @@ def main():
     bert = run("bert", phase_bert, K, dev)
     train, model, opt, batch, base = run("train", phase_train, K, dev)
     run("profile:train", phase_profile_train, model, opt, batch)
+    run("auto_tuner", phase_auto_tuner, base)
     run("profiler", phase_profiler, model, opt, batch)
     run("amp:debug", phase_amp_debug, model, batch)
     del model, opt, batch
@@ -2209,6 +2227,8 @@ def main():
     static = run("to_static", phase_to_static, K, dev)
     gtrain = run("train:gpt", phase_train_gpt, K, dev)
     htrain = run("train:hybrid", phase_train_hybrid, K, dev)
+    dtrain = run("dist:launch", phase_dist_launch, K, dev)
+    ring_runs = run("ring", phase_ring, K, dev)
     ptrain = run("train:pipeline", phase_train_pipeline, K, dev)
     strain = run("train:semi", phase_train_semi, K, dev)
     qmodel = run("quant:model", _quant_model, dev)
@@ -2236,11 +2256,13 @@ def main():
     runs = (serve, dense, serve8, dense8, spec, spec8, fleet, fleet8, mesh,
             gserve, gserve8, gdense, bert, train, remat, fuse, static,
             gtrain, htrain, ptrain, strain, qtrain, qpass, btrain, utrain,
-            rtrain, masked, ffn, tail, opl, ops, agr, deployed, native)
+            rtrain, masked, ffn, tail, opl, ops, agr, deployed, native,
+            dtrain, ring_runs)
     launches = {k: sum(r[k] for r in runs) for k in K.launch_counts()}
     _require_launched("all serving, fleet, mesh, BERT, training (the "
-                      "UNet's and QAT's too), quantize-pass, flashmask, "
-                      "fused_ffn, tail, op-surface and deploy runs",
+                      "UNet's, QAT's and the two dist:launch workers' "
+                      "too), quantize-pass, flashmask, fused_ffn, tail, "
+                      "ring, op-surface and deploy runs",
                       launches, K.KERNELS)
 
     name_power = _nvidia_smi()
@@ -3792,7 +3814,8 @@ def phase_train(K, dev):
     print(f"[train] launches per step {json.dumps(TRAIN_PER_STEP)} (held "
           f"every step)", flush=True)
     _time_loss(model, dev)
-    base = {"losses": losses, "step_ms": step_ms, "peak_gb": peak}
+    base = {"losses": losses, "step_ms": step_ms, "peak_gb": peak,
+            "median_ms": _median(timed), "n_params": n_params}
     return totals, model, opt, (ids, lab), base
 
 
@@ -9246,12 +9269,13 @@ def _pipe_name(name, n_layers):
     raise KeyError(name)
 
 
-def _gpt_ref_run(model, state, batch, n_micro, n_steps):
+def _gpt_ref_run(model, state, batch, n_micro, n_steps, stats=None):
     """n_steps of AdamW(HYBRID_LR, multi_precision) from `state` on one
     device: compile_train_step over the whole batch (n_micro None), or
     the micro-batches' gradients accumulated (each loss / n_micro, the
     pipeline's arithmetic). Returns (the losses, the median ms of the
-    steps after the first, CUDA events)."""
+    steps after the first, CUDA events); `stats` (a dict) gets the
+    optimizer's state bytes."""
     from paddle_tpu_torch.jit import compile_train_step
     from paddle_tpu_torch.optimizer import AdamW
 
@@ -9285,6 +9309,8 @@ def _gpt_ref_run(model, state, batch, n_micro, n_steps):
         e1.record()
         out.append(float(loss))
         ms.append(e0.elapsed_time(e1))
+    if stats is not None:
+        stats["state_bytes"], stats["scalar_bytes"] = _opt_state_bytes(opt)
     return out, _median(ms[1:])
 
 
@@ -9294,10 +9320,10 @@ def _print_zero(tag, zero, replicated_ok=False):
     replicated_ok: the compiled pipeline's outer weights)."""
     b = zero.state_bytes()
     print(f"[{tag}] optimizer state (float32 masters and moments, beta "
-          f"powers) bytes per rank {b['per_rank']} of {b['sharded_whole']}"
+          f"powers) bytes per rank {b['per_rank']} of {b['local']}"
           f" (+ {b['replicated']} kept whole); {len(zero.shards)} "
           f"parameters sharded", flush=True)
-    half = b["sharded_whole"] / len(b["per_rank"])
+    half = b["local"] / len(b["per_rank"])
     if len(set(b["per_rank"])) != 1 or b["per_rank"][0] != half or \
             (b["replicated"] and not replicated_ok):
         raise AssertionError(f"[{tag}] state bytes {b}: not 1/n a rank")
@@ -10379,6 +10405,569 @@ def phase_audio(dev):
           f"|diff| dB] {json.dumps(out)} (tolerance {AUDIO_DB_ATOL} dB)",
           flush=True)
     _release()
+
+
+# ----------------------------------------------------------------------
+# slice 25: the multi-process world, context parallelism, the auto-tuner
+# ----------------------------------------------------------------------
+
+# [dist:launch]: GPT-3 1.3B's widths (GPTConfig.gpt3_1p3b(), [train:hybrid]'s
+# seed-0 weights and 4 x 2048 batch) at DIST_LAYERS of its 24 layers, two
+# workers started by the launch CLI on the one card over gloo, each on its
+# half of the batch: DIST_STEPS AdamW steps (the first also the warm-up)
+# under DataParallel with ZeRO stage 2, then save_checkpoint(world_size=2).
+# Depth: 12 of 24 (at 24 the phase took 96.9 s on an NVIDIA H100 80GB
+# HBM3 at 700 W: 10.4 s a step, 9.5 of it gloo's reduce-scatter and
+# all-gather of 2.6 GB each through the host)
+DIST_LAYERS = 12
+DIST_STEPS = 3
+DIST_DIR = "build/dist_smoke"
+DIST_TIMEOUT_S = 600
+DIST_SAVE_STEP = DIST_STEPS
+DIST_RANK1_DELAY_S = 1.0     # rank 1 saves later: the barrier must wait
+DIST_PER_STEP = {"flash_attention": DIST_LAYERS,
+                 "flash_attention_bwd": DIST_LAYERS,
+                 "flash_attention.sm90": DIST_LAYERS,
+                 "flash_attention_bwd.sm90": DIST_LAYERS}
+
+DIST_WORKER = r'''
+"""A [dist:launch] worker: one rank of the gloo world on the card. It
+imports, then waits for the go file before it touches the card."""
+import json, os, sys, time
+T0 = float(os.environ["DIST_T0"])
+sys.path.insert(0, os.environ["DIST_REPO"])
+import numpy as np
+import torch
+import paddle_tpu_torch.distributed as dist
+from paddle_tpu_torch import weights
+from paddle_tpu_torch.distributed import checkpoint as ck
+from paddle_tpu_torch.distributed import multihost
+from paddle_tpu_torch.distributed import parallel_base as pb
+from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.ops import kernels as K
+from paddle_tpu_torch.optimizer import AdamW
+
+cfg_in = json.loads(os.environ["DIST_CFG"])
+imported = time.time() - T0
+while not os.path.exists(cfg_in["go"]):
+    time.sleep(0.05)
+T1 = time.time()
+if not torch.cuda.is_available():
+    print("[dist:launch] worker: no CUDA device", flush=True)
+    sys.exit(3)
+dist.init_parallel_env()
+rank, dev = dist.get_rank(), pb.WORLD.device
+assert dev.type == "cuda", dev
+res = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+       "import_s": imported, "world_s": time.time() - T1}
+res["reduce_value"] = [float(multihost.all_reduce_value(float(rank + 1), op))
+                       for op in ("sum", "max")]
+assert res["reduce_value"] == [3.0, 2.0], res["reduce_value"]
+
+cfg = GPTConfig.gpt3_1p3b()
+cfg.num_hidden_layers = cfg_in["layers"]
+torch.backends.cuda.matmul.allow_tf32 = False
+model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+weights.init_random_(model, seed=0)
+model.train()
+rng = np.random.default_rng(1)
+ids, lab = (torch.from_numpy(rng.integers(0, cfg.vocab_size, tuple(
+    cfg_in["batch"]))).to(dev) for _ in range(2))
+rows = cfg_in["batch"][0] // 2
+ids, lab = ids[rank * rows:(rank + 1) * rows], lab[rank * rows:(rank + 1) * rows]
+dp = dist.DataParallel(model)
+opt = AdamW(cfg_in["lr"], parameters=model.parameters(), multi_precision=True)
+dist.shard_optimizer(opt, dist.ShardingStage2(
+    "dp", dist.ProcessMesh([0, 1], ["dp"])))
+res["n_params"] = sum(p.numel() for p in model.parameters())
+res["setup_s"] = time.time() - T1
+
+
+def ce(logits, labels):
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))
+
+
+losses, ms, stats, launches = [], [], [], []
+for i in range(cfg_in["steps"]):
+    K.reset_launch_counts()
+    pb.reset_proc_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = ce(dp(ids), lab)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t) * 1e3)
+    stats.append(pb.proc_stats())
+    c = K.launch_counts()
+    launches.append({k: c[k] for k in cfg_in["per_step"]})
+    losses.append(float(multihost.all_reduce_value(float(loss.detach()),
+                                                   "mean")))
+res.update(losses=losses, step_ms=ms, proc_stats=stats, launches=launches,
+           state_bytes=opt._zero.state_bytes(),
+           peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+root = cfg_in["ckpt"]
+state = {n: p for n, p in model.named_parameters()}
+if rank == 1:
+    time.sleep(cfg_in["rank1_delay"])
+res["latest_before"] = ck.read_latest(root)
+t = time.time()
+ck.save_checkpoint(state, root, cfg_in["save_step"], world_size=2,
+                   rank=rank, barrier_timeout=300.0)
+res["save_s"] = time.time() - t
+res["save_done_at"] = time.time()
+dist.barrier()
+res["wall_s"] = time.time() - T0
+res["after_go_s"] = time.time() - T1
+json.dump(res, open(os.path.join(cfg_in["out"], f"rank{rank}.json"), "w"))
+dist.destroy_process_group()
+print("[dist:launch] worker done", rank, flush=True)
+'''
+
+
+def _dist_free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _opt_state_bytes(opt):
+    """(bytes of an unsharded optimizer's accumulators and masters, the
+    bytes of its one-element accumulators: the beta powers, which every
+    ZeRO owner keeps a copy of)."""
+    accs = [t for a in opt._accumulators.values() for t in a.values()]
+    n = sum(t.numel() * t.element_size() for t in accs)
+    n += sum(t.numel() * t.element_size()
+             for t in opt._master_weights.values())
+    return n, sum(t.element_size() for t in accs if t.numel() == 1)
+
+
+def _start_dist_workers(workdir, cfg):
+    """Two launch-CLI processes (node ranks 0 and 1) running DIST_WORKER
+    with `cfg`; they import, then wait for cfg["go"] to exist."""
+    import shutil
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    worker = os.path.join(workdir, "worker.py")
+    with open(worker, "w") as f:
+        f.write(DIST_WORKER)
+    port = _dist_free_port()
+    t0 = time.time()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, DIST_T0=repr(t0), DIST_REPO=repo,
+               DIST_CFG=json.dumps(cfg),
+               PYTHONPATH=os.pathsep.join(
+                   [repo] + [x for x in [os.environ.get("PYTHONPATH")]
+                             if x]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nnodes", "2", "--rank", str(r), "--master",
+         f"127.0.0.1:{port}", "--log_dir", os.path.join(workdir, f"log{r}"),
+         worker], env=env) for r in range(2)]
+    return procs, t0
+
+
+def _finish_dist_workers(tag, workdir, procs, t0, timeout):
+    """Wait for the workers; returns each rank's result and its launcher's
+    wall seconds. Kills both on any failure or timeout."""
+    walls = [None, None]
+    try:
+        deadline = time.time() + timeout
+        while None in walls:
+            for r, p in enumerate(procs):
+                if p.poll() is not None and walls[r] is None:
+                    walls[r] = time.time() - t0
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"[{tag}] workers still running after "
+                                     f"{timeout} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0]:
+        tails = {}
+        for r in range(2):
+            log = os.path.join(workdir, f"log{r}", f"workerlog.{r}.0")
+            if os.path.exists(log):
+                tails[r] = open(log).read()[-3000:]
+        raise AssertionError(f"[{tag}] worker exit codes {codes}: {tails}")
+    out = [json.load(open(os.path.join(workdir, f"rank{r}.json")))
+           for r in range(2)]
+    return out, [w if w is not None else time.time() - t0 for w in walls]
+
+
+def phase_dist_launch(K, dev):
+    """[dist:launch]: two workers started by `python -m
+    paddle_tpu_torch.distributed.launch --nnodes 2 --rank r --master
+    127.0.0.1:<port>` on the card, joined over gloo (NCCL refuses two
+    ranks on one device). While they import, this process runs the
+    reference: GPT-3 1.3B's widths at DIST_LAYERS layers, seed-0 weights
+    ([train:hybrid]'s rule), the 4 x 2048 batch's two halves accumulated
+    (`_gpt_ref_run` with 2 micro-batches, AdamW(HYBRID_LR,
+    multi_precision)); then it frees the card and lets them go. Each
+    worker checks multihost.all_reduce_value (sum 3, max 2), builds the
+    same model, takes its half of the batch and runs DIST_STEPS steps
+    under DataParallel with ZeRO stage 2 (each rank's gradients to their
+    owners by a reduce-scatter, the new slices back by an all-gather),
+    then save_checkpoint(world_size=2) through the commit barrier, rank 1
+    DIST_RANK1_DELAY_S later. Held: both workers exit 0 on the card; each
+    step's mean loss equal to the reference's within SAME_REL (the same
+    arithmetic: bf16 gradients summed once over two ranks and halved,
+    which is exact, equal the accumulated halves; bit-equality printed);
+    DIST_PER_STEP flash launches a step on each rank, sm90; each rank's
+    optimizer state half of the one process's, plus its own copy of the
+    beta powers; LATEST written after both ranks' progress files and
+    absent before. Returns the flash launches of both ranks' steps after
+    the first."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    tag = "dist:launch"
+    _release()
+    ckpt = os.path.join(DIST_DIR, "ckpt")
+    go = os.path.join(DIST_DIR, "go")
+    cfg = {"layers": DIST_LAYERS, "batch": list(TRAIN22_BATCH),
+           "lr": HYBRID_LR, "steps": DIST_STEPS, "ckpt": ckpt,
+           "out": DIST_DIR, "save_step": DIST_SAVE_STEP, "go": go,
+           "rank1_delay": DIST_RANK1_DELAY_S, "per_step": DIST_PER_STEP}
+    t0 = time.perf_counter()
+    procs, t_start = _start_dist_workers(DIST_DIR, cfg)
+    try:
+        gcfg = GPTConfig.gpt3_1p3b()
+        gcfg.num_hidden_layers = DIST_LAYERS
+        model = GPTForCausalLM(gcfg, device=dev, dtype=torch.bfloat16)
+        weights.init_random_(model, seed=0)
+        model.train()
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batch = _train_batch(gcfg.vocab_size, *TRAIN22_BATCH, dev)
+        st = {}
+        ref_losses, ref_ms = _gpt_ref_run(model, init, batch, 2, DIST_STEPS,
+                                          st)
+        ref_s = time.perf_counter() - t0
+        del model, init, batch
+        _release()
+        open(go, "w").close()
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    out, walls = _finish_dist_workers(tag, DIST_DIR, procs, t_start,
+                                      DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    ref_bytes, pow_bytes = st["state_bytes"], st["scalar_bytes"]
+    for r, res in enumerate(out):
+        if not res["device"].startswith("cuda") or res["backend"] != "gloo":
+            raise AssertionError(f"[{tag}] rank {r} ran on {res['device']} "
+                                 f"over {res['backend']}")
+        for i, got in enumerate(res["launches"]):
+            if got != DIST_PER_STEP:
+                raise AssertionError(f"[{tag}] rank {r} step {i} launched "
+                                     f"{got}, expected {DIST_PER_STEP}")
+    losses = out[0]["losses"]
+    same = [_rel(a, b) for a, b in zip(losses, ref_losses)]
+    print(f"[{tag}] GPTConfig.gpt3_1p3b() at {DIST_LAYERS} of 24 layers, "
+          f"{out[0]['n_params']} parameters, two processes on one card "
+          f"({out[0]['device']}, {out[1]['device']}) over "
+          f"{out[0]['backend']}, each 2 x 2048 of the 4 x 2048 batch; "
+          f"DataParallel + ZeRO stage 2, AdamW({HYBRID_LR}, "
+          f"multi_precision=True); all_reduce_value sum/max "
+          f"{out[0]['reduce_value']}", flush=True)
+    print(f"[{tag}] losses (warm-up first) rank0 {losses} rank1 "
+          f"{out[1]['losses']}; one process, the two halves accumulated "
+          f"{ref_losses}: relative {[f'{x:.3e}' for x in same]} (bit-equal "
+          f"{losses == ref_losses})")
+    for r, res in enumerate(out):
+        ms = res["step_ms"]
+        last = res["proc_stats"][-1]
+        per_op = {op: {"calls": v["calls"], "bytes": v["bytes"],
+                       "s": round(v["seconds"], 4),
+                       "host_staged_bytes": v["staged_bytes"]}
+                  for op, v in sorted(last.items())}
+        print(f"[{tag}] rank {r}: step_ms (host clock, ends in a sync) "
+              f"{[round(x, 1) for x in ms]} median_timed="
+              f"{_median(ms[1:]):.1f} (one process, accumulated: "
+              f"{ref_ms:.1f}); gloo a step by op {json.dumps(per_op)}; "
+              f"host-staged bytes a step "
+              f"{sum(v['staged_bytes'] for v in last.values())}; flash "
+              f"launches a step {json.dumps(res['launches'][-1])}; peak "
+              f"{res['peak_gb']:.2f} GB; start-up: launcher and worker "
+              f"imports {res['import_s']:.1f} s (beside the reference), "
+              f"from the go to the gloo world {res['world_s']:.1f} s, to "
+              f"the model, DataParallel and ZeRO {res['setup_s']:.1f} s; "
+              f"worker wall {res['wall_s']:.1f} s ({res['after_go_s']:.1f}"
+              f" s after the go), launcher wall {walls[r]:.1f} s; "
+              f"save_checkpoint {res['save_s']:.2f} s", flush=True)
+    local = [res["state_bytes"]["local"] for res in out]
+    print(f"[{tag}] optimizer state (float32 masters and moments, beta "
+          f"powers) bytes per rank {local} against one process's "
+          f"{ref_bytes}, of which {pow_bytes} the beta powers each owner "
+          f"copies (replicated "
+          f"{[res['state_bytes']['replicated'] for res in out]}); the "
+          f"reference {ref_s:.1f} s beside the workers' imports")
+    prog = [ck.read_progress(ckpt, r) for r in range(2)]
+    mt = [os.path.getmtime(os.path.join(ckpt, f".progress.{r}"))
+          for r in range(2)]
+    latest_mt = os.path.getmtime(os.path.join(ckpt, ck.LATEST_FILE))
+    latest = ck.read_latest(ckpt)
+    ok, reason = ck.verify_checkpoint(ck.checkpoint_dir(ckpt,
+                                                        DIST_SAVE_STEP))
+    print(f"[{tag}] commit barrier: progress {prog}, LATEST {latest[0]} "
+          f"written {latest_mt - max(mt):.3f} s after the last progress "
+          f"post (rank 1's, {mt[1] - mt[0]:.3f} s after rank 0's); LATEST "
+          f"before the saves {out[0]['latest_before']}; step directory "
+          f"verified {ok}; phase wall {wall:.1f} s", flush=True)
+    if max(same) > SAME_REL:
+        raise AssertionError(f"[{tag}] losses {losses} against the one-"
+                             f"process run {ref_losses}")
+    if out[1]["losses"] != losses:
+        raise AssertionError(f"[{tag}] the ranks' mean losses differ")
+    if local[0] != local[1] or 2 * local[0] != ref_bytes + pow_bytes or \
+            any(res["state_bytes"]["replicated"] for res in out):
+        raise AssertionError(f"[{tag}] state bytes {local}: not half of "
+                             f"{ref_bytes} (+ the powers {pow_bytes}) each")
+    if prog != [("-", DIST_SAVE_STEP)] * 2 or latest[0] != DIST_SAVE_STEP \
+            or latest_mt < max(mt) or out[0]["latest_before"] is not None \
+            or not ok:
+        raise AssertionError(f"[{tag}] the commit: progress {prog}, LATEST "
+                             f"{latest} at {latest_mt} against posts {mt}, "
+                             f"before {out[0]['latest_before']}, {reason}")
+    import shutil
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    totals = dict.fromkeys(K.launch_counts(), 0)
+    for res in out:
+        for step in res["launches"][1:]:
+            for k, n in step.items():
+                totals[k] += n
+    return totals
+
+
+# [ring]: Llama-2-7B's attention widths (32 heads of 128) over a 16384-token
+# sequence, bf16, on a 4-rank sp / sep ProcessMesh of the one card
+RING_SHAPE = (1, 16384, 32, 128)
+RING_N = 4
+RING_TIMED = 3
+# The ring against flash over the whole sequence. Both end in a bf16
+# rounding of nearly equal float32 values, which can land one bf16 ulp
+# apart: 2^-7 |whole|. Before it the ring rounds P to bf16 against each
+# block's own maximum (the whole-sequence kernel against its running one)
+# and each block's output to bf16 before the float32 lse merge (the
+# kernel writes it so): errors of 2^-9 of a block output, itself about
+# sqrt(n) times the whole's scale, at the tensor's scale. So the output
+# and the gradients are held alike, to c1 |whole| + c2 rms(whole), c2 a
+# few such roundings: the output's from the worst the card read (see the
+# [ring] line "floor read"), the gradients' eight bf16 roundings (their
+# visited blocks' bf16 shares summed in float32 where the whole-sequence
+# kernel rounds once, over P and dS rounded against the blocks' own
+# tiles). The phase also holds two wrong rings against the output's rule:
+# one that drops a block (a quarter of the keys, ~2^-1 rms) and one that
+# averages the blocks without their lse weights; both must fail it.
+RING_OUT_RULE = (2.0 ** -7, 2.0 ** -5)
+RING_GRAD_RULE = (2.0 ** -6, 2.0 ** -5)
+RING_CASES = (("ring", True, 10), ("ring", False, 16), ("ulysses", True, 4))
+
+
+def _ring_worst(got, want, rule):
+    """max over elements of |got - want| / (rule[0] |want| + rule[1]
+    rms(want)), the rms over the tensor."""
+    g, w = got.float(), want.float()
+    allowed = rule[0] * w.abs() + rule[1] * w.square().mean().sqrt()
+    return float(((g - w).abs() / allowed.clamp_min(1e-30)).max())
+
+
+def _ring_floor(got, want, rel):
+    """max over elements of (|got - want| - rel |want|) / rms(want): the
+    least c2 with which (rel, c2) holds got."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() - rel * w.abs()).max()
+                 / w.square().mean().sqrt())
+
+
+def _ring_mutants(K, q, k, v, causal):
+    """Two wrong rings over RING_N shards, from the same flash blocks as
+    the ring's: one that drops each query shard's last visited block
+    (where it visits two or more), and one that averages the blocks'
+    outputs without their lse weights."""
+    from paddle_tpu_torch.ops import ring_attention as ring
+    qs, ks, vs = (t.chunk(RING_N, dim=1) for t in (q, k, v))
+    dropped, unweighted = [], []
+    for i in range(RING_N):
+        blocks = [K.flash_attention_fwd(qs[i], ks[j], vs[j],
+                                        causal=causal and j == i)
+                  for j in ring._order(i, RING_N, causal)]
+        acc = lse = None
+        for o, l in blocks[:max(1, len(blocks) - 1)]:
+            acc, lse = ring._merge_lse(acc, lse, o, l)
+        dropped.append(acc.to(q.dtype))
+        unweighted.append(torch.stack([o.float() for o, _ in blocks])
+                          .mean(0).to(q.dtype))
+    return torch.cat(dropped, dim=1), torch.cat(unweighted, dim=1)
+
+
+def phase_ring(K, dev):
+    """[ring]: ring_flash_attention (causal and not) and ulysses_attention
+    (causal) at RING_SHAPE bf16 over a RING_N-rank ProcessMesh on the card
+    (every rank's shard a tensor of its own), forward and backward
+    (autograd: the ring's backward runs flash_attention_bwd a visited
+    block with the merged out and lse), held against flash_attention_fwd /
+    _bwd over the whole sequence by RING_OUT_RULE / RING_GRAD_RULE. Each
+    call's flash launches by direction and route are held: the causal ring
+    runs 10 of its 16 blocks each way (the later blocks add exactly
+    nothing), the non-causal one 16, Ulysses one a rank. Prints ms forward
+    and backward (CUDA events, median of RING_TIMED after a warm-up) and
+    peak memory. Returns the launches of one forward + backward of each
+    case."""
+    from paddle_tpu_torch.distributed import ProcessMesh
+    from paddle_tpu_torch.ops import ring_attention as ring
+
+    tag = "ring"
+    _release()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    # the comparisons' own launches (whole-sequence flash, the wrong
+    # rings' blocks) are made before the counted calls
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    totals = dict.fromkeys(K.launch_counts(), 0)
+    want, wrongs = {}, {}
+    for causal in (True, False):
+        out, lse = K.flash_attention_fwd(q, k, v, causal=causal)
+        wrong = [_ring_worst(m, out, RING_OUT_RULE)
+                 for m in _ring_mutants(K, q, k, v, causal)]
+        print(f"[{tag}] wrong rings (causal={causal}) against the output "
+              f"rule: a dropped block {wrong[0]:.3f}, an unweighted merge "
+              f"{wrong[1]:.3f} of the allowance", flush=True)
+        wrongs[causal] = wrong
+        want[causal] = (out, K.flash_attention_bwd(q, k, v, out, lse, do,
+                                                   causal=causal))
+    for name, causal, n_blocks in RING_CASES:
+        axis = "sp" if name == "ring" else "sep"
+        fn = ring.ring_flash_attention if name == "ring" else \
+            ring.ulysses_attention
+        mesh = ProcessMesh(list(range(RING_N)), [axis], devices=dev)
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        fwd_ms, bwd_ms = [], []
+        for i in range(RING_TIMED + 1):
+            for t in ts:
+                t.grad = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            out = fn(*ts, mesh, axis, causal=causal)
+            e[1].record()
+            out.backward(do)
+            e[2].record()
+            torch.cuda.synchronize()
+            fwd_ms.append(e[0].elapsed_time(e[1]))
+            bwd_ms.append(e[1].elapsed_time(e[2]))
+            counts = K.launch_counts()
+            if i == 0:
+                first = counts
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = {k_: first[k_] for k_ in (
+            "flash_attention", "flash_attention.sm90",
+            "flash_attention.simt", "flash_attention_bwd",
+            "flash_attention_bwd.sm90", "flash_attention_bwd.simt")}
+        expect = {"flash_attention": n_blocks,
+                  "flash_attention.sm90": n_blocks,
+                  "flash_attention.simt": 0,
+                  "flash_attention_bwd": n_blocks,
+                  "flash_attention_bwd.sm90": n_blocks,
+                  "flash_attention_bwd.simt": 0}
+        if launches != expect or counts != first:
+            raise AssertionError(f"[{tag}] {name} causal={causal} launched "
+                                 f"{launches} (then {counts}), expected "
+                                 f"{expect}")
+        for k_ in totals:
+            totals[k_] += first[k_]
+        w_out, w_grads = want[causal]
+        floor = _ring_floor(out.detach(), w_out, RING_OUT_RULE[0])
+        worst = [_ring_worst(out.detach(), w_out, RING_OUT_RULE)] + [
+            _ring_worst(t.grad, g, RING_GRAD_RULE)
+            for t, g in zip(ts, w_grads)]
+        errs = [_max_err(out.detach(), w_out)] + [
+            _max_err(t.grad, g) for t, g in zip(ts, w_grads)]
+        print(f"[{tag}] {name} causal={causal} {list(RING_SHAPE)} bf16 over "
+              f"{RING_N} ranks on one card: fwd_ms {_median(fwd_ms[1:]):.3f}"
+              f" bwd_ms {_median(bwd_ms[1:]):.3f} (medians of {RING_TIMED};"
+              f" warm-up {fwd_ms[0]:.3f} / {bwd_ms[0]:.3f}); flash launches "
+              f"a call {json.dumps(launches)}; peak {peak:.2f} GB; against "
+              f"whole-sequence flash: max|err| out/dq/dk/dv "
+              f"{[f'{x:.3e}' for x in errs]}, worst err/allowed "
+              f"{[f'{x:.3f}' for x in worst]}; out floor read "
+              f"{floor:.3e} rms", flush=True)
+        if max(worst) > 1.0:
+            raise AssertionError(f"[{tag}] {name} causal={causal}: "
+                                 f"err/allowed {worst}")
+        del out, ts
+    print(f"[{tag}] rules: out |ring - whole| <= {RING_OUT_RULE[0]} "
+          f"|whole| + {RING_OUT_RULE[1]} rms(whole); gradients <= "
+          f"{RING_GRAD_RULE[0]} |whole| + {RING_GRAD_RULE[1]} rms(whole) (P "
+          f"rounded to bf16 against each block's own maximum; block "
+          f"outputs rounded to bf16 before the lse merge)", flush=True)
+    if min(min(w) for w in wrongs.values()) <= 1.0:
+        raise AssertionError(f"[{tag}] the output rule {RING_OUT_RULE} "
+                             f"holds a wrong ring: {wrongs}")
+    del q, k, v, do, want
+    _release()
+    return totals
+
+
+def phase_auto_tuner(base):
+    """[auto_tuner]: the port's auto-tuner with the h100 profile predicts
+    [train]'s configuration (TRAIN_CFG, batch TRAIN_BATCH x TRAIN_SEQ, one
+    device, no recompute, AdamW with float32 masters: ZeRO stage 1 over
+    one rank) against [train]'s measured median step and peak memory from
+    this call (`base`); prints the ratios against the JAX package's
+    validation factors (5.0 in time, 2.5 in memory,
+    tests/test_auto_tuner_validation.py:27-28). No extra training run."""
+    from paddle_tpu_torch.distributed import auto_tuner as at
+
+    tag = "auto_tuner"
+    cfg = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
+           "sharding_degree": 1, "micro_batch_size": TRAIN_BATCH,
+           "recompute": False}
+    n = base["n_params"]
+    layers, hidden = TRAIN_CFG["num_hidden_layers"], TRAIN_CFG["hidden_size"]
+    cm = at.CostModel(n, layers, hidden, hardware="h100")
+    mm = at.MemoryCostModel(n, layers, hidden, vocab=TRAIN_CFG["vocab_size"])
+    t_pred = cm.step_time(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH,
+                          recompute=False) * 1e3
+    m_pred = mm.estimate(cfg, TRAIN_BATCH, TRAIN_SEQ, recompute=False,
+                         sharding_stage=1)
+    t_meas, m_meas = base["median_ms"], base["peak_gb"] * 1e9
+    t_ratio = max(t_pred, t_meas) / min(t_pred, t_meas)
+    m_ratio = max(m_pred, m_meas) / min(m_pred, m_meas)
+    tuner = at.AutoTuner(8, n, TRAIN_SEQ, hidden, layers, global_bsz=16,
+                         vocab=TRAIN_CFG["vocab_size"],
+                         n_heads=TRAIN_CFG["num_attention_heads"])
+    best = tuner.search(top_k=1)[0]
+    print(f"[{tag}] h100 profile {at.HARDWARE['h100']} (TFLOP/s, GB, GB/s; "
+          f"mfu_assumed 0.45): [train] ({n} parameters, {layers} layers, "
+          f"hidden {hidden}, {TRAIN_BATCH} x {TRAIN_SEQ}) predicted "
+          f"{t_pred:.2f} ms and {m_pred / 1e9:.2f} GB against the measured "
+          f"median {t_meas:.2f} ms and peak {m_meas / 1e9:.2f} GB: ratios "
+          f"{t_ratio:.3f} (JAX's bound 5.0: "
+          f"{'holds' if t_ratio <= 5.0 else 'does not hold'}) and "
+          f"{m_ratio:.3f} (2.5: "
+          f"{'holds' if m_ratio <= 2.5 else 'does not hold'}); an 8-card "
+          f"search's best {json.dumps(best)}", flush=True)
+    return {"t_ratio": t_ratio, "m_ratio": m_ratio}
 
 
 if __name__ == "__main__":

@@ -16,8 +16,17 @@ through a temporary name and an atomic rename, ``metadata.json`` last, and
 ``LATEST`` ({"step", "dir"}) is replaced atomically after it. A process
 holds whole tensors, so it writes one shard a tensor (``__0``) and loads
 any saved sharding by assembling the target box from the overlapping
-shards. Not ported: the multi-host commit barrier (``world_size`` > 1
-raises), the orbax variants (:625, :637) and the telemetry counters.
+shards. Temporary names carry the process id, so processes that save the
+same files into one directory (ranks of a world saving what they hold
+alike) never rename another's half-written file.
+
+``save_checkpoint(world_size=n)`` commits through the multi-host barrier
+(:496-560): each rank posts ``root/.progress.<rank>`` ("<lineage>:<step>",
+the JAX package's bytes) once its files are durable, and the coordinator
+moves LATEST only when every rank has posted this lineage at this step
+or later, raising ``TimeoutError`` (LATEST left where it was) after
+`barrier_timeout` seconds. Not ported: the orbax variants (:619-641:
+orbax imports JAX) and the telemetry counters.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import os
 import shutil
 import sys
 import threading
+import time
 import zlib
 
 import numpy as np
@@ -158,11 +168,11 @@ def save_state_dict(state_dict, path, process_group=None,
     def _write():
         for fname, data, rec in writes:
             rec["crc32"] = _crc32_of(data)
-            tmp = os.path.join(path, fname + ".tmp")
+            tmp = os.path.join(path, f"{fname}.{os.getpid()}.tmp")
             with open(tmp, "wb") as f:
                 np.save(f, data)
             os.replace(tmp, os.path.join(path, fname))
-        tmp = os.path.join(path, "metadata.json.tmp")
+        tmp = os.path.join(path, f"metadata.json.{os.getpid()}.tmp")
         with open(tmp, "w") as f:
             json.dump(meta, f, indent=1)
         os.replace(tmp, os.path.join(path, "metadata.json"))
@@ -339,23 +349,69 @@ def _gc_old_checkpoints(root, keep_last_n):
             shutil.rmtree(p, ignore_errors=True)
 
 
+def post_progress(root, rank, tag, step):
+    """Publish a rank's durable save progress atomically
+    (root/.progress.<rank> = "<tag>:<step>") for the commit barrier."""
+    tmp = os.path.join(root, f".progress.{int(rank)}.tmp")
+    with open(tmp, "w") as f:
+        f.write(f"{tag}:{int(step)}")
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, os.path.join(root, f".progress.{int(rank)}"))
+
+
+def read_progress(root, rank):
+    """(tag, step) a rank last posted, or None."""
+    try:
+        with open(os.path.join(root, f".progress.{int(rank)}")) as f:
+            val = f.read().strip()
+        tag, _, s = val.rpartition(":")
+        return (tag, int(s)) if tag else None
+    except (OSError, ValueError):
+        return None
+
+
+def _await_progress(root, step, tag, world_size, timeout):
+    """The coordinator's wait: every rank's posted progress in lineage
+    `tag` at `step` or later (a peer ahead satisfies it; a post of another
+    lineage, an aborted attempt's, never does)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        if all((p := read_progress(root, r)) is not None and p[0] == tag
+               and p[1] >= int(step) for r in range(world_size)):
+            return
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"checkpoint commit barrier for step {step} (lineage "
+                f"{tag}) timed out after {timeout}s: a peer died mid-save "
+                "or is in another lineage; LATEST stays at the previous "
+                "checkpoint")
+        time.sleep(0.05)
+
+
 def save_checkpoint(state_dict, root, step, *, async_save=False,
                     keep_last_n=None, store=None, world_size=1, rank=0,
                     coordinator_rank=0, barrier_timeout=120.0,
                     barrier_tag=""):
-    """``save_state_dict`` into root/step_<N>/, then LATEST moved to it and
-    the step directories past keep_last_n removed (with async_save, on the
-    writer thread after the files have landed). One process: world_size
-    above 1 (the multi-host commit barrier) raises."""
-    if world_size > 1:
-        raise NotImplementedError(
-            "save_checkpoint with world_size > 1 (the multi-host commit "
-            "barrier) comes with the port's distributed slice")
+    """``save_state_dict`` into root/step_<N>/, then the commit (with
+    async_save, on the writer thread after the files have landed): with
+    world_size above 1 this rank posts its progress and the coordinator
+    waits at the barrier for every rank (see the module docstring); then
+    the coordinator moves LATEST to the step and removes the step
+    directories past keep_last_n. `store` is unused by the barrier (the
+    files live in the shared root), as in the JAX package."""
     os.makedirs(root, exist_ok=True)
 
     def _commit():
-        _commit_latest(root, step)
-        _gc_old_checkpoints(root, keep_last_n)
+        if world_size > 1:
+            tag = barrier_tag or "-"
+            post_progress(root, rank, tag, step)
+            if rank == coordinator_rank:
+                _await_progress(root, step, tag, world_size,
+                                barrier_timeout)
+        if rank == coordinator_rank:
+            _commit_latest(root, step)
+            _gc_old_checkpoints(root, keep_last_n)
 
     return save_state_dict(state_dict, checkpoint_dir(root, step),
                            async_save=async_save, _on_complete=_commit)
@@ -392,6 +448,6 @@ def load_latest(state_dict, root, committed_only=False):
 
 __all__ = ["AsyncSaveHandle", "CheckpointCorruptError", "LATEST_FILE",
            "checkpoint_dir", "find_latest_valid", "list_checkpoints",
-           "load_latest", "load_state_dict", "read_latest",
-           "save_checkpoint", "save_state_dict", "verify_checkpoint",
-           "wait_async_save"]
+           "load_latest", "load_state_dict", "post_progress",
+           "read_latest", "read_progress", "save_checkpoint",
+           "save_state_dict", "verify_checkpoint", "wait_async_save"]

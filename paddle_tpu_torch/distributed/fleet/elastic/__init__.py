@@ -6,7 +6,8 @@ peer-change restart).
 The heartbeat and rendezvous state lives in a store with ``get``/``set``
 (``add`` for the resilient trainer's re-rendezvous): a
 ``torch.distributed.TCPStore`` on a cluster, or any object with that
-surface (the tests use an in-memory one). A store whose ``get`` blocks
+surface (the tests use an in-memory one), or the port's ``TCPStore``
+wrapper (``distributed.store``). A store whose ``get`` blocks
 for a missing key (``TCPStore``) is asked ``check([key])`` first, so a
 peer that never wrote a heartbeat reads as missing, as a ``KeyError`` from
 the JAX package's store does.
@@ -74,9 +75,14 @@ class ElasticManager:
             return None
         import datetime
         from torch.distributed import TCPStore
-        fresh = TCPStore(host, port, is_master=False,
-                         timeout=datetime.timedelta(
-                             seconds=max(1.0, min(3 * self._interval, 15.0))))
+
+        from ...store import TCPStore as PortStore
+        secs = max(1.0, min(3 * self._interval, 15.0))
+        if isinstance(self._store, PortStore):
+            fresh = PortStore(host, port, is_master=False, timeout=secs)
+        else:
+            fresh = TCPStore(host, port, is_master=False,
+                             timeout=datetime.timedelta(seconds=secs))
         # rank 0's store object OWNS the in-process master server:
         # transfer it, or garbage-collecting the replaced client would
         # stop the rendezvous server for the whole cluster

@@ -24,6 +24,17 @@ makes a bucket of its own. A bucket is reduced as soon as every rank's
 gradient of every parameter in it has arrived, during the backward; a
 bucket left incomplete at the end of the backward (a parameter the
 forward did not use) is reduced then with zeros for the missing ones.
+
+In a multi-process world (``parallel_base.multi_process()``) each process
+is one dp rank with its own replica and its own piece of the batch, as
+in the reference: the layers run as they are on the process's input, and
+each bucket's gradients are averaged over the processes by one counted
+``all_reduce`` (AVG; a flat tensor a dtype) as soon as the bucket's
+gradients have accumulated, in the same order on every process. The
+parameters and buffers are broadcast from rank 0 when the wrapper is
+made (``sync_params_buffers``). A parameter that a stage-2 or stage-3
+ZeRO engine marks (``_zero_reduce_scatter``) keeps its local gradient:
+the engine's step moves it to its owner by a reduce-scatter.
 """
 
 from __future__ import annotations
@@ -114,12 +125,62 @@ class _Reduction:
                 p.grad.add_(g)
 
 
+class _ProcReduction:
+    """The gradient averaging of a multi-process DataParallel: hooks on
+    the parameters count each bucket's arrivals in a backward."""
+
+    def __init__(self, dp):
+        self.dp = dp
+        self.arrived = [set() for _ in dp._bucket_names]
+        self.done = [False] * len(dp._bucket_names)
+        self.queued = False
+
+    def arrive(self, b, i):
+        self.arrived[b].add(i)
+        if len(self.arrived[b]) == len(self.dp._bucket_names[b]):
+            self.reduce(b)
+        if not self.queued:
+            self.queued = True
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self.finish)
+
+    def finish(self):
+        for b in range(len(self.arrived)):
+            if not self.done[b] and self.arrived[b]:
+                self.reduce(b)
+        self.dp._pending = None
+
+    @torch.no_grad()
+    def reduce(self, b):
+        self.done[b] = True
+        params = [self.dp._params[n] for n in self.dp._bucket_names[b]]
+        params = [p for p in params
+                  if not getattr(p, "_zero_reduce_scatter", False)]
+        by_dtype = {}
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            by_dtype.setdefault(p.grad.dtype, []).append(p)
+        for ps in by_dtype.values():
+            flat = torch.cat([p.grad.reshape(-1) for p in ps])
+            pb.all_reduce(flat, op=pb.ReduceOp.AVG, group=self.dp._group)
+            off = 0
+            for p in ps:
+                p.grad.copy_(flat[off:off + p.numel()].view(p.grad.shape))
+                off += p.numel()
+
+
 class DataParallel(Layer):
     def __init__(self, layers, strategy=None, comm_buffer_size=25,
                  last_comm_buffer_size=1, find_unused_parameters=False,
                  group=None, mesh=None, dp_axis="dp"):
         super().__init__()
         self._layers = layers
+        if pb.multi_process():
+            self._init_processes(group, comm_buffer_size,
+                                 last_comm_buffer_size)
+            return
+        self._procs = False
         self._devices = _rank_devices(group, mesh, dp_axis)
         self._group = pb.group_of(self._devices, "dp")
         self._params = dict(layers.named_parameters())
@@ -130,9 +191,43 @@ class DataParallel(Layer):
             for b in _buckets(trainable, last_comm_buffer_size,
                               comm_buffer_size)]
 
+    def _init_processes(self, group, comm_buffer_size,
+                        last_comm_buffer_size):
+        self._procs = True
+        self._group = group or pb._default_group()
+        self._devices = [pb.WORLD.device]
+        self._params = dict(self._layers.named_parameters())
+        named = {id(p): n for n, p in self._params.items()}
+        trainable = [p for p in self._params.values() if p.requires_grad]
+        self._bucket_names = [
+            [named[id(p)] for p in b]
+            for b in _buckets(trainable, last_comm_buffer_size,
+                              comm_buffer_size)]
+        self._pending = None
+        self.sync_params_buffers()
+        for b, names in enumerate(self._bucket_names):
+            for i, n in enumerate(names):
+                self._params[n].register_post_accumulate_grad_hook(
+                    lambda t, b=b, i=i: self._arrive(b, i))
+
+    def _arrive(self, b, i):
+        if self._pending is None:
+            self._pending = _ProcReduction(self)
+        self._pending.arrive(b, i)
+
+    @torch.no_grad()
+    def sync_params_buffers(self, src_rank=0):
+        """Rank `src_rank`'s parameters and buffers into every process's
+        (one counted broadcast a tensor)."""
+        tensors = list(self._layers.parameters()) + \
+            list(self._layers.buffers())
+        for t in tensors:
+            if t.numel():
+                pb.broadcast(t.data, src=src_rank, group=self._group)
+
     @property
     def nranks(self):
-        return len(self._devices)
+        return self._group.nranks if self._procs else len(self._devices)
 
     def _split(self, x):
         n = self.nranks
@@ -144,7 +239,7 @@ class DataParallel(Layer):
         return [piece.to(d) for piece, d in zip(x.chunk(n), self._devices)]
 
     def forward(self, *inputs, **kwargs):
-        if self.nranks == 1 or not torch.is_grad_enabled():
+        if self._procs or self.nranks == 1 or not torch.is_grad_enabled():
             return self._layers(*inputs, **kwargs)
         pieces = [self._split(x) for x in inputs]
         home = self._devices[0]

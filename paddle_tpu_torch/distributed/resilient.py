@@ -26,8 +26,9 @@ same state machine, counters (``resilient_*_total``), histograms and
 ``resilient_<event>`` events. In the port:
 
 - checkpoints go through the port's ``distributed.checkpoint`` (the JAX
-  package's file format; one process, so ``world_size`` > 1 saves raise
-  there), and a save runs under ``perf.phase_scope("checkpoint")``;
+  package's file format; with ``world_size`` > 1 each save commits
+  through its multi-host barrier), and a save runs under
+  ``perf.phase_scope("checkpoint")``;
 - the rolling snapshot is a host-memory copy (``_capture_state``) of the
   parameters and buffers, the optimizer's accumulators, masters and step,
   and the scaler's state; a rollback or a restore copies back INTO the

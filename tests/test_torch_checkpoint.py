@@ -233,5 +233,9 @@ def test_retention_and_async_save(tmp_path):
     assert target["@step"] == 3
     with pytest.raises(TypeError, match="non-checkpointable"):
         tckpt.save_state_dict({"bad": {"a": 1}}, str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match="world_size"):
-        tckpt.save_checkpoint(st, root, 9, world_size=2)
+    # two ranks: the coordinator waits at the commit barrier for rank 1,
+    # which never posts, and LATEST stays where it was
+    with pytest.raises(TimeoutError, match="commit barrier"):
+        tckpt.save_checkpoint(st, root, 9, world_size=2,
+                              barrier_timeout=0.2)
+    assert tckpt.read_latest(root)[0] == 4

@@ -276,8 +276,10 @@ def test_counters_and_flight_recorder():
 
 
 def test_refusals():
-    """A layout no route serves raises; a multi-process world is a later
-    slice."""
+    """A layout no route serves raises; a multi-process world without a
+    master to meet at raises (the launch CLI sets one); the
+    multi-process names exist (tests/test_torch_launch.py and
+    tests/test_torch_multiprocess.py drive them)."""
     with pytest.raises(RuntimeError):
         PB._route([torch.device("cpu"), torch.device("cuda", 0)], "x")
     with pytest.raises(RuntimeError):
@@ -288,21 +290,27 @@ def test_refusals():
         dist.all_reduce(torch.ones(N, 2), group=g)   # ranks not on the CPU
     dist.destroy_process_group()
     import os
-    old = os.environ.get("WORLD_SIZE")
+    saved = {k: os.environ.pop(k, None) for k in (
+        "WORLD_SIZE", "PADDLE_TRAINERS_NUM", "PADDLE_MASTER",
+        "MASTER_ADDR")}
     os.environ["WORLD_SIZE"] = "2"
     try:
-        with pytest.raises(NotImplementedError, match="A.13"):
+        with pytest.raises(RuntimeError, match="master"):
             dist.init_parallel_env(devices="cpu")
     finally:
-        if old is None:
-            del os.environ["WORLD_SIZE"]
-        else:
-            os.environ["WORLD_SIZE"] = old
-    for fn in (dist.spawn, dist.gloo_barrier, dist.launch):
-        with pytest.raises(NotImplementedError, match="A.13"):
-            fn()
-    with pytest.raises(NotImplementedError, match="A.13"):
-        dist.TCPStore()
+        del os.environ["WORLD_SIZE"]
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+    assert not dist.is_initialized()
+    called = []
+    dist.spawn(called.append, args=(1,))
+    assert called == [1]
+    assert callable(dist.launch.launch) and callable(dist.gloo_barrier)
+    store = dist.TCPStore(is_master=True)
+    store.set("k", "v")
+    assert store.get("k") == b"v"
+    store.close()
     # DataParallel is ported (held in test_torch_pipeline.py): over the
     # default world it runs a layer rank by rank
     dp = dist.DataParallel(torch.nn.Linear(2, 2),

@@ -107,10 +107,14 @@ def _jax_axpy(tmp_path, alpha):
     import jax
     src = tmp_path / "axpy_ffi.cc"
     src.write_text(AXPY_FFI)
+    # a target name of its own: JAX's FFI registry is process-wide, and
+    # tests/test_native_runtime.py registers "paddle_tpu_axpy" from
+    # another library when both files share a test process
     ext = jutils.cpp_extension.load("axpy_ffi_ext", [str(src)],
-                                    functions=[("Axpy", "paddle_tpu_axpy")],
+                                    functions=[("Axpy",
+                                                "paddle_tpu_axpy_ref")],
                                     build_directory=str(tmp_path))
-    call = ext.ffi_call("paddle_tpu_axpy",
+    call = ext.ffi_call("paddle_tpu_axpy_ref",
                         jax.ShapeDtypeStruct((3,), np.float32))
     return call(paddle.to_tensor(X), paddle.to_tensor(Y),
                 alpha=np.float32(alpha)).numpy()
